@@ -1,0 +1,75 @@
+"""Attention dispatch for the port's UNet and VAE.
+
+Counterpart of `marigold_tpu/ops/attention.py`: unmasked self-attention on a
+CUDA tensor with at least 1024 query and key tokens goes to the Hopper
+flash kernel in the current softmax mode; everything else (shorter
+sequences, the length-2 empty-prompt cross-attention, masked attention and
+every CPU tensor) goes to `xla_attention`, the plain fp32-softmax
+attention.
+
+The TPU package's opt-in `self_attention_projected` (projections emitted
+in the kernel's transposed layout, off by default) is not ported: the port
+has no transposed layout, so it is linear + attention.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from marigold_tpu_torch.ops import flash_attention as fa
+
+FLASH_MIN_SEQ = 1024
+# "shifted" (serving default) or "online" (the reference-exact pin)
+_FLASH_SOFTMAX = "shifted"
+
+
+def get_flash_softmax() -> str:
+    """Current flash-softmax mode ("shifted" or "online")."""
+    return _FLASH_SOFTMAX
+
+
+def set_flash_softmax(mode: str) -> None:
+    """Pin the flash-softmax mode at runtime (the parity pin sets "online")."""
+    if mode not in fa.SOFTMAX_MODES:
+        raise ValueError(f"flash softmax mode must be shifted|online, got {mode!r}")
+    global _FLASH_SOFTMAX
+    _FLASH_SOFTMAX = mode
+
+
+def use_flash(q: torch.Tensor, num_kv: int) -> bool:
+    return q.is_cuda and q.shape[1] >= FLASH_MIN_SEQ and num_kv >= FLASH_MIN_SEQ
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  num_heads: int, mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """[B, Nq, C] x [B, Nk, C] -> [B, Nq, C]; fp32 logits and softmax, the
+    probabilities meet V in the storage dtype. `mask` is added to the
+    logits."""
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    hd = c // num_heads
+    qh = q.reshape(b, nq, num_heads, hd).transpose(1, 2)
+    kh = k.reshape(b, nk, num_heads, hd).transpose(1, 2)
+    vh = v.reshape(b, nk, num_heads, hd).transpose(1, 2)
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * (
+        1.0 / math.sqrt(hd))
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2).reshape(b, nq, c)
+
+
+def dispatch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       num_heads: int, mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Dispatching attention used by the UNet transformer blocks and the
+    VAE mid block."""
+    if mask is None and use_flash(q, k.shape[1]):
+        return fa.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), num_heads,
+                                  softmax=_FLASH_SOFTMAX)
+    return xla_attention(q, k, v, num_heads, mask)

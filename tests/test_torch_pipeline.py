@@ -1,0 +1,224 @@
+"""The port's depth pipeline as a whole against the JAX package's, on the
+tiny checkpoint of tests/fixtures.py (fp32, CPU).
+
+The two frameworks draw different random numbers from one seed, so the
+comparisons hand the port the JAX package's own noise (drawn here exactly as
+its fused programs draw it) and hold the outputs to atol 1e-4. The host-side
+helpers are compared directly; the serving entry points are also checked
+for shape, range and determinism per seed."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fixtures import make_tiny_checkpoint
+from marigold_tpu.pipelines import base as jbase
+from marigold_tpu.pipelines import batchsize as jbs
+from marigold_tpu.pipelines import image_util as jiu
+from marigold_tpu.pipelines.depth import MarigoldDepthPipeline as JaxDepth
+from marigold_tpu_torch import MarigoldDepthPipeline as TorchDepth
+from marigold_tpu_torch.pipelines import base as tbase
+from marigold_tpu_torch.pipelines import batchsize as tbs
+from marigold_tpu_torch.pipelines import image_util as tiu
+
+ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    return make_tiny_checkpoint(str(tmp_path_factory.mktemp("ckpt")))
+
+
+@pytest.fixture(scope="module")
+def pipes(ckpt):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MARIGOLD_TPU_FASTLOAD", "0")  # the per-tensor host loader
+        jpipe = JaxDepth.from_pretrained(ckpt, dtype=jnp.float32)
+    tpipe = TorchDepth.from_pretrained(ckpt, dtype=torch.float32, device="cpu")
+    return jpipe, tpipe
+
+
+def _image(seed, h=40, w=56):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def _jax_noise(seed, shape):
+    """The JAX programs' initial noise, NHWC -> the port's NCHW."""
+    n = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape, jnp.float32))
+    return torch.from_numpy(np.ascontiguousarray(
+        n.reshape((-1,) + shape[-3:]).transpose(0, 3, 1, 2)))
+
+
+@pytest.mark.parametrize("steps", [1, 4])
+def test_core_infer_matches_jax_on_shared_noise(pipes, steps):
+    jpipe, tpipe = pipes
+    rgb = np.random.default_rng(steps).uniform(-1, 1, (1, 24, 32, 3)).astype(np.float32)
+    jlat = np.array(jpipe.core.encode_rgb(jnp.asarray(rgb)))
+    tlat = tpipe.core.encode_rgb(torch.from_numpy(rgb).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(tlat.permute(0, 2, 3, 1).numpy(), jlat,
+                               atol=ATOL, rtol=0)
+    noise = np.random.default_rng(10 + steps).standard_normal(
+        (2,) + jlat.shape[1:]).astype(np.float32)
+    fn = jpipe.core.get_infer_fn(3, 4, steps, 2, "depth")
+    ref = np.asarray(fn(jpipe.core.unet_params, jpipe.core.vae_params,
+                        jnp.asarray(jlat), jnp.asarray(noise),
+                        jpipe.core.empty_text_embed))
+    got = tpipe.core.infer(torch.from_numpy(jlat).permute(0, 3, 1, 2),
+                           torch.from_numpy(noise).permute(0, 3, 1, 2), steps)
+    assert got.shape == (2, 1, 24, 32)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, atol=ATOL, rtol=0)
+
+
+def test_call_matches_jax_on_shared_noise(pipes, monkeypatch):
+    """__call__: processing-res resize, /8 pad, encode, 2-step DDIM, decode,
+    crop and resize back to the input size."""
+    jpipe, tpipe = pipes
+    img = _image(0)
+    ref = jpipe(img, denoising_steps=2, processing_res=32, seed=7,
+                color_map=None).depth_np
+    # 40x56 -> 22x32 -> padded 24x32 -> latent 3x4
+    monkeypatch.setattr(tpipe, "_noise",
+                        lambda n, h, w, seed: _jax_noise(7, (n, h, w, 4)))
+    got = tpipe(img, denoising_steps=2, processing_res=32, seed=7,
+                color_map=None).depth_np
+    assert got.shape == (40, 56)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+def test_batch_call_matches_jax_on_shared_noise(pipes, monkeypatch):
+    """batch_call: float path with the on-device resize back."""
+    jpipe, tpipe = pipes
+    imgs = [_image(1), _image(2)]
+    ref = jpipe.batch_call(imgs, denoising_steps=2, processing_res=32, seed=5)
+    monkeypatch.setattr(
+        tpipe, "_noise", lambda n, h, w, seed: _jax_noise(5, (n, 1, h, w, 4)))
+    got = tpipe.batch_call(imgs, denoising_steps=2, processing_res=32, seed=5)
+    for r, g in zip(ref, got):
+        assert g.depth_np.shape == (40, 56)
+        np.testing.assert_allclose(g.depth_np, r.depth_np, atol=ATOL, rtol=0)
+
+
+def test_call_shape_range_and_seed_determinism(pipes):
+    _, tpipe = pipes
+    img = _image(3, 30, 44)
+    a = tpipe(img, denoising_steps=2, seed=1, color_map="Spectral")
+    b = tpipe(img, denoising_steps=2, seed=1, color_map=None)
+    c = tpipe(img, denoising_steps=2, seed=2, color_map=None)
+    d = tpipe(img, denoising_steps=2,
+              generator=torch.Generator().manual_seed(1), color_map=None)
+    assert a.depth_np.shape == (30, 44) and a.depth_np.dtype == np.float32
+    assert np.isfinite(a.depth_np).all()
+    assert a.depth_np.min() >= 0.0 and a.depth_np.max() <= 1.0
+    assert np.asarray(a.depth_colored).shape == (30, 44, 3)
+    assert a.uncertainty is None
+    np.testing.assert_array_equal(a.depth_np, b.depth_np)
+    np.testing.assert_array_equal(a.depth_np, d.depth_np)
+    assert not np.array_equal(a.depth_np, c.depth_np)
+
+
+def test_batch_call_uint8_upload_and_compact_readback(pipes):
+    _, tpipe = pipes
+    imgs = [_image(4), _image(5), _image(6)]
+    full = tpipe.batch_call(imgs, denoising_steps=2, processing_res=0, seed=3,
+                            batch_size=2)
+    again = tpipe.batch_call(imgs, denoising_steps=2, processing_res=0, seed=3)
+    compact = tpipe.batch_call(imgs, denoising_steps=2, processing_res=0, seed=3,
+                               compact_readback=True)
+    assert len(full) == 3
+    for f, a, c in zip(full, again, compact):
+        assert f.depth_np.shape == (40, 56)
+        assert f.depth_np.min() >= 0.0 and f.depth_np.max() <= 1.0
+        # chunking the denoise (batch_size=2) changes only the CPU kernels'
+        # summation order with the batch size
+        np.testing.assert_allclose(f.depth_np, a.depth_np, atol=ATOL, rtol=0)
+        # uint16 readback: half a quantization step, plus fp32 rounding
+        np.testing.assert_allclose(c.depth_np, a.depth_np, atol=0.5 / 65535 + 1e-7,
+                                   rtol=0)
+
+
+def test_unported_options_raise(pipes, ckpt, tmp_path):
+    _, tpipe = pipes
+    with pytest.raises(NotImplementedError, match="ensemble_depth"):
+        tpipe(_image(0), ensemble_size=2)
+    with pytest.raises(NotImplementedError, match="ensemble_depth"):
+        tpipe.batch_call([_image(0)], ensemble_size=3)
+    lcm = tmp_path / "lcm"
+    lcm.mkdir()
+    for sub in ("unet", "vae", "text_encoder"):
+        os.symlink(os.path.join(ckpt, sub), lcm / sub)
+    cfg = tbase.W.read_config(os.path.join(ckpt, "scheduler"),
+                              "scheduler_config.json")
+    cfg["_class_name"] = "LCMScheduler"
+    tbase.W.write_config(cfg, str(lcm / "scheduler"), "scheduler_config.json")
+    with pytest.raises(NotImplementedError, match="LCM"):
+        TorchDepth.from_pretrained(str(lcm), dtype=torch.float32, device="cpu")
+
+
+# ------------------------------------------------------------------ #
+# host-side helpers
+
+
+@pytest.mark.parametrize("kind", ["uint8", "float01", "float255", "gray", "chw"])
+def test_image_to_array_matches_jax(kind):
+    rng = np.random.default_rng(0)
+    img = {
+        "uint8": rng.integers(0, 256, (6, 5, 3), dtype=np.uint8),
+        "float01": rng.random((6, 5, 3)).astype(np.float32),
+        "float255": (rng.random((6, 5, 3)) * 255).astype(np.float32),
+        "gray": rng.integers(0, 256, (6, 5), dtype=np.uint8),
+        "chw": rng.random((3, 6, 5)).astype(np.float32),
+    }[kind]
+    np.testing.assert_array_equal(tbase.image_to_array(img), jbase.image_to_array(img))
+
+
+@pytest.mark.parametrize("method", ["bilinear", "bicubic", "nearest"])
+@pytest.mark.parametrize("src,dst", [((40, 56), (22, 32)), ((22, 32), (40, 57)),
+                                     ((30, 30), (30, 17))])
+def test_resize_np_matches_jax(src, dst, method):
+    img = np.random.default_rng(1).uniform(-1, 1, src + (3,)).astype(np.float32)
+    ref = jiu.resize_np(img, dst, method)
+    got = tiu.resize_np(img, dst, method)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    dev = tiu.resize_torch(torch.from_numpy(img).permute(2, 0, 1)[None], dst, method)
+    np.testing.assert_allclose(dev[0].permute(1, 2, 0).numpy(), got, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["bilinear", "bicubic", "nearest"])
+@pytest.mark.parametrize("dst", [(17, 23), (50, 70)])
+def test_resize_host_matches_jax(dst, method):
+    img = np.random.default_rng(2).random((24, 32, 1)).astype(np.float32)
+    np.testing.assert_allclose(tiu.resize_host(img, dst, method),
+                               jiu.resize_host(img, dst, method), atol=1e-6, rtol=0)
+
+
+def test_shapes_padding_and_sizing_match_jax():
+    for h, w, m in [(480, 640, 768), (375, 1242, 768), (768, 768, 768), (7, 3, 32)]:
+        assert tiu.resize_max_res_shape(h, w, m) == jiu.resize_max_res_shape(h, w, m)
+    x = np.random.default_rng(3).random((2, 13, 9, 3)).astype(np.float32)
+    for mult in (8, 64):
+        got, ref = tbase.pad_to_multiple_of(x, mult), jbase.pad_to_multiple_of(x, mult)
+        np.testing.assert_array_equal(got[0], ref[0])
+        assert got[1:] == ref[1:]
+    for total, hw in [(1, (768, 768)), (30, (768, 768)), (7, (1536, 1536))]:
+        assert tbase.DiffusionCore.decode_chunking(total, hw) == \
+            jbase.DiffusionCore.decode_chunking(total, hw, "depth", 1)
+    # a CPU device reports no memory limit to either package: both budget
+    # their 16 GiB default
+    for e, res in [(1, 768), (10, 768), (30, 512)]:
+        assert tbs.find_batch_size(e, res, device="cpu") == \
+            jbs.find_batch_size(e, res, device=jax.devices("cpu")[0])
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, marigold_tpu_torch; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'marigold_tpu')]; print(bad); sys.exit(bool(bad))")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert res.returncode == 0, res.stdout + res.stderr
