@@ -1,12 +1,15 @@
 """marigold_tpu_torch — the PyTorch and CUDA port of marigold_tpu for NVIDIA
 Hopper GPUs.
 
-Same public API as `marigold_tpu` for the slice ported so far (depth
-inference):
+Same public API as `marigold_tpu` for the slices ported so far, depth
+inference and depth fine-tuning:
 
     from marigold_tpu_torch import MarigoldDepthPipeline
     pipe = MarigoldDepthPipeline.from_pretrained(ckpt_dir, device="cuda")
     depth = pipe(image_uint8, denoising_steps=4, seed=0).depth_np
+
+    from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
+    MarigoldDepthTrainer(cfg, sd2_pipe, batches, ...).train()
 
 It imports torch and never JAX or `marigold_tpu`.
 """

@@ -4,7 +4,9 @@ Mirrors `marigold_tpu/core/scheduler.py`: the tables are numpy (fp32
 alphas_cumprod built in float64 and rounded once), and `ddim_step` runs on
 tensors with fp32 scalar math, so a bf16 latent is stepped in fp32 and
 stored back in its own dtype. Deterministic DDIM (eta = 0), as the
-reference pipelines use it.
+reference pipelines use it. The training forward process (`add_noise`,
+`velocity`, `training_target`) runs in fp32 with `t` a [B] tensor
+broadcast over the batch.
 """
 
 from __future__ import annotations
@@ -216,6 +218,42 @@ class DiffusionSchedule:
         a_prev = self._alpha_at(prev_t)
         prev = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(one - a_prev)) * eps
         return prev.to(sample.dtype)
+
+    # ------------------------------------------------------------------ #
+    # training forward process (DDPM role)
+
+    def _alpha_bcast(self, t: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        """alphas_cumprod[t] in fp32, shaped to broadcast against x0
+        ([B] against [B, ...])."""
+        table = torch.from_numpy(self.alphas_cumprod).to(x0.device)
+        a = table[t.to(x0.device).long()]
+        return a.reshape(a.shape + (1,) * (x0.ndim - a.ndim))
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0): x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, in fp32,
+        stored in x0's dtype."""
+        a = self._alpha_bcast(t, x0)
+        out = torch.sqrt(a) * x0.float() + torch.sqrt(1.0 - a) * noise.float()
+        return out.to(x0.dtype)
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: v = sqrt(abar_t) eps - sqrt(1 - abar_t) x0."""
+        a = self._alpha_bcast(t, x0)
+        out = torch.sqrt(a) * noise.float() - torch.sqrt(1.0 - a) * x0.float()
+        return out.to(x0.dtype)
+
+    def training_target(self, x0: torch.Tensor, noise: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+        """The regression target per prediction_type."""
+        if self.prediction_type == "epsilon":
+            return noise
+        if self.prediction_type == "sample":
+            return x0
+        if self.prediction_type == "v_prediction":
+            return self.velocity(x0, noise, t)
+        raise ValueError(f"unknown prediction_type: {self.prediction_type}")
 
 
 def check_trailing_zero_snr(schedule: DiffusionSchedule, num_steps: int) -> list[str]:

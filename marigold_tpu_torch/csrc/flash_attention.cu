@@ -5,6 +5,9 @@
 //   * _flash_kernel_dt_shifted          (shifted softmax, K resident; d = 64)
 //   * _flash_kernel_dt_shifted_kblocked (shifted softmax, K streamed; d = 512)
 //   * _flash_kernel_dt                  (exact online softmax)
+// and the training forward _flash_dt_impl_lse / _flash_kernel_dt_lse (the
+// online softmax that also stores the per-row logsumexp the backward
+// recomputes P from; d = 64, the LSE instantiation below).
 // It computes what they compute, not their tiling: on Hopper every variant
 // streams K/V through shared memory, so "resident" and "K-blocked" are one
 // code path instantiated at two head widths.
@@ -14,7 +17,8 @@
 //            (max over a strided K subsample + 40, computed outside);
 //   online:  running max m, p_j = exp(s_j - m), acc and l rescaled by
 //            exp(m_old - m_new) whenever the max grows;
-//   out_r = (sum_j bf16(p_j) v_j) / max(sum_j p_j, 1e-30), in fp32, stored bf16.
+//   out_r = (sum_j bf16(p_j) v_j) / max(sum_j p_j, 1e-30), in fp32, stored bf16;
+//   with LSE (online only): lse_r = m + log(max(l, 1e-30)), fp32 [B*H, nq].
 // Key columns j >= nk get s_j = -1e30 (p_j = 0); query rows r >= nq are read
 // as zeros and not stored. There is no padding copy.
 //
@@ -101,15 +105,16 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D, int BQ, int BK, int NWARPS, bool ONLINE>
+template <int D, int BQ, int BK, int NWARPS, bool ONLINE, bool LSE>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ shift,
-                 bf16* __restrict__ o, int H, int nq, int nk, int ldq,
-                 int ldkv, int ldo, float scale) {
+                 bf16* __restrict__ o, float* __restrict__ lse, int H, int nq,
+                 int nk, int ldq, int ldkv, int ldo, float scale) {
   using L = Smem<D, BQ, BK>;
   constexpr int NT = NWARPS * 32;
   static_assert(BQ % 16 == 0 && BK % 32 == 0 && D % 16 == 0, "tile shape");
+  static_assert(ONLINE || !LSE, "the logsumexp needs the running max");
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem + L::q);
@@ -237,23 +242,27 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     *reinterpret_cast<uint4*>(og + (size_t)(q0 + r) * ldo + c) =
         *reinterpret_cast<const uint4*>(vals);
   }
+  if (LSE) {
+    for (int r = threadIdx.x; r < BQ && q0 + r < nq; r += NT)
+      lse[(size_t)bh * nq + q0 + r] = ms[r] + logf(fmaxf(ls[r], 1e-30f));
+  }
 }
 
-template <int D, int BQ, int BK, int NWARPS, bool ONLINE>
+template <int D, int BQ, int BK, int NWARPS, bool ONLINE, bool LSE = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* shift, void* o, int B, int H, int nq, int nk,
-                   int ldq, int ldkv, int ldo, float scale,
+                   const float* shift, void* o, float* lse, int B, int H,
+                   int nq, int nk, int ldq, int ldkv, int ldo, float scale,
                    cudaStream_t stream) {
   using L = Smem<D, BQ, BK>;
-  auto kernel = flash_fwd_kernel<D, BQ, BK, NWARPS, ONLINE>;
+  auto kernel = flash_fwd_kernel<D, BQ, BK, NWARPS, ONLINE, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, B * H);
   kernel<<<grid, NWARPS * 32, L::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), shift, static_cast<bf16*>(o), H, nq, nk,
-      ldq, ldkv, ldo, scale);
+      static_cast<const bf16*>(v), shift, static_cast<bf16*>(o), lse, H, nq,
+      nk, ldq, ldkv, ldo, scale);
   return cudaGetLastError();
 }
 
@@ -272,19 +281,35 @@ int mt_flash_attention_fwd(const void* q, const void* k, const void* v,
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return online ? launch<64, 64, 64, 4, true>(q, k, v, sh, o, B, H, nq, nk,
-                                                ldq, ldkv, ldo, scale, st)
-                  : launch<64, 64, 64, 4, false>(q, k, v, sh, o, B, H, nq, nk,
-                                                 ldq, ldkv, ldo, scale, st);
+    return online ? launch<64, 64, 64, 4, true>(q, k, v, sh, o, nullptr, B, H,
+                                                nq, nk, ldq, ldkv, ldo, scale,
+                                                st)
+                  : launch<64, 64, 64, 4, false>(q, k, v, sh, o, nullptr, B,
+                                                 H, nq, nk, ldq, ldkv, ldo,
+                                                 scale, st);
   }
   if (D == 512) {
-    return online ? launch<512, 32, 32, 8, true>(q, k, v, sh, o, B, H, nq, nk,
-                                                 ldq, ldkv, ldo, scale, st)
-                  : launch<512, 32, 32, 8, false>(q, k, v, sh, o, B, H, nq,
-                                                  nk, ldq, ldkv, ldo, scale,
-                                                  st);
+    return online ? launch<512, 32, 32, 8, true>(q, k, v, sh, o, nullptr, B,
+                                                 H, nq, nk, ldq, ldkv, ldo,
+                                                 scale, st)
+                  : launch<512, 32, 32, 8, false>(q, k, v, sh, o, nullptr, B,
+                                                  H, nq, nk, ldq, ldkv, ldo,
+                                                  scale, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The training forward: exact online softmax, output plus the row
+// logsumexp `lse` ([B*H, nq] fp32). Head dim 64 only; any other returns
+// cudaErrorInvalidValue.
+int mt_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int B, int H, int nq,
+                               int nk, int D, int ldq, int ldkv, int ldo,
+                               float scale, void* stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  return launch<64, 64, 64, 4, true, true>(
+      q, k, v, nullptr, o, static_cast<float*>(lse), B, H, nq, nk, ldq, ldkv,
+      ldo, scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* mt_cuda_error_string(int err) {

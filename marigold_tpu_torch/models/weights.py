@@ -87,25 +87,28 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
 
 
 def write_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> None:
-    """Write CPU-copied tensors to one .safetensors file."""
-    header, chunks, offset = {}, [], 0
+    """Write tensors (on any device) to one .safetensors file, copying one
+    tensor at a time to the host."""
+    header, offset = {}, 0
     # largest element size first, as the safetensors package orders them,
     # so every tensor starts aligned to its element size
-    for name in sorted(tensors, key=lambda k: (-tensors[k].element_size(), k)):
-        t = tensors[name].detach().to("cpu").contiguous()
-        raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
+    names = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    for name in names:
+        t = tensors[name]
+        nbytes = t.numel() * t.element_size()
         header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        chunks.append(raw)
-        offset += len(raw)
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for raw in chunks:
-            f.write(raw)
+        for name in names:
+            t = tensors[name].detach().to("cpu").contiguous().reshape(-1)
+            if t.numel():
+                f.write(t.view(torch.uint8).numpy().data)
 
 
 def select_safetensor_files(path: str, variant: Optional[str] = None) -> list[str]:

@@ -5,7 +5,11 @@ CUDA tensor with at least 1024 query and key tokens goes to the Hopper
 flash kernel in the current softmax mode; everything else (shorter
 sequences, the length-2 empty-prompt cross-attention, masked attention and
 every CPU tensor) goes to `xla_attention`, the plain fp32-softmax
-attention.
+attention. With grad enabled and an input that requires grad, the flash
+path goes through `FlashAttentionFunction` (exact online forward with the
+row logsumexp, backward kernels), as the JAX package differentiates through
+its `flash_attention_dt` custom VJP; under `no_grad`/`inference_mode` the
+serving kernel runs as before.
 
 The TPU package's opt-in `self_attention_projected` (projections emitted
 in the kernel's transposed layout, off by default) is not ported: the port
@@ -69,7 +73,10 @@ def dispatch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dispatching attention used by the UNet transformer blocks and the
     VAE mid block."""
     if mask is None and use_flash(q, k.shape[1]):
-        return fa.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), num_heads,
-                                  softmax=_FLASH_SOFTMAX)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad):
+            return fa.FlashAttentionFunction.apply(q, k, v, num_heads,
+                                                   _FLASH_SOFTMAX)
+        return fa.flash_attention(q, k, v, num_heads, softmax=_FLASH_SOFTMAX)
     return xla_attention(q, k, v, num_heads, mask)
