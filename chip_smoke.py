@@ -4,17 +4,30 @@
 
 Phases, none of which catches its own failure:
   1. the card: its name and power limit (nvidia-smi);
-  2. build the flash-attention kernel from marigold_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version at the main path's shapes,
-     both softmax modes, with errors and CUDA-event times;
+  2. build every kernel library from marigold_tpu_torch/csrc, one nvcc per
+     source, all started together (ptxas registers and spills printed);
+  3. each kernel against its plain PyTorch version at the main path's shapes
+     (flash forward in both softmax modes, the folded flash entry, the
+     nine-tap and Winograd 3x3 convs, the training flash kernels), with
+     errors and CUDA-event times of the kernel, the plain version and one
+     PyTorch library call of the same function, and the bound from bytes
+     and operations;
   4. a full-SD2-width checkpoint with random weights from a seed, written in
      diffusers layout and loaded through MarigoldDepthPipeline.from_pretrained;
-  5. serving: single-image requests and one batch, checked for shape, range,
-     determinism and the exact number of flash-kernel launches, and the
-     768 px map against the same request on plain attention;
-  6. a torch.profiler breakdown of one 768 px request per softmax mode.
-Prints a JSON line of kernels, then, last, {"ok": true, "device": {...}}.
-Exits non-zero without a result when no CUDA device is present.
+  5. serving at E=1: single-image requests and one batch, checked for shape,
+     range, determinism and the exact number of flash-kernel launches, the
+     768 px map against the same request on plain attention, and a
+     torch.profiler breakdown per softmax mode;
+  6. the E=10 protocol (4 steps, 768 px): __call__ and batch_call of 3
+     images, exact launch counts, the ensemble solve's time, iterations and
+     host syncs, a reference-exact (host scipy) request, one request under
+     each opt-in conv kernel (MARIGOLD_TPU_CONV=pallas, winograd) with exact
+     conv launch counts against the default map, and a profile;
+  7. the folded flash entry at its two shapes;
+  8. training at full SD2 width (the depth fine-tuning recipe).
+Prints the card's name and power limit, a JSON line of kernels, then, last,
+{"ok": true, "device": {...}}. Exits non-zero without a result when no CUDA
+device is present.
 """
 
 from __future__ import annotations
@@ -51,21 +64,26 @@ def build_kernels():
     source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from marigold_tpu_torch.ops import conv as conv_ops
     from marigold_tpu_torch.ops import cuda_build
     from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.ops import winograd as wino_ops
 
+    builds = (fa._library, fa._bwd_library, conv_ops._library,
+              wino_ops._library)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda f: f(), (fa._library, fa._bwd_library)))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda f: f(), builds))
     wall = time.perf_counter() - t0
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
+                 "winograd"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build: {name} nvcc {info['seconds']:.2f} s", flush=True)
         with open(info["log"]) as f:
             for line in f:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     print("  ptxas:", line.strip(), flush=True)
-    print(f"build: both libraries in {wall:.2f} s", flush=True)
+    print(f"build: {len(builds)} libraries in {wall:.2f} s", flush=True)
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -85,6 +103,54 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W): the
+# bound of a kernel is the larger of its operations over the bf16 tensor
+# rate and its bytes (each input read once, each output written once) over
+# the memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(bound_ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bhnd(x, heads):
+    """[B, N, C] -> contiguous [B, H, N, C/H], the layout the library call
+    takes (copied outside its timing)."""
+    b, n, c = x.shape
+    return x.reshape(b, n, heads, c // heads).transpose(1, 2).contiguous()
+
+
+def sdpa_ms(q, k, v, heads, backward=False, iters=10):
+    """CUDA-event time of F.scaled_dot_product_attention on the same inputs
+    (forward; or, backward=True, its backward for all of dQ, dK, dV)."""
+    import torch
+    import torch.nn.functional as F
+
+    q4, k4, v4 = (_bhnd(t, heads) for t in (q, k, v))
+    if not backward:
+        with torch.no_grad():
+            return _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                            iters)
+    q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+    out = F.scaled_dot_product_attention(q4, k4, v4)
+    g = torch.randn_like(out)
+    return _time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g,
+                                                retain_graph=True), iters)
+
+
+def attention_bound(b, heads, nq, nk, d, flops_per_pair, q_io, kv_io,
+                    extra=0):
+    """Bound of an attention kernel: flops_per_pair * B*H*nq*nk*d operations;
+    q_io [B, nq, C] and kv_io [B, nk, C] bf16 tensors read or written, plus
+    `extra` bytes (fp32 row statistics)."""
+    nbytes = 2 * b * heads * d * (q_io * nq + kv_io * nk) + extra
+    return bound(flops_per_pair * b * heads * nq * nk * d, nbytes)
 
 
 # (name, B, N, C, heads): the main path's attention shapes at 768 px, the
@@ -156,18 +222,24 @@ def check_kernels() -> dict:
             )
             d = c // heads
             flops = 4.0 * b * heads * n * n * d
+            lib_ms = sdpa_ms(q, k, v, heads)
+            # the shifted mode also reads its [B*H, N] fp32 shift
+            b_ms, b_by = attention_bound(b, heads, n, n, d, 4, 2, 2, extra=(
+                4 * b * heads * n if mode == "shifted" else 0))
             print(
                 f"kernel {name:15s} {mode:7s} [{b},{n},{c}] h={heads} d={d}: "
                 f"max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} "
                 f"max|ref| {ref_max:.3e} tol {tol:.3e} | kernel {ms:.3f} ms "
-                f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms",
+                f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
+                f"sdpa {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by})",
                 flush=True,
             )
             if not finite or not max_err <= tol:
                 _fail(f"kernel {name}/{mode}: max_abs_err {max_err} > {tol} "
                       f"or non-finite output")
             results[(name, mode, d)] = dict(
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -212,18 +284,22 @@ def check_train_kernels() -> dict:
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    def record(name, what, got, ref, tol_rel, tol_abs, ms, plain_ms):
+    def record(name, what, got, ref, tol_rel, tol_abs, ms, plain_ms,
+               library_ms=None, bounds=(None, None)):
         err = (got.float() - ref.float()).abs().max().item()
         ref_max = ref.float().abs().max().item()
         tol = tol_rel * ref_max + tol_abs
         ok = bool(torch.isfinite(got.float()).all()) and err <= tol
         print(f"kernel {name:13s} {what:4s}: max_abs_err {err:.3e} max|ref| "
               f"{ref_max:.3e} tol {tol:.3e} {'ok' if ok else 'FAILED'}"
-              + (f" | kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
+              + (f" | kernel {ms:.3f} ms plain {plain_ms:.3f} ms sdpa "
+                 f"{library_ms:.3f} ms bound {bounds[0]:.3f} ms ({bounds[1]})"
                  if ms is not None else ""), flush=True)
         if not ok:
             failures.append(f"{name}/{what}: {err} > {tol}")
-        results[(name, what)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results[(name, what)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bounds[0], bound_by=bounds[1])
 
     for name, b, nq, nk, c, heads in TRAIN_KERNEL_CASES:
         q, g = rand(b, nq, c), rand(b, nq, c)
@@ -237,7 +313,11 @@ def check_train_kernels() -> dict:
         ms = _time_ms(lambda: fa.flash_attention_lse(q, k, v, heads), 20)
         plain_ms = _time_ms(lambda: fa.flash_attention_lse_plain(q, k, v, heads),
                             iters)
-        record(name, "out", out, out_p, TOL_REL, GRAD_TOL_ABS, ms, plain_ms)
+        d = c // heads
+        stats = 4 * b * heads * nq  # one fp32 row statistic
+        record(name, "out", out, out_p, TOL_REL, GRAD_TOL_ABS, ms, plain_ms,
+               sdpa_ms(q, k, v, heads),
+               attention_bound(b, heads, nq, nk, d, 4, 2, 2, extra=stats))
         record(name, "lse", lse, lse_p, LSE_TOL_REL, LSE_TOL_ABS, None, None)
         delta = fa.row_delta(out, g, heads)
         bwd_plain_ms = _time_ms(
@@ -248,10 +328,19 @@ def check_train_kernels() -> dict:
             lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, heads), 20)
         bwd_ms = _time_ms(
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, heads), 20)
-        record(name, "dq", dq, dq_p, TOL_REL, GRAD_TOL_ABS, dq_ms, bwd_plain_ms)
-        record(name, "dk", dk, dk_p, TOL_REL, GRAD_TOL_ABS, dkv_ms, bwd_plain_ms)
-        record(name, "dv", dv, dv_p, TOL_REL, GRAD_TOL_ABS, dkv_ms, bwd_plain_ms)
-        d = c // heads
+        # the library's backward computes dQ, dK and dV in one call; the
+        # dQ kernel recomputes S and dP (6 N^2 d per head), the dK/dV kernel
+        # S, dP, dV and dK (8 N^2 d); both read q, k, v, dO, lse and delta
+        bwd_lib_ms = sdpa_ms(q, k, v, heads, backward=True)
+        record(name, "dq", dq, dq_p, TOL_REL, GRAD_TOL_ABS, dq_ms, bwd_plain_ms,
+               bwd_lib_ms,
+               attention_bound(b, heads, nq, nk, d, 6, 3, 2, extra=2 * stats))
+        record(name, "dk", dk, dk_p, TOL_REL, GRAD_TOL_ABS, dkv_ms, bwd_plain_ms,
+               bwd_lib_ms,
+               attention_bound(b, heads, nq, nk, d, 8, 2, 4, extra=2 * stats))
+        record(name, "dv", dv, dv_p, TOL_REL, GRAD_TOL_ABS, dkv_ms, bwd_plain_ms,
+               bwd_lib_ms,
+               attention_bound(b, heads, nq, nk, d, 8, 2, 4, extra=2 * stats))
         print(f"  [{b},{nq}x{nk},{c}] h={heads}: lse fwd "
               f"{4.0 * b * heads * nq * nk * d / ms / 1e9:.1f} TFLOP/s; whole "
               f"backward (delta + dQ + dK/dV) {bwd_ms:.3f} ms "
@@ -292,25 +381,44 @@ def kernel_rows(results: dict, counts: dict) -> list:
             "source": "marigold_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            **{k: timed[k] for k in ROW_TIMES},
         })
     return rows
 
 
+ROW_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def main() -> None:
+    import collections
+    import gc
+
     import torch
 
-    check_card()
+    t0 = time.perf_counter()
+    smi = check_card()
     build_kernels()
     results = check_kernels()
+    folded_results = check_folded()
+    conv_results = check_conv_kernels()
     train_results = check_train_kernels()
-    serve_counts = serve()
+    pipe = load_serving_pipe()
+    serve_counts = collections.Counter(serve(pipe))
+    serve_counts.update(serve_ensembles(pipe))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    folded_counts = folded_path()
     train_counts = train_phase()
     rows = (kernel_rows(results, serve_counts)
-            + train_kernel_rows(train_results, train_counts))
+            + train_kernel_rows(train_results, train_counts)
+            + [folded_kernel_row(folded_results, folded_counts)]
+            + conv_kernel_rows(conv_results, serve_counts))
     missing = [r["name"] for r in rows if r["launches"] == 0]
-    if missing:
+    if missing or len(rows) != 9:
         _fail(f"kernels never launched by the main path: {missing}")
+    print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -389,47 +497,114 @@ def flash_self_attentions(ucfg, h: int, w: int) -> list:
     return out
 
 
-def expected_flash_launches(pipe, hw: tuple, steps: int,
-                            n_images: int = 1) -> int:
-    """Attentions with >= 1024 query and key tokens that one request at input
-    size hw runs: UNet self-attentions per forward per denoise chunk, plus
-    the VAE mid attention in the encode call and in each decode chunk."""
-    from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
+def check_map(depth, hw, what):
+    import numpy as np
+
+    if depth.shape != hw or not np.isfinite(depth).all() or \
+            depth.min() < 0.0 or depth.max() > 1.0:
+        _fail(f"{what}: shape {depth.shape} (want {hw}), range "
+              f"[{np.nanmin(depth)}, {np.nanmax(depth)}]")
+
+
+def request_chunks(pipe, hw: tuple, n_images: int, ensemble_size: int) -> tuple:
+    """(processed size, denoise chunks, decode calls) of one request: the
+    port's chunking from the device's memory. __call__ (n_images=None)
+    denoises and decodes per chunk; batch_call decodes by decode_chunking."""
     from marigold_tpu_torch.pipelines import image_util
     from marigold_tpu_torch.pipelines.batchsize import find_batch_size
 
     core = pipe.core
     ph, pw = image_util.resize_max_res_shape(*hw, 768) if max(hw) != 768 else hw
     ds = core.vae_cfg.downscale_factor
+    total = (n_images or 1) * ensemble_size
+    bs = min(find_batch_size(total, max(-(-ph // ds), -(-pw // ds)) * ds,
+                             device=core.device), total)
+    chunks = -(-total // bs)
+    if n_images is None:
+        return (ph, pw), chunks, chunks
+    _, dec = core.decode_chunking(total, (ph, pw))
+    return (ph, pw), chunks, -(-total // dec)
+
+
+def expected_flash_launches(pipe, hw: tuple, steps: int,
+                            n_images=None, ensemble_size: int = 1) -> int:
+    """Attentions with >= 1024 query and key tokens that one request at input
+    size hw runs: UNet self-attentions per forward per denoise chunk, plus
+    the VAE mid attention in the encode call and in each decode call."""
+    from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
+
+    (ph, pw), chunks, decodes = request_chunks(pipe, hw, n_images,
+                                               ensemble_size)
+    ds = pipe.core.vae_cfg.downscale_factor
     h, w = -(-ph // ds), -(-pw // ds)
     vae = int(h * w >= FLASH_MIN_SEQ)
-    per_fwd = sum(n for n, _ in flash_self_attentions(core.unet_cfg, h, w))
-    if n_images == 1:  # __call__: one UNet batch per step, one decode
-        return per_fwd * steps + 2 * vae
-    bs = find_batch_size(n_images, max(-(-ph // ds), -(-pw // ds)) * ds,
-                         device=core.device)
-    _, dec = core.decode_chunking(n_images, (ph, pw))
-    return (per_fwd * steps * -(-n_images // min(bs, n_images))
-            + vae * (1 + -(-n_images // dec)))
+    per_fwd = sum(n for n, _ in flash_self_attentions(pipe.core.unet_cfg, h, w))
+    return per_fwd * steps * chunks + vae * (1 + decodes)
 
 
-def serve() -> dict:
-    """Phases 4 to 6. Returns the flash launch counts of the main path."""
-    import os
+def gated_convs(pipe, hw: tuple, mode: str) -> dict:
+    """3x3 convs that conv mode `mode` sends to a kernel, per UNet forward,
+    VAE encode and VAE decode at input size hw: counted from the shapes of
+    the port's modules run on the meta device (under the default mode)."""
+    import dataclasses
+
+    import torch
+
+    from marigold_tpu_torch.models import layers
+    from marigold_tpu_torch.models.unet import UNet2DConditionModel
+    from marigold_tpu_torch.models.vae import AutoencoderKL
+
+    core = pipe.core
+    ds = core.vae_cfg.downscale_factor
+    h, w = -(-hw[0] // ds), -(-hw[1] // ds)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(core.unet_cfg)
+        vae = AutoencoderKL(dataclasses.replace(core.vae_cfg))
+
+    def calls(model, *args):
+        seen = []
+
+        def hook(mod, inp, out):
+            seen.append((inp[0].shape, mod.weight.shape, mod.stride,
+                         mod.padding))
+
+        handles = [m.register_forward_hook(hook) for m in model.modules()
+                   if isinstance(m, layers.Conv2d)]
+        with torch.no_grad():
+            model(*args)
+        for hd in handles:
+            hd.remove()
+        return seen
+
+    lat_ch = core.vae_cfg.latent_channels
+    ctx = torch.empty((1, 2, core.unet_cfg.cross_attention_dim), device="meta")
+    shapes = {
+        "unet": calls(unet, torch.empty((1, 2 * lat_ch, h, w), device="meta"),
+                      1, ctx),
+        "encode": calls(vae.encoder, torch.empty((1, 3, h * ds, w * ds),
+                                                 device="meta")),
+        "decode": calls(vae.decoder, torch.empty((1, lat_ch, h, w),
+                                                 device="meta")),
+    }
+    saved, layers._CONV_IMPL = layers._CONV_IMPL, mode
+    try:
+        return {part: sum(layers.conv_impl_for(*c, torch.bfloat16) is not None
+                          for c in cs) for part, cs in shapes.items()}
+    finally:
+        layers._CONV_IMPL = saved
+
+
+def load_serving_pipe():
+    """Phase 4: the full-width depth checkpoint, written and loaded."""
     import tempfile
 
-    import numpy as np
     import torch
 
     from marigold_tpu_torch import MarigoldDepthPipeline
-    from marigold_tpu_torch.ops import attention as attn
-    from marigold_tpu_torch.ops import flash_attention as fa
 
-    seed = 0
-    steps = 4
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        write_checkpoint(root, seed)
+        write_checkpoint(root, 0)
         print(f"checkpoint written in {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
@@ -440,24 +615,34 @@ def serve() -> dict:
               f"{time.perf_counter() - t0:.1f} s; "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
               flush=True)
+    return pipe
 
+
+def _timed(fn):
+    """(fn(), host ms) around work that ends in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def serve(pipe) -> dict:
+    """Phase 5, E=1. Returns the flash launch counts of its run."""
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch.ops import attention as attn
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    seed = 0
+    steps = 4
     rng = np.random.default_rng(seed)
     shapes = [(768, 768), (480, 640), (375, 1242)]
     images = {hw: rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in shapes}
     batch = [rng.integers(0, 256, (768, 768, 3), dtype=np.uint8) for _ in range(3)]
-
-    def check(depth, hw, what):
-        if depth.shape != hw or not np.isfinite(depth).all() or \
-                depth.min() < 0.0 or depth.max() > 1.0:
-            _fail(f"{what}: shape {depth.shape} (want {hw}), range "
-                  f"[{np.nanmin(depth)}, {np.nanmax(depth)}]")
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
 
     fa.launches.clear()  # the main path's run starts here
     total_expected = 0
@@ -469,12 +654,12 @@ def serve() -> dict:
             want = expected_flash_launches(pipe, hw, steps)
             for _ in range(REQUEST_RUNS):
                 before = sum(fa.launches.values())
-                out, ms = timed(lambda: pipe(
+                out, ms = _timed(lambda: pipe(
                     images[hw], denoising_steps=steps, ensemble_size=1,
                     seed=seed, color_map=None))
                 got = sum(fa.launches.values()) - before
                 total_expected += want
-                check(out.depth_np, hw, f"__call__ {hw} {mode}")
+                check_map(out.depth_np, hw, f"__call__ {hw} {mode}")
                 if got != want:
                     _fail(f"flash launches {got} != {want} for {hw} {mode}")
                 maps.append(out.depth_np)
@@ -495,7 +680,7 @@ def serve() -> dict:
     runs = []
     for _ in range(2):
         before = sum(fa.launches.values())
-        outs, ms = timed(lambda: pipe.batch_call(
+        outs, ms = _timed(lambda: pipe.batch_call(
             batch, denoising_steps=steps, ensemble_size=1, seed=seed,
             processing_res=768, compact_readback=True))
         got = sum(fa.launches.values()) - before
@@ -503,7 +688,7 @@ def serve() -> dict:
         if got != want:
             _fail(f"batch flash launches {got} != {want}")
         for i, o in enumerate(outs):
-            check(o.depth_np, (768, 768), f"batch_call image {i}")
+            check_map(o.depth_np, (768, 768), f"batch_call image {i}")
         runs.append((np.stack([o.depth_np for o in outs]), ms))
     if not np.array_equal(runs[0][0], runs[1][0]):
         _fail("same seed gave different batch maps")
@@ -543,6 +728,362 @@ def serve() -> dict:
                                      seed=seed, color_map=None))
     attn.set_flash_softmax("shifted")
     return counts
+
+
+# The folded flash entry (TPU kernel 7, no package caller): [B*5, 9216, 64],
+# the level-0 self-attention of one image (B=1, scripts/profile_attention.py)
+# and of the E=10 rows (B=10).
+FOLDED_CASES = [("folded_b1", 5, 9216, 64), ("folded_b10", 50, 9216, 64)]
+FOLDED_ROW_CASE = "folded_b10"
+PLAIN_CHUNK = 5  # folded rows per plain call: [5, N, N] fp32 logits
+
+
+def check_folded() -> dict:
+    """Kernel 7 against its plain version (the plain online forward with one
+    head, run in chunks of PLAIN_CHUNK rows so its [BH, N, N] logits fit)."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, bh, n, d in FOLDED_CASES:
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+
+        def plain():
+            return torch.cat([
+                fa.flash_attention_plain(q[i:i + PLAIN_CHUNK], k[i:i + PLAIN_CHUNK],
+                                         v[i:i + PLAIN_CHUNK], 1, "online")
+                for i in range(0, bh, PLAIN_CHUNK)])
+
+        out = fa.flash_attention_folded(q, k, v)
+        ref = plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL_REL * ref.float().abs().max().item() + TOL_ABS
+        ms = _time_ms(lambda: fa.flash_attention_folded(q, k, v), 10)
+        plain_ms = _time_ms(plain, 3)
+        lib_ms = sdpa_ms(q, k, v, 1)
+        b_ms, b_by = attention_bound(bh, 1, n, n, d, 4, 2, 2)
+        print(f"kernel {name:15s} online  [{bh},{n},{d}]: max_abs_err {err:.3e} "
+              f"tol {tol:.3e} | kernel {ms:.3f} ms "
+              f"({4.0 * bh * n * n * d / ms / 1e9:.1f} TFLOP/s) plain "
+              f"{plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {b_ms:.3f} ms "
+              f"({b_by})", flush=True)
+        if not err <= tol or not bool(torch.isfinite(out.float()).all()):
+            _fail(f"folded flash {name}: max_abs_err {err} > {tol}")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def folded_path() -> dict:
+    """The folded entry's own path, as a caller of the public function runs
+    it: one call at each shape, counts cleared before and read after."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    fa.launches.clear()
+    for name, bh, n, d in FOLDED_CASES:
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        out = fa.flash_attention_folded(q, k, v)
+        torch.cuda.synchronize()
+        if out.shape != q.shape or not bool(torch.isfinite(out.float()).all()):
+            _fail(f"folded flash path {name}: bad output")
+    counts = dict(fa.launches)
+    if counts != {"folded_d64": len(FOLDED_CASES)}:
+        _fail(f"folded path launches {counts}")
+    print(f"folded flash path: launches {counts}", flush=True)
+    return counts
+
+
+# The conv kernels at the main path's shapes (name, B, C, K, H=W): the UNet
+# levels at the E=10 batch and the VAE encoder and decoder levels at 768 px
+# (batch 1, the encode's batch). CONV_ROW_CASE stands for the kernels in the
+# JSON line.
+CONV_CASES = [
+    ("unet_640", 10, 640, 640, 48),
+    ("unet_1280", 10, 1280, 1280, 24),
+    ("unet_2560_1280", 10, 2560, 1280, 12),
+    ("unet_1920_1280", 10, 1920, 1280, 24),
+    ("unet_1920_640", 10, 1920, 640, 48),
+    ("vae_512_96", 1, 512, 512, 96),
+    ("vae_512_192", 1, 512, 512, 192),
+    ("vae_256_384", 1, 256, 256, 384),
+    ("vae_128_768", 1, 128, 128, 768),
+]
+CONV_ROW_CASE = "unet_1280"
+
+
+def check_conv_kernels() -> dict:
+    """Kernels 8 and 9 against their plain versions at CONV_CASES: errors,
+    CUDA-event times of the kernel (weight rearrangement included), the
+    plain version and F.conv2d (cuDNN, bf16), and bounds. Tolerance: both
+    sum exact bf16 products (Winograd: identically rounded U and V) in fp32
+    in another order and round the output to bf16, TOL_REL * max|ref| +
+    TOL_ABS."""
+    import torch
+    import torch.nn.functional as F
+
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kernels = (("conv3x3", conv_ops.conv3x3, conv_ops.conv3x3_plain, 18),
+               ("winograd", wino_ops.winograd3x3, wino_ops.winograd3x3_plain, 8))
+    for name, b, c, k, hw in CONV_CASES:
+        x = torch.randn((b, c, hw, hw), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, c, 3, 3), generator=gen, device="cuda")
+             / (3.0 * c ** 0.5)).to(torch.bfloat16)
+        bias = torch.randn((k,), generator=gen, device="cuda").to(torch.bfloat16)
+        lib_ms = _time_ms(lambda: F.conv2d(x, w, bias, padding=1), 10)
+        nbytes = 2 * (x.numel() + w.numel() + k + b * k * hw * hw)
+        for kname, fn, plain, flops_per_px_ck in kernels:
+            out = fn(x, w, bias)
+            ref = plain(x, w, bias)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL_REL * ref.float().abs().max().item() + TOL_ABS
+            ms = _time_ms(lambda: fn(x, w, bias), 10)
+            plain_ms = _time_ms(lambda: plain(x, w, bias), 3)
+            flops = flops_per_px_ck * b * hw * hw * c * k
+            b_ms, b_by = bound(flops, nbytes)
+            direct_ms, _ = bound(18 * b * hw * hw * c * k, nbytes)
+            print(f"kernel {kname:8s} {name:15s} [{b},{c},{hw},{hw}]->{k}: "
+                  f"max_abs_err {err:.3e} tol {tol:.3e} | kernel {ms:.3f} ms "
+                  f"({18.0 * b * hw * hw * c * k / ms / 1e9:.1f} direct-conv "
+                  f"TFLOP/s) plain {plain_ms:.3f} ms cudnn {lib_ms:.3f} ms "
+                  f"bound {b_ms:.3f} ms ({b_by}; direct conv {direct_ms:.3f})",
+                  flush=True)
+            if not err <= tol or not bool(torch.isfinite(out.float()).all()):
+                _fail(f"{kname} {name}: max_abs_err {err} > {tol}")
+            results[(kname, name)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, direct_bound_ms=direct_ms)
+            del out, ref
+        del x
+        torch.cuda.empty_cache()
+    w = torch.randn((1280, 2560, 3, 3), device="cuda").to(torch.bfloat16)
+    print(f"weight rearrangement per call at 2560->1280: taps "
+          f"{_time_ms(lambda: conv_ops.taps(w), 10):.3f} ms, Winograd filter "
+          f"transform {_time_ms(lambda: wino_ops.filter_transform(w), 10):.3f} ms",
+          flush=True)
+    return results
+
+
+# The E=10 protocol (bench.py's): 4 trailing DDIM steps at 768 px. The
+# reference-exact request runs its host solve (scipy, finite differences
+# over the members) at a reduced size, E=3 at 384 px.
+ENSEMBLE_SIZE = 10
+REF_ENSEMBLE = (3, 384)
+# An E=10 request under a conv kernel against the default (cuDNN) request
+# on the same seed, held on the 10 decoded members in [0, 1] that the conv
+# path produces: both are bf16 networks whose conv outputs round
+# differently (Winograd also rounds its transformed input to bf16), carried
+# through 4 steps and the decoder, like the attention-kernel swap that
+# DEPTH_TOL bounds (measured on the E=1 map: max 2.4e-2, mean 1.5e-3, in
+# PERF.md); a wrong kernel
+# gives maps unrelated to the default ones (mean |diff| ~0.2). (max, mean)
+# of |diff|. The ensembled
+# map is reported, not held: with random weights the members are
+# uncorrelated and their alignment has no well-defined optimum, so the
+# solve amplifies any difference (tests/test_torch_pipeline.py's note).
+CONV_MEMBER_TOL = {"pallas": (1e-1, 1e-2), "winograd": (1e-1, 1e-2)}
+
+
+def serve_ensembles(pipe) -> dict:
+    """Phase 6. Returns the launch counts of its runs: flash (default conv
+    requests) and each conv kernel under its mode."""
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch.models import layers
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.ops import winograd as wino_ops
+    from marigold_tpu_torch.pipelines import base
+    from marigold_tpu_torch.pipelines import ensemble as ens
+
+    seed, steps, E = 0, 4, ENSEMBLE_SIZE
+    rng = np.random.default_rng(1)
+    image = rng.integers(0, 256, (768, 768, 3), dtype=np.uint8)
+    batch = [rng.integers(0, 256, (768, 768, 3), dtype=np.uint8) for _ in range(3)]
+    solve_ms, members = [], []
+    ensemble_depth = base.ensemble_depth
+
+    def timed_solve(depth, **kw):
+        members[:] = [depth.detach().clone()]
+        out, ms = _timed(lambda: ensemble_depth(depth, **kw))
+        solve_ms.append(ms)
+        return out
+
+    base.ensemble_depth = timed_solve
+
+    def check_unc(out, what):
+        u = out.uncertainty
+        if u is None or u.shape != out.depth_np.shape or \
+                not np.isfinite(u).all() or u.min() < 0.0:
+            _fail(f"{what}: uncertainty {None if u is None else u.shape}")
+
+    def request(**kw):
+        return pipe(image, denoising_steps=steps, ensemble_size=E, seed=seed,
+                    color_map=None, **kw)
+
+    # default conv: __call__, cold then warm
+    fa.launches.clear()
+    ens.solve_stats.clear()
+    want_call = expected_flash_launches(pipe, (768, 768), steps,
+                                        ensemble_size=E)
+    maps, times = [], []
+    for _ in range(3):
+        before = sum(fa.launches.values())
+        out, ms = _timed(request)
+        got = sum(fa.launches.values()) - before
+        check_map(out.depth_np, (768, 768), f"E={E} __call__")
+        check_unc(out, f"E={E} __call__")
+        if got != want_call:
+            _fail(f"E={E} flash launches {got} != {want_call}")
+        maps.append(out)
+        times.append(ms)
+    if any(not np.array_equal(maps[0].depth_np, m.depth_np) or
+           not np.array_equal(maps[0].uncertainty, m.uncertainty)
+           for m in maps[1:]):
+        _fail(f"E={E}: same seed gave different maps")
+    stats = dict(ens.solve_stats)
+    (_, _), chunks, _ = request_chunks(pipe, (768, 768), None, E)
+    print(f"E={E} __call__ 768x768, {steps} steps, {chunks} denoise chunk(s): "
+          f"first {times[0]:.1f} ms, then {times[1]:.1f}, {times[2]:.1f} ms/map; "
+          f"flash launches {want_call} per request, as expected; depth in "
+          f"[{maps[0].depth_np.min():.3f}, {maps[0].depth_np.max():.3f}], "
+          f"uncertainty mean {maps[0].uncertainty.mean():.4f} max "
+          f"{maps[0].uncertainty.max():.4f}; identical maps from one seed",
+          flush=True)
+    print(f"ensemble solve (gauge-anchored, on the card): "
+          f"{', '.join(f'{t:.1f}' for t in solve_ms)} ms per request; per "
+          f"solve {stats.get('iterations', 0) / stats['solves']:.1f} BFGS "
+          f"iterations, {stats.get('evaluations', 0) / stats['solves']:.1f} "
+          f"cost evaluations, {stats.get('syncs', 0) / stats['solves']:.1f} "
+          f"host syncs", flush=True)
+    default_map, default_members = maps[0].depth_np, members[0]
+    solve_ms.clear()
+
+    # batch_call of 3 images at E=10 (the bench.py protocol)
+    want_batch = expected_flash_launches(pipe, (768, 768), steps,
+                                         n_images=len(batch), ensemble_size=E)
+    runs = []
+    for _ in range(2):
+        before = sum(fa.launches.values())
+        outs, ms = _timed(lambda: pipe.batch_call(
+            batch, denoising_steps=steps, ensemble_size=E, seed=seed,
+            processing_res=768, compact_readback=True))
+        got = sum(fa.launches.values()) - before
+        if got != want_batch:
+            _fail(f"E={E} batch flash launches {got} != {want_batch}")
+        for i, o in enumerate(outs):
+            check_map(o.depth_np, (768, 768), f"E={E} batch_call image {i}")
+            check_unc(o, f"E={E} batch_call image {i}")
+        runs.append((np.stack([o.depth_np for o in outs]), ms))
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        _fail(f"E={E}: same seed gave different batch maps")
+    (_, _), chunks, decodes = request_chunks(pipe, (768, 768), len(batch), E)
+    print(f"E={E} batch_call 3x768x768 (uint16 readback), {chunks} denoise "
+          f"chunk(s), {decodes} decode calls: first {runs[0][1]:.1f} ms, then "
+          f"{runs[1][1]:.1f} ms = {runs[1][1] / len(batch):.1f} ms/map; solves "
+          f"{', '.join(f'{t:.1f}' for t in solve_ms[-len(batch):])} ms; flash "
+          f"launches {want_batch} per batch, as expected", flush=True)
+    flash_counts = dict(fa.launches)
+    print(f"E={E} flash launches by variant: {flash_counts}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+
+    # the reference-exact mode: host scipy solve at a reduced size
+    e_ref, res = REF_ENSEMBLE
+    small = image[:res, :res]
+    solve_ms.clear()
+    out, ms = _timed(lambda: pipe(small, denoising_steps=steps,
+                                  ensemble_size=e_ref, seed=seed,
+                                  processing_res=res, color_map=None,
+                                  ensemble_kwargs={"gauge_anchor": False}))
+    check_map(out.depth_np, (res, res), "reference-exact request")
+    check_unc(out, "reference-exact request")
+    print(f"reference-exact (gauge_anchor=False) E={e_ref} {res}x{res}: "
+          f"{ms:.1f} ms, of which the host scipy solve {solve_ms[0]:.1f} ms",
+          flush=True)
+
+    # one E=10 request under each opt-in conv kernel
+    conv_counts = {}
+    (_, _), chunks, decodes = request_chunks(pipe, (768, 768), None, E)
+    for mode, counter, key in (("pallas", conv_ops.launches, "conv3x3"),
+                               ("winograd", wino_ops.launches, "winograd")):
+        n = gated_convs(pipe, (768, 768), mode)
+        want = n["encode"] + n["unet"] * steps * chunks + n["decode"] * decodes
+        layers._CONV_IMPL = mode
+        try:
+            counter.clear()
+            out, ms = _timed(request)
+            got = dict(counter)
+        finally:
+            layers._CONV_IMPL = "xla"
+        check_map(out.depth_np, (768, 768), f"E={E} under {mode}")
+        check_unc(out, f"E={E} under {mode}")
+        if got != {key: want}:
+            _fail(f"{mode}: conv launches {got} != {want} ({n} per call)")
+        diff = (members[0] - default_members).abs()
+        d_max, d_mean = diff.max().item(), diff.mean().item()
+        d_map = np.abs(out.depth_np - default_map)
+        tol_max, tol_mean = CONV_MEMBER_TOL[mode]
+        print(f"E={E} __call__ under MARIGOLD_TPU_CONV={mode}: {ms:.1f} ms/map "
+              f"(first request in this mode), solve {solve_ms[-1]:.1f} ms; "
+              f"{key} launches {want} = {n['encode']} encode + {n['unet']} x "
+              f"{steps} steps x {chunks} + {n['decode']} x {decodes} decode, as "
+              f"expected; the {E} decoded members against the default conv's: "
+              f"max {d_max:.3e} mean {d_mean:.3e} (tol {tol_max}, {tol_mean}); "
+              f"ensembled map: max {d_map.max():.3e} mean {d_map.mean():.3e}",
+              flush=True)
+        if not (d_max <= tol_max and d_mean <= tol_mean):
+            _fail(f"{mode}: members differ from the default conv's by max "
+                  f"{d_max} mean {d_mean}")
+        conv_counts[key] = want
+    base.ensemble_depth = ensemble_depth
+
+    print(f"one E={E} 768x768 request:", flush=True)
+    profile_request(request)
+    return {**flash_counts, **conv_counts}
+
+
+def conv_kernel_rows(results: dict, counts: dict) -> list:
+    rows = []
+    for kname, source, replaces in (
+            ("conv3x3", "conv3x3.cu", "marigold_tpu/ops/conv.py:176"),
+            ("winograd", "winograd.cu", "marigold_tpu/ops/winograd.py:251")):
+        mine = {case: r for (k, case), r in results.items() if k == kname}
+        timed = mine[CONV_ROW_CASE]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"marigold_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": counts.get(kname, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+            **{k: timed[k] for k in ROW_TIMES},
+        })
+    return rows
+
+
+def folded_kernel_row(results: dict, counts: dict) -> dict:
+    return {
+        "name": "flash_folded_d64", "route": "cuda",
+        "source": "marigold_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "marigold_tpu/ops/flash_attention.py:522",
+        "launches": counts.get("folded_d64", 0),
+        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        **{k: results[FOLDED_ROW_CASE][k] for k in ROW_TIMES},
+    }
 
 
 # The training phase: the depth fine-tuning recipe of
@@ -851,8 +1392,8 @@ def train_phase() -> dict:
 
 def train_kernel_rows(results: dict, counts: dict) -> list:
     """Rows 4-6 of the kernel table: the training kernels, timed at the
-    level-0 training shape; each backward kernel's plain time is that of
-    the whole plain backward (dQ, dK and dV together)."""
+    level-0 training shape; each backward kernel's plain and library time
+    is that of the whole backward (dQ, dK and dV together)."""
     rows = []
     for name, replaces, key, whats in (
             ("flash_lse_d64", "marigold_tpu/ops/flash_attention.py:638",
@@ -870,7 +1411,7 @@ def train_kernel_rows(results: dict, counts: dict) -> list:
             "replaces": replaces, "launches": counts.get(key, 0),
             "max_abs_err": max(r["max_abs_err"] for (case, what), r in results.items()
                                if what in whats and case != "autograd_fn"),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            **{k: timed[k] for k in ROW_TIMES},
         })
     return rows
 

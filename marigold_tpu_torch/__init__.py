@@ -2,11 +2,12 @@
 Hopper GPUs.
 
 Same public API as `marigold_tpu` for the slices ported so far, depth
-inference and depth fine-tuning:
+inference (any ensemble size) and depth fine-tuning:
 
     from marigold_tpu_torch import MarigoldDepthPipeline
-    pipe = MarigoldDepthPipeline.from_pretrained(ckpt_dir, device="cuda")
-    depth = pipe(image_uint8, denoising_steps=4, seed=0).depth_np
+    pipe = MarigoldDepthPipeline.from_pretrained(ckpt_dir)  # the CUDA device
+    out = pipe(image_uint8, denoising_steps=4, ensemble_size=10, seed=0)
+    out.depth_np, out.uncertainty
 
     from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
     MarigoldDepthTrainer(cfg, sd2_pipe, batches, ...).train()

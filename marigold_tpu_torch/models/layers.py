@@ -7,18 +7,76 @@ package: matmuls and convs run in the parameters' dtype (bf16 on the GPU);
 GroupNorm/LayerNorm statistics, softmax and GELU run in fp32 and return the
 storage dtype.
 
-Convolutions are `nn.Conv2d` (F.conv2d): the JAX default is the XLA conv,
-outside any Pallas kernel.
+Convolutions: the models' 3x3 convs are `Conv2d`, an nn.Conv2d whose
+forward goes through the conv dispatch of the JAX package's `conv2d`
+(`marigold_tpu/models/layers.py:67-150`). MARIGOLD_TPU_CONV, read at import
+with the JAX package's values, picks the implementation:
+  * "xla" (default): F.conv2d (cuDNN on the card), as the JAX default is
+    XLA's conv outside any Pallas kernel;
+  * "pallas": the nine-tap kernel, `ops/conv.py` (`csrc/conv3x3.cu`);
+  * "winograd": the F(2x2, 3x3) kernel, `ops/winograd.py`
+    (`csrc/winograd.cu`).
+A kernel takes exactly the convs that the JAX `supports()` gates admit
+(3x3, stride 1, padding 1, C and K at least 128 and multiples of 128; even
+H and W and MARIGOLD_TPU_WINO_MAX_HW for Winograd), without the TPU VMEM
+plan, which has no counterpart on the card; the others run F.conv2d. On a
+CPU tensor a kernel mode runs the kernel's plain version, so CPU runs
+exercise the dispatch (the JAX package instead drops to XLA off the TPU
+unless MARIGOLD_TPU_CONV_INTERPRET=1). With grad enabled a kernel conv runs
+through `ops.conv.KernelConvFunction`, whose backward is the plain conv
+gradient. Tests switch the mode by setting `_CONV_IMPL`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from marigold_tpu_torch.ops import conv as conv_ops
+from marigold_tpu_torch.ops import winograd as winograd_ops
+
+CONV_IMPLS = ("xla", "pallas", "winograd")
+_CONV_IMPL = os.environ.get("MARIGOLD_TPU_CONV", "xla")
+if _CONV_IMPL not in CONV_IMPLS:
+    raise ValueError(f"MARIGOLD_TPU_CONV must be one of {CONV_IMPLS}, "
+                     f"got {_CONV_IMPL!r}")
+
+
+def conv_impl_for(x_shape, w_shape, stride, padding, dtype) -> Optional[str]:
+    """Which kernel takes this conv under the current mode: "pallas",
+    "winograd" or None (F.conv2d). Shapes NCHW / OIHW."""
+    if _CONV_IMPL == "winograd":
+        if winograd_ops.supports(x_shape, w_shape, stride, padding, dtype):
+            return "winograd"
+    elif _CONV_IMPL == "pallas":
+        if conv_ops.supports(x_shape, w_shape, stride, padding, dtype):
+            return "pallas"
+    return None
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (diffusers names `weight`, `bias`) through the conv
+    dispatch."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        impl = None
+        if self.groups == 1 and tuple(self.dilation) == (1, 1):
+            impl = conv_impl_for(x.shape, self.weight.shape, self.stride,
+                                 self.padding, x.dtype)
+        if impl is None:
+            return super().forward(x)
+        fn = conv_ops.conv3x3 if impl == "pallas" else winograd_ops.winograd3x3
+        bias = (self.bias if self.bias is not None
+                else torch.zeros_like(self.weight[:, 0, 0, 0]))
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or bias.requires_grad):
+            return conv_ops.KernelConvFunction.apply(x, self.weight, bias, fn)
+        return fn(x, self.weight, bias)
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

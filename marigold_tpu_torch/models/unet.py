@@ -18,6 +18,7 @@ from torch import nn
 
 from marigold_tpu_torch.models.layers import (
     GEGLU,
+    Conv2d,
     GroupNorm,
     LayerNorm,
     timestep_embedding,
@@ -107,10 +108,10 @@ class ResnetBlock(nn.Module):
                  eps: float):
         super().__init__()
         self.norm1 = GroupNorm(groups, c_in, eps)
-        self.conv1 = nn.Conv2d(c_in, c_out, 3, padding=1)
+        self.conv1 = Conv2d(c_in, c_out, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, c_out)
         self.norm2 = GroupNorm(groups, c_out, eps)
-        self.conv2 = nn.Conv2d(c_out, c_out, 3, padding=1)
+        self.conv2 = Conv2d(c_out, c_out, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(c_in, c_out, 1) if c_in != c_out else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -197,7 +198,7 @@ class _Conv(nn.Module):
 
     def __init__(self, c: int, stride: int):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, stride=stride, padding=1)
+        self.conv = Conv2d(c, c, 3, stride=stride, padding=1)
 
 
 class _Block(nn.Module):
@@ -236,7 +237,7 @@ class UNet2DConditionModel(nn.Module):
         self.cfg = cfg
         b = list(cfg.block_out_channels)
         g, eps, temb = cfg.norm_num_groups, cfg.norm_eps, cfg.time_embed_dim
-        self.conv_in = nn.Conv2d(cfg.in_channels, b[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, b[0], 3, padding=1)
         self.time_embedding = nn.Module()
         self.time_embedding.linear_1 = nn.Linear(b[0], temb)
         self.time_embedding.linear_2 = nn.Linear(temb, temb)
@@ -283,7 +284,7 @@ class UNet2DConditionModel(nn.Module):
             self.up_blocks.append(blk)
 
         self.conv_norm_out = GroupNorm(g, b[0], eps)
-        self.conv_out = nn.Conv2d(b[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(b[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps: Union[int, torch.Tensor],
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from marigold_tpu_torch.models.layers import GroupNorm, upsample_nearest_2x
+from marigold_tpu_torch.models.layers import Conv2d, GroupNorm, upsample_nearest_2x
 from marigold_tpu_torch.models.unet import Attention
 from marigold_tpu_torch.ops.attention import dispatch_attention
 
@@ -70,9 +70,9 @@ class ResnetBlock(nn.Module):
     def __init__(self, c_in: int, c_out: int, groups: int):
         super().__init__()
         self.norm1 = GroupNorm(groups, c_in)
-        self.conv1 = nn.Conv2d(c_in, c_out, 3, padding=1)
+        self.conv1 = Conv2d(c_in, c_out, 3, padding=1)
         self.norm2 = GroupNorm(groups, c_out)
-        self.conv2 = nn.Conv2d(c_out, c_out, 3, padding=1)
+        self.conv2 = Conv2d(c_out, c_out, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(c_in, c_out, 1) if c_in != c_out else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -114,7 +114,7 @@ class MidBlock(nn.Module):
 class _Sampler(nn.Module):
     def __init__(self, c: int, stride: int):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, stride=stride, padding=1 if stride == 1 else 0)
+        self.conv = Conv2d(c, c, 3, stride=stride, padding=1 if stride == 1 else 0)
 
 
 class _Block(nn.Module):
@@ -127,7 +127,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         b, g = list(cfg.block_out_channels), cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, b[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, b[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
         c = b[0]
         for i, bc in enumerate(b):
@@ -139,7 +139,7 @@ class Encoder(nn.Module):
             self.down_blocks.append(blk)
         self.mid_block = MidBlock(b[-1], g)
         self.conv_norm_out = GroupNorm(g, b[-1])
-        self.conv_out = nn.Conv2d(b[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_out = Conv2d(b[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv_in(x)
@@ -158,7 +158,7 @@ class Decoder(nn.Module):
         super().__init__()
         b, g = list(cfg.block_out_channels), cfg.norm_num_groups
         rev = list(reversed(b))
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = MidBlock(rev[0], g)
         self.up_blocks = nn.ModuleList()
         c = rev[0]
@@ -170,7 +170,7 @@ class Decoder(nn.Module):
                 blk.upsamplers = nn.ModuleList([_Sampler(c, 1)])
             self.up_blocks.append(blk)
         self.conv_norm_out = GroupNorm(g, rev[-1])
-        self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = self.mid_block(self.conv_in(z))

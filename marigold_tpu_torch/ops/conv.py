@@ -1,0 +1,171 @@
+"""SAME-padded stride-1 3x3 convolution as nine shifted products: the
+hand-written Hopper kernel (`csrc/conv3x3.cu`) and its plain PyTorch
+version.
+
+Replaces the TPU package's `marigold_tpu/ops/conv.py:_conv3x3_pallas` (the
+nine-tap kernel, opt-in under MARIGOLD_TPU_CONV=pallas):
+
+    y[b, k, h, w] = bias[k]
+        + sum_{dy, dx, c} x[b, c, h + dy - 1, w + dx - 1] * W[k, c, dy, dx]
+
+with fp32 accumulation and the result in the input's dtype. The port takes
+NCHW activations and OIHW weights as the models hold them; the wrapper
+rearranges the weight tap-major into `[9, K, C]` on every call (the TPU
+wrapper's `[9, C, K]` with C innermost, the layout the kernel's
+column-major B operand reads). The TPU wrapper's H padding, flattening and
+column-wrap masks are layout artifacts of its DMA windows; the kernel masks
+the zero padding in its loads instead.
+
+`supports` is the TPU package's gate (3x3, stride 1, padding 1, C and K at
+least 128 and multiples of 128, bf16 or fp32) without the TPU VMEM plan
+(`_plan`), which has no counterpart here: the kernel tiles any such shape.
+
+On a CUDA tensor `conv3x3` launches the kernel (bf16, no autograd) or
+raises; on a CPU tensor it runs `conv3x3_plain`. `KernelConvFunction`
+carries a kernel conv under autograd with the plain conv gradients, as the
+TPU package's custom VJP takes XLA's. `launches["conv3x3"]` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from marigold_tpu_torch.ops import cuda_build
+
+SOURCES = ("conv3x3.cu",)
+
+launches: collections.Counter = collections.Counter()
+
+
+def supports(x_shape, w_shape, stride, padding, dtype) -> bool:
+    """True when the kernel takes this conv: x NCHW, w OIHW (the JAX
+    package's `supports` on NHWC/HWIO shapes, without its VMEM plan)."""
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return False
+    c_out, c_in, kh, kw = w_shape
+    if (kh, kw) != (3, 3) or tuple(_pair(stride)) != (1, 1):
+        return False
+    if tuple(_pair(padding)) != (1, 1):
+        return False
+    if c_in < 128 or c_out < 128 or c_in % 128 or c_out % 128:
+        return False
+    return dtype in (torch.bfloat16, torch.float32) and x_shape[2] >= 1
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else v
+
+
+def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: nine tap products of the
+    zero-padded input with the [9, K, C] weight, summed in fp32 (float64
+    for float64 inputs), bias added, cast to x's dtype."""
+    b, c, h, w = x.shape
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    w9 = taps(weight).to(acc_t)
+    xp = torch.nn.functional.pad(x.to(acc_t), (1, 1, 1, 1))
+    acc = bias.to(acc_t).reshape(1, -1, 1, 1).expand(b, -1, h, w).clone()
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        acc += torch.einsum("bchw,kc->bkhw", xp[:, :, dy:dy + h, dx:dx + w],
+                            w9[t])
+    return acc.to(x.dtype)
+
+
+def taps(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW [K, C, 3, 3] -> tap-major [9, K, C], tap = 3 * dy + dx."""
+    k, c = weight.shape[:2]
+    return weight.permute(2, 3, 0, 1).reshape(9, k, c).contiguous()
+
+
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load_library("conv3x3", SOURCES)
+    fn = lib.mt_conv3x3_fwd
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_cuda(x, weight, bias, what: str) -> None:
+    """What the conv kernels take: CUDA bf16 contiguous tensors on one
+    device, a gated shape, no autograd."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        raise NotImplementedError(
+            f"the {what} kernel takes bf16; the fp32 kernel path is ROADMAP "
+            "queue 1 item 5")
+    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: {name} is {t.dtype}, the kernel takes bf16")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if not supports(x.shape, weight.shape, 1, 1, x.dtype) or \
+            x.shape[1] != weight.shape[1] or bias.shape != (weight.shape[0],):
+        raise ValueError(f"{what}: x {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)} "
+                         "is not a gated 3x3 conv")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+        raise RuntimeError(
+            f"the {what} kernel is not differentiable: with grad enabled call "
+            "KernelConvFunction (models/layers.py's Conv2d does)")
+
+
+def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.mt_cuda_error_string(err).decode()} "
+                           f"(cudaError {err})")
+
+
+def conv3x3(x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    """x [B, C, H, W] * weight [K, C, 3, 3] + bias [K] -> [B, K, H, W],
+    SAME padding, stride 1. On a CUDA tensor this launches the Hopper
+    kernel (bf16; C, K multiples of 128; no autograd) or raises; on a CPU
+    tensor it runs `conv3x3_plain`."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, weight, bias)
+    check_cuda(x, weight, bias, "conv3x3")
+    b, c, h, w = x.shape
+    k = weight.shape[0]
+    w9 = taps(weight)
+    out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.mt_conv3x3_fwd(
+            x.data_ptr(), w9.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            b, c, h, w, k, torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "conv3x3")
+    launches["conv3x3"] += 1
+    return out
+
+
+class KernelConvFunction(torch.autograd.Function):
+    """A kernel conv under autograd: apply(x, weight, bias, forward) with
+    forward `conv3x3` or `winograd.winograd3x3`; the backward is the plain
+    SAME 3x3 conv's gradients (`torch.nn.grad`), as the TPU package's custom
+    VJPs take XLA's conv gradients."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, forward):
+        ctx.save_for_backward(x, weight)
+        return forward(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        gx = torch.nn.grad.conv2d_input(x.shape, weight, g, padding=1)
+        gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, padding=1)
+        return gx, gw, g.sum(dim=(0, 2, 3)), None

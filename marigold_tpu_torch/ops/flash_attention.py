@@ -9,7 +9,10 @@ Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
     `_flash_kernel_dt` (exact online softmax, the parity pin);
   * training, the `flash_attention_dt` custom VJP: `_flash_dt_impl_lse`
     (online forward that also returns the row logsumexp) and the two
-    backward kernels of `_flash_dt_bwd_pallas` (dQ; dK and dV).
+    backward kernels of `_flash_dt_bwd_pallas` (dQ; dK and dV);
+  * the first version's folded entry point `flash_attention` / `_flash_kernel`
+    (`[BH, N, D]`, D zero-padded to 128 on the TPU): `flash_attention_folded`
+    launches the online kernel on the folded tensor as one head.
 The TPU kernels take a `[BH, D, N]` layout that keeps the head dim in
 sublanes; that is a TPU-lane artifact, so the port takes q/k/v as the
 `[B, N, C]` token tensors the callers hold and the kernels read each head by
@@ -37,7 +40,7 @@ plain version only for a tensor on the CPU. The raw kernel wrappers are not
 differentiable and raise when called with grad enabled on an input that
 requires grad. `launches` counts kernel launches by variant
 ("shifted_d64", "shifted_d512", "online_d64", "online_d512", "lse_d64",
-"bwd_dq_d64", "bwd_dkv_d64").
+"bwd_dq_d64", "bwd_dkv_d64", "folded_d64", "folded_d512").
 """
 
 from __future__ import annotations
@@ -296,6 +299,37 @@ def flash_attention(
         )
     _raise_on(lib, err, "flash attention")
     launches[f"{softmax}_d{d}"] += 1
+    return out
+
+
+def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """Exact softmax(Q K^T / sqrt(D)) V on folded tensors: q [BH, Nq, D],
+    k/v [BH, Nk, D] -> [BH, Nq, D]; the TPU package's first
+    `flash_attention` (`marigold_tpu/ops/flash_attention.py:471`). On a CUDA
+    tensor this launches the online kernel with BH batches of one D-wide
+    head (bf16, D 64 or 512; no padding of D or N: the kernel masks ragged
+    N) or raises; on a CPU tensor it runs the plain online forward with one
+    head."""
+    _check_inputs(q, k, v, 1)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, 1, "online")
+    bh, nq, d = q.shape
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the folded flash kernel takes D in {HEAD_DIMS}, got {d}; other "
+            "head widths are a ROADMAP item (queue 2)")
+    _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, bh)
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.mt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+            bh, 1, nq, k.shape[1], d, d, d, d, 1.0 / math.sqrt(d), 1,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, err, "folded flash attention")
+    launches[f"folded_d{d}"] += 1
     return out
 
 

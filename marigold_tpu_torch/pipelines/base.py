@@ -8,10 +8,12 @@ encode -> trailing DDIM over the UNet -> decode as plain module calls under
 the pipeline's device, and `DiffusionCore.infer` takes it as an argument,
 as the JAX core's infer does, so the two can be compared on shared noise.
 
-This slice serves ensemble_size = 1 (the library default), where the
-ensemble step passes the decoded map through; larger ensembles and LCM
-checkpoints raise NotImplementedError naming the ROADMAP item that brings
-them.
+Ensembles: E = 1 passes the decoded map through (the library default);
+E > 1 denoises and decodes the members in chunks sized by the device's
+memory and aligns and reduces them with `pipelines/ensemble.py`, on the
+device (`gauge_anchor=True`, the default) or with the reference's host
+scipy solve (`ensemble_kwargs={"gauge_anchor": False}`). LCM checkpoints
+raise NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -32,14 +34,36 @@ from marigold_tpu_torch.core.scheduler import (
 from marigold_tpu_torch.models import weights as W
 from marigold_tpu_torch.pipelines import image_util
 from marigold_tpu_torch.pipelines.batchsize import find_batch_size
+from marigold_tpu_torch.pipelines.ensemble import ensemble_depth
 
 logger = logging.getLogger(__name__)
 
-ENSEMBLE_TODO = ("ensemble_size > 1 is not ported yet: ROADMAP queue 1, "
-                 "'ensemble_depth' (E>1, the E=10 protocol)")
 LCM_TODO = "LCM checkpoints are not ported yet: ROADMAP queue 1, 'LCM'"
 # decoded 768 px images per VAE decode call (the JAX package's base cap)
 DECODE_CAP_768 = 20
+
+
+def _depth_ensemble_call_kwargs(ens_kwargs: dict) -> dict:
+    """Caller ensemble_kwargs merged over ensemble_depth's serving
+    defaults: one mapping for both serving forms."""
+    return dict(
+        scale_invariant=ens_kwargs.get("scale_invariant", True),
+        shift_invariant=ens_kwargs.get("shift_invariant", True),
+        reduction=ens_kwargs.get("reduction", "median"),
+        regularizer_strength=ens_kwargs.get("regularizer_strength", 0.02),
+        max_iter=ens_kwargs.get("max_iter", 50),
+        tol=ens_kwargs.get("tol", 1e-6),
+        max_res=ens_kwargs.get("max_res", 1024),
+        reg_max_res=ens_kwargs.get("reg_max_res", 96),
+        gauge_anchor=ens_kwargs.get("gauge_anchor", True),
+    )
+
+
+def _is_reference_ensemble(ensemble_size: int, ens_kwargs: dict) -> bool:
+    """True when the ensemble runs the reference-exact host solve
+    (gauge_anchor=False): the members are cropped to the valid region
+    first, so no mask is needed."""
+    return ensemble_size > 1 and not ens_kwargs.get("gauge_anchor", True)
 
 
 def _pil_image_class():
@@ -196,13 +220,22 @@ class BasePipeline:
         self.default_denoising_steps = pipe_cfg.get("default_denoising_steps")
         self.default_processing_resolution = pipe_cfg.get(
             "default_processing_resolution")
+        self.scale_invariant = pipe_cfg.get("scale_invariant", True)
+        self.shift_invariant = pipe_cfg.get("shift_invariant", True)
 
     @classmethod
     def from_pretrained(cls, ckpt_dir: str, dtype=torch.bfloat16, device=None,
                         variant: Optional[str] = None):
-        """device: "cuda", "cpu", a torch.device; default cuda when present."""
+        """device: "cuda" (the default), "cpu" or a torch.device. Without a
+        CUDA device the caller must ask for the CPU: there is no silent
+        fallback."""
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "from_pretrained runs on the CUDA device by default and "
+                    "torch.cuda.is_available() is False; pass device='cpu' "
+                    "to run on the CPU")
+            device = "cuda"
         core, pipe_cfg = load_pipeline_components(ckpt_dir, dtype, device, variant)
         return cls(core, pipe_cfg)
 
@@ -227,36 +260,79 @@ class BasePipeline:
         return torch.randn((n, ch, h, w), generator=self._noise_generator(seed),
                            device=self.core.device, dtype=torch.float32)
 
+    def _ensemble_kwargs(self, ensemble_kwargs: Optional[dict]) -> dict:
+        """The checkpoint's invariances merged under the caller's
+        ensemble_kwargs, mapped to ensemble_depth's arguments."""
+        merged = dict(scale_invariant=self.scale_invariant,
+                      shift_invariant=self.shift_invariant)
+        merged.update(ensemble_kwargs or {})
+        return _depth_ensemble_call_kwargs(merged)
+
+    def _chunk(self, total: int, hp: int, wp: int, batch_size: int) -> int:
+        """Rows per denoise call: batch_size, or from the device's memory
+        when 0."""
+        if batch_size <= 0:
+            batch_size = find_batch_size(
+                ensemble_size=total, input_res=max(hp, wp),
+                dtype_bytes=torch.finfo(self.core.dtype).bits // 8,
+                device=self.core.device)
+        return min(batch_size, total)
+
     def _infer_fused(self, rgb_norm: np.ndarray, denoising_steps: int,
-                     ensemble_size: int, seed=None,
+                     ensemble_size: int, batch_size: int = 0, seed=None,
                      out_hw: Optional[tuple] = None,
+                     ensemble_kwargs: Optional[dict] = None,
                      resample_method: str = "bilinear"):
         """Single-image inference. rgb_norm: [H, W, 3] in [-1, 1] at
-        processing resolution; edge-padded to the VAE's /8 grid, cropped back
-        and resized on the host to out_hw. Returns pred [h, w, 1] float32."""
-        if ensemble_size > 1:
-            raise NotImplementedError(ENSEMBLE_TODO)
+        processing resolution, edge-padded to the VAE's /8 grid. The E
+        members run in chunks of `batch_size` (from the device's memory when
+        0), each denoised then decoded; E > 1 ensembles them with a mask of
+        the padding (or, in the reference-exact mode, cropped). The result
+        is cropped and resized on the host to out_hw. Returns (pred
+        [h, w, 1] float32, uncertainty [h, w, 1] or None)."""
         core = self.core
         x, h0, w0 = pad_to_multiple_of(rgb_norm[None],
                                        core.vae_cfg.downscale_factor)
+        hp, wp = x.shape[1:3]
         rgb = torch.from_numpy(np.ascontiguousarray(x)).to(core.device)
         rgb_lat = core.encode_rgb(rgb.permute(0, 3, 1, 2).contiguous())
         noise = self._noise(ensemble_size, *rgb_lat.shape[2:], seed)
-        pred = core.infer(rgb_lat, noise, denoising_steps)
-        pred_np = pred[0, :, :h0, :w0].permute(1, 2, 0).cpu().numpy()
+        chunk = self._chunk(ensemble_size, hp, wp, batch_size)
+        preds = torch.cat([core.infer(rgb_lat, noise[s:s + chunk],
+                                      denoising_steps)
+                           for s in range(0, ensemble_size, chunk)])
+        unc = None
+        if ensemble_size == 1:
+            pred = preds[:, :, :h0, :w0]
+        else:
+            kw = self._ensemble_kwargs(ensemble_kwargs)
+            if _is_reference_ensemble(ensemble_size, kw):
+                pred, unc = ensemble_depth(preds[:, :, :h0, :w0],
+                                           output_uncertainty=True, **kw)
+            else:
+                mask = torch.zeros((1, 1, hp, wp), dtype=torch.bool,
+                                   device=core.device)
+                mask[:, :, :h0, :w0] = True
+                pred, unc = ensemble_depth(preds, output_uncertainty=True,
+                                           valid_mask=mask, **kw)
+                pred, unc = pred[:, :, :h0, :w0], unc[:, :, :h0, :w0]
+        maps = [t[0].permute(1, 2, 0).cpu().numpy().astype(np.float32)
+                for t in ((pred,) if unc is None else (pred, unc))]
         if out_hw is not None and out_hw != (h0, w0):
-            pred_np = image_util.resize_host(pred_np, out_hw, resample_method)
-        return pred_np.astype(np.float32)
+            maps = [image_util.resize_host(m, out_hw, resample_method)
+                    for m in maps]
+        maps = [m.astype(np.float32) for m in maps]
+        return maps[0], (maps[1] if unc is not None else None)
 
     def _batch_infer(self, input_images, denoising_steps: Optional[int],
                      ensemble_size: int, processing_res: Optional[int],
                      match_input_res: bool, resample_method: str,
-                     batch_size: int, seed, default_steps: int = 4,
-                     compact_readback: bool = False):
+                     batch_size: int, seed, ensemble_kwargs: Optional[dict],
+                     default_steps: int = 4, compact_readback: bool = False):
         """Batched serving front half: defaults, step check, one input
         shape, processing-resolution resize. uint8 inputs that need no
         resize upload as uint8 and normalize on the device. Returns
-        preds [NI, h, w, 1]."""
+        (preds [NI, h, w, 1], uncertainties [NI, h, w, 1] or None)."""
         if denoising_steps is None:
             denoising_steps = self.default_denoising_steps or default_steps
         if processing_res is None:
@@ -272,6 +348,7 @@ class BasePipeline:
 
         kw = dict(denoising_steps=denoising_steps, ensemble_size=ensemble_size,
                   batch_size=batch_size, seed=seed,
+                  ensemble_kwargs=ensemble_kwargs,
                   compact_output=compact_readback,
                   resample_method=resample_method)
         u8 = [as_u8(im) for im in input_images]
@@ -300,26 +377,24 @@ class BasePipeline:
     def _infer_fused_batch(self, rgb_batch: np.ndarray, denoising_steps: int,
                            ensemble_size: int, batch_size: int = 0, seed=None,
                            out_hw: Optional[tuple] = None,
+                           ensemble_kwargs: Optional[dict] = None,
                            compact_output: bool = False,
                            resample_method: str = "bilinear"):
         """Batched serving of NI same-shape images. rgb_batch: [NI, H, W, 3]
-        float in [-1, 1], or uint8 (normalized on the device). The denoise
-        runs in chunks of `batch_size` rows (from the device's memory when
-        0), the decode in chunks sized by decode_chunking; the resize to
-        out_hw runs on the device. compact_output reads predictions back as
-        uint16 (16-bit-PNG precision). Returns pred [NI, h, w, 1] float32."""
-        if ensemble_size > 1:
-            raise NotImplementedError(ENSEMBLE_TODO)
+        float in [-1, 1], or uint8 (normalized on the device). The NI x E
+        rows share the denoise batch, in chunks of `batch_size` rows (from
+        the device's memory when 0); the decode runs in chunks sized by
+        decode_chunking. E > 1 ensembles each image's cropped members on the
+        device, then the resize to out_hw runs on the device; in the
+        reference-exact mode the solve, the resize and the quantization run
+        on the host, as in the JAX package. compact_output reads back uint16
+        (16-bit-PNG precision). Returns (pred [NI, h, w, 1] float32,
+        uncertainty [NI, h, w, 1] or None)."""
         core = self.core
         x, h0, w0 = pad_to_multiple_of(rgb_batch, core.vae_cfg.downscale_factor)
         ni, hp, wp = x.shape[:3]
         total = ni * ensemble_size
-        if batch_size <= 0:
-            batch_size = find_batch_size(
-                ensemble_size=total, input_res=max(hp, wp),
-                dtype_bytes=torch.finfo(core.dtype).bits // 8,
-                device=core.device)
-        chunk = min(batch_size, total)
+        chunk = self._chunk(total, hp, wp, batch_size)
 
         rgb = torch.from_numpy(np.ascontiguousarray(x)).to(core.device)
         if rgb.dtype == torch.uint8:
@@ -333,11 +408,39 @@ class BasePipeline:
         _, dec = core.decode_chunking(total, (h0, w0))
         pred = torch.cat([core.decode_depth(latents[s:s + dec])
                           for s in range(0, total, dec)])[:, :, :h0, :w0]
+
+        def to_host(t):
+            return t.permute(0, 2, 3, 1).cpu().numpy().astype(np.float32)
+
+        def quantize(t):
+            return torch.round(t.clamp(0.0, 1.0) * 65535.0).to(torch.uint16)
+
+        if ensemble_size == 1:
+            maps = [pred]
+        else:
+            kw = self._ensemble_kwargs(ensemble_kwargs)
+            members = pred.reshape((ni, ensemble_size) + pred.shape[1:])
+            reduced = [ensemble_depth(m, output_uncertainty=True, **kw)
+                       for m in members]
+            maps = [torch.cat([r[0] for r in reduced]),
+                    torch.cat([r[1] for r in reduced])]
+            if _is_reference_ensemble(ensemble_size, kw):
+                host = [to_host(m) for m in maps]
+                if out_hw is not None and out_hw != (h0, w0):
+                    host = [np.stack([image_util.resize_host(im, out_hw,
+                                                             resample_method)
+                                      for im in m]) for m in host]
+                if compact_output:
+                    host = [np.round(np.clip(m, 0.0, 1.0) * 65535.0)
+                            .astype(np.uint16).astype(np.float32) / 65535.0
+                            for m in host]
+                return host[0], host[1]
         if out_hw is not None and out_hw != (h0, w0):
-            pred = image_util.resize_torch(pred, out_hw, resample_method)
+            maps = [image_util.resize_torch(m, out_hw, resample_method)
+                    for m in maps]
         if compact_output:
-            pred = torch.round(pred.clamp(0.0, 1.0) * 65535.0).to(torch.uint16)
-        pred_np = pred.permute(0, 2, 3, 1).cpu().numpy().astype(np.float32)
+            maps = [quantize(m) for m in maps]
+        host = [to_host(m) for m in maps]
         if compact_output:
-            pred_np /= 65535.0
-        return pred_np
+            host = [m / 65535.0 for m in host]
+        return host[0], (host[1] if ensemble_size > 1 else None)

@@ -4,7 +4,9 @@ Counterpart of `marigold_tpu/pipelines/batchsize.py`: the largest batch
 whose activations fit next to the weights, from a per-latent-pixel
 activation model, clamped to the ensemble size and balanced into equal
 chunks as the reference's find_batch_size does. The device's memory comes
-from `torch.cuda.mem_get_info`; a CPU device assumes 16 GiB.
+from `torch.cuda.mem_get_info` (the current CUDA device when none is
+named; there is none to fall back to); an explicit CPU device assumes
+16 GiB.
 """
 
 from __future__ import annotations
@@ -21,7 +23,15 @@ _MODEL_BYTES = 2 * 10**9  # SD2 UNet + VAE + text encoder weights in bf16
 
 
 def device_memory_bytes(device=None) -> int:
-    device = torch.device(device if device is not None else "cpu")
+    """Total memory of `device`; None means the current CUDA device and
+    raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device to size the batch for; pass device='cpu' for "
+                "the CPU model")
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
     if device.type == "cuda":
         return int(torch.cuda.mem_get_info(device)[1])
     return 16 * 1024**3

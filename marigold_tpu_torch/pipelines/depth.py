@@ -4,7 +4,8 @@ API of `marigold_tpu/pipelines/depth.py` (itself the reference's
 MarigoldDepthPipeline.__call__): RGB -> affine-invariant depth in [0, 1],
 an optional colorized map and, for ensembles, an uncertainty. `generator`
 takes an integer seed or a torch.Generator on the pipeline's device.
-`from_pretrained(..., device=)` picks the device. Numpy images are always
+`from_pretrained(..., device=)` picks the device (the CUDA device unless
+the caller passes device="cpu"). Numpy images are always
 accepted, PIL images when PIL is installed; the colorized map is a PIL image
 when PIL is installed and an [H, W, 3] uint8 array otherwise.
 """
@@ -12,7 +13,7 @@ when PIL is installed and an [H, W, 3] uint8 array otherwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -50,11 +51,16 @@ class MarigoldDepthPipeline(BasePipeline):
         processing_res: Optional[int] = None,
         match_input_res: bool = True,
         resample_method: str = "bilinear",
+        batch_size: int = 0,
         generator: Union[None, int, torch.Generator] = None,
         seed: Optional[int] = None,
         color_map: Optional[str] = "Spectral",
+        ensemble_kwargs: Optional[Dict] = None,
     ) -> MarigoldDepthOutput:
-        """One image -> MarigoldDepthOutput."""
+        """One image -> MarigoldDepthOutput. ensemble_size > 1 runs the
+        members in chunks of batch_size (0: from the device's memory) and
+        ensembles them with `ensemble_kwargs` (see
+        `pipelines/ensemble.py:ensemble_depth`)."""
         if denoising_steps is None:
             denoising_steps = self.default_denoising_steps or 1
         if processing_res is None:
@@ -72,17 +78,17 @@ class MarigoldDepthPipeline(BasePipeline):
             nh, nw = image_util.resize_max_res_shape(input_h, input_w, processing_res)
             rgb_norm = image_util.resize_np(rgb_norm, (nh, nw), method=resample_method)
 
-        pred = self._infer_fused(
+        pred, unc = self._infer_fused(
             rgb_norm, denoising_steps=denoising_steps,
-            ensemble_size=ensemble_size, seed=seed,
+            ensemble_size=ensemble_size, batch_size=batch_size, seed=seed,
             out_hw=(input_h, input_w) if match_input_res else None,
-            resample_method=resample_method,
+            ensemble_kwargs=ensemble_kwargs, resample_method=resample_method,
         )
         depth = np.clip(pred[..., 0], 0.0, 1.0).astype(np.float32)
         return MarigoldDepthOutput(
             depth_np=depth,
             depth_colored=_colorize(depth, color_map) if color_map else None,
-            uncertainty=None,
+            uncertainty=unc[..., 0] if unc is not None else None,
         )
 
     def batch_call(
@@ -96,14 +102,16 @@ class MarigoldDepthPipeline(BasePipeline):
         batch_size: int = 0,
         seed: Union[None, int, torch.Generator] = None,
         color_map: Optional[str] = None,
+        ensemble_kwargs: Optional[Dict] = None,
         compact_readback: bool = False,
     ) -> list:
-        """Batched serving of same-shape images: all rows share the denoise
-        batch. Returns a list of MarigoldDepthOutput."""
-        preds = self._batch_infer(
+        """Batched serving of same-shape images: all NI x E rows share the
+        denoise batch. Returns a list of MarigoldDepthOutput."""
+        preds, uncs = self._batch_infer(
             input_images, denoising_steps, ensemble_size, processing_res,
             match_input_res, resample_method, batch_size, seed,
-            default_steps=1, compact_readback=compact_readback,
+            ensemble_kwargs, default_steps=1,
+            compact_readback=compact_readback,
         )
         outputs = []
         for i in range(preds.shape[0]):
@@ -111,6 +119,6 @@ class MarigoldDepthPipeline(BasePipeline):
             outputs.append(MarigoldDepthOutput(
                 depth_np=depth,
                 depth_colored=_colorize(depth, color_map) if color_map else None,
-                uncertainty=None,
+                uncertainty=uncs[i, ..., 0] if uncs is not None else None,
             ))
         return outputs

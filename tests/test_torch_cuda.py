@@ -1,8 +1,9 @@
 """Card-only tests of the port: the Hopper flash kernels (serving forward,
-training forward with the logsumexp, dQ and dK/dV backward) against their
-plain PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors
-with and without autograd, and the slice on the card against the CPU. They
-skip without a CUDA device.
+training forward with the logsumexp, dQ and dK/dV backward, the folded
+entry) and the 3x3 conv kernels (nine-tap, Winograd) against their plain
+PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
+and without autograd, and the slice on the card against the CPU at E=1 and
+E=3. They skip without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed:
@@ -15,8 +16,11 @@ import dataclasses
 import pytest
 import torch
 
+from marigold_tpu_torch.models import layers as TL
 from marigold_tpu_torch.ops import attention as TA
+from marigold_tpu_torch.ops import conv as tconv
 from marigold_tpu_torch.ops import flash_attention as fa
+from marigold_tpu_torch.ops import winograd as twino
 
 pytestmark = pytest.mark.cuda
 
@@ -83,13 +87,9 @@ def test_dispatch_takes_the_kernel_only_for_long_self_attention(cuda):
     assert sum(fa.launches.values()) == before + 1
 
 
-def test_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
-    """A small model (sequences under 1024 tokens: no flash) in fp32 on the
-    card and on the CPU, from one random checkpoint written and loaded
-    through from_pretrained."""
-    import numpy as np
-
-    from marigold_tpu_torch import MarigoldDepthPipeline
+def _small_checkpoint(root):
+    """A small random checkpoint (sequences under 1024 tokens: no flash)
+    written through the port's own writer."""
     from marigold_tpu_torch.core.scheduler import DiffusionSchedule
     from marigold_tpu_torch.models import weights as W
     from marigold_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -116,8 +116,18 @@ def test_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
         with torch.device("meta"):
             model = cls(cfg)
         W.save_component(cfg.to_dict(), W.random_state_dict(model, gen),
-                         str(tmp_path / sub), fname, prefix)
-    DiffusionSchedule.create().save_pretrained(str(tmp_path / "scheduler"))
+                         str(root / sub), fname, prefix)
+    DiffusionSchedule.create().save_pretrained(str(root / "scheduler"))
+
+
+def test_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A small model in fp32 on the card and on the CPU, from one random
+    checkpoint written and loaded through from_pretrained."""
+    import numpy as np
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+
+    _small_checkpoint(tmp_path)
     img = np.random.default_rng(0).integers(0, 256, (48, 40, 3), dtype=np.uint8)
     maps = []
     for device in ("cpu", "cuda"):
@@ -128,6 +138,121 @@ def test_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
         maps.append(pipe(img, denoising_steps=2, processing_res=0,
                          color_map=None).depth_np)
     np.testing.assert_allclose(maps[1], maps[0], atol=1e-4, rtol=0)
+
+
+def test_ensemble_request_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """E=3 through __call__ and batch_call in fp32 on the card and on the
+    CPU: the device solve on each. The members start from correlated noise
+    (a shared draw plus an independent one), as a trained model's members
+    are correlated; the maps then agree to 1e-3 (float32 rounding through
+    up to 50 BFGS iterations and the renormalization)."""
+    import numpy as np
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+
+    _small_checkpoint(tmp_path)
+    img = np.random.default_rng(0).integers(0, 256, (48, 40, 3), dtype=np.uint8)
+    gen = torch.Generator().manual_seed(2)
+    shared = torch.randn((1, 4, 24, 20), generator=gen)
+    noise = 0.95 * shared + 0.3 * torch.randn((6, 4, 24, 20), generator=gen)
+    out = {}
+    for device in ("cpu", "cuda"):
+        pipe = MarigoldDepthPipeline.from_pretrained(
+            str(tmp_path), dtype=torch.float32, device=device)
+        pipe._noise = lambda n, h, w, seed, d=device: noise[:n].to(d)
+        one = pipe(img, denoising_steps=2, ensemble_size=3, processing_res=0,
+                   color_map=None)
+        two = pipe.batch_call([img, img], denoising_steps=2, ensemble_size=3,
+                              processing_res=0)
+        out[device] = [one] + two
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        assert got.uncertainty.shape == got.depth_np.shape == (48, 40)
+        assert np.isfinite(got.uncertainty).all() and got.uncertainty.min() >= 0
+        np.testing.assert_allclose(got.depth_np, ref.depth_np, atol=1e-3, rtol=0)
+        np.testing.assert_allclose(got.uncertainty, ref.uncertainty, atol=1e-3,
+                                   rtol=0)
+
+
+def _conv_inputs(gen, b, c, h, w, k):
+    x = torch.randn((b, c, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    wt = (0.05 * torch.randn((k, c, 3, 3), generator=gen, device="cuda")
+          ).to(torch.bfloat16)
+    bias = torch.randn((k,), generator=gen, device="cuda").to(torch.bfloat16)
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("kernel", ["conv3x3", "winograd"])
+@pytest.mark.parametrize("b,c,h,w,k", [
+    (2, 128, 12, 12, 128),   # narrower than one 16-wide tile
+    (1, 256, 10, 34, 384),   # ragged against the tiles in H and W
+    (3, 640, 24, 24, 640),   # a UNet level
+    (1, 2560, 6, 8, 1280),   # the widest skip input
+])
+def test_conv_kernels_match_plain(cuda, kernel, b, c, h, w, k):
+    x, wt, bias = _conv_inputs(cuda, b, c, h, w, k)
+    fn, plain, counter = {
+        "conv3x3": (tconv.conv3x3, tconv.conv3x3_plain, tconv.launches),
+        "winograd": (twino.winograd3x3, twino.winograd3x3_plain, twino.launches),
+    }[kernel]
+    before = counter[kernel]
+    out = fn(x, wt, bias)
+    assert counter[kernel] == before + 1
+    ref = plain(x, wt, bias)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (b, k, h, w)
+    # fp32 sums in another order, bf16 output: the chip_smoke.py tolerance
+    tol = 1e-2 * ref.float().abs().max().item() + 1e-3
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_conv_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x, wt, bias = _conv_inputs(cuda, 1, 128, 8, 8, 128)
+    for fn in (tconv.conv3x3, twino.winograd3x3):
+        with pytest.raises(NotImplementedError):
+            fn(x.float(), wt.float(), bias.float())
+        with pytest.raises(ValueError, match="gated"):
+            fn(x[:, :64].contiguous(), wt[:, :64].contiguous(), bias)
+        with pytest.raises(RuntimeError, match="KernelConvFunction"):
+            fn(x, wt.requires_grad_(), bias)
+        wt.requires_grad_(False)
+    with pytest.raises(ValueError, match="even"):
+        twino.winograd3x3(x[:, :, :7].contiguous(), wt, bias)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "winograd"])
+def test_conv_dispatch_on_the_card(cuda, monkeypatch, impl):
+    """Conv2d under a kernel mode: the kernel without grad, and
+    KernelConvFunction (plain conv gradients) with grad."""
+    monkeypatch.setattr(TL, "_CONV_IMPL", impl)
+    conv = TL.Conv2d(256, 128, 3, padding=1).to("cuda", torch.bfloat16)
+    x = torch.randn((2, 256, 16, 20), device="cuda").to(torch.bfloat16)
+    counter, key = ((tconv.launches, "conv3x3") if impl == "pallas"
+                    else (twino.launches, "winograd"))
+    before = counter[key]
+    with torch.no_grad():
+        out = conv(x)
+    ref = torch.nn.functional.conv2d(x.float(), conv.weight.float(),
+                                     conv.bias.float(), padding=1)
+    tol = 4e-2 * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    xg = x.detach().requires_grad_()
+    (conv(xg).float().sum()).backward()
+    assert counter[key] == before + 2
+    assert xg.grad is not None and conv.weight.grad is not None
+
+
+@pytest.mark.parametrize("bh,n,d", [(5, 1030, 64), (2, 77, 64), (1, 600, 512)])
+def test_folded_flash_matches_plain(cuda, bh, n, d):
+    q, k, v = _qkv(cuda, bh, n, d)
+    before = fa.launches[f"folded_d{d}"]
+    out = fa.flash_attention_folded(q, k, v)
+    assert fa.launches[f"folded_d{d}"] == before + 1
+    ref = fa.flash_attention_plain(q, k, v, 1, "online")
+    torch.cuda.synchronize()
+    tol = 1e-2 * ref.float().abs().max().item() + 1e-3
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention_folded(*_qkv(cuda, 1, 64, 32))
 
 
 @pytest.mark.parametrize("b,nq,nk,c,heads", [

@@ -4,8 +4,9 @@ attention dispatch against the JAX package.
 On the CPU the wrapper runs its plain PyTorch version, which is held here
 against the TPU kernels themselves in Pallas interpret mode
 (`_flash_dt_impl(..., block_q=128, block_k=128, interpret=True)`), in each of
-the three forward variants the CUDA kernel replaces. fp32, atol 2e-5. The
-CUDA kernel against the plain version is in test_torch_cuda.py."""
+the three forward variants the CUDA kernel replaces, and the folded
+`[BH, N, D]` entry against the first `flash_attention`. fp32, atol 2e-5.
+The CUDA kernel against the plain version is in test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import torch
 
 from marigold_tpu.ops import attention as JA
 from marigold_tpu.ops.flash_attention import _flash_dt_impl
+from marigold_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from marigold_tpu_torch.ops import attention as TA
 from marigold_tpu_torch.ops import flash_attention as fa
 
@@ -138,3 +140,19 @@ def test_flash_softmax_mode_switch():
             TA.set_flash_softmax("exact")
     finally:
         TA.set_flash_softmax("shifted")
+
+
+@pytest.mark.parametrize("bh,n,d", [(2, 256, 64), (1, 300, 64), (3, 130, 64),
+                                    (1, 1024, 64)])
+def test_folded_entry_matches_the_pallas_kernel(bh, n, d):
+    """flash_attention_folded ([BH, N, D], kernel 7) against the TPU
+    package's first flash_attention in interpret mode, which zero-pads D to
+    128; the port's kernel takes D as it is."""
+    rng = np.random.default_rng(bh * n)
+    q, k, v = (rng.standard_normal((bh, n, d)).astype(np.float32)
+               for _ in range(3))
+    ref = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              block_q=128, block_k=128, interpret=True)
+    got = fa.flash_attention_folded(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)

@@ -142,12 +142,119 @@ def test_batch_call_uint8_upload_and_compact_readback(pipes):
                                    rtol=0)
 
 
+# Ensembles. The tiny random network decodes uncorrelated members, on which
+# the alignment is degenerate (the solvers collapse the free scales toward 0
+# and land on different, nearly equal costs: tests/test_torch_ensemble.py
+# holds the objective there). So both packages get correlated initial noise
+# (a shared draw plus an independent one per member), as a trained model's
+# members are correlated. The maps then agree to ENS_ATOL: the members to
+# ~1e-6, and both device solvers take the same BFGS path up to float32
+# rounding, which the renormalization to [0, 1] can stretch.
+ENS_ATOL = 1e-3
+ENSEMBLE_KWARGS = [None, {"gauge_anchor": False}, {"reg_max_res": 1024}]
+
+
+def _correlated_noise(shape):
+    """Initial noise [..., E, h, w, 4] (NHWC, as JAX draws it)."""
+    rng = np.random.default_rng(sum(shape))
+    shared = rng.standard_normal((1,) * (len(shape) - 3) + tuple(shape[-3:]))
+    return (0.95 * shared + 0.3 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _nchw(noise):
+    return torch.from_numpy(
+        noise.reshape((-1,) + noise.shape[-3:]).transpose(0, 3, 1, 2).copy())
+
+
+@pytest.fixture
+def shared_members(monkeypatch):
+    """Correlated noise for both packages. In the reference-exact mode,
+    scipy's finite-difference BFGS over an fp32 cost takes a different path
+    for members that differ by 1e-7, so there the port's members are first
+    held to JAX's at ATOL and then replaced by them: the host solve, the
+    resize and the readback are compared on identical members."""
+    from marigold_tpu.pipelines import ensemble as jens
+
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32:
+                        jnp.asarray(_correlated_noise(tuple(shape)), dtype))
+    jax_members = []
+    jax_ensemble = jens.ensemble_depth
+
+    def record(depth, **kw):
+        if not kw.get("gauge_anchor", True):  # eager; else inside jit
+            jax_members.append(np.asarray(depth))
+        return jax_ensemble(depth, **kw)
+
+    monkeypatch.setattr(jens, "ensemble_depth", record)
+    port_ensemble = tbase.ensemble_depth
+
+    def substitute(depth, **kw):
+        if kw.get("gauge_anchor", True):
+            return port_ensemble(depth, **kw)
+        ref = jax_members.pop(0)
+        np.testing.assert_allclose(depth.permute(0, 2, 3, 1).numpy(), ref,
+                                   atol=ATOL, rtol=0)
+        return port_ensemble(_nchw(ref), **kw)
+
+    monkeypatch.setattr(tbase, "ensemble_depth", substitute)
+
+
+@pytest.mark.parametrize("ens", ENSEMBLE_KWARGS)
+def test_call_ensemble_matches_jax_on_shared_noise(pipes, monkeypatch,
+                                                   shared_members, ens):
+    """__call__ at E=3: chunked members (batch_size=2), the padding mask
+    (or, reference-exact, cropped members), uncertainty resized with the
+    prediction."""
+    jpipe, tpipe = pipes
+    img = _image(7)
+    kw = dict(denoising_steps=2, ensemble_size=3, processing_res=32, seed=3,
+              color_map=None, ensemble_kwargs=ens)
+    ref = jpipe(img, batch_size=2, **kw)
+    monkeypatch.setattr(tpipe, "_noise", lambda n, h, w, seed:
+                        _nchw(_correlated_noise((n, h, w, 4))))
+    got = tpipe(img, batch_size=2, **kw)
+    assert got.depth_np.shape == got.uncertainty.shape == (40, 56)
+    assert got.uncertainty.min() >= 0.0 and got.uncertainty.max() > 0.0
+    np.testing.assert_allclose(got.depth_np, ref.depth_np, atol=ENS_ATOL, rtol=0)
+    np.testing.assert_allclose(got.uncertainty, ref.uncertainty,
+                               atol=ENS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("ens,compact", [
+    (None, False), (None, True), ({"gauge_anchor": False}, True),
+    ({"reg_max_res": 1024}, False)])
+def test_batch_call_ensemble_matches_jax_on_shared_noise(
+        pipes, monkeypatch, shared_members, ens, compact):
+    """batch_call at NI=2 x E=3: the rows share the denoise batch, each
+    image's cropped members are ensembled, the uncertainty goes through the
+    resize and the uint16 readback."""
+    jpipe, tpipe = pipes
+    imgs = [_image(8), _image(9)]
+    kw = dict(denoising_steps=2, ensemble_size=3, processing_res=32, seed=4,
+              ensemble_kwargs=ens, compact_readback=compact)
+    ref = jpipe.batch_call(imgs, **kw)
+    monkeypatch.setattr(tpipe, "_noise", lambda n, h, w, seed:
+                        _nchw(_correlated_noise((2, 3, h, w, 4))))
+    got = tpipe.batch_call(imgs, **kw)
+    for r, g in zip(ref, got):
+        assert g.depth_np.shape == g.uncertainty.shape == (40, 56)
+        np.testing.assert_allclose(g.depth_np, r.depth_np, atol=ENS_ATOL, rtol=0)
+        np.testing.assert_allclose(g.uncertainty, r.uncertainty,
+                                   atol=ENS_ATOL, rtol=0)
+
+
+def test_from_pretrained_needs_a_device_or_the_cpu(ckpt):
+    """No silent CPU fallback: without a CUDA device the caller must pass
+    device="cpu", and batch sizing without a device raises too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchDepth.from_pretrained(ckpt, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbs.find_batch_size(10, 768)
+
+
 def test_unported_options_raise(pipes, ckpt, tmp_path):
-    _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="ensemble_depth"):
-        tpipe(_image(0), ensemble_size=2)
-    with pytest.raises(NotImplementedError, match="ensemble_depth"):
-        tpipe.batch_call([_image(0)], ensemble_size=3)
     lcm = tmp_path / "lcm"
     lcm.mkdir()
     for sub in ("unet", "vae", "text_encoder"):
@@ -216,7 +323,9 @@ def test_shapes_padding_and_sizing_match_jax():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, marigold_tpu_torch; "
+    code = ("import sys, marigold_tpu_torch, marigold_tpu_torch.ops.conv, "
+            "marigold_tpu_torch.ops.winograd, "
+            "marigold_tpu_torch.pipelines.ensemble; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'marigold_tpu')]; print(bad); sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
