@@ -5,13 +5,16 @@
 Phases, none of which catches its own failure:
   1. the card: its name and power limit (nvidia-smi);
   2. build every kernel library from marigold_tpu_torch/csrc, one nvcc per
-     source, all started together (ptxas registers and spills printed);
+     source, all started together (ptxas registers, spills and warnings
+     printed, and the HGMMA count of each wgmma kernel's SASS where the
+     toolkit has cuobjdump);
   3. each kernel against its plain PyTorch version at the main path's shapes
-     (flash forward in both softmax modes, the folded flash entry, the
-     nine-tap and Winograd 3x3 convs, the training flash kernels), with
-     errors and CUDA-event times of the kernel, the plain version and one
-     PyTorch library call of the same function, and the bound from bytes
-     and operations;
+     (flash forward in both softmax modes, also at the E=10 rows' level-0
+     shape, the folded flash entry, the nine-tap and Winograd 3x3 convs, the
+     training flash kernels), with errors and CUDA-event times of the
+     kernel, the plain version, one PyTorch library call of the same
+     function and, beside the shifted kernel, its row shift, and the bound
+     from bytes and operations;
   4. a full-SD2-width checkpoint with random weights from a seed, written in
      diffusers layout and loaded through MarigoldDepthPipeline.from_pretrained;
   5. serving at E=1: single-image requests and one batch, checked for shape,
@@ -33,6 +36,7 @@ device is present.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -70,7 +74,7 @@ def build_kernels():
     from marigold_tpu_torch.ops import winograd as wino_ops
 
     builds = (fa._library, fa._bwd_library, conv_ops._library,
-              wino_ops._library)
+              wino_ops._library)  # every library of the paths driven here
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda f: f(), builds))
@@ -81,9 +85,38 @@ def build_kernels():
         print(f"build: {name} nvcc {info['seconds']:.2f} s", flush=True)
         with open(info["log"]) as f:
             for line in f:
-                if "registers" in line or "spill" in line or "Compiling" in line:
+                if any(w in line for w in ("registers", "spill", "Compiling",
+                                           "C75", "arning")):
                     print("  ptxas:", line.strip(), flush=True)
     print(f"build: {len(builds)} libraries in {wall:.2f} s", flush=True)
+    print_hgmma(os.path.join(os.path.dirname(
+        cuda_build.BUILD_INFO["flash_attention"]["log"]),
+        "libflash_attention.so"))
+
+
+def print_hgmma(lib: str) -> None:
+    """HGMMA (wgmma) instructions per kernel in a library's SASS, from the
+    toolkit's cuobjdump where it has one."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        print(f"build: no cuobjdump at {tool}: HGMMA not counted", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    for fn, n in counts.items():
+        print(f"  sass: {n:3d} HGMMA in {fn}", flush=True)
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -154,25 +187,29 @@ def attention_bound(b, heads, nq, nk, d, flops_per_pair, q_io, kv_io,
 
 
 # (name, B, N, C, heads): the main path's attention shapes at 768 px, the
-# ragged 576x768 latent, and the clamp case of
-# tests/test_flash_attention.py::test_flash_dt_shifted_spiky_k_graceful
+# ragged 576x768 latent, the clamp case of
+# tests/test_flash_attention.py::test_flash_dt_shifted_spiky_k_graceful, and
+# the E=10 rows of one request at level 0. The plain version runs one batch
+# row at a time ([1, H, N, N] fp32 logits).
 KERNEL_CASES = [
     ("unet_l0", 1, 9216, 320, 5),
     ("unet_l1", 1, 2304, 640, 10),
     ("unet_l0_ragged", 1, 6912, 320, 5),
     ("vae_mid", 1, 9216, 512, 1),
     ("spiky_k", 1, 512, 64, 1),
+    ("unet_l0_b10", 10, 9216, 320, 5),
 ]
 
-# Kernel rows of the JSON line: TPU pallas_call sites replaced, and the case
-# whose times stand for the kernel (its main-path shape).
+# Kernel rows of the JSON line: TPU pallas_call sites replaced, the source,
+# and the case whose times stand for the kernel (its main-path shape).
+SM90_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_sm90.cu"
 KERNEL_ROWS = [
     ("flash_shifted_d64", "marigold_tpu/ops/flash_attention.py:396",
-     ("shifted", 64), "unet_l0"),
+     ("shifted", 64), "unet_l0", SM90_SOURCE),
     ("flash_shifted_d512", "marigold_tpu/ops/flash_attention.py:429",
-     ("shifted", 512), "vae_mid"),
+     ("shifted", 512), "vae_mid", "marigold_tpu_torch/csrc/flash_attention.cu"),
     ("flash_online", "marigold_tpu/ops/flash_attention.py:460",
-     ("online", None), "unet_l0"),
+     ("online", None), "unet_l0", SM90_SOURCE),
 ]
 
 # bf16 output rounding is 2^-8 relative; the kernel and the plain version
@@ -205,7 +242,12 @@ def check_kernels() -> dict:
             k[0, 137] *= 200.0
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         for mode in fa.SOFTMAX_MODES:
-            ref = fa.flash_attention_plain(q, k, v, heads, mode)
+            def plain():
+                return torch.cat([fa.flash_attention_plain(
+                    q[i:i + 1], k[i:i + 1], v[i:i + 1], heads, mode)
+                    for i in range(b)])
+
+            ref = plain()
             out = fa.flash_attention(q, k, v, heads, mode)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
@@ -216,10 +258,10 @@ def check_kernels() -> dict:
             tol = TOL_REL * ref_max + TOL_ABS
             ms = _time_ms(lambda: fa.flash_attention(q, k, v, heads, mode),
                           iters=20)
-            plain_ms = _time_ms(
-                lambda: fa.flash_attention_plain(q, k, v, heads, mode),
-                iters=5 if n >= 4096 else 20,
-            )
+            plain_ms = _time_ms(plain, iters=5 if n >= 4096 else 20)
+            # the shifted wrapper's small product outside the kernel
+            shift_ms = (_time_ms(lambda: fa.row_shift(q, k, heads), 20)
+                        if mode == "shifted" else None)
             d = c // heads
             flops = 4.0 * b * heads * n * n * d
             lib_ms = sdpa_ms(q, k, v, heads)
@@ -231,7 +273,9 @@ def check_kernels() -> dict:
                 f"max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} "
                 f"max|ref| {ref_max:.3e} tol {tol:.3e} | kernel {ms:.3f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
-                f"sdpa {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by})",
+                f"sdpa {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by})"
+                + (f"; of the kernel time, row_shift {shift_ms:.3f} ms"
+                   if shift_ms is not None else ""),
                 flush=True,
             )
             if not finite or not max_err <= tol:
@@ -239,7 +283,8 @@ def check_kernels() -> dict:
                       f"or non-finite output")
             results[(name, mode, d)] = dict(
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                shift_ms=shift_ms)
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -369,7 +414,7 @@ def check_train_kernels() -> dict:
 
 def kernel_rows(results: dict, counts: dict) -> list:
     rows = []
-    for name, replaces, (mode, d), case in KERNEL_ROWS:
+    for name, replaces, (mode, d), case, source in KERNEL_ROWS:
         mine = {key: r for key, r in results.items()
                 if key[1] == mode and (d is None or key[2] == d)}
         timed = next(r for key, r in mine.items() if key[0] == case)
@@ -377,11 +422,11 @@ def kernel_rows(results: dict, counts: dict) -> list:
                        if key.startswith(mode) and
                        (d is None or key == f"{mode}_d{d}"))
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "marigold_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
             **{k: timed[k] for k in ROW_TIMES},
+            **({"shift_ms": timed["shift_ms"]} if mode == "shifted" else {}),
         })
     return rows
 
@@ -1077,8 +1122,7 @@ def conv_kernel_rows(results: dict, counts: dict) -> list:
 
 def folded_kernel_row(results: dict, counts: dict) -> dict:
     return {
-        "name": "flash_folded_d64", "route": "cuda",
-        "source": "marigold_tpu_torch/csrc/flash_attention.cu",
+        "name": "flash_folded_d64", "route": "cuda", "source": SM90_SOURCE,
         "replaces": "marigold_tpu/ops/flash_attention.py:522",
         "launches": counts.get("folded_d64", 0),
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
@@ -1104,7 +1148,7 @@ TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_TOL = 1e-1
 TRAIN_PROJ_TOL = 2e-1
 TRAIN_CLASSES = [("flash backward (dQ, dK/dV)", r"flash_bwd_"),
-                 ("flash forward", r"flash_fwd_kernel"),
+                 ("flash forward", r"flash_fwd"),
                  ("cudnn NCHW<->NHWC copies", r"nchwToNhwc|nhwcToNchw"),
                  ("conv (fprop, dgrad, wgrad)", r"fprop|dgrad|wgrad|conv|winograd"),
                  ("gemm", r"gemm|cutlass|cublas|matmul"),
@@ -1403,7 +1447,7 @@ def train_kernel_rows(results: dict, counts: dict) -> list:
             ("flash_bwd_dkv_d64", "marigold_tpu/ops/flash_attention.py:832",
              "bwd_dkv_d64", ("dk", "dv"))):
         timed = results[("train_l0", whats[0])]
-        source = ("flash_attention.cu" if key.startswith("lse")
+        source = ("flash_fwd_sm90.cu" if key.startswith("lse")
                   else "flash_attention_bwd.cu")
         rows.append({
             "name": name, "route": "cuda",
@@ -1416,7 +1460,7 @@ def train_kernel_rows(results: dict, counts: dict) -> list:
     return rows
 
 
-SERVE_CLASSES = [("flash", r"flash_fwd_kernel"),
+SERVE_CLASSES = [("flash", r"flash_fwd"),
                  ("cudnn NCHW<->NHWC copies", r"nchwToNhwc|nhwcToNchw"),
                  ("conv", r"fprop|dgrad|conv|winograd"),
                  ("gemm", r"gemm|cutlass|cublas|matmul"),

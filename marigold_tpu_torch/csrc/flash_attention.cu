@@ -1,45 +1,42 @@
-// Flash-attention forward for the SD2 UNet and VAE self-attention on Hopper.
+// Flash-attention forward for the SD2 UNet and VAE self-attention on Hopper:
+// the C entry points of both forward kernels and the 512-wide one.
 //
-// Replaces the three forward variants of the TPU package's
-// marigold_tpu/ops/flash_attention.py:_flash_dt_impl:
-//   * _flash_kernel_dt_shifted          (shifted softmax, K resident; d = 64)
-//   * _flash_kernel_dt_shifted_kblocked (shifted softmax, K streamed; d = 512)
+// Replaces the forward variants of the TPU package's
+// marigold_tpu/ops/flash_attention.py:_flash_dt_impl and
+// _flash_dt_impl_lse. 64-wide heads (the UNet's, every softmax mode and the
+// training forward with the logsumexp) go to the Hopper kernel of
+// flash_fwd_sm90.cu (wgmma, TMA, register-resident softmax). This file keeps
+// the first design for the 512-wide VAE mid head:
+//   * _flash_kernel_dt_shifted_kblocked (shifted softmax, K streamed)
 //   * _flash_kernel_dt                  (exact online softmax)
-// and the training forward _flash_dt_impl_lse / _flash_kernel_dt_lse (the
-// online softmax that also stores the per-row logsumexp the backward
-// recomputes P from; d = 64, the LSE instantiation below).
-// It computes what they compute, not their tiling: on Hopper every variant
-// streams K/V through shared memory, so "resident" and "K-blocked" are one
-// code path instantiated at two head widths.
+// It computes what they compute, not their tiling: K/V stream through
+// shared memory.
 //
 // Math per (batch, head, query row r), with s_j = (q_r . k_j) / sqrt(d):
 //   shifted: p_j = exp(min(s_j - shift_r, 75)), shift_r given by the caller
 //            (max over a strided K subsample + 40, computed outside);
 //   online:  running max m, p_j = exp(s_j - m), acc and l rescaled by
 //            exp(m_old - m_new) whenever the max grows;
-//   out_r = (sum_j bf16(p_j) v_j) / max(sum_j p_j, 1e-30), in fp32, stored bf16;
-//   with LSE (online only): lse_r = m + log(max(l, 1e-30)), fp32 [B*H, nq].
+//   out_r = (sum_j bf16(p_j) v_j) / max(sum_j p_j, 1e-30), in fp32, stored bf16.
 // Key columns j >= nk get s_j = -1e30 (p_j = 0); query rows r >= nq are read
 // as zeros and not stored. There is no padding copy.
 //
 // Layout: q/k/v/o are [B, N, ld] bf16 token-major tensors, head h occupying
 // channels [h*D, (h+1)*D) -- the [B, N, C] activations the callers hold.
 //
-// What bounds it on the H100: at the serving shapes (N = 9216 / 2304 tokens,
-// d = 64; N = 9216, d = 512) attention does ~4*N*N*d FLOPs over ~4*N*d*2
-// bytes, about N/2 FLOP/byte, far above the card's ~295 FLOP/byte ridge: it
-// is tensor-core bound. This first kernel uses warp-level wmma (bf16 in,
-// fp32 accumulate) with all tiles in shared memory and one __syncthreads
-// between the QK^T, softmax and PV phases; wgmma, TMA and register-resident
-// accumulators are left to later work.
+// What bounds it on the H100: at N = 9216, d = 512 attention does ~4*N*N*d
+// FLOPs over ~4*N*d*2 bytes, about N/2 FLOP/byte, far above the card's ~295
+// FLOP/byte ridge: it is tensor-core bound. This first design uses
+// warp-level wmma (bf16 in, fp32 accumulate) with all tiles in shared memory
+// and one __syncthreads between the QK^T, softmax and PV phases.
 //
 // Accumulator placement: the fp32 output tile lives in dynamic shared memory,
 // not in registers. For d = 512 a [32, 512] fp32 tile is 64 KB, which no
 // register file holds; keeping it in shared memory also lets the online mode
 // rescale rows by alpha, which wmma's opaque fragment layout does not allow.
-// Per-block shared memory: d = 64 (BQ = BK = 64) ~72 KB; d = 512
-// (BQ = BK = 32) ~173 KB, under the 227 KB limit, set with
-// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) before each launch.
+// Per-block shared memory (BQ = BK = 32) ~173 KB, under the 227 KB limit,
+// set with cudaFuncSetAttribute(MaxDynamicSharedMemorySize) before each
+// launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,16 +102,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D, int BQ, int BK, int NWARPS, bool ONLINE, bool LSE>
+template <int D, int BQ, int BK, int NWARPS, bool ONLINE>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ shift,
-                 bf16* __restrict__ o, float* __restrict__ lse, int H, int nq,
-                 int nk, int ldq, int ldkv, int ldo, float scale) {
+                 bf16* __restrict__ o, int H, int nq, int nk, int ldq,
+                 int ldkv, int ldo, float scale) {
   using L = Smem<D, BQ, BK>;
   constexpr int NT = NWARPS * 32;
   static_assert(BQ % 16 == 0 && BK % 32 == 0 && D % 16 == 0, "tile shape");
-  static_assert(ONLINE || !LSE, "the logsumexp needs the running max");
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem + L::q);
@@ -242,27 +238,23 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     *reinterpret_cast<uint4*>(og + (size_t)(q0 + r) * ldo + c) =
         *reinterpret_cast<const uint4*>(vals);
   }
-  if (LSE) {
-    for (int r = threadIdx.x; r < BQ && q0 + r < nq; r += NT)
-      lse[(size_t)bh * nq + q0 + r] = ms[r] + logf(fmaxf(ls[r], 1e-30f));
-  }
 }
 
-template <int D, int BQ, int BK, int NWARPS, bool ONLINE, bool LSE = false>
+template <int D, int BQ, int BK, int NWARPS, bool ONLINE>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* shift, void* o, float* lse, int B, int H,
-                   int nq, int nk, int ldq, int ldkv, int ldo, float scale,
+                   const float* shift, void* o, int B, int H, int nq, int nk,
+                   int ldq, int ldkv, int ldo, float scale,
                    cudaStream_t stream) {
   using L = Smem<D, BQ, BK>;
-  auto kernel = flash_fwd_kernel<D, BQ, BK, NWARPS, ONLINE, LSE>;
+  auto kernel = flash_fwd_kernel<D, BQ, BK, NWARPS, ONLINE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, B * H);
   kernel<<<grid, NWARPS * 32, L::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), shift, static_cast<bf16*>(o), lse, H, nq,
-      nk, ldq, ldkv, ldo, scale);
+      static_cast<const bf16*>(v), shift, static_cast<bf16*>(o), H, nq, nk,
+      ldq, ldkv, ldo, scale);
   return cudaGetLastError();
 }
 
@@ -270,46 +262,45 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// flash_fwd_sm90.cu: the 64-wide Hopper kernel.
+int mt_flash_fwd_sm90(const void* q, const void* k, const void* v,
+                      const void* shift, void* o, void* lse, int B, int H,
+                      int nq, int nk, int ldq, int ldkv, int ldo, float scale,
+                      int online, void* stream);
+
 // Returns cudaSuccess (0) or the error of the attribute call or the launch.
 // `shift` is [B*H, nq] fp32 in shifted mode and ignored in online mode.
-// Head dims 64 and 512 are instantiated; any other returns
-// cudaErrorInvalidValue.
+// Head dims 64 (flash_fwd_sm90.cu) and 512 (here) are instantiated; any
+// other returns cudaErrorInvalidValue.
 int mt_flash_attention_fwd(const void* q, const void* k, const void* v,
                            const void* shift, void* o, int B, int H, int nq,
                            int nk, int D, int ldq, int ldkv, int ldo,
                            float scale, int online, void* stream) {
+  if (D == 64)
+    return mt_flash_fwd_sm90(q, k, v, shift, o, nullptr, B, H, nq, nk, ldq,
+                             ldkv, ldo, scale, online, stream);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    return online ? launch<64, 64, 64, 4, true>(q, k, v, sh, o, nullptr, B, H,
-                                                nq, nk, ldq, ldkv, ldo, scale,
-                                                st)
-                  : launch<64, 64, 64, 4, false>(q, k, v, sh, o, nullptr, B,
-                                                 H, nq, nk, ldq, ldkv, ldo,
-                                                 scale, st);
-  }
   if (D == 512) {
-    return online ? launch<512, 32, 32, 8, true>(q, k, v, sh, o, nullptr, B,
-                                                 H, nq, nk, ldq, ldkv, ldo,
-                                                 scale, st)
-                  : launch<512, 32, 32, 8, false>(q, k, v, sh, o, nullptr, B,
-                                                  H, nq, nk, ldq, ldkv, ldo,
-                                                  scale, st);
+    return online ? launch<512, 32, 32, 8, true>(q, k, v, sh, o, B, H, nq,
+                                                 nk, ldq, ldkv, ldo, scale, st)
+                  : launch<512, 32, 32, 8, false>(q, k, v, sh, o, B, H, nq,
+                                                  nk, ldq, ldkv, ldo, scale,
+                                                  st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The training forward: exact online softmax, output plus the row
-// logsumexp `lse` ([B*H, nq] fp32). Head dim 64 only; any other returns
-// cudaErrorInvalidValue.
+// logsumexp `lse` ([B*H, nq] fp32), by the 64-wide Hopper kernel. Any other
+// head dim returns cudaErrorInvalidValue.
 int mt_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int nq,
                                int nk, int D, int ldq, int ldkv, int ldo,
                                float scale, void* stream) {
   if (D != 64) return (int)cudaErrorInvalidValue;
-  return launch<64, 64, 64, 4, true, true>(
-      q, k, v, nullptr, o, static_cast<float*>(lse), B, H, nq, nk, ldq, ldkv,
-      ldo, scale, static_cast<cudaStream_t>(stream));
+  return mt_flash_fwd_sm90(q, k, v, nullptr, o, lse, B, H, nq, nk, ldq, ldkv,
+                           ldo, scale, 1, stream);
 }
 
 const char* mt_cuda_error_string(int err) {

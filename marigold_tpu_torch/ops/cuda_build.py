@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each library is one or more sources under `marigold_tpu_torch/csrc/`,
-compiled by `nvcc` for Hopper (`sm_90a`) into a shared library with a plain
-C interface and loaded with `ctypes`. The build runs at first use into
+compiled by `nvcc` for Hopper (`sm_90a`), one process per source, all
+started together, and linked into a shared library with a plain C interface
+that is loaded with `ctypes`. The build runs at first use into
 `marigold_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of the sources
 and the flags, so an edit or a flag change rebuilds and an unchanged tree
 reuses what is there. Only sources in the repository are compiled.
@@ -22,9 +23,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into build.log
 )
 
@@ -65,17 +66,35 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     seconds = 0.0
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC_DIR / s) for s in sources)]
+        nvcc = find_nvcc()
+        pid = os.getpid()
+        objs = [so.with_name(f"{Path(src).stem}.{pid}.o") for src in sources]
+        tmp = so.with_name(f"{so.name}.{pid}.tmp")
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / src)]
+                for src, obj in zip(sources, objs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate() for proc in procs]
+        runs = [(cmd, proc.returncode, *out)
+                for cmd, proc, out in zip(cmds, procs, outs)]
+        if all(rc == 0 for _, rc, _, _ in runs):
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            runs.append((cmd, proc.returncode, proc.stdout, proc.stderr))
         seconds = time.perf_counter() - t0
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+        log.write_text("".join(" ".join(cmd) + "\n" + out + err
+                               for cmd, _, out, err in runs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        failed = [(cmd, rc, err) for cmd, rc, _, err in runs if rc != 0]
+        if failed:
+            cmd, rc, err = failed[0]
             raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode} building "
-                f"{name}:\n{proc.stderr}"
+                f"nvcc failed with exit code {rc} building {name} "
+                f"({' '.join(cmd[-2:])}):\n{err}"
             )
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the Hopper flash kernels (serving forward,
 training forward with the logsumexp, dQ and dK/dV backward, the folded
-entry) and the 3x3 conv kernels (nine-tap, Winograd) against their plain
+entry; every 64-wide forward is the wgmma/TMA kernel of
+csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles) and the 3x3 conv kernels (nine-tap, Winograd) against their plain
 PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slice on the card against the CPU at E=1 and
 E=3. They skip without a CUDA device.
@@ -45,6 +46,9 @@ def _qkv(gen, b, n, c, dtype=torch.bfloat16):
     (3, 1030, 640, 10),  # d=64, 10 heads
     (1, 1100, 512, 1),   # d=512, ragged against the 32-row tiles
     (1, 77, 64, 1),      # fewer rows than one tile
+    (1, 129, 64, 1),     # d=64: one key past a 128-key tile
+    (1, 1025, 128, 2),   # d=64: one key past 8 tiles, two heads
+    (10, 2304, 640, 10),  # d=64: the E=10 rows at UNet level 1
 ])
 def test_kernel_matches_plain(cuda, b, n, c, heads, softmax):
     q, k, v = _qkv(cuda, b, n, c)
@@ -60,6 +64,24 @@ def test_kernel_matches_plain(cuda, b, n, c, heads, softmax):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def test_shifted_kernel_clamps_a_spiky_key(cuda):
+    """One key column 200x larger, missed by the shift's stride-4 subsample
+    (tests/test_flash_attention.py's spiky-K case): exp(min(s - shift, 75))
+    engages the clamp, and the kernel clamps as the plain version does."""
+    q, k, v = _qkv(cuda, 1, 512, 64)
+    k[0, 137] *= 200.0
+    before = fa.launches["shifted_d64"]
+    out = fa.flash_attention(q, k, v, 1, "shifted")
+    assert fa.launches["shifted_d64"] == before + 1
+    ref = fa.flash_attention_plain(q, k, v, 1, "shifted")
+    torch.cuda.synchronize()
+    s = (q[0].float() @ k[0].float().T) / 8.0
+    assert (s - fa.row_shift(q, k, 1)[0][:, None]).max().item() > fa.EXP_CLAMP
+    assert bool(torch.isfinite(out.float()).all())
+    tol = 1e-2 * ref.float().abs().max().item() + 1e-3
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 128, 64)
     with pytest.raises(NotImplementedError):
@@ -71,6 +93,12 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     nc = torch.randn((1, 64, 128), device="cuda").to(torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(nc, k, v, 1)
+    flat = torch.zeros(128 * 64 + 8, device="cuda", dtype=torch.bfloat16)
+    off = flat[1:1 + 128 * 64].view(1, 128, 64)  # 2 bytes past 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(off, k, v, 1)
+    with pytest.raises(ValueError, match="no rows"):
+        fa.flash_attention(q[:, :0], k[:, :0], v[:, :0], 1)
 
 
 def test_dispatch_takes_the_kernel_only_for_long_self_attention(cuda):
@@ -259,6 +287,7 @@ def test_folded_flash_matches_plain(cuda, bh, n, d):
     (2, 1300, 1300, 320, 5),  # ragged against the 64-row tiles, B > 1
     (1, 77, 200, 64, 1),      # fewer q rows than one tile, nq != nk
     (1, 1100, 700, 128, 2),   # nq > nk
+    (1, 1000, 1300, 128, 2),  # nq < nk, both ragged against 128
 ])
 def test_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     q, g = (torch.randn((b, nq, c), generator=cuda, device="cuda").to(torch.bfloat16)

@@ -98,6 +98,26 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing(rng):
     assert sum(fa.launches.values()) == before
 
 
+def test_check_tma_takes_what_the_tensor_maps_take():
+    """The 64-wide kernel's TMA preconditions, checked on CPU tensors: a
+    16-byte aligned base, a row stride that is a multiple of 16 bytes, at
+    least one row. Contiguous [B, N, 64*H] bf16 tensors always pass."""
+    ok = torch.zeros(2, 130, 320, dtype=torch.bfloat16)
+    fa.check_tma({"q": ok, "k": ok[:1, :1]})
+    flat = torch.zeros(4 * 64 + 16, dtype=torch.bfloat16)
+    for shift, aligned in ((0, True), (1, False), (8, True)):
+        t = flat[shift:shift + 4 * 64].view(1, 4, 64)
+        if aligned:
+            fa.check_tma({"q": t})
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fa.check_tma({"q": t})
+    with pytest.raises(ValueError, match="row stride of 120 bytes"):
+        fa.check_tma({"k": torch.zeros(1, 3, 60, dtype=torch.bfloat16)})
+    with pytest.raises(ValueError, match="no rows"):
+        fa.check_tma({"v": ok[:, :0]})
+
+
 def test_wrapper_rejects_bad_inputs():
     q = torch.zeros(1, 8, 64)
     with pytest.raises(ValueError):
