@@ -6,15 +6,16 @@ Phases, none of which catches its own failure:
   1. the card: its name and power limit (nvidia-smi);
   2. build every kernel library from marigold_tpu_torch/csrc, one nvcc per
      source, all started together (ptxas registers, spills and warnings
-     printed, and the HGMMA count of each wgmma kernel's SASS where the
-     toolkit has cuobjdump);
+     printed, and the HGMMA count of each kernel's SASS in the flash and
+     conv libraries where the toolkit has cuobjdump);
   3. each kernel against its plain PyTorch version at the main path's shapes
      (flash forward in both softmax modes, also at the E=10 rows' level-0
      shape, the folded flash entry, the nine-tap and Winograd 3x3 convs, the
      training flash kernels), with errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
-     function and, beside the shifted kernel, its row shift, and the bound
-     from bytes and operations;
+     function and, beside the shifted kernel, its row shift, beside the
+     conv kernels their weight rearrangement and blocks launched, and the
+     bound from bytes and operations;
   4. a full-SD2-width checkpoint with random weights from a seed, written in
      diffusers layout and loaded through MarigoldDepthPipeline.from_pretrained;
   5. serving at E=1: single-image requests and one batch, checked for shape,
@@ -23,9 +24,10 @@ Phases, none of which catches its own failure:
      torch.profiler breakdown per softmax mode;
   6. the E=10 protocol (4 steps, 768 px): __call__ and batch_call of 3
      images, exact launch counts, the ensemble solve's time, iterations and
-     host syncs, a reference-exact (host scipy) request, one request under
-     each opt-in conv kernel (MARIGOLD_TPU_CONV=pallas, winograd) with exact
-     conv launch counts against the default map, and a profile;
+     host syncs, a reference-exact (host scipy) request, two requests
+     (first and warm) under each opt-in conv kernel (MARIGOLD_TPU_CONV=pallas,
+     winograd) with exact conv launch counts against the default map, and a
+     profile;
   7. the folded flash entry at its two shapes;
   8. training at full SD2 width (the depth fine-tuning recipe).
 Prints the card's name and power limit, a JSON line of kernels, then, last,
@@ -89,9 +91,9 @@ def build_kernels():
                                            "C75", "arning")):
                     print("  ptxas:", line.strip(), flush=True)
     print(f"build: {len(builds)} libraries in {wall:.2f} s", flush=True)
-    print_hgmma(os.path.join(os.path.dirname(
-        cuda_build.BUILD_INFO["flash_attention"]["log"]),
-        "libflash_attention.so"))
+    for name in ("flash_attention", "conv3x3", "winograd"):  # the wgmma ones
+        print_hgmma(os.path.join(os.path.dirname(
+            cuda_build.BUILD_INFO[name]["log"]), f"lib{name}.so"))
 
 
 def print_hgmma(lib: str) -> None:
@@ -866,13 +868,42 @@ CONV_CASES = [
 CONV_ROW_CASE = "unet_1280"
 
 
+def launch_split(fn, iters: int = 5) -> str:
+    """Mean device ms per call of each kernel that fn() launches, from
+    torch.profiler over `iters` calls (after one warm-up call)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    def short(key):
+        m = re.search(r"(\w+_kernel)(<\w+>)?", key)
+        return m.group(0) if m else key[:40]
+
+    return ", ".join(f"{short(e.key)} {e.self_device_time_total / 1e3 / iters:.3f}"
+                     for e in sorted(events, key=lambda e: -e.self_device_time_total))
+
+
 def check_conv_kernels() -> dict:
     """Kernels 8 and 9 against their plain versions at CONV_CASES: errors,
-    CUDA-event times of the kernel (weight rearrangement included), the
-    plain version and F.conv2d (cuDNN, bf16), and bounds. Tolerance: both
-    sum exact bf16 products (Winograd: identically rounded U and V) in fp32
-    in another order and round the output to bf16, TOL_REL * max|ref| +
-    TOL_ABS."""
+    CUDA-event times of the kernel on its rearranged weight (what the
+    serving path's cached Conv2d runs: "ms"), of the whole call with the
+    weight rearrangement ("call_ms") and of the rearrangement alone
+    ("rearrange_ms"), the device time of each launch inside "ms" (the
+    nine-tap's NHWC copy of x and conv, Winograd's input transform and
+    GEMM; PyTorch's permute-copy to NHWC beside them for scale), the plain
+    version and F.conv2d (cuDNN, bf16), the blocks launched (against 132
+    SMs), and bounds. Tolerance: both sum exact bf16 products
+    (Winograd: identically rounded U and V) in fp32 in another order and
+    round the output to bf16, TOL_REL * max|ref| + TOL_ABS."""
     import torch
     import torch.nn.functional as F
 
@@ -881,45 +912,56 @@ def check_conv_kernels() -> dict:
 
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    kernels = (("conv3x3", conv_ops.conv3x3, conv_ops.conv3x3_plain, 18),
-               ("winograd", wino_ops.winograd3x3, wino_ops.winograd3x3_plain, 8))
+    kernels = (("conv3x3", conv_ops, conv_ops.conv3x3, conv_ops.conv3x3_plain,
+                conv_ops.taps, 18),
+               ("winograd", wino_ops, wino_ops.winograd3x3,
+                wino_ops.winograd3x3_plain, wino_ops.filter_transform, 8))
     for name, b, c, k, hw in CONV_CASES:
         x = torch.randn((b, c, hw, hw), generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.randn((k, c, 3, 3), generator=gen, device="cuda")
              / (3.0 * c ** 0.5)).to(torch.bfloat16)
         bias = torch.randn((k,), generator=gen, device="cuda").to(torch.bfloat16)
         lib_ms = _time_ms(lambda: F.conv2d(x, w, bias, padding=1), 10)
+        nhwc_ms = _time_ms(lambda: x.permute(0, 2, 3, 1).contiguous(), 10)
         nbytes = 2 * (x.numel() + w.numel() + k + b * k * hw * hw)
-        for kname, fn, plain, flops_per_px_ck in kernels:
-            out = fn(x, w, bias)
+        for kname, mod, fn, plain, prepare, flops_per_px_ck in kernels:
+            prepared = prepare(w)
+            out = fn(x, w, bias, prepared=prepared)
             ref = plain(x, w, bias)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tol = TOL_REL * ref.float().abs().max().item() + TOL_ABS
-            ms = _time_ms(lambda: fn(x, w, bias), 10)
+            ms = _time_ms(lambda: fn(x, w, bias, prepared=prepared), 10)
+            call_ms = _time_ms(lambda: fn(x, w, bias), 10)
+            prep_ms = _time_ms(lambda: prepare(w), 10)
             plain_ms = _time_ms(lambda: plain(x, w, bias), 3)
             flops = flops_per_px_ck * b * hw * hw * c * k
             b_ms, b_by = bound(flops, nbytes)
             direct_ms, _ = bound(18 * b * hw * hw * c * k, nbytes)
+            n_blocks = mod.blocks(b, c, hw, hw, k)
+            split = launch_split(lambda: fn(x, w, bias, prepared=prepared))
             print(f"kernel {kname:8s} {name:15s} [{b},{c},{hw},{hw}]->{k}: "
                   f"max_abs_err {err:.3e} tol {tol:.3e} | kernel {ms:.3f} ms "
                   f"({18.0 * b * hw * hw * c * k / ms / 1e9:.1f} direct-conv "
-                  f"TFLOP/s) plain {plain_ms:.3f} ms cudnn {lib_ms:.3f} ms "
-                  f"bound {b_ms:.3f} ms ({b_by}; direct conv {direct_ms:.3f})",
+                  f"TFLOP/s"
+                  + (f"; NHWC copy of x by PyTorch's permute {nhwc_ms:.3f} ms"
+                     if kname == "conv3x3" else "")
+                  + f") call with the weight rearrangement {call_ms:.3f} ms "
+                  f"(rearrangement {prep_ms:.3f} ms = "
+                  f"{100.0 * prep_ms / call_ms:.1f}% of the call) plain "
+                  f"{plain_ms:.3f} ms cudnn {lib_ms:.3f} ms bound {b_ms:.3f} "
+                  f"ms ({b_by}; direct conv {direct_ms:.3f}) blocks "
+                  f"{n_blocks} (132 SMs); device ms per launch: {split}",
                   flush=True)
             if not err <= tol or not bool(torch.isfinite(out.float()).all()):
                 _fail(f"{kname} {name}: max_abs_err {err} > {tol}")
             results[(kname, name)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, direct_bound_ms=direct_ms)
-            del out, ref
+                bound_ms=b_ms, bound_by=b_by, direct_bound_ms=direct_ms,
+                call_ms=call_ms, rearrange_ms=prep_ms, blocks=n_blocks)
+            del out, ref, prepared
         del x
         torch.cuda.empty_cache()
-    w = torch.randn((1280, 2560, 3, 3), device="cuda").to(torch.bfloat16)
-    print(f"weight rearrangement per call at 2560->1280: taps "
-          f"{_time_ms(lambda: conv_ops.taps(w), 10):.3f} ms, Winograd filter "
-          f"transform {_time_ms(lambda: wino_ops.filter_transform(w), 10):.3f} ms",
-          flush=True)
     return results
 
 
@@ -1062,7 +1104,8 @@ def serve_ensembles(pipe) -> dict:
           f"{ms:.1f} ms, of which the host scipy solve {solve_ms[0]:.1f} ms",
           flush=True)
 
-    # one E=10 request under each opt-in conv kernel
+    # two E=10 requests under each opt-in conv kernel: the first fills the
+    # Conv2d weight caches, the second is warm
     conv_counts = {}
     (_, _), chunks, decodes = request_chunks(pipe, (768, 768), None, E)
     for mode, counter, key in (("pallas", conv_ops.launches, "conv3x3"),
@@ -1070,23 +1113,32 @@ def serve_ensembles(pipe) -> dict:
         n = gated_convs(pipe, (768, 768), mode)
         want = n["encode"] + n["unet"] * steps * chunks + n["decode"] * decodes
         layers._CONV_IMPL = mode
+        mode_ms, mode_solve, total = [], [], 0
         try:
-            counter.clear()
-            out, ms = _timed(request)
-            got = dict(counter)
+            for _ in range(2):
+                counter.clear()
+                out, ms = _timed(request)
+                got = dict(counter)
+                total += got.get(key, 0)
+                mode_ms.append(ms)
+                mode_solve.append(solve_ms[-1])
+                check_map(out.depth_np, (768, 768), f"E={E} under {mode}")
+                check_unc(out, f"E={E} under {mode}")
+                if got != {key: want}:
+                    _fail(f"{mode}: conv launches {got} != {want} ({n} per "
+                          "call)")
         finally:
             layers._CONV_IMPL = "xla"
-        check_map(out.depth_np, (768, 768), f"E={E} under {mode}")
-        check_unc(out, f"E={E} under {mode}")
-        if got != {key: want}:
-            _fail(f"{mode}: conv launches {got} != {want} ({n} per call)")
         diff = (members[0] - default_members).abs()
         d_max, d_mean = diff.max().item(), diff.mean().item()
         d_map = np.abs(out.depth_np - default_map)
         tol_max, tol_mean = CONV_MEMBER_TOL[mode]
-        print(f"E={E} __call__ under MARIGOLD_TPU_CONV={mode}: {ms:.1f} ms/map "
-              f"(first request in this mode), solve {solve_ms[-1]:.1f} ms; "
-              f"{key} launches {want} = {n['encode']} encode + {n['unet']} x "
+        print(f"E={E} __call__ under MARIGOLD_TPU_CONV={mode}: first "
+              f"{mode_ms[0]:.1f} ms/map, warm {mode_ms[1]:.1f} ms/map (default "
+              f"cuDNN request warm {times[1]:.1f}, {times[2]:.1f} ms/map), "
+              f"solves {mode_solve[0]:.1f}, {mode_solve[1]:.1f} ms; "
+              f"{key} launches {want} per request = {n['encode']} encode + "
+              f"{n['unet']} x "
               f"{steps} steps x {chunks} + {n['decode']} x {decodes} decode, as "
               f"expected; the {E} decoded members against the default conv's: "
               f"max {d_max:.3e} mean {d_mean:.3e} (tol {tol_max}, {tol_mean}); "
@@ -1095,7 +1147,13 @@ def serve_ensembles(pipe) -> dict:
         if not (d_max <= tol_max and d_mean <= tol_mean):
             _fail(f"{mode}: members differ from the default conv's by max "
                   f"{d_max} mean {d_mean}")
-        conv_counts[key] = want
+        conv_counts[key] = total
+        layers._CONV_IMPL = mode
+        try:
+            profile_request(request, what=f"one E={E} 768x768 request under "
+                            f"MARIGOLD_TPU_CONV={mode}")
+        finally:
+            layers._CONV_IMPL = "xla"
     base.ensemble_depth = ensemble_depth
 
     print(f"one E={E} 768x768 request:", flush=True)
@@ -1115,7 +1173,7 @@ def conv_kernel_rows(results: dict, counts: dict) -> list:
             "source": f"marigold_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": counts.get(kname, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
-            **{k: timed[k] for k in ROW_TIMES},
+            **{k: timed[k] for k in ROW_TIMES + ("call_ms", "rearrange_ms")},
         })
     return rows
 
@@ -1150,7 +1208,8 @@ TRAIN_PROJ_TOL = 2e-1
 TRAIN_CLASSES = [("flash backward (dQ, dK/dV)", r"flash_bwd_"),
                  ("flash forward", r"flash_fwd"),
                  ("cudnn NCHW<->NHWC copies", r"nchwToNhwc|nhwcToNchw"),
-                 ("conv (fprop, dgrad, wgrad)", r"fprop|dgrad|wgrad|conv|winograd"),
+                 ("conv (fprop, dgrad, wgrad)",
+                  r"fprop|dgrad|wgrad|conv|winograd|nchw_to_nhwc"),
                  ("gemm", r"gemm|cutlass|cublas|matmul"),
                  ("norm/elementwise/optimizer/other", r".")]
 
@@ -1462,7 +1521,7 @@ def train_kernel_rows(results: dict, counts: dict) -> list:
 
 SERVE_CLASSES = [("flash", r"flash_fwd"),
                  ("cudnn NCHW<->NHWC copies", r"nchwToNhwc|nhwcToNchw"),
-                 ("conv", r"fprop|dgrad|conv|winograd"),
+                 ("conv", r"fprop|dgrad|conv|winograd|nchw_to_nhwc"),
                  ("gemm", r"gemm|cutlass|cublas|matmul"),
                  ("norm/elementwise/other", r".")]
 

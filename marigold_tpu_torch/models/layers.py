@@ -24,7 +24,9 @@ CPU tensor a kernel mode runs the kernel's plain version, so CPU runs
 exercise the dispatch (the JAX package instead drops to XLA off the TPU
 unless MARIGOLD_TPU_CONV_INTERPRET=1). With grad enabled a kernel conv runs
 through `ops.conv.KernelConvFunction`, whose backward is the plain conv
-gradient. Tests switch the mode by setting `_CONV_IMPL`.
+gradient. Without grad, on the card, the kernel takes its rearranged weight
+from `Conv2d.prepared_weight`, a cache that follows every change of the
+weight. Tests switch the mode by setting `_CONV_IMPL`.
 """
 
 from __future__ import annotations
@@ -63,20 +65,49 @@ class Conv2d(nn.Conv2d):
     """nn.Conv2d (diffusers names `weight`, `bias`) through the conv
     dispatch."""
 
+    def __getattr__(self, name: str):
+        # A write through `conv.weight.data` does not bump the weight's
+        # `_version`, so fetching `conv.weight` (the way to such a write)
+        # drops the kernel's cached weight. The module itself reads
+        # `_parameters["weight"]`.
+        if name == "weight":
+            self.__dict__.pop("_prepared", None)
+        return super().__getattr__(name)
+
+    def prepared_weight(self, impl: str) -> torch.Tensor:
+        """The weight as kernel `impl` reads it (`ops.conv.taps` for
+        "pallas", `ops.winograd.filter_transform` for "winograd"), computed
+        once and reused until the weight changes: the cache is keyed on the
+        weight's `data_ptr()` and `_version`, which an in-place update, an
+        optimizer step and a load change, and is dropped when `conv.weight`
+        is fetched from outside (see `__getattr__`)."""
+        w = self._parameters["weight"]
+        key = (impl, w.data_ptr(), w._version, w.dtype, w.device)
+        cached = self.__dict__.get("_prepared")
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                prep = (conv_ops.taps(w) if impl == "pallas"
+                        else winograd_ops.filter_transform(w))
+            cached = self.__dict__["_prepared"] = (key, prep)
+        return cached[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = self._parameters["weight"]
         impl = None
         if self.groups == 1 and tuple(self.dilation) == (1, 1):
-            impl = conv_impl_for(x.shape, self.weight.shape, self.stride,
+            impl = conv_impl_for(x.shape, weight.shape, self.stride,
                                  self.padding, x.dtype)
         if impl is None:
-            return super().forward(x)
+            return self._conv_forward(x, weight, self.bias)
         fn = conv_ops.conv3x3 if impl == "pallas" else winograd_ops.winograd3x3
         bias = (self.bias if self.bias is not None
-                else torch.zeros_like(self.weight[:, 0, 0, 0]))
-        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                else torch.zeros_like(weight[:, 0, 0, 0]))
+        if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                         or bias.requires_grad):
-            return conv_ops.KernelConvFunction.apply(x, self.weight, bias, fn)
-        return fn(x, self.weight, bias)
+            return conv_ops.KernelConvFunction.apply(x, weight, bias, fn)
+        if x.device.type == "cpu":  # the plain version rearranges itself
+            return fn(x, weight, bias)
+        return fn(x, weight, bias, prepared=self.prepared_weight(impl))
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -9,12 +9,15 @@ nine-tap kernel, opt-in under MARIGOLD_TPU_CONV=pallas):
         + sum_{dy, dx, c} x[b, c, h + dy - 1, w + dx - 1] * W[k, c, dy, dx]
 
 with fp32 accumulation and the result in the input's dtype. The port takes
-NCHW activations and OIHW weights as the models hold them; the wrapper
-rearranges the weight tap-major into `[9, K, C]` on every call (the TPU
-wrapper's `[9, C, K]` with C innermost, the layout the kernel's
-column-major B operand reads). The TPU wrapper's H padding, flattening and
-column-wrap masks are layout artifacts of its DMA windows; the kernel masks
-the zero padding in its loads instead.
+NCHW activations and OIHW weights as the models hold them. The wrapper
+rearranges the weight tap-major into `[9, K, C]` (C innermost: the K-major
+B operand the kernel's TMA reads), unless the caller passes it already
+rearranged (`prepared=`, what `models/layers.py:Conv2d` caches), and
+allocates the NHWC scratch that the library's first launch fills with a
+copy of x, so that each (tap, 64-channel block) of the A operand is one TMA
+box of 64 pixels x 128 bytes, as the TPU wrapper pads and flattens x
+outside its kernel. The TPU wrapper's H padding and column-wrap masks have
+no counterpart: TMA reads the SAME padding as zeros.
 
 `supports` is the TPU package's gate (3x3, stride 1, padding 1, C and K at
 least 128 and multiples of 128, bf16 or fp32) without the TPU VMEM plan
@@ -88,11 +91,18 @@ def _library() -> ctypes.CDLL:
     fn = lib.mt_conv3x3_fwd
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.mt_conv3x3_blocks.argtypes = [i] * 5
+        lib.mt_conv3x3_blocks.restype = i
         lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def blocks(b: int, c: int, h: int, w: int, k: int) -> int:
+    """Blocks the kernel launches for x [b, c, h, w] -> k channels."""
+    return _library().mt_conv3x3_blocks(b, c, h, w, k)
 
 
 def check_cuda(x, weight, bias, what: str) -> None:
@@ -122,6 +132,19 @@ def check_cuda(x, weight, bias, what: str) -> None:
             "KernelConvFunction (models/layers.py's Conv2d does)")
 
 
+def check_prepared(prepared: torch.Tensor, shape: tuple, x: torch.Tensor,
+                   what: str) -> None:
+    """A rearranged weight handed to a kernel: bf16, contiguous, on x's
+    device, of `shape`, 16-byte aligned (TMA reads it)."""
+    if prepared.dtype != torch.bfloat16 or prepared.device != x.device or \
+            not prepared.is_contiguous() or tuple(prepared.shape) != shape or \
+            prepared.data_ptr() % 16:
+        raise ValueError(
+            f"{what}: the prepared weight must be a contiguous 16-byte aligned "
+            f"bf16 {shape} tensor on {x.device}, got {prepared.dtype} "
+            f"{tuple(prepared.shape)} on {prepared.device}")
+
+
 def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
@@ -129,24 +152,29 @@ def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"(cudaError {err})")
 
 
-def conv3x3(x: torch.Tensor, weight: torch.Tensor,
-            bias: torch.Tensor) -> torch.Tensor:
+def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+            prepared: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, C, H, W] * weight [K, C, 3, 3] + bias [K] -> [B, K, H, W],
     SAME padding, stride 1. On a CUDA tensor this launches the Hopper
     kernel (bf16; C, K multiples of 128; no autograd) or raises; on a CPU
-    tensor it runs `conv3x3_plain`."""
+    tensor it runs `conv3x3_plain`. `prepared`, if given, is `taps(weight)`
+    computed earlier (the CPU path ignores it)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias)
     check_cuda(x, weight, bias, "conv3x3")
     b, c, h, w = x.shape
     k = weight.shape[0]
-    w9 = taps(weight)
+    if prepared is None:
+        prepared = taps(weight)
+    check_prepared(prepared, (9, k, c), x, "conv3x3")
+    x_nhwc = torch.empty((b, h, w, c), device=x.device, dtype=x.dtype)
     out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.mt_conv3x3_fwd(
-            x.data_ptr(), w9.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, c, h, w, k, torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
+            x_nhwc.data_ptr(), out.data_ptr(), b, c, h, w, k,
+            torch.cuda.current_stream().cuda_stream)
     raise_on(lib, err, "conv3x3")
     launches["conv3x3"] += 1
     return out

@@ -4,9 +4,10 @@ Each library is one or more sources under `marigold_tpu_torch/csrc/`,
 compiled by `nvcc` for Hopper (`sm_90a`), one process per source, all
 started together, and linked into a shared library with a plain C interface
 that is loaded with `ctypes`. The build runs at first use into
-`marigold_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of the sources
-and the flags, so an edit or a flag change rebuilds and an unchanged tree
-reuses what is there. Only sources in the repository are compiled.
+`marigold_tpu_torch/_build/<name>-<hash>/`, keyed by a hash of the sources,
+every header under `csrc/` and the flags (`build_key`), so an edit or a
+flag change rebuilds and an unchanged tree reuses what is there. Only
+sources in the repository are compiled.
 """
 
 from __future__ import annotations
@@ -52,16 +53,23 @@ def find_nvcc() -> str:
     )
 
 
+def build_key(sources: tuple[str, ...], csrc: Path = CSRC_DIR) -> str:
+    """The build directory's hash: the names and bytes of `sources`, of every
+    `*.cuh` under `csrc` (any source may include any of them) and the nvcc
+    flags."""
+    h = hashlib.sha256()
+    for path in [csrc / src for src in sources] + sorted(csrc.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Compile (if needed) and load `lib<name>.so` from `csrc/<sources>`."""
     if name in _LIBS:
         return _LIBS[name]
-    h = hashlib.sha256()
-    for src in sources:
-        h.update(src.encode())
-        h.update((CSRC_DIR / src).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+    so = BUILD_DIR / f"{name}-{build_key(sources)}" / f"lib{name}.so"
     log = so.parent / "build.log"
     seconds = 0.0
     if not so.exists():

@@ -20,9 +20,12 @@ TPU wrapper does. V is summed in fp32 and rounded once to the input dtype
 fp32 and so do the output transform and the bias. The plain version rounds
 at the same places.
 
-The TPU wrapper's pixel unshuffle into four phases and its 8-aligned phase
-width exist to give Mosaic unit-stride slices; the kernel reads each 4x4
-patch from NCHW with predicated loads instead.
+The wrapper computes U (unless the caller passes it, `prepared=`, what
+`models/layers.py:Conv2d` caches) and allocates the scratch V
+[16, B * H/2 * W/2, C] that the kernel's first launch writes and its
+second reads. The TPU wrapper's pixel unshuffle into four phases and its
+8-aligned phase width exist to give Mosaic unit-stride slices; the input
+transform reads x's rows from NCHW instead.
 
 `supports` is the TPU package's gate (that of `ops/conv.py` plus even H and
 W, and H*W at most MARIGOLD_TPU_WINO_MAX_HW when that is set and non-zero,
@@ -98,19 +101,28 @@ def _library() -> ctypes.CDLL:
     fn = lib.mt_winograd_fwd
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.mt_winograd_blocks.argtypes = [i] * 5
+        lib.mt_winograd_blocks.restype = i
         lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def winograd3x3(x: torch.Tensor, weight: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+def blocks(b: int, c: int, h: int, w: int, k: int) -> int:
+    """Blocks of the kernel's GEMM launch for x [b, c, h, w] -> k."""
+    return _library().mt_winograd_blocks(b, c, h, w, k)
+
+
+def winograd3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                *, prepared: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, C, H, W] * weight [K, C, 3, 3] + bias [K] -> [B, K, H, W] by
     F(2x2, 3x3), SAME padding, stride 1, H and W even. On a CUDA tensor
-    this launches the Hopper kernel (bf16; C, K multiples of 128; no
-    autograd) or raises; on a CPU tensor it runs `winograd3x3_plain`."""
+    this launches the Hopper kernels (bf16; C, K multiples of 128; no
+    autograd) or raises; on a CPU tensor it runs `winograd3x3_plain`.
+    `prepared`, if given, is `filter_transform(weight)` computed earlier
+    (the CPU path ignores it)."""
     if x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"winograd3x3 takes even H and W, got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -118,13 +130,18 @@ def winograd3x3(x: torch.Tensor, weight: torch.Tensor,
     conv_ops.check_cuda(x, weight, bias, "winograd")
     b, c, h, w = x.shape
     k = weight.shape[0]
-    u = filter_transform(weight)
+    if prepared is None:
+        prepared = filter_transform(weight)
+    conv_ops.check_prepared(prepared, (16, k, c), x, "winograd")
+    v = torch.empty((16, b * (h // 2) * (w // 2), c), device=x.device,
+                    dtype=x.dtype)
     out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.mt_winograd_fwd(
-            x.data_ptr(), u.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, c, h, w, k, torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), prepared.data_ptr(), bias.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, c, h, w, k,
+            torch.cuda.current_stream().cuda_stream)
     conv_ops.raise_on(lib, err, "winograd")
     launches["winograd"] += 1
     return out

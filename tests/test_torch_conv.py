@@ -244,3 +244,54 @@ def test_vae_decode_through_the_dispatch_matches_jax(monkeypatch, impl):
     # (8) and one upsampler
     assert seen == [{"pallas": "conv3x3", "winograd": "winograd3x3"}[impl]] * 13
     _close(got.numpy().transpose(0, 2, 3, 1), ref, 1e-4)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "winograd"])
+def test_cached_kernel_weight_follows_the_weight(monkeypatch, impl):
+    """Conv2d's rearranged weight (what the kernels read on the card) is
+    reused while the weight is unchanged and recomputed after an in-place
+    update, whether it bumps `_version` or goes through `.data` (which does
+    not); the next output follows the new weight."""
+    monkeypatch.setattr(TL, "_CONV_IMPL", impl)
+    prepare = tconv.taps if impl == "pallas" else twino.filter_transform
+    torch.manual_seed(0)
+    conv = TL.Conv2d(128, 128, 3, padding=1).eval().requires_grad_(False)
+    x = torch.randn(1, 128, 6, 8)
+    w = conv.weight
+    first = conv.prepared_weight(impl)
+    assert conv.prepared_weight(impl) is first
+    torch.testing.assert_close(first, prepare(w), rtol=0, atol=0)
+    with torch.no_grad():
+        out0 = conv(x)
+        w.mul_(0.5)  # bumps _version; no fetch of conv.weight
+        halved = conv.prepared_weight(impl)
+        torch.testing.assert_close(halved, prepare(w), rtol=0, atol=0)
+        version = w._version
+        conv.weight.data.add_(0.25)  # leaves _version as it is
+        assert w._version == version
+        shifted = conv.prepared_weight(impl)
+        torch.testing.assert_close(shifted, prepare(w), rtol=0, atol=0)
+        out1 = conv(x)
+    assert not torch.allclose(out0, out1)
+    ref = F.conv2d(x, w, conv.bias, padding=1)
+    np.testing.assert_allclose(out1.numpy(), ref.numpy(), atol=1e-4, rtol=0)
+
+
+def test_build_key_covers_every_header(tmp_path):
+    """A kernel library's build directory changes with the bytes of its
+    sources and of any header under csrc/, so a header edit rebuilds."""
+    from marigold_tpu_torch.ops import cuda_build
+
+    (tmp_path / "a.cu").write_bytes(b'#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_bytes(b"// v1\n")
+    key = cuda_build.build_key(("a.cu",), tmp_path)
+    assert cuda_build.build_key(("a.cu",), tmp_path) == key
+    (tmp_path / "h.cuh").write_bytes(b"// v2\n")
+    after_header = cuda_build.build_key(("a.cu",), tmp_path)
+    assert after_header != key
+    (tmp_path / "b.cuh").write_bytes(b"")
+    assert cuda_build.build_key(("a.cu",), tmp_path) != after_header
+    (tmp_path / "a.cu").write_bytes(b'#include "h.cuh"\n// edit\n')
+    assert cuda_build.build_key(("a.cu",), tmp_path) not in (key, after_header)
+    # the repository's own sources: the header enters every library's key
+    assert "sm90.cuh" in {p.name for p in cuda_build.CSRC_DIR.glob("*.cuh")}

@@ -215,6 +215,10 @@ def _conv_inputs(gen, b, c, h, w, k):
     (1, 256, 10, 34, 384),   # ragged against the tiles in H and W
     (3, 640, 24, 24, 640),   # a UNet level
     (1, 2560, 6, 8, 1280),   # the widest skip input
+    (10, 2560, 12, 12, 1280),  # W = 12 at B = 10: the small grid
+    (3, 256, 22, 46, 256),   # box and tile counts not multiples of a block
+    (1, 128, 768, 768, 128),  # the 768 px VAE level at batch 1
+    (2, 512, 16, 48, 640),   # H != W, K not a multiple of 256
 ])
 def test_conv_kernels_match_plain(cuda, kernel, b, c, h, w, k):
     x, wt, bias = _conv_inputs(cuda, b, c, h, w, k)
@@ -233,6 +237,17 @@ def test_conv_kernels_match_plain(cuda, kernel, b, c, h, w, k):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def test_conv3x3_odd_pixel_count(cuda):
+    """H * W odd: the NHWC copy takes its scalar path (Winograd takes even H
+    and W only)."""
+    x, wt, bias = _conv_inputs(cuda, 2, 128, 9, 13, 256)
+    out = tconv.conv3x3(x, wt, bias)
+    ref = tconv.conv3x3_plain(x, wt, bias)
+    torch.cuda.synchronize()
+    tol = 1e-2 * ref.float().abs().max().item() + 1e-3
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
 def test_conv_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x, wt, bias = _conv_inputs(cuda, 1, 128, 8, 8, 128)
     for fn in (tconv.conv3x3, twino.winograd3x3):
@@ -243,6 +258,9 @@ def test_conv_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         with pytest.raises(RuntimeError, match="KernelConvFunction"):
             fn(x, wt.requires_grad_(), bias)
         wt.requires_grad_(False)
+        with pytest.raises(ValueError, match="prepared weight"):
+            fn(x, wt, bias, prepared=torch.zeros((3, 128, 128), device="cuda",
+                                                 dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="even"):
         twino.winograd3x3(x[:, :, :7].contiguous(), wt, bias)
 
@@ -267,6 +285,15 @@ def test_conv_dispatch_on_the_card(cuda, monkeypatch, impl):
     (conv(xg).float().sum()).backward()
     assert counter[key] == before + 2
     assert xg.grad is not None and conv.weight.grad is not None
+    # without grad the kernel reads the cached rearranged weight, which
+    # follows a write through .data
+    with torch.no_grad():
+        first = conv(x)
+        conv.weight.data.mul_(-1.0)
+        second = conv(x)
+    bias = conv.bias.float().reshape(1, -1, 1, 1)
+    torch.testing.assert_close(second.float() - bias, -(first.float() - bias),
+                               rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("bh,n,d", [(5, 1030, 64), (2, 77, 64), (1, 600, 512)])
