@@ -190,9 +190,10 @@ def attention_bound(b, heads, nq, nk, d, flops_per_pair, q_io, kv_io,
 
 # (name, B, N, C, heads): the main path's attention shapes at 768 px, the
 # ragged 576x768 latent, the clamp case of
-# tests/test_flash_attention.py::test_flash_dt_shifted_spiky_k_graceful, and
-# the E=10 rows of one request at level 0. The plain version runs one batch
-# row at a time ([1, H, N, N] fp32 logits).
+# tests/test_flash_attention.py::test_flash_dt_shifted_spiky_k_graceful, the
+# E=10 rows of one request at level 0, and the VAE mid attention of the E=10
+# decoder chunk, the ragged image and the training encode. The plain version
+# runs one batch row at a time ([1, H, N, N] fp32 logits).
 KERNEL_CASES = [
     ("unet_l0", 1, 9216, 320, 5),
     ("unet_l1", 1, 2304, 640, 10),
@@ -200,6 +201,9 @@ KERNEL_CASES = [
     ("vae_mid", 1, 9216, 512, 1),
     ("spiky_k", 1, 512, 64, 1),
     ("unet_l0_b10", 10, 9216, 320, 5),
+    ("vae_mid_b10", 10, 9216, 512, 1),
+    ("vae_mid_ragged", 1, 6912, 512, 1),
+    ("train_vae", 2, 4800, 512, 1),
 ]
 
 # Kernel rows of the JSON line: TPU pallas_call sites replaced, the source,
@@ -209,7 +213,8 @@ KERNEL_ROWS = [
     ("flash_shifted_d64", "marigold_tpu/ops/flash_attention.py:396",
      ("shifted", 64), "unet_l0", SM90_SOURCE),
     ("flash_shifted_d512", "marigold_tpu/ops/flash_attention.py:429",
-     ("shifted", 512), "vae_mid", "marigold_tpu_torch/csrc/flash_attention.cu"),
+     ("shifted", 512), "vae_mid",
+     "marigold_tpu_torch/csrc/flash_fwd_d512_sm90.cu"),
     ("flash_online", "marigold_tpu/ops/flash_attention.py:460",
      ("online", None), "unet_l0", SM90_SOURCE),
 ]

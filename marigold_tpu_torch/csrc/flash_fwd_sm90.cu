@@ -10,7 +10,7 @@
 //   * _flash_kernel_dt_lse      (online softmax + row logsumexp; :638)
 //   * _flash_kernel             (the folded [BH, N, D] entry; :522), which the
 //     wrapper runs as the online variant with one head per batch row.
-// The 512-wide VAE head stays on the first design in flash_attention.cu.
+// The 512-wide VAE head has its own kernel, flash_fwd_d512_sm90.cu.
 //
 // Math per (batch, head, query row r), s_j = (q_r . k_j) * scale, fp32:
 //   shifted: p_j = exp(min(s_j - shift_r, 75)), shift_r from the caller;

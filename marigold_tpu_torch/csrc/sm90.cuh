@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_fwd_sm90.cu, conv3x3.cu, winograd.cu): mbarriers, TMA loads and
-// stores, shared-memory matrix descriptors with the 128-byte swizzle, the
-// wgmma issue/fence/commit/wait wrappers, and cuTensorMapEncodeTiled taken
-// from the driver through the runtime's entry-point query (no -lcuda).
+// (flash_fwd_sm90.cu, flash_fwd_d512_sm90.cu, conv3x3.cu, winograd.cu):
+// mbarriers, TMA loads and stores, shared-memory matrix descriptors with the
+// 128-byte swizzle, the wgmma issue/fence/commit/wait wrappers, and
+// cuTensorMapEncodeTiled taken from the driver through the runtime's
+// entry-point query (no -lcuda).
 //
 // Accumulator layout of wgmma m64nN (per warpgroup thread t, warp w = t/32,
 // lane l): d[4j + e] is row 16w + l/4, column 8j + 2(l%4) + e, and
@@ -126,6 +127,14 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 1024, 1024);
 }
 
+// MN-major tile wider than one atom: N runs over 64-column atoms
+// `atom_bytes` apart (the leading offset); groups of 8 reduction rows are
+// 1024 bytes apart inside each atom (the stride offset).
+__device__ __forceinline__ uint64_t mnmajor_desc_wide(uint32_t addr,
+                                                      uint32_t atom_bytes) {
+  return sw128_desc(addr, atom_bytes, 1024);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -151,6 +160,26 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, A and B K-major in shared memory;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory;
@@ -210,7 +239,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
 }
 
 // d[64 x 256] (+)= A[64 x 16] B[256 x 16]^T, A and B K-major in shared memory;
-// accumulate = 0 overwrites d.
+// accumulate = 0 overwrites d. TRANS_B = 1 reads B MN-major instead (B[16 x
+// 256] with N contiguous: the transpose bit).
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da,
                                                     uint64_t db, int accumulate) {
   asm volatile(
@@ -229,7 +260,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n"
+      "%128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -257,7 +288,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // d[64 x N] (+)= A B^T for N in {64, 128, 256}, both K-major in shared memory.

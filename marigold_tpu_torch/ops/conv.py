@@ -112,8 +112,8 @@ def check_cuda(x, weight, bias, what: str) -> None:
         raise ValueError(f"no {what} kernel for device {x.device}")
     if x.dtype == torch.float32:
         raise NotImplementedError(
-            f"the {what} kernel takes bf16; the fp32 kernel path is ROADMAP "
-            "queue 1 item 5")
+            f"the {what} kernel takes bf16; see ROADMAP queue 1, \"fp32 "
+            "kernel path\"")
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{what}: {name} is {t.dtype}, the kernel takes bf16")

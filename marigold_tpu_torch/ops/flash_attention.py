@@ -1,7 +1,8 @@
 """Flash attention for long self-attention: hand-written Hopper kernels
-(`csrc/flash_fwd_sm90.cu` for every 64-wide forward, `csrc/flash_attention.cu`
-for the 512-wide one and the C entry points, `csrc/flash_attention_bwd.cu`)
-and their plain PyTorch versions.
+(`csrc/flash_fwd_sm90.cu` for every 64-wide forward,
+`csrc/flash_fwd_d512_sm90.cu` for the 512-wide one, `csrc/flash_attention.cu`
+for the C entry points, `csrc/flash_attention_bwd.cu`) and their plain
+PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
@@ -32,9 +33,10 @@ it, as the TPU package's `_flash_dt_fwd`/`_flash_dt_bwd` do. The kernels
 for that take 64-wide heads; other widths (the 512-wide VAE head) take the
 serving forward and the plain backward `flash_attention_bwd_plain`.
 
-On the H100 the kernels are bound by tensor-core throughput (about N/2 FLOP
-per byte at the UNet shapes); the notes in the .cu files say what each
-design does about it. The 64-wide forward reads q/k/v and writes its output
+On the H100 the kernels are bound by tensor-core throughput (about N/2
+FLOP per byte at the UNet shapes); the notes in the .cu files say what each
+design does about it and, for the 512-wide forward, what was measured to
+bind it. Both forward kernels read q/k/v and write their output
 through TMA tensor maps, whose preconditions `check_tma` holds: a 16-byte
 aligned base, a row stride that is a multiple of 16 bytes and at least one
 row. A tensor that breaks them raises; it is never copied into shape.
@@ -66,7 +68,7 @@ HEAD_DIMS = (64, 512)  # instantiated in the CUDA sources
 TRAIN_HEAD_DIMS = (64,)  # the lse forward and the backward kernels
 BWD_CHUNK = 1024  # query rows per chunk of the plain backward
 
-SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu")
+SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_fwd_d512_sm90.cu")
 BWD_SOURCES = ("flash_attention_bwd.cu",)
 
 launches: collections.Counter = collections.Counter()
@@ -276,9 +278,10 @@ def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
 
 
 def check_tma(tensors: dict) -> None:
-    """What the TMA maps of the 64-wide kernel (`csrc/flash_fwd_sm90.cu`)
-    take of each [B, N, C] tensor: at least one row, a 16-byte aligned base
-    and a row stride that is a multiple of 16 bytes. Raises ValueError."""
+    """What the TMA maps of the forward kernels (`csrc/flash_fwd_sm90.cu`,
+    `csrc/flash_fwd_d512_sm90.cu`) take of each [B, N, C] tensor: at least
+    one row, a 16-byte aligned base and a row stride that is a multiple of 16
+    bytes. Raises ValueError."""
     for name, t in tensors.items():
         if t.shape[0] < 1 or t.shape[1] < 1:
             raise ValueError(f"{name} {tuple(t.shape)} has no rows")
@@ -305,8 +308,7 @@ def flash_attention(
     nk = k.shape[1]
     d = c // num_heads
     _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, b * num_heads)
-    if d == 64:
-        check_tma({"q": q, "k": k, "v": v})
+    check_tma({"q": q, "k": k, "v": v})
 
     shift = row_shift(q, k, num_heads) if softmax == "shifted" else None
     out = torch.empty_like(q)
@@ -341,8 +343,7 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
             f"the folded flash kernel takes D in {HEAD_DIMS}, got {d}; other "
             "head widths are a ROADMAP item (queue 2)")
     _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, bh)
-    if d == 64:
-        check_tma({"q": q, "k": k, "v": v})
+    check_tma({"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):

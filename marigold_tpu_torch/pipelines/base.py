@@ -282,17 +282,24 @@ class BasePipeline:
                      ensemble_size: int, batch_size: int = 0, seed=None,
                      out_hw: Optional[tuple] = None,
                      ensemble_kwargs: Optional[dict] = None,
-                     resample_method: str = "bilinear"):
+                     resample_method: str = "bilinear",
+                     shape_bucketing: bool = False, spatial: bool = False):
         """Single-image inference. rgb_norm: [H, W, 3] in [-1, 1] at
-        processing resolution, edge-padded to the VAE's /8 grid. The E
-        members run in chunks of `batch_size` (from the device's memory when
-        0), each denoised then decoded; E > 1 ensembles them with a mask of
-        the padding (or, in the reference-exact mode, cropped). The result
-        is cropped and resized on the host to out_hw. Returns (pred
-        [h, w, 1] float32, uncertainty [h, w, 1] or None)."""
+        processing resolution, edge-padded to the VAE's /8 grid (a 64-px
+        grid with shape_bucketing, as the JAX package pads to bound its
+        compiles). The E members run in chunks of `batch_size` (from the
+        device's memory when 0), each denoised then decoded; E > 1 ensembles
+        them with a mask of the padding (or, in the reference-exact mode,
+        cropped). The result is cropped and resized on the host to out_hw.
+        Returns (pred [h, w, 1] float32, uncertainty [h, w, 1] or None)."""
+        if spatial:
+            raise NotImplementedError(
+                "spatial=True (the image's H axis over a mesh) is not ported; "
+                "see ROADMAP queue 1, \"Spatial parallelism\"")
         core = self.core
+        ds = core.vae_cfg.downscale_factor
         x, h0, w0 = pad_to_multiple_of(rgb_norm[None],
-                                       core.vae_cfg.downscale_factor)
+                                       max(64, ds) if shape_bucketing else ds)
         hp, wp = x.shape[1:3]
         rgb = torch.from_numpy(np.ascontiguousarray(x)).to(core.device)
         rgb_lat = core.encode_rgb(rgb.permute(0, 3, 1, 2).contiguous())

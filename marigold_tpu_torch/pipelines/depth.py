@@ -55,12 +55,19 @@ class MarigoldDepthPipeline(BasePipeline):
         generator: Union[None, int, torch.Generator] = None,
         seed: Optional[int] = None,
         color_map: Optional[str] = "Spectral",
+        show_progress_bar: bool = True,
         ensemble_kwargs: Optional[Dict] = None,
+        shape_bucketing: bool = False,
+        spatial: bool = False,
     ) -> MarigoldDepthOutput:
         """One image -> MarigoldDepthOutput. ensemble_size > 1 runs the
         members in chunks of batch_size (0: from the device's memory) and
         ensembles them with `ensemble_kwargs` (see
-        `pipelines/ensemble.py:ensemble_depth`)."""
+        `pipelines/ensemble.py:ensemble_depth`). The keywords are the JAX
+        package's: `show_progress_bar` is accepted and, as there, has no
+        effect; `shape_bucketing=True` pads the image to a 64-px grid instead
+        of the VAE's 8 px; `spatial=True` (the H axis sharded over a mesh)
+        raises NotImplementedError."""
         if denoising_steps is None:
             denoising_steps = self.default_denoising_steps or 1
         if processing_res is None:
@@ -83,6 +90,7 @@ class MarigoldDepthPipeline(BasePipeline):
             ensemble_size=ensemble_size, batch_size=batch_size, seed=seed,
             out_hw=(input_h, input_w) if match_input_res else None,
             ensemble_kwargs=ensemble_kwargs, resample_method=resample_method,
+            shape_bucketing=shape_bucketing, spatial=spatial,
         )
         depth = np.clip(pred[..., 0], 0.0, 1.0).astype(np.float32)
         return MarigoldDepthOutput(

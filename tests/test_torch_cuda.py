@@ -1,7 +1,10 @@
 """Card-only tests of the port: the Hopper flash kernels (serving forward,
 training forward with the logsumexp, dQ and dK/dV backward, the folded
 entry; every 64-wide forward is the wgmma/TMA kernel of
-csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles) and the 3x3 conv kernels (nine-tap, Winograd) against their plain
+csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles, and
+every 512-wide one that of csrc/flash_fwd_d512_sm90.cu, with 64-row query
+tiles and 64-key tiles)
+and the 3x3 conv kernels (nine-tap, Winograd) against their plain
 PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slice on the card against the CPU at E=1 and
 E=3. They skip without a CUDA device.
@@ -41,17 +44,22 @@ def _qkv(gen, b, n, c, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("softmax", ["shifted", "online"])
-@pytest.mark.parametrize("b,n,c,heads", [
-    (2, 1300, 320, 5),   # d=64, B > 1, ragged against the 64-row tiles
-    (3, 1030, 640, 10),  # d=64, 10 heads
-    (1, 1100, 512, 1),   # d=512, ragged against the 32-row tiles
-    (1, 77, 64, 1),      # fewer rows than one tile
-    (1, 129, 64, 1),     # d=64: one key past a 128-key tile
-    (1, 1025, 128, 2),   # d=64: one key past 8 tiles, two heads
-    (10, 2304, 640, 10),  # d=64: the E=10 rows at UNet level 1
+@pytest.mark.parametrize("b,nq,nk,c,heads", [
+    (2, 1300, 1300, 320, 5),   # d=64, B > 1, ragged against the 64-row tiles
+    (3, 1030, 1030, 640, 10),  # d=64, 10 heads
+    (1, 77, 77, 64, 1),        # fewer rows than one tile
+    (1, 129, 129, 64, 1),      # d=64: one key past a 128-key tile
+    (1, 1025, 1025, 128, 2),   # d=64: one key past 8 tiles, two heads
+    (10, 2304, 2304, 640, 10),  # d=64: the E=10 rows at UNet level 1
+    (3, 1100, 700, 512, 1),    # d=512: nq > nk, ragged against 64, B = 3
+    (1, 1100, 1300, 512, 1),   # d=512: nq < nk
+    (2, 77, 130, 512, 1),      # d=512: fewer query rows than one tile
+    (10, 2304, 2304, 512, 1),  # d=512: B = 10 rows of a decoder chunk
 ])
-def test_kernel_matches_plain(cuda, b, n, c, heads, softmax):
-    q, k, v = _qkv(cuda, b, n, c)
+def test_kernel_matches_plain(cuda, b, nq, nk, c, heads, softmax):
+    q = torch.randn((b, nq, c), generator=cuda, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
     key = f"{softmax}_d{c // heads}"
     before = fa.launches[key]
     out = fa.flash_attention(q, k, v, heads, softmax)
@@ -62,6 +70,15 @@ def test_kernel_matches_plain(cuda, b, n, c, heads, softmax):
     # bf16 output ulps: the chip_smoke.py tolerance
     tol = 1e-2 * ref.float().abs().max().item() + 1e-3
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_check_tma_raises_on_a_512_wide_row_stride(cuda):
+    """A 512-wide head read out of rows of 516 channels (1032 bytes, not a
+    multiple of 16): the TMA maps cannot take it."""
+    wide = torch.zeros((1, 64, 516), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="row stride of 1032 bytes"):
+        fa.check_tma({"q": wide[..., :512]})
+    fa.check_tma({"q": wide[..., :512].contiguous()})
 
 
 def test_shifted_kernel_clamps_a_spiky_key(cuda):
@@ -296,7 +313,8 @@ def test_conv_dispatch_on_the_card(cuda, monkeypatch, impl):
                                rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("bh,n,d", [(5, 1030, 64), (2, 77, 64), (1, 600, 512)])
+@pytest.mark.parametrize("bh,n,d", [(5, 1030, 64), (2, 77, 64), (1, 600, 512),
+                                    (3, 1100, 512)])
 def test_folded_flash_matches_plain(cuda, bh, n, d):
     q, k, v = _qkv(cuda, bh, n, d)
     before = fa.launches[f"folded_d{d}"]

@@ -58,6 +58,23 @@ def test_plain_matches_tpu_kernels(b, n, c, heads, softmax, rng):
                                atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("softmax", ["shifted", "online"])
+@pytest.mark.parametrize("b,nq,nk", [
+    (2, 300, 200),  # B = 2; nq, nk ragged against 64 and nq != nk
+    (1, 100, 330),  # nq < nk, one key past 5 tiles of 64
+])
+def test_plain_matches_tpu_kernels_d512_edges(b, nq, nk, softmax, rng):
+    """The 512-wide head at the Hopper kernel's edges (64-row query tiles,
+    64-key tiles, B > 1): the K-blocked shifted kernel (#2) and the online
+    kernel (#3), which the TPU package reaches at d = 512 through
+    `_flash_dt_impl(softmax="online")`."""
+    q = rng.standard_normal((b, nq, 512)).astype(np.float32)
+    k, v = (rng.standard_normal((b, nk, 512)).astype(np.float32)
+            for _ in range(2))
+    np.testing.assert_allclose(_port(q, k, v, 1, softmax),
+                               _jax_dt(q, k, v, 1, softmax), atol=ATOL, rtol=0)
+
+
 def test_plain_matches_online_kernel_multi_batch(rng):
     """Online kernel (#3) with B > 1 and several heads."""
     q, k, v = _qkv(rng, 2, 200, 128)
@@ -99,7 +116,7 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing(rng):
 
 
 def test_check_tma_takes_what_the_tensor_maps_take():
-    """The 64-wide kernel's TMA preconditions, checked on CPU tensors: a
+    """The forward kernels' TMA preconditions, checked on CPU tensors: a
     16-byte aligned base, a row stride that is a multiple of 16 bytes, at
     least one row. Contiguous [B, N, 64*H] bf16 tensors always pass."""
     ok = torch.zeros(2, 130, 320, dtype=torch.bfloat16)
@@ -114,6 +131,10 @@ def test_check_tma_takes_what_the_tensor_maps_take():
                 fa.check_tma({"q": t})
     with pytest.raises(ValueError, match="row stride of 120 bytes"):
         fa.check_tma({"k": torch.zeros(1, 3, 60, dtype=torch.bfloat16)})
+    # a 512-wide head read out of rows of 516 channels
+    wide = torch.zeros(1, 3, 516, dtype=torch.bfloat16)[..., :512]
+    with pytest.raises(ValueError, match="row stride of 1032 bytes"):
+        fa.check_tma({"q": wide})
     with pytest.raises(ValueError, match="no rows"):
         fa.check_tma({"v": ok[:, :0]})
 

@@ -243,6 +243,54 @@ def test_batch_call_ensemble_matches_jax_on_shared_noise(
                                    atol=ENS_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("ensemble_size,ens", [
+    (1, None), (3, None), (3, {"gauge_anchor": False})])
+def test_call_shape_bucketing_matches_jax_on_shared_noise(
+        pipes, monkeypatch, shared_members, ensemble_size, ens):
+    """__call__(shape_bucketing=True) on a 72x100 image at processing_res=0:
+    both packages pad to the 64-px grid (128x128), the
+    padding mask keeps it out of the E=3 ensemble (or, reference-exact, the
+    members are cropped first), and the maps are cropped and held at the
+    shared-noise tolerances (ATOL at E=1, ENS_ATOL at E=3)."""
+    jpipe, tpipe = pipes
+    img = _image(10, 72, 100)
+    kw = dict(denoising_steps=2, ensemble_size=ensemble_size, processing_res=0,
+              seed=6, color_map=None, ensemble_kwargs=ens, shape_bucketing=True)
+    ref = jpipe(img, batch_size=2, **kw)
+    shapes = []
+
+    def noise(n, h, w, seed):
+        shapes.append((h, w))
+        return _nchw(_correlated_noise((n, h, w, 4)))
+
+    monkeypatch.setattr(tpipe, "_noise", noise)
+    got = tpipe(img, batch_size=2, **kw)
+    ds = tpipe.core.vae_cfg.downscale_factor
+    assert shapes == [(128 // ds, 128 // ds)]
+    assert got.depth_np.shape == (72, 100)
+    atol = ATOL if ensemble_size == 1 else ENS_ATOL
+    np.testing.assert_allclose(got.depth_np, ref.depth_np, atol=atol, rtol=0)
+    if ensemble_size == 1:
+        assert got.uncertainty is None and ref.uncertainty is None
+    else:
+        np.testing.assert_allclose(got.uncertainty, ref.uncertainty,
+                                   atol=atol, rtol=0)
+
+
+def test_call_takes_the_jax_keywords(pipes):
+    """show_progress_bar is accepted and changes nothing (the JAX __call__
+    takes it and passes it nowhere); spatial=False is accepted and
+    spatial=True, the mesh-sharded mode, is not ported and raises."""
+    _, tpipe = pipes
+    img = _image(11, 30, 44)
+    kw = dict(denoising_steps=1, seed=2, color_map=None)
+    a = tpipe(img, show_progress_bar=False, spatial=False, **kw)
+    b = tpipe(img, show_progress_bar=True, **kw)
+    np.testing.assert_array_equal(a.depth_np, b.depth_np)
+    with pytest.raises(NotImplementedError, match="Spatial parallelism"):
+        tpipe(img, spatial=True, **kw)
+
+
 def test_from_pretrained_needs_a_device_or_the_cpu(ckpt):
     """No silent CPU fallback: without a CUDA device the caller must pass
     device="cpu", and batch sizing without a device raises too."""
