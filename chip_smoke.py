@@ -14,8 +14,9 @@ Phases, none of which catches its own failure:
      training flash kernels), with errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
      function and, beside the shifted kernel, its row shift, beside the
-     conv kernels their weight rearrangement and blocks launched, and the
-     bound from bytes and operations;
+     conv kernels their weight rearrangement and blocks launched, beside the
+     backward pair SDPA's whole backward, row_delta and two calls held to
+     the same bits, and the bound from bytes and operations;
   4. a full-SD2-width checkpoint with random weights from a seed, written in
      diffusers layout and loaded through MarigoldDepthPipeline.from_pretrained;
   5. serving at E=1: single-image requests and one batch, checked for shape,
@@ -91,7 +92,8 @@ def build_kernels():
                                            "C75", "arning")):
                     print("  ptxas:", line.strip(), flush=True)
     print(f"build: {len(builds)} libraries in {wall:.2f} s", flush=True)
-    for name in ("flash_attention", "conv3x3", "winograd"):  # the wgmma ones
+    for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
+                 "winograd"):  # the wgmma ones
         print_hgmma(os.path.join(os.path.dirname(
             cuda_build.BUILD_INFO[name]["log"]), f"lib{name}.so"))
 
@@ -371,13 +373,25 @@ def check_train_kernels() -> dict:
                sdpa_ms(q, k, v, heads),
                attention_bound(b, heads, nq, nk, d, 4, 2, 2, extra=stats))
         record(name, "lse", lse, lse_p, LSE_TOL_REL, LSE_TOL_ABS, None, None)
-        delta = fa.row_delta(out, g, heads)
+        # the kernels use no atomics: a second call gives the same bits
+        again = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+        same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+        print(f"kernel {name:13s} bwd : two calls bit-identical: {same}",
+              flush=True)
+        if not same:
+            failures.append(f"{name}/bwd: two calls differ")
+        del again
+        lse_pad, delta_pad = fa.bwd_stats(out, lse, g, heads)
         bwd_plain_ms = _time_ms(
             lambda: fa.flash_attention_bwd_plain(q, k, v, g, heads), iters)
         dq_ms = _time_ms(
-            lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, heads), 20)
+            lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse_pad, delta_pad,
+                                              heads), 20)
         dkv_ms = _time_ms(
-            lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, heads), 20)
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse_pad, delta_pad,
+                                               heads), 20)
+        delta_ms = _time_ms(lambda: fa.row_delta(out, g, heads), 20)
+        stats_ms = _time_ms(lambda: fa.bwd_stats(out, lse, g, heads), 20)
         bwd_ms = _time_ms(
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, heads), 20)
         # the library's backward computes dQ, dK and dV in one call; the
@@ -397,8 +411,14 @@ def check_train_kernels() -> dict:
               f"{4.0 * b * heads * nq * nk * d / ms / 1e9:.1f} TFLOP/s; whole "
               f"backward (delta + dQ + dK/dV) {bwd_ms:.3f} ms "
               f"({10.0 * b * heads * nq * nk * d / bwd_ms / 1e9:.1f} TFLOP/s) "
-              f"against plain {bwd_plain_ms:.3f} ms", flush=True)
+              f"against plain {bwd_plain_ms:.3f} ms and sdpa {bwd_lib_ms:.3f} "
+              f"ms; of it row_delta {delta_ms:.3f} ms, the padded lse and "
+              f"delta (bwd_stats) {stats_ms:.3f} ms; dQ "
+              f"{6.0 * b * heads * nq * nk * d / dq_ms / 1e9:.1f} TFLOP/s, "
+              f"dK/dV {8.0 * b * heads * nq * nk * d / dkv_ms / 1e9:.1f} "
+              "TFLOP/s", flush=True)
         del q, k, v, g, out, lse, out_p, lse_p, dq, dk, dv, dq_p, dk_p, dv_p
+        del lse_pad, delta_pad
         torch.cuda.empty_cache()
 
     # the autograd Function against autograd through the plain forward
@@ -1512,7 +1532,7 @@ def train_kernel_rows(results: dict, counts: dict) -> list:
              "bwd_dkv_d64", ("dk", "dv"))):
         timed = results[("train_l0", whats[0])]
         source = ("flash_fwd_sm90.cu" if key.startswith("lse")
-                  else "flash_attention_bwd.cu")
+                  else "flash_bwd_sm90.cu")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"marigold_tpu_torch/csrc/{source}",

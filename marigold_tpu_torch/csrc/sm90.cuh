@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_fwd_sm90.cu, flash_fwd_d512_sm90.cu, conv3x3.cu, winograd.cu):
-// mbarriers, TMA loads and stores, shared-memory matrix descriptors with the
-// 128-byte swizzle, the wgmma issue/fence/commit/wait wrappers, and
-// cuTensorMapEncodeTiled taken from the driver through the runtime's
-// entry-point query (no -lcuda).
+// (flash_fwd_sm90.cu, flash_fwd_d512_sm90.cu, flash_bwd_sm90.cu, conv3x3.cu,
+// winograd.cu): mbarriers, TMA loads and stores, shared-memory matrix
+// descriptors with the 128-byte swizzle, the wgmma issue/fence/commit/wait
+// wrappers, and cuTensorMapEncodeTiled taken from the driver through the
+// runtime's entry-point query (no -lcuda).
 //
 // Accumulator layout of wgmma m64nN (per warpgroup thread t, warp w = t/32,
 // lane l): d[4j + e] is row 16w + l/4, column 8j + 2(l%4) + e, and

@@ -1,8 +1,8 @@
 """Flash attention for long self-attention: hand-written Hopper kernels
 (`csrc/flash_fwd_sm90.cu` for every 64-wide forward,
 `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one, `csrc/flash_attention.cu`
-for the C entry points, `csrc/flash_attention_bwd.cu`) and their plain
-PyTorch versions.
+for the C entry points, `csrc/flash_bwd_sm90.cu` for the dQ and dK/dV
+backward) and their plain PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
@@ -36,10 +36,11 @@ serving forward and the plain backward `flash_attention_bwd_plain`.
 On the H100 the kernels are bound by tensor-core throughput (about N/2
 FLOP per byte at the UNet shapes); the notes in the .cu files say what each
 design does about it and, for the 512-wide forward, what was measured to
-bind it. Both forward kernels read q/k/v and write their output
-through TMA tensor maps, whose preconditions `check_tma` holds: a 16-byte
-aligned base, a row stride that is a multiple of 16 bytes and at least one
-row. A tensor that breaks them raises; it is never copied into shape.
+bind it. Every kernel reads q/k/v (the backward also dO) and writes its
+outputs through TMA tensor maps, whose preconditions `check_tma` holds: a
+16-byte aligned base, a row stride that is a multiple of 16 bytes and at
+least one row. A tensor that breaks them raises; it is never copied into
+shape.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it runs the
 plain version only for a tensor on the CPU. The raw kernel wrappers are not
@@ -67,9 +68,14 @@ SOFTMAX_MODES = ("shifted", "online")
 HEAD_DIMS = (64, 512)  # instantiated in the CUDA sources
 TRAIN_HEAD_DIMS = (64,)  # the lse forward and the backward kernels
 BWD_CHUNK = 1024  # query rows per chunk of the plain backward
+# The backward kernels read lse and delta as [B*H, Nq] rows padded to a
+# multiple of STAT_PAD, lse with LSE_PAD (marigold_tpu/ops/flash_attention.py:
+# _LSE_PAD: exp(s - 1e30) == 0 drops the padded query rows) and delta with 0.
+STAT_PAD = 64
+LSE_PAD = 1e30
 
 SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_fwd_d512_sm90.cu")
-BWD_SOURCES = ("flash_attention_bwd.cu",)
+BWD_SOURCES = ("flash_bwd_sm90.cu",)
 
 launches: collections.Counter = collections.Counter()
 
@@ -213,8 +219,8 @@ def _library() -> ctypes.CDLL:
 
 def _bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_bwd", BWD_SOURCES)
-    _bind(lib, "mt_flash_attention_bwd_dq", 7, 7)
-    _bind(lib, "mt_flash_attention_bwd_dkv", 8, 7)
+    _bind(lib, "mt_flash_attention_bwd_dq", 7, 8)
+    _bind(lib, "mt_flash_attention_bwd_dkv", 8, 8)
     return lib
 
 
@@ -278,10 +284,10 @@ def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
 
 
 def check_tma(tensors: dict) -> None:
-    """What the TMA maps of the forward kernels (`csrc/flash_fwd_sm90.cu`,
-    `csrc/flash_fwd_d512_sm90.cu`) take of each [B, N, C] tensor: at least
-    one row, a 16-byte aligned base and a row stride that is a multiple of 16
-    bytes. Raises ValueError."""
+    """What the TMA maps of the kernels (`csrc/flash_fwd_sm90.cu`,
+    `csrc/flash_fwd_d512_sm90.cu`, `csrc/flash_bwd_sm90.cu`) take of each
+    [B, N, C] tensor: at least one row, a 16-byte aligned base and a row
+    stride that is a multiple of 16 bytes. Raises ValueError."""
     for name, t in tensors.items():
         if t.shape[0] < 1 or t.shape[1] < 1:
             raise ValueError(f"{name} {tuple(t.shape)} has no rows")
@@ -386,15 +392,32 @@ def flash_attention_lse(
     return out, lse
 
 
-def row_delta(out: torch.Tensor, dout: torch.Tensor,
-              num_heads: int) -> torch.Tensor:
-    """delta = rowsum(dO * O) per head, [B*H, Nq] fp32: the plain op the
-    TPU wrapper computes outside its backward kernels
-    (`_flash_dt_bwd_pallas`)."""
+def row_delta(out: torch.Tensor, dout: torch.Tensor, num_heads: int,
+              pad: int = 0) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head, [B*H, Nq + pad] fp32 with zeros in
+    the `pad` columns: the plain op the TPU wrapper computes outside its
+    backward kernels (`_flash_dt_bwd_pallas`), written by the reduction
+    into the padded rows the kernels read."""
     b, nq, c = out.shape
-    prod = dout.float() * out.float()
-    return (prod.reshape(b, nq, num_heads, c // num_heads).sum(-1)
-            .transpose(1, 2).reshape(b * num_heads, nq).contiguous())
+    delta = out.new_zeros((b * num_heads, nq + pad), dtype=torch.float32)
+    prod = (dout.float() * out).view(b, nq, num_heads, c // num_heads)
+    torch.sum(prod, -1, out=delta.view(b, num_heads, nq + pad)[:, :, :nq]
+              .transpose(1, 2))
+    return delta
+
+
+def bwd_stats(out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+              num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' row statistics: lse and `row_delta`, each
+    [B*H, round_up(Nq, STAT_PAD)] fp32, padded with LSE_PAD and 0 as the TPU
+    wrapper pads them (one small copy of lse): each 64-row stage of the dK/dV
+    kernel then reads its rows, padded ones included, as one 16-byte-aligned
+    bulk copy."""
+    bh, nq = lse.shape
+    pad = -nq % STAT_PAD
+    lse_p = lse.new_full((bh, nq + pad), LSE_PAD)
+    lse_p[:, :nq] = lse
+    return lse_p, row_delta(out, dout, num_heads, pad)
 
 
 def flash_attention_bwd(
@@ -403,8 +426,9 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients (dq, dk, dv) from the training forward's out and
     lse. On a CUDA tensor this launches the dQ kernel and the dK/dV kernel
-    (bf16, head dim 64) or raises; on a CPU tensor it runs
-    `flash_attention_bwd_plain` (which recomputes the softmax itself)."""
+    (bf16, head dim 64; q, k, v and dout as TMA takes them, `check_tma`) or
+    raises; on a CPU tensor it runs `flash_attention_bwd_plain` (which
+    recomputes the softmax itself)."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, num_heads)
@@ -416,18 +440,19 @@ def flash_attention_bwd(
     if lse.shape != (b * num_heads, nq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 [{b * num_heads}, {nq}]")
+    check_tma({"q": q, "k": k, "v": v, "dout": dout})
     _check_cuda({"q": q, "k": k, "v": v, "dout": dout}, d, TRAIN_HEAD_DIMS,
                 b * num_heads)
-    delta = row_delta(out, dout, num_heads)
-    return (flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads),
-            *flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads))
+    lse_p, delta_p = bwd_stats(out, lse, dout, num_heads)
+    return (flash_attention_bwd_dq(q, k, v, dout, lse_p, delta_p, num_heads),
+            *flash_attention_bwd_dkv(q, k, v, dout, lse_p, delta_p, num_heads))
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
                            ) -> torch.Tensor:
-    """dQ [B, Nq, C] by the dQ kernel: lse and delta are [B*H, Nq] fp32
-    (`flash_attention_lse`, `row_delta`). Unchecked: `flash_attention_bwd`
-    checks the arguments before it calls this."""
+    """dQ [B, Nq, C] by the dQ kernel: lse and delta are the padded
+    [B*H, round_up(Nq, STAT_PAD)] fp32 rows of `bwd_stats`. Unchecked:
+    `flash_attention_bwd` checks the arguments before it calls this."""
     b, nq, c = q.shape
     d = c // num_heads
     dq = torch.empty_like(q)
@@ -436,8 +461,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
         err = lib.mt_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, num_heads, nq, k.shape[1], d, c, c, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream,
+            b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
+            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "flash attention dQ")
     launches[f"bwd_dq_d{d}"] += 1
@@ -456,8 +481,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int
         err = lib.mt_flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, num_heads, nq, k.shape[1], d, c, c, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream,
+            b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
+            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "flash attention dK/dV")
     launches[f"bwd_dkv_d{d}"] += 1

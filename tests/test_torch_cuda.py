@@ -1,9 +1,10 @@
 """Card-only tests of the port: the Hopper flash kernels (serving forward,
 training forward with the logsumexp, dQ and dK/dV backward, the folded
 entry; every 64-wide forward is the wgmma/TMA kernel of
-csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles, and
-every 512-wide one that of csrc/flash_fwd_d512_sm90.cu, with 64-row query
-tiles and 64-key tiles)
+csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles, every
+512-wide one that of csrc/flash_fwd_d512_sm90.cu, with 64-row query tiles
+and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
+with 128-row output blocks and 64-row stages)
 and the 3x3 conv kernels (nine-tap, Winograd) against their plain
 PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slice on the card against the CPU at E=1 and
@@ -333,6 +334,8 @@ def test_folded_flash_matches_plain(cuda, bh, n, d):
     (1, 77, 200, 64, 1),      # fewer q rows than one tile, nq != nk
     (1, 1100, 700, 128, 2),   # nq > nk
     (1, 1000, 1300, 128, 2),  # nq < nk, both ragged against 128
+    (2, 4800, 4800, 320, 5),  # the training shape at level 0
+    (2, 1200, 1200, 640, 10),  # level 1: B*H = 20
 ])
 def test_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     q, g = (torch.randn((b, nq, c), generator=cuda, device="cuda").to(torch.bfloat16)
@@ -356,6 +359,32 @@ def test_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         tol = 1e-2 * ref.float().abs().max().item() + 1e-5
         assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_backward_gives_the_same_bits_twice(cuda):
+    """The backward kernels use no atomics: one block owns each output
+    tile, so two calls on the same inputs give bit-identical gradients."""
+    q, g = _qkv(cuda, 2, 1300, 320)[:2]
+    k, v = _qkv(cuda, 2, 1100, 320)[:2]
+    out, lse = fa.flash_attention_lse(q, k, v, 5)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, g, 5)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, g, 5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_backward_raises_on_what_tma_does_not_take(cuda):
+    """dO read out of rows of 68 channels (136 bytes, not a multiple of 16):
+    the backward's TMA maps cannot take it, and the wrapper raises rather
+    than copy it into shape."""
+    q, k, v = _qkv(cuda, 1, 128, 64)
+    out, lse = fa.flash_attention_lse(q, k, v, 1)
+    wide = torch.zeros((1, 128, 68), device="cuda", dtype=torch.bfloat16)
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match="row stride of 136 bytes"):
+        fa.flash_attention_bwd(q, k, v, out, lse, wide[..., :64], 1)
+    assert dict(fa.launches) == before
 
 
 def test_raw_kernels_raise_under_grad(cuda):
