@@ -29,8 +29,17 @@ Phases, none of which catches its own failure:
      (first and warm) under each opt-in conv kernel (MARIGOLD_TPU_CONV=pallas,
      winograd) with exact conv launch counts against the default map, and a
      profile;
-  7. the folded flash entry at its two shapes;
-  8. training at full SD2 width (the depth fine-tuning recipe).
+  7. the other modalities at full SD2 width, each UNet random from its own
+     seed beside the depth checkpoint's VAE and text encoder: normals (4
+     steps, 768 px: E=1, E=10 against plain attention by angle, a 3-image
+     E=10 batch, uint16 readback, a profile), IID appearance (2 targets: E=1
+     at 768 px, a 16-image E=1 batch at 640 px, a profile; conv_in/conv_out
+     on cuDNN under every conv mode), IID lighting (3 targets, E=1 768 px),
+     LCM depth (the depth UNet with an LCMScheduler config: 1 step E=10, 4
+     steps E=1 with fresh noise); maps checked for shape, range and
+     determinism, flash launches exact per head width;
+  8. the folded flash entry at its two shapes;
+  9. training at full SD2 width (the depth fine-tuning recipe).
 Prints the card's name and power limit, a JSON line of kernels, then, last,
 {"ok": true, "device": {...}}. Exits non-zero without a result when no CUDA
 device is present.
@@ -38,6 +47,7 @@ device is present.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -194,7 +204,9 @@ def attention_bound(b, heads, nq, nk, d, flops_per_pair, q_io, kv_io,
 # ragged 576x768 latent, the clamp case of
 # tests/test_flash_attention.py::test_flash_dt_shifted_spiky_k_graceful, the
 # E=10 rows of one request at level 0, and the VAE mid attention of the E=10
-# decoder chunk, the ragged image and the training encode. The plain version
+# decoder chunk, the ragged image and the training encode; then the IID
+# NI=16 batch at 640 px: its level-0 rows and a decoder chunk of 8 rows
+# (decode_chunking counts each row's two decoded targets). The plain version
 # runs one batch row at a time ([1, H, N, N] fp32 logits).
 KERNEL_CASES = [
     ("unet_l0", 1, 9216, 320, 5),
@@ -206,6 +218,8 @@ KERNEL_CASES = [
     ("vae_mid_b10", 10, 9216, 512, 1),
     ("vae_mid_ragged", 1, 6912, 512, 1),
     ("train_vae", 2, 4800, 512, 1),
+    ("iid_unet_l0_b16", 16, 6400, 320, 5),
+    ("iid_vae_mid_b8", 8, 6400, 512, 1),
 ]
 
 # Kernel rows of the JSON line: TPU pallas_call sites replaced, the source,
@@ -462,8 +476,8 @@ ROW_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main() -> None:
-    import collections
     import gc
+    import tempfile
 
     import torch
 
@@ -474,12 +488,15 @@ def main() -> None:
     folded_results = check_folded()
     conv_results = check_conv_kernels()
     train_results = check_train_kernels()
-    pipe = load_serving_pipe()
-    serve_counts = collections.Counter(serve(pipe))
-    serve_counts.update(serve_ensembles(pipe))
-    del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        depth_dir = os.path.join(root, "depth")
+        pipe = load_serving_pipe(depth_dir)
+        serve_counts = collections.Counter(serve(pipe))
+        serve_counts.update(serve_ensembles(pipe))
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_counts.update(serve_modalities(root, depth_dir))
     folded_counts = folded_path()
     train_counts = train_phase()
     rows = (kernel_rows(results, serve_counts)
@@ -578,15 +595,17 @@ def check_map(depth, hw, what):
               f"[{np.nanmin(depth)}, {np.nanmax(depth)}]")
 
 
-def request_chunks(pipe, hw: tuple, n_images: int, ensemble_size: int) -> tuple:
-    """(processed size, denoise chunks, decode calls) of one request: the
-    port's chunking from the device's memory. __call__ (n_images=None)
-    denoises and decodes per chunk; batch_call decodes by decode_chunking."""
+def request_chunks(pipe, hw: tuple, n_images: int, ensemble_size: int,
+                   res: int = 768) -> tuple:
+    """(processed size, denoise chunks, decode calls) of one request at
+    processing resolution res: the port's chunking from the device's memory.
+    __call__ (n_images=None) denoises and decodes per chunk; batch_call
+    decodes by decode_chunking (which counts an IID row's decoded targets)."""
     from marigold_tpu_torch.pipelines import image_util
     from marigold_tpu_torch.pipelines.batchsize import find_batch_size
 
     core = pipe.core
-    ph, pw = image_util.resize_max_res_shape(*hw, 768) if max(hw) != 768 else hw
+    ph, pw = image_util.resize_max_res_shape(*hw, res) if max(hw) != res else hw
     ds = core.vae_cfg.downscale_factor
     total = (n_images or 1) * ensemble_size
     bs = min(find_batch_size(total, max(-(-ph // ds), -(-pw // ds)) * ds,
@@ -594,24 +613,51 @@ def request_chunks(pipe, hw: tuple, n_images: int, ensemble_size: int) -> tuple:
     chunks = -(-total // bs)
     if n_images is None:
         return (ph, pw), chunks, chunks
-    _, dec = core.decode_chunking(total, (ph, pw))
+    _, dec = core.decode_chunking(total, (ph, pw), pipe.mode, pipe.n_targets)
     return (ph, pw), chunks, -(-total // dec)
+
+
+def expected_flash(pipe, hw: tuple, steps: int, n_images=None,
+                   ensemble_size: int = 1, res: int = 768) -> dict:
+    """{head width: launches} of the attentions with >= 1024 query and key
+    tokens that one request at input size hw runs: UNet self-attentions per
+    forward per denoise chunk (64 wide), plus the VAE mid attention (one
+    512-wide head) in the encode call and, per decode call, once per
+    decoded target group."""
+    from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
+
+    (ph, pw), chunks, decodes = request_chunks(pipe, hw, n_images,
+                                               ensemble_size, res)
+    core = pipe.core
+    ds = core.vae_cfg.downscale_factor
+    h, w = -(-ph // ds), -(-pw // ds)
+    out = collections.Counter()
+    for n, d in flash_self_attentions(core.unet_cfg, h, w):
+        out[d] += n * steps * chunks
+    if h * w >= FLASH_MIN_SEQ:
+        out[core.vae_cfg.block_out_channels[-1]] += 1 + decodes * pipe.n_targets
+    return {d: n for d, n in out.items() if n}
 
 
 def expected_flash_launches(pipe, hw: tuple, steps: int,
                             n_images=None, ensemble_size: int = 1) -> int:
-    """Attentions with >= 1024 query and key tokens that one request at input
-    size hw runs: UNet self-attentions per forward per denoise chunk, plus
-    the VAE mid attention in the encode call and in each decode call."""
-    from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
+    """All flash launches of one request (see expected_flash)."""
+    return sum(expected_flash(pipe, hw, steps, n_images,
+                              ensemble_size).values())
 
-    (ph, pw), chunks, decodes = request_chunks(pipe, hw, n_images,
-                                               ensemble_size)
-    ds = pipe.core.vae_cfg.downscale_factor
-    h, w = -(-ph // ds), -(-pw // ds)
-    vae = int(h * w >= FLASH_MIN_SEQ)
-    per_fwd = sum(n for n, _ in flash_self_attentions(pipe.core.unet_cfg, h, w))
-    return per_fwd * steps * chunks + vae * (1 + decodes)
+
+def flash_by_width(before: dict) -> dict:
+    """{head width: serving flash launches} since the counts `before`."""
+    import re
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    out = collections.Counter()
+    for key, n in fa.launches.items():
+        m = re.fullmatch(r"(shifted|online)_d(\d+)", key)
+        if m and n > before.get(key, 0):
+            out[int(m.group(2))] += n - before.get(key, 0)
+    return dict(out)
 
 
 def gated_convs(pipe, hw: tuple, mode: str) -> dict:
@@ -666,27 +712,24 @@ def gated_convs(pipe, hw: tuple, mode: str) -> dict:
         layers._CONV_IMPL = saved
 
 
-def load_serving_pipe():
-    """Phase 4: the full-width depth checkpoint, written and loaded."""
-    import tempfile
-
+def load_serving_pipe(root: str):
+    """Phase 4: the full-width depth checkpoint, written under root and
+    loaded."""
     import torch
 
     from marigold_tpu_torch import MarigoldDepthPipeline
 
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_checkpoint(root, 0)
-        print(f"checkpoint written in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        pipe = MarigoldDepthPipeline.from_pretrained(
-            root, dtype=torch.bfloat16, device="cuda", variant="fp16")
-        torch.cuda.synchronize()
-        print(f"from_pretrained(device='cuda', bf16) in "
-              f"{time.perf_counter() - t0:.1f} s; "
-              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
-              flush=True)
+    t0 = time.perf_counter()
+    write_checkpoint(root, 0)
+    print(f"checkpoint written in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    pipe = MarigoldDepthPipeline.from_pretrained(
+        root, dtype=torch.bfloat16, device="cuda", variant="fp16")
+    torch.cuda.synchronize()
+    print(f"from_pretrained(device='cuda', bf16) in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
     return pipe
 
 
@@ -1184,6 +1227,437 @@ def serve_ensembles(pipe) -> dict:
     print(f"one E={E} 768x768 request:", flush=True)
     profile_request(request)
     return {**flash_counts, **conv_counts}
+
+
+# The other modalities and the legacy LCM depth model at full SD2 width (the
+# JAX package's serving points): normals 4 steps at 768 px (E=1, E=10, a
+# 3-image E=10 batch); IID appearance 4 steps E=1 at 768 px and a 16-image
+# batch at 640 px; IID lighting (3 targets) E=1 at 768 px; LCM depth 1 step
+# E=10 and 4 steps E=1 at 768 px. Each UNet is random from its own seed and
+# shares the depth checkpoint's VAE and text encoder.
+MODALITY_STEPS = 4
+MODALITY_HW = (768, 768)
+IID_TARGETS = {
+    "appearance": {
+        "target_names": ["albedo", "material"],
+        "albedo": {"prediction_space": "srgb", "up_to_scale": False},
+        "material": {"prediction_space": "stack",
+                     "sub_target_names": ["roughness", "metallicity", None]}},
+    "lighting": {
+        "target_names": ["albedo", "shading", "residual"],
+        "albedo": {"prediction_space": "srgb", "up_to_scale": False},
+        "shading": {"prediction_space": "linear", "up_to_scale": True},
+        "residual": {"prediction_space": "linear", "up_to_scale": True}},
+}
+IID_BATCH = (16, 640)  # NI, px: the JAX package's IID serving point
+# diffusers LCMScheduler's defaults
+LCM_SCHEDULER = {"_class_name": "LCMScheduler", "num_train_timesteps": 1000,
+                 "beta_start": 0.00085, "beta_end": 0.012,
+                 "beta_schedule": "scaled_linear", "prediction_type": "epsilon",
+                 "timestep_spacing": "leading", "steps_offset": 1,
+                 "rescale_betas_zero_snr": False, "set_alpha_to_one": True,
+                 "original_inference_steps": 50}
+UNIT_TOL = 1e-3  # | |n| - 1 | of a normals map
+# The E=10 normals request with the kernels against the same request on
+# plain attention (members from the same noise; bf16 rounding carried
+# through 4 steps and the decoder, as DEPTH_TOL bounds for depth): the
+# median angle between the two members' mean directions and between the
+# two "closest" maps, and the share of pixels of the closest maps more than
+# 10 degrees apart (its argmax flips at near-ties). Measured on the H100 at
+# seed 0: 0.82 and 0.87 degrees, 4.2%; held at about 2.4 times those.
+NORMALS_MEAN_DEG = 2.0
+NORMALS_CLOSEST_DEG = 2.0
+NORMALS_FLIP_SHARE = 0.1
+
+
+def write_modality_checkpoint(root: str, depth_dir: str, seed: int,
+                              in_ch: int, out_ch: int, index: dict) -> None:
+    """A checkpoint dir with its own random full-width UNet (in_ch -> out_ch,
+    fp16 variant) that links the depth checkpoint's VAE, text encoder and
+    scheduler."""
+    import torch
+
+    from marigold_tpu_torch.models import weights as W
+    from marigold_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+
+    os.makedirs(root)
+    for sub in ("vae", "text_encoder", "scheduler"):
+        os.symlink(os.path.join(depth_dir, sub), os.path.join(root, sub))
+    cfg = UNetConfig(in_channels=in_ch, out_channels=out_ch)
+    with torch.device("meta"):
+        model = UNet2DConditionModel(cfg)
+    sd = W.random_state_dict(model, torch.Generator(device="cuda").manual_seed(seed),
+                             dtype=torch.float16)
+    W.save_component(cfg.to_dict(), sd, os.path.join(root, "unet"),
+                     "diffusion_pytorch_model.fp16.safetensors")
+    W.write_config(dict(index, default_denoising_steps=4,
+                        default_processing_resolution=768), root,
+                   "model_index.json")
+
+
+def load_modality(cls, root: str):
+    import torch
+
+    t0 = time.perf_counter()
+    pipe = cls.from_pretrained(root, dtype=torch.bfloat16, device="cuda",
+                               variant="fp16")
+    torch.cuda.synchronize()
+    print(f"{cls.__name__}.from_pretrained({os.path.basename(root)}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return pipe
+
+
+def free(pipe) -> None:
+    import gc
+
+    import torch
+
+    pipe.core = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gated_requests(what: str, fn, runs: int, want: dict, check, arrays) -> tuple:
+    """fn() `runs` times: each checked by check(out), its flash launches by
+    head width held to `want` exactly, its maps (arrays(out)) identical
+    across runs. Prints first and median warm ms per call; returns
+    (outputs, times)."""
+    import numpy as np
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    outs, times = [], []
+    for _ in range(runs):
+        before = dict(fa.launches)
+        out, ms = _timed(fn)
+        got = flash_by_width(before)
+        if got != want:
+            _fail(f"{what}: flash launches by head width {got} != {want}")
+        check(out)
+        outs.append(out)
+        times.append(ms)
+    ref = arrays(outs[0])
+    if any(not all(np.array_equal(a, b) for a, b in zip(ref, arrays(o)))
+           for o in outs[1:]):
+        _fail(f"{what}: same seed gave different maps")
+    warm = sorted(times[1:]) or times
+    print(f"{what}: first {times[0]:.1f} ms, then median "
+          f"{warm[len(warm) // 2]:.1f} ms (runs "
+          f"{', '.join(f'{t:.1f}' for t in times[1:])}); flash launches "
+          f"{want} by head width per call, as expected; identical maps from "
+          f"one seed", flush=True)
+    return outs, times
+
+
+def check_normals(out, hw, what: str, ensemble: bool) -> None:
+    import numpy as np
+
+    n, u = out.normals_np, out.uncertainty
+    if n.shape != hw + (3,) or not np.isfinite(n).all():
+        _fail(f"{what}: normals {n.shape} (want {hw + (3,)}) or non-finite")
+    dev = np.abs(np.linalg.norm(n, axis=-1) - 1.0).max()
+    if dev > UNIT_TOL:
+        _fail(f"{what}: normals off the unit sphere by {dev}")
+    if ensemble != (u is not None):
+        _fail(f"{what}: uncertainty {None if u is None else u.shape}")
+    if u is not None and (u.shape != hw or not np.isfinite(u).all()
+                          or u.min() < 0.0 or u.max() > 1.0):
+        _fail(f"{what}: uncertainty {u.shape}, [{u.min()}, {u.max()}]")
+
+
+def check_iid(out, hw, what: str, names: list) -> None:
+    import numpy as np
+
+    if [e.name for e in out] != names or not out.is_complete:
+        _fail(f"{what}: entries {[e.name for e in out]} (want {names})")
+    for e in out:
+        a = e.array
+        if a.shape != (3,) + hw or not np.isfinite(a).all() or \
+                a.min() < 0.0 or a.max() > 1.0 or e.uncertainty is not None:
+            _fail(f"{what} {e.name}: {a.shape}, [{np.nanmin(a)}, "
+                  f"{np.nanmax(a)}]")
+
+
+def check_conv_in_gate(pipe, what: str) -> None:
+    """The IID UNet's conv_in (12 or 16 input channels) and conv_out (8 or
+    12 output channels) under every conv mode: the gate sends each to
+    F.conv2d (cuDNN), no conv kernel launches, and the output is F.conv2d's
+    to the bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from marigold_tpu_torch.models import layers
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    unet = pipe.core.unet
+    for name in ("conv_in", "conv_out"):
+        conv = getattr(unet, name)
+        x = torch.randn((2, conv.in_channels, 96, 96), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            ref = F.conv2d(x, conv.weight, conv.bias, padding=conv.padding)
+            for mode in layers.CONV_IMPLS:
+                layers._CONV_IMPL = mode
+                try:
+                    before = sum(conv_ops.launches.values()) + \
+                        sum(wino_ops.launches.values())
+                    impl = layers.conv_impl_for(x.shape, conv.weight.shape,
+                                                conv.stride, conv.padding,
+                                                x.dtype)
+                    out = conv(x)
+                    torch.cuda.synchronize()
+                    after = sum(conv_ops.launches.values()) + \
+                        sum(wino_ops.launches.values())
+                finally:
+                    layers._CONV_IMPL = "xla"
+                if impl is not None or after != before or \
+                        not torch.equal(out, ref):
+                    _fail(f"{what} {name} under {mode}: gate {impl}, "
+                          f"{after - before} kernel launches")
+        print(f"{what} {name} {conv.in_channels}->{conv.out_channels}: "
+              f"cuDNN (F.conv2d, bit-identical) under every conv mode "
+              f"{layers.CONV_IMPLS}, no conv kernel launch", flush=True)
+
+
+def serve_modalities(root: str, depth_dir: str) -> dict:
+    """Phase 7: normals, IID appearance and lighting, LCM depth, one
+    pipeline at a time. Returns the flash launch counts of its runs."""
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    fa.launches.clear()  # these paths' run starts here
+    serve_normals(root, depth_dir)
+    serve_iid(root, depth_dir)
+    serve_lcm(root, depth_dir)
+    counts = dict(fa.launches)  # and ends here
+    print(f"normals, IID and LCM flash launches by variant: {counts}",
+          flush=True)
+    return counts
+
+
+def serve_normals(root: str, depth_dir: str) -> None:
+    import numpy as np
+
+    from marigold_tpu_torch import MarigoldNormalsPipeline
+    from marigold_tpu_torch.ops import attention as attn
+    from marigold_tpu_torch.pipelines import base
+
+    path = os.path.join(root, "normals")
+    write_modality_checkpoint(path, depth_dir, 1, 8, 4, {
+        "_class_name": "MarigoldNormalsPipeline"})
+    pipe = load_modality(MarigoldNormalsPipeline, path)
+    seed, steps, E, hw = 0, MODALITY_STEPS, ENSEMBLE_SIZE, MODALITY_HW
+    rng = np.random.default_rng(2)
+    image = rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+    batch = [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for _ in range(3)]
+
+    def arrays(out):
+        outs = out if isinstance(out, list) else [out]
+        return [a for o in outs for a in (o.normals_np, o.uncertainty)
+                if a is not None]
+
+    def request(e, **kw):
+        return lambda: pipe(image, denoising_steps=steps, ensemble_size=e,
+                            seed=seed, processing_res=hw[0], **kw)
+
+    gated_requests(f"normals E=1 __call__ {hw[0]}x{hw[1]}", request(1), 3,
+                   expected_flash(pipe, hw, steps),
+                   lambda o: check_normals(o, hw, "normals E=1", False), arrays)
+    members = []
+    ensemble_normals = base.ensemble_normals
+
+    def record(normals, **kw):
+        members[:] = [normals.detach().clone()]
+        return ensemble_normals(normals, **kw)
+
+    base.ensemble_normals = record
+    try:
+        outs, _ = gated_requests(
+            f"normals E={E} __call__ {hw[0]}x{hw[1]}", request(E), 2,
+            expected_flash(pipe, hw, steps, ensemble_size=E),
+            lambda o: check_normals(o, hw, f"normals E={E}", True), arrays)
+        kernel_members = members[0]
+        saved = attn.FLASH_MIN_SEQ
+        attn.FLASH_MIN_SEQ = 1 << 30
+        try:
+            plain = request(E)()
+        finally:
+            attn.FLASH_MIN_SEQ = saved
+        plain_members = members[0]
+    finally:
+        base.ensemble_normals = ensemble_normals
+    check_normals(plain, hw, f"normals E={E} on plain attention", True)
+
+    def degrees(a, b, axis):
+        cos = (a * b).sum(axis) / (np.linalg.norm(a, axis=axis)
+                                   * np.linalg.norm(b, axis=axis))
+        return np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+    mean_k = kernel_members.float().mean(0).cpu().numpy()
+    mean_p = plain_members.float().mean(0).cpu().numpy()
+    mean_deg = degrees(mean_k, mean_p, 0)
+    closest_deg = degrees(outs[0].normals_np, plain.normals_np, -1)
+    flips = float((closest_deg > 10.0).mean())
+    unc_diff = np.abs(outs[0].uncertainty - plain.uncertainty)
+    print(f"normals E={E}, kernels vs plain attention: members' mean "
+          f"direction median {np.median(mean_deg):.3f} deg, mean "
+          f"{mean_deg.mean():.3f}, max {mean_deg.max():.3f}; closest map "
+          f"median {np.median(closest_deg):.3f} deg, mean "
+          f"{closest_deg.mean():.3f}, {100 * flips:.2f}% of pixels > 10 deg "
+          f"(near-tie argmax flips); uncertainty max {unc_diff.max():.3e} "
+          f"mean {unc_diff.mean():.3e}; uncertainty mean "
+          f"{outs[0].uncertainty.mean():.4f}", flush=True)
+    if not (np.median(mean_deg) <= NORMALS_MEAN_DEG
+            and np.median(closest_deg) <= NORMALS_CLOSEST_DEG
+            and flips <= NORMALS_FLIP_SHARE):
+        _fail("normals with the kernels differ from plain attention beyond "
+              f"({NORMALS_MEAN_DEG}, {NORMALS_CLOSEST_DEG} deg, "
+              f"{NORMALS_FLIP_SHARE})")
+
+    def batch_call(**kw):
+        return lambda: pipe.batch_call(batch, denoising_steps=steps,
+                                       ensemble_size=E, seed=seed,
+                                       processing_res=hw[0], **kw)
+
+    (_, _), chunks, decodes = request_chunks(pipe, hw, len(batch), E)
+    want = expected_flash(pipe, hw, steps, n_images=len(batch), ensemble_size=E)
+
+    def check_batch(outs):
+        for i, o in enumerate(outs):
+            check_normals(o, hw, f"normals E={E} batch_call image {i}", True)
+
+    full, times = gated_requests(
+        f"normals E={E} batch_call 3x{hw[0]}x{hw[1]} ({chunks} denoise chunk(s), "
+        f"{decodes} decode calls)", batch_call(), 2, want, check_batch, arrays)
+    compact, ctimes = gated_requests(
+        f"normals E={E} batch_call 3x{hw[0]}x{hw[1]} uint16 readback", batch_call(
+            compact_readback=True), 1, want, check_batch, arrays)
+    diff = max(np.abs(c.normals_np - f.normals_np).max()
+               for c, f in zip(compact[0], full[0]))
+    lo = min(c.normals_np.min() for c in compact[0])
+    # half a uint16 step of (x+1)/2, back in [-1, 1], plus fp32 rounding
+    print(f"normals uint16 readback against float: max {diff:.3e} (tol "
+          f"{1 / 65535 + 1e-6:.3e}), min component {lo:.4f}; "
+          f"{times[-1] / 3:.1f} ms/map float, {ctimes[0] / 3:.1f} ms/map uint16",
+          flush=True)
+    if diff > 1 / 65535 + 1e-6 or lo > -0.5:
+        _fail("normals uint16 readback differs from the float readback")
+    profile_request(request(E), what=f"one normals E={E} {hw[0]}x{hw[1]} request")
+    free(pipe)
+
+
+def serve_iid(root: str, depth_dir: str) -> None:
+    import numpy as np
+
+    from marigold_tpu_torch import MarigoldIIDPipeline
+
+    seed, steps, hw = 0, MODALITY_STEPS, MODALITY_HW
+    rng = np.random.default_rng(3)
+    image = rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+    for variant, seed_w in (("appearance", 2), ("lighting", 3)):
+        props = IID_TARGETS[variant]
+        n = len(props["target_names"])
+        path = os.path.join(root, f"iid_{variant}")
+        write_modality_checkpoint(path, depth_dir, seed_w, 4 * (n + 1), 4 * n, {
+            "_class_name": "MarigoldIIDPipeline", "target_properties": props})
+        pipe = load_modality(MarigoldIIDPipeline, path)
+        if pipe.n_targets != n:
+            _fail(f"IID {variant}: {pipe.n_targets} targets, want {n}")
+        check_conv_in_gate(pipe, f"IID {variant}")
+
+        def arrays(out):
+            outs = out if isinstance(out, list) else [out]
+            return [e.array for o in outs for e in o]
+
+        names = props["target_names"]
+        outs, _ = gated_requests(
+            f"IID {variant} ({n} targets) E=1 __call__ {hw[0]}x{hw[1]}",
+            lambda: pipe(image, denoising_steps=steps, seed=seed,
+                         processing_res=hw[0]),
+            3 if variant == "appearance" else 2,
+            expected_flash(pipe, hw, steps),
+            lambda o: check_iid(o, hw, f"IID {variant}", names), arrays)
+        print(f"IID {variant} maps: " + ", ".join(
+            f"{e.name} mean {e.array.mean():.4f}" for e in outs[0]), flush=True)
+        if variant == "appearance":
+            ni, res = IID_BATCH
+            bhw = (res, res)
+            batch = [rng.integers(0, 256, bhw + (3,), dtype=np.uint8)
+                     for _ in range(ni)]
+            (_, _), chunks, decodes = request_chunks(pipe, bhw, ni, 1, res)
+            _, dec = pipe.core.decode_chunking(ni, bhw, pipe.mode, pipe.n_targets)
+
+            def run_batch():
+                return pipe.batch_call(batch, denoising_steps=steps, seed=seed,
+                                       processing_res=res)
+
+            def check_batch(outs):
+                for i, o in enumerate(outs):
+                    check_iid(o, bhw, f"IID batch image {i}", names)
+
+            _, times = gated_requests(
+                f"IID appearance E=1 batch_call {ni}x{res}x{res} ({chunks} "
+                f"denoise chunk(s), {decodes} decode calls of {dec} rows x "
+                f"{n} targets)", run_batch, 2,
+                expected_flash(pipe, bhw, steps, n_images=ni, res=res),
+                check_batch, arrays)
+            print(f"IID appearance NI={ni} @{res}px E=1: "
+                  f"{times[-1] / ni:.1f} ms/map (warm)", flush=True)
+            profile_request(run_batch, what=f"one IID appearance "
+                            f"{ni}x{res}x{res} E=1 batch")
+        free(pipe)
+
+
+def serve_lcm(root: str, depth_dir: str) -> None:
+    import numpy as np
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.models import weights as W
+
+    path = os.path.join(root, "lcm")
+    os.makedirs(path)
+    for sub in ("unet", "vae", "text_encoder", "model_index.json"):
+        os.symlink(os.path.join(depth_dir, sub), os.path.join(path, sub))
+    W.write_config(LCM_SCHEDULER, os.path.join(path, "scheduler"),
+                   "scheduler_config.json")
+    pipe = load_modality(MarigoldDepthPipeline, path)
+    if pipe.core.lcm is None:
+        _fail("the LCMScheduler checkpoint did not load as LCM")
+    hw, E = MODALITY_HW, ENSEMBLE_SIZE
+    image = np.random.default_rng(4).integers(0, 256, hw + (3,), dtype=np.uint8)
+    draws = []
+    step_noise = pipe.core.step_noise
+
+    def counted(shape, gen):
+        draws.append(shape)
+        return step_noise(shape, gen)
+
+    pipe.core.step_noise = counted
+
+    def arrays(out):
+        return [a for a in (out.depth_np, out.uncertainty) if a is not None]
+
+    for steps, e in ((1, E), (4, 1)):
+        def check(out, e=e):
+            check_map(out.depth_np, hw, f"LCM {steps}-step E={e}")
+            if (e > 1) != (out.uncertainty is not None):
+                _fail(f"LCM E={e}: uncertainty")
+        draws.clear()
+        runs = 2
+        gated_requests(f"LCM depth {steps}-step E={e} __call__ {hw[0]}x{hw[1]}",
+                       lambda: pipe(image, denoising_steps=steps,
+                                    ensemble_size=e, seed=0, color_map=None,
+                                    processing_res=hw[0]),
+                       runs, expected_flash(pipe, hw, steps, ensemble_size=e),
+                       check, arrays)
+        (_, _), chunks, _ = request_chunks(pipe, hw, None, e)
+        if len(draws) != runs * chunks * (steps - 1):
+            _fail(f"LCM {steps}-step: {len(draws)} fresh draws, want "
+                  f"{runs * chunks * (steps - 1)}")
+        print(f"LCM {steps}-step E={e}: {len(draws) // runs} fresh noise "
+              f"draws per request ({chunks} chunk(s) x {steps - 1})", flush=True)
+    free(pipe)
 
 
 def conv_kernel_rows(results: dict, counts: dict) -> list:

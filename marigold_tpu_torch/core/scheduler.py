@@ -192,30 +192,34 @@ class DiffusionSchedule:
         t = int(t)
         return self.final_alpha_cumprod if t < 0 else self.alphas_cumprod[t]
 
+    def pred_x0_and_eps(self, model_output: torch.Tensor, t: int,
+                        sample: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The model output under this schedule's prediction_type as
+        (predicted x0, predicted epsilon) at timestep t, both fp32."""
+        a_t = self._alpha_at(t)
+        sqrt_a, sqrt_b = float(np.sqrt(a_t)), float(np.sqrt(np.float32(1.0) - a_t))
+        x = sample.float()
+        m = model_output.float()
+        if self.prediction_type == "epsilon":
+            return (x - sqrt_b * m) / max(sqrt_a, 1e-12), m
+        if self.prediction_type == "sample":
+            return m, (x - sqrt_a * m) / max(sqrt_b, 1e-12)
+        if self.prediction_type == "v_prediction":
+            return sqrt_a * x - sqrt_b * m, sqrt_a * m + sqrt_b * x
+        raise ValueError(f"unknown prediction_type: {self.prediction_type}")
+
     def ddim_step(self, model_output: torch.Tensor, t: int, prev_t: int,
                   sample: torch.Tensor) -> torch.Tensor:
         """Deterministic DDIM update x_t -> x_{prev_t} (diffusers
         DDIMScheduler.step, eta = 0). Math in fp32, result in sample's dtype."""
-        a_t = self._alpha_at(t)
-        one = np.float32(1.0)
-        sqrt_a, sqrt_b = float(np.sqrt(a_t)), float(np.sqrt(one - a_t))
-        x = sample.float()
-        m = model_output.float()
-        if self.prediction_type == "epsilon":
-            x0 = (x - sqrt_b * m) / max(sqrt_a, 1e-12)
-            eps = m
-        elif self.prediction_type == "sample":
-            x0 = m
-            eps = (x - sqrt_a * m) / max(sqrt_b, 1e-12)
-        elif self.prediction_type == "v_prediction":
-            x0 = sqrt_a * x - sqrt_b * m
-            eps = sqrt_a * m + sqrt_b * x
-        else:
-            raise ValueError(f"unknown prediction_type: {self.prediction_type}")
+        x0, eps = self.pred_x0_and_eps(model_output, t, sample)
         if self.clip_sample:
+            a_t = self._alpha_at(t)
             x0 = x0.clamp(-self.clip_sample_range, self.clip_sample_range)
-            eps = (x - sqrt_a * x0) / max(sqrt_b, 1e-12)
+            eps = (sample.float() - float(np.sqrt(a_t)) * x0) / max(
+                float(np.sqrt(np.float32(1.0) - a_t)), 1e-12)
         a_prev = self._alpha_at(prev_t)
+        one = np.float32(1.0)
         prev = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(one - a_prev)) * eps
         return prev.to(sample.dtype)
 

@@ -5,7 +5,9 @@ MarigoldDepthPipeline.__call__): RGB -> affine-invariant depth in [0, 1],
 an optional colorized map and, for ensembles, an uncertainty. `generator`
 takes an integer seed or a torch.Generator on the pipeline's device.
 `from_pretrained(..., device=)` picks the device (the CUDA device unless
-the caller passes device="cpu"). Numpy images are always
+the caller passes device="cpu"). A checkpoint with an LCMScheduler config
+(the deprecated v1-0 LCM model) samples with LCM and logs a deprecation
+warning. Numpy images are always
 accepted, PIL images when PIL is installed; the colorized map is a PIL image
 when PIL is installed and an [H, W, 3] uint8 array otherwise.
 """
@@ -13,13 +15,21 @@ when PIL is installed and an [H, W, 3] uint8 array otherwise.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from marigold_tpu_torch.pipelines import image_util
-from marigold_tpu_torch.pipelines.base import BasePipeline, image_to_array
+from marigold_tpu_torch.pipelines.base import BasePipeline
+
+logger = logging.getLogger(__name__)
+
+LCM_DEPRECATION = (
+    "LCM checkpoint detected: the LCM depth checkpoint is deprecated; "
+    "consider marigold-depth-v1-1 (reference deprecation, "
+    "marigold_depth_pipeline.py:368-377)")
 
 
 @dataclasses.dataclass
@@ -33,16 +43,18 @@ class MarigoldDepthOutput:
 
 
 def _colorize(depth: np.ndarray, cmap: str):
-    colored = image_util.float2int(image_util.chw2hwc(
-        image_util.colorize_depth_maps(depth, 0.0, 1.0, cmap=cmap)[0]))
-    try:
-        from PIL import Image
-    except ImportError:
-        return colored
-    return Image.fromarray(colored)
+    return image_util.to_image(image_util.float2int(image_util.chw2hwc(
+        image_util.colorize_depth_maps(depth, 0.0, 1.0, cmap=cmap)[0])))
 
 
 class MarigoldDepthPipeline(BasePipeline):
+    mode = "depth"
+    n_targets = 1
+
+    def _warn_lcm(self) -> None:
+        if self.core.lcm is not None:
+            logger.warning(LCM_DEPRECATION)
+
     def __call__(
         self,
         input_image,
@@ -68,30 +80,12 @@ class MarigoldDepthPipeline(BasePipeline):
         effect; `shape_bucketing=True` pads the image to a 64-px grid instead
         of the VAE's 8 px; `spatial=True` (the H axis sharded over a mesh)
         raises NotImplementedError."""
-        if denoising_steps is None:
-            denoising_steps = self.default_denoising_steps or 1
-        if processing_res is None:
-            processing_res = self.default_processing_resolution or 768
-        if processing_res < 0 or ensemble_size < 1:
-            raise ValueError(f"processing_res={processing_res}, "
-                             f"ensemble_size={ensemble_size}")
-        self._check_inference_step(denoising_steps)
-        if seed is None:
-            seed = generator
-
-        rgb_norm = image_to_array(input_image)
-        input_h, input_w = rgb_norm.shape[:2]
-        if processing_res > 0 and max(input_h, input_w) != processing_res:
-            nh, nw = image_util.resize_max_res_shape(input_h, input_w, processing_res)
-            rgb_norm = image_util.resize_np(rgb_norm, (nh, nw), method=resample_method)
-
-        pred, unc = self._infer_fused(
-            rgb_norm, denoising_steps=denoising_steps,
-            ensemble_size=ensemble_size, batch_size=batch_size, seed=seed,
-            out_hw=(input_h, input_w) if match_input_res else None,
-            ensemble_kwargs=ensemble_kwargs, resample_method=resample_method,
-            shape_bucketing=shape_bucketing, spatial=spatial,
-        )
+        self._warn_lcm()
+        pred, unc = self._single_infer(
+            input_image, denoising_steps, ensemble_size, processing_res,
+            match_input_res, resample_method, batch_size,
+            generator if seed is None else seed, ensemble_kwargs,
+            shape_bucketing, spatial, default_steps=1)
         depth = np.clip(pred[..., 0], 0.0, 1.0).astype(np.float32)
         return MarigoldDepthOutput(
             depth_np=depth,
@@ -115,6 +109,7 @@ class MarigoldDepthPipeline(BasePipeline):
     ) -> list:
         """Batched serving of same-shape images: all NI x E rows share the
         denoise batch. Returns a list of MarigoldDepthOutput."""
+        self._warn_lcm()
         preds, uncs = self._batch_infer(
             input_images, denoising_steps, ensemble_size, processing_res,
             match_input_res, resample_method, batch_size, seed,

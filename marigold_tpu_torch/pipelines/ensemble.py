@@ -1,9 +1,10 @@
-"""Depth ensembling of the port: align E members by scale and shift, reduce
-them by median (uncertainty: MAD) or mean (std), renormalize to [0, 1].
-
-Counterpart of the depth half of `marigold_tpu/pipelines/ensemble.py`
-(`ensemble_normals` and `ensemble_iid` come with the normals and IID
-slices). Layout: members on the leading axis, NCHW, `[E, 1, H, W]`.
+"""Ensembling of the port, counterpart of `marigold_tpu/pipelines/ensemble.py`:
+  * `ensemble_depth`: align E members by scale and shift, reduce them by
+    median (uncertainty: MAD) or mean (std), renormalize to [0, 1];
+  * `ensemble_normals`: the renormalized mean, or per pixel the member
+    closest to it ("closest"); uncertainty = mean arccos / pi;
+  * `ensemble_iid`: median/MAD or mean/std per channel.
+Layout: members on the leading axis, NCHW, `[E, C, H, W]`.
 
 `gauge_anchor=True` (the serving default) solves the alignment on the
 members' device: member 0 is anchored at its initial scale and shift, the
@@ -26,6 +27,7 @@ renormalize), exactly as the JAX package runs it.
 from __future__ import annotations
 
 import collections
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -549,3 +551,41 @@ def _ensemble_depth_anchored(depth, scale_invariant, shift_invariant,
     pred, uncertainty = _reduce(depth, reduction, output_uncertainty)
     return _finalize(pred, uncertainty, mask, scale_invariant,
                      shift_invariant, output_uncertainty)
+
+
+# ------------------------------------------------------------------ #
+# normals and IID
+
+
+def ensemble_normals(normals: torch.Tensor, output_uncertainty: bool = False,
+                     reduction: str = "closest"):
+    """Ensemble unit normal maps `normals` [E, 3, H, W]. "mean": the mean
+    renormalized (norm clipped at 1e-6); "closest": per pixel the member
+    with the largest cosine to that mean (the first on a tie).
+
+    Returns ([1, 3, H, W], uncertainty [1, 1, H, W] or None)."""
+    if normals.ndim != 4 or normals.shape[1] != 3:
+        raise ValueError(f"Expecting [E,3,H,W]; got {tuple(normals.shape)}.")
+    if reduction not in ("closest", "mean"):
+        raise ValueError(f"Unrecognized reduction method: {reduction}.")
+    normals = normals.float()
+    mean = normals.mean(dim=0, keepdim=True)
+    mean = mean / torch.linalg.vector_norm(mean, dim=1,
+                                           keepdim=True).clamp_min(1e-6)
+    sim_cos = None
+    if output_uncertainty or reduction != "mean":
+        sim_cos = (mean * normals).sum(dim=1, keepdim=True).clamp(-1.0, 1.0)
+    uncertainty = None
+    if output_uncertainty:
+        uncertainty = torch.arccos(sim_cos).mean(dim=0, keepdim=True) / math.pi
+    if reduction == "mean":
+        return mean, uncertainty
+    idx = sim_cos.argmax(dim=0, keepdim=True)  # [1, 1, H, W]
+    return normals.gather(0, idx.expand(-1, 3, -1, -1)), uncertainty
+
+
+def ensemble_iid(targets: torch.Tensor, output_uncertainty: bool = False,
+                 reduction: str = "median"):
+    """Plain median (MAD) or mean (std) of IID targets [E, C, H, W], per
+    channel. Returns ([1, C, H, W], [1, C, H, W] or None)."""
+    return _reduce(targets.float(), reduction, output_uncertainty)

@@ -8,7 +8,9 @@ Counterpart of `marigold_tpu/pipelines/image_util.py`:
     applied as two contractions;
   * `resize_host` is the torchvision-antialias numpy resize of the host
     resize-back path;
-  * `colorize_depth_maps` imports matplotlib only when called.
+  * `colorize_depth_maps` imports matplotlib only when called;
+  * `hwc2chw`, `srgb2linear`, `linear2srgb` and `norm_to_rgb` serve the
+    normals and IID outputs.
 """
 
 from __future__ import annotations
@@ -175,6 +177,11 @@ def chw2hwc(chw: np.ndarray) -> np.ndarray:
     return np.moveaxis(chw, 0, -1)
 
 
+def hwc2chw(hwc: np.ndarray) -> np.ndarray:
+    assert hwc.ndim == 3
+    return np.moveaxis(hwc, -1, 0)
+
+
 def colorize_depth_maps(depth_map, min_depth: float = 0.0, max_depth: float = 1.0,
                         cmap: str = "Spectral") -> np.ndarray:
     """Depth [H, W] (or [B, H, W]) -> colored [B, 3, H, W] in [0, 1].
@@ -196,3 +203,28 @@ def float2int(img: np.ndarray, n_bits: int = 8) -> np.ndarray:
     m = 2**n_bits - 1
     dtype = np.uint8 if n_bits == 8 else np.uint16
     return (np.clip(img, 0, 1) * m + 0.5).astype(dtype)
+
+
+def srgb2linear(img):
+    return img ** 2.2
+
+
+def linear2srgb(img):
+    """numpy array or torch tensor: clipped at 0, then gamma 1/2.2."""
+    if isinstance(img, torch.Tensor):
+        return img.clamp_min(0.0) ** (1.0 / 2.2)
+    return np.clip(img, 0.0, None) ** (1.0 / 2.2)
+
+
+def norm_to_rgb(norm: np.ndarray) -> np.ndarray:
+    """[-1, 1] normals [H, W, 3] -> uint8 RGB."""
+    return float2int((np.asarray(norm) + 1.0) / 2.0)
+
+
+def to_image(rgb_u8: np.ndarray):
+    """[H, W, 3] uint8 -> a PIL image when PIL is installed, else the array."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return rgb_u8
+    return Image.fromarray(rgb_u8)

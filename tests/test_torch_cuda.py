@@ -7,8 +7,10 @@ and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
 with 128-row output blocks and 64-row stages)
 and the 3x3 conv kernels (nine-tap, Winograd) against their plain
 PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
-and without autograd, and the slice on the card against the CPU at E=1 and
-E=3. They skip without a CUDA device.
+and without autograd, and the slices on the card against the CPU: depth at
+E=1 and E=3, normals and IID appearance at E=1, and bf16 normals and IID
+requests through the flash kernels against plain attention. They skip
+without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed:
@@ -133,9 +135,10 @@ def test_dispatch_takes_the_kernel_only_for_long_self_attention(cuda):
     assert sum(fa.launches.values()) == before + 1
 
 
-def _small_checkpoint(root):
+def _small_checkpoint(root, in_ch=8, out_ch=4):
     """A small random checkpoint (sequences under 1024 tokens: no flash)
-    written through the port's own writer."""
+    written through the port's own writer; in_ch/out_ch set the UNet's
+    conv_in and conv_out (IID: 4 * (n + 1) and 4 * n)."""
     from marigold_tpu_torch.core.scheduler import DiffusionSchedule
     from marigold_tpu_torch.models import weights as W
     from marigold_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -144,7 +147,8 @@ def _small_checkpoint(root):
 
     parts = [
         ("unet", UNet2DConditionModel, dataclasses.replace(
-            UNetConfig(), block_out_channels=(32, 64),
+            UNetConfig(), in_channels=in_ch, out_channels=out_ch,
+            block_out_channels=(32, 64),
             down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
             up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
             attention_head_dim=(2, 4), cross_attention_dim=32),
@@ -217,6 +221,135 @@ def test_ensemble_request_on_the_card_matches_the_cpu(cuda, tmp_path):
         np.testing.assert_allclose(got.depth_np, ref.depth_np, atol=1e-3, rtol=0)
         np.testing.assert_allclose(got.uncertainty, ref.uncertainty, atol=1e-3,
                                    rtol=0)
+
+
+def _modality(mode, root, **kw):
+    """The normals or IID-appearance pipeline on the checkpoint at root."""
+    from marigold_tpu_torch import MarigoldIIDPipeline, MarigoldNormalsPipeline
+
+    cls = MarigoldNormalsPipeline if mode == "normals" else MarigoldIIDPipeline
+    return cls.from_pretrained(str(root), **kw)
+
+
+def _maps(mode, out):
+    """The output's maps as one [H, W, C] array."""
+    import numpy as np
+
+    if mode == "normals":
+        return out.normals_np
+    return np.concatenate([np.moveaxis(e.array, 0, -1) for e in out], -1)
+
+
+@pytest.mark.parametrize("mode,n_targets", [("normals", 1), ("iid", 2)])
+def test_modality_on_the_card_matches_the_cpu(cuda, tmp_path, mode, n_targets):
+    """Normals and IID appearance (two targets, each decoded by its own VAE
+    call) in fp32 on the card and on the CPU, from one random checkpoint and
+    one noise: the maps agree to 1e-4, as depth's do."""
+    import numpy as np
+
+    _small_checkpoint(tmp_path, 4 * (n_targets + 1), 4 * n_targets)
+    img = np.random.default_rng(0).integers(0, 256, (48, 40, 3), dtype=np.uint8)
+    noise = torch.randn((1, 4 * n_targets, 24, 20),
+                        generator=torch.Generator().manual_seed(1))
+    maps = []
+    for device in ("cpu", "cuda"):
+        pipe = _modality(mode, tmp_path, dtype=torch.float32, device=device)
+        assert pipe.n_targets == n_targets
+        pipe._noise = lambda n, h, w, seed, d=device: noise.to(d)
+        maps.append(_maps(mode, pipe(img, denoising_steps=2, processing_res=0)))
+    assert maps[1].shape == (48, 40, 3 * n_targets)
+    np.testing.assert_allclose(maps[1], maps[0], atol=1e-4, rtol=0)
+
+
+def _narrow_checkpoint(root, in_ch, out_ch):
+    """A narrow random checkpoint whose 256 px requests reach both flash
+    kernels: the VAE downsamples by 8 with a 512-wide last level (its mid
+    attention: one 512-wide head over 32x32 = 1024 latent tokens) and the
+    UNet's level 0 has one 64-wide head over the same 1024 tokens."""
+    from marigold_tpu_torch.core.scheduler import DiffusionSchedule
+    from marigold_tpu_torch.models import weights as W
+    from marigold_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from marigold_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from marigold_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    parts = [
+        ("unet", UNet2DConditionModel, dataclasses.replace(
+            UNetConfig(), in_channels=in_ch, out_channels=out_ch,
+            block_out_channels=(64, 128),
+            down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+            attention_head_dim=(1, 2), cross_attention_dim=32,
+            layers_per_block=1),
+         "diffusion_pytorch_model.safetensors", ""),
+        ("vae", AutoencoderKL, dataclasses.replace(
+            VAEConfig(), block_out_channels=(32, 64, 128, 512),
+            layers_per_block=1), "diffusion_pytorch_model.safetensors", ""),
+        ("text_encoder", CLIPTextModel, dataclasses.replace(
+            CLIPTextConfig(), hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=2),
+         "model.safetensors", "text_model."),
+    ]
+    gen = torch.Generator().manual_seed(3)
+    for sub, cls, cfg, fname, prefix in parts:
+        with torch.device("meta"):
+            model = cls(cfg)
+        W.save_component(cfg.to_dict(), W.random_state_dict(model, gen),
+                         str(root / sub), fname, prefix)
+    DiffusionSchedule.create().save_pretrained(str(root / "scheduler"))
+
+
+# A bf16 normals or IID map through the flash kernels against the same
+# request on plain attention: both run the bf16 model, so the maps differ by
+# bf16 rounding carried through 4 steps and the decoder (as chip_smoke.py's
+# DEPTH_TOL bounds for depth). Measured on an H100 for this model and image
+# (the test prints its numbers under pytest -s):
+# IID max |diff| 4.5e-2, mean 2.9e-3 (bf16 steps near 1 are 3.9e-3, and
+# IID channels are not averaged as depth's three are); normals median angle
+# 0.99 deg and 0.34% of pixels more than 10 deg apart (a normal decoded near
+# zero length turns far on a small change before its renormalization).
+# Held at about twice (IID), three and six times (normals) those.
+IID_TOL = (1e-1, 1e-2)  # max, mean |diff| of the [H, W, 3n] maps
+NORMALS_TOL = (3.0, 0.02)  # median angle in degrees, share of pixels > 10 deg
+
+
+@pytest.mark.parametrize("mode,n_targets", [("normals", 1), ("iid", 2)])
+def test_bf16_modality_through_the_flash_kernels(cuda, tmp_path, monkeypatch,
+                                                mode, n_targets):
+    """A bf16 256 px request on the narrow model: 3 d=64 launches per UNet
+    forward (level 0: one down and two up self-attentions), one d=512 launch
+    in the encoder and one per decoded target group; the map within
+    IID_TOL or NORMALS_TOL of the plain-attention request's."""
+    import numpy as np
+
+    _narrow_checkpoint(tmp_path, 4 * (n_targets + 1), 4 * n_targets)
+    pipe = _modality(mode, tmp_path, dtype=torch.bfloat16, device="cuda")
+    img = np.random.default_rng(1).integers(0, 256, (256, 256, 3), dtype=np.uint8)
+    steps = 4
+
+    def request():
+        return _maps(mode, pipe(img, denoising_steps=steps, processing_res=256,
+                                seed=0))
+
+    before = dict(fa.launches)
+    got = request()
+    delta = {k: n - before.get(k, 0) for k, n in fa.launches.items()
+             if n != before.get(k, 0)}
+    assert delta == {"shifted_d64": 3 * steps, "shifted_d512": 1 + n_targets}
+    monkeypatch.setattr(TA, "FLASH_MIN_SEQ", 1 << 30)
+    ref = request()
+    assert got.shape == (256, 256, 3 * n_targets) and np.isfinite(got).all()
+    diff = np.abs(got - ref)
+    print(f"{mode} bf16 kernels vs plain: max |diff| {diff.max():.3e}, mean "
+          f"{diff.mean():.3e}")  # shown by pytest -s
+    if mode == "normals":
+        deg = np.degrees(np.arccos(np.clip((got * ref).sum(-1), -1.0, 1.0)))
+        stats = (np.median(deg), (deg > 10.0).mean())
+        print(f"normals median angle {stats[0]:.3f} deg, "
+              f"{100 * stats[1]:.2f}% of pixels over 10 deg")
+        assert stats[0] <= NORMALS_TOL[0] and stats[1] <= NORMALS_TOL[1], stats
+    else:
+        assert diff.max() <= IID_TOL[0] and diff.mean() <= IID_TOL[1], \
+            (diff.max(), diff.mean())
 
 
 def _conv_inputs(gen, b, c, h, w, k):

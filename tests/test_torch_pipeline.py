@@ -302,17 +302,31 @@ def test_from_pretrained_needs_a_device_or_the_cpu(ckpt):
         tbs.find_batch_size(10, 768)
 
 
-def test_unported_options_raise(pipes, ckpt, tmp_path):
+def test_lcm_checkpoint_loads_as_lcm(pipes, ckpt, tmp_path):
+    """A checkpoint whose scheduler config names LCMScheduler loads with
+    core.lcm set (original_inference_steps from the config, the base schedule
+    from the same config), as the JAX package's loader builds it."""
+    from marigold_tpu.pipelines.base import load_pipeline_components as jload
+
     lcm = tmp_path / "lcm"
     lcm.mkdir()
     for sub in ("unet", "vae", "text_encoder"):
         os.symlink(os.path.join(ckpt, sub), lcm / sub)
     cfg = tbase.W.read_config(os.path.join(ckpt, "scheduler"),
                               "scheduler_config.json")
-    cfg["_class_name"] = "LCMScheduler"
+    cfg.update(_class_name="LCMScheduler", original_inference_steps=40)
     tbase.W.write_config(cfg, str(lcm / "scheduler"), "scheduler_config.json")
-    with pytest.raises(NotImplementedError, match="LCM"):
-        TorchDepth.from_pretrained(str(lcm), dtype=torch.float32, device="cpu")
+    pipe = TorchDepth.from_pretrained(str(lcm), dtype=torch.float32, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MARIGOLD_TPU_FASTLOAD", "0")
+        jcore, _ = jload(str(lcm), dtype=jnp.float32)
+    assert pipe.core.lcm.original_inference_steps == 40
+    assert jcore.lcm.original_inference_steps == 40
+    np.testing.assert_array_equal(pipe.core.lcm.inference_timesteps(4),
+                                  jcore.lcm.inference_timesteps(4))
+    np.testing.assert_array_equal(pipe.core.lcm.base.alphas_cumprod,
+                                  jcore.lcm.base.alphas_cumprod)
+    assert pipes[1].core.lcm is None
 
 
 # ------------------------------------------------------------------ #
@@ -363,6 +377,18 @@ def test_shapes_padding_and_sizing_match_jax():
     for total, hw in [(1, (768, 768)), (30, (768, 768)), (7, (1536, 1536))]:
         assert tbase.DiffusionCore.decode_chunking(total, hw) == \
             jbase.DiffusionCore.decode_chunking(total, hw, "depth", 1)
+    # normals decode one image per row; IID n_targets per row (the cap
+    # counts decoded images)
+    for total, hw, mode, n in [(30, (768, 768), "normals", 1),
+                               (10, (768, 768), "normals", 1),
+                               (16, (640, 640), "iid", 2),
+                               (16, (640, 640), "iid", 3),
+                               (24, (640, 640), "iid", 3),
+                               (1, (768, 768), "iid", 3),
+                               (7, (1536, 1536), "iid", 2)]:
+        assert tbase.DiffusionCore.decode_chunking(
+            total, hw, mode=mode, n_targets=n) == \
+            jbase.DiffusionCore.decode_chunking(total, hw, mode, n)
     # a CPU device reports no memory limit to either package: both budget
     # their 16 GiB default
     for e, res in [(1, 768), (10, 768), (30, 512)]:
@@ -373,7 +399,9 @@ def test_shapes_padding_and_sizing_match_jax():
 def test_import_pulls_in_no_jax():
     code = ("import sys, marigold_tpu_torch, marigold_tpu_torch.ops.conv, "
             "marigold_tpu_torch.ops.winograd, "
-            "marigold_tpu_torch.pipelines.ensemble; "
+            "marigold_tpu_torch.pipelines.ensemble, "
+            "marigold_tpu_torch.pipelines.normals, "
+            "marigold_tpu_torch.pipelines.iid, marigold_tpu_torch.core.lcm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'marigold_tpu')]; print(bad); sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
