@@ -38,8 +38,16 @@ Phases, none of which catches its own failure:
      LCM depth (the depth UNet with an LCMScheduler config: 1 step E=10, 4
      steps E=1 with fresh noise); maps checked for shape, range and
      determinism, flash launches exact per head width;
-  8. the folded flash entry at its two shapes;
-  9. training at full SD2 width (the depth fine-tuning recipe).
+  8. the command-line entry points on those checkpoints: validate_ckpt as
+     a subprocess (and on a unet/ header with one wrong shape), run (depth
+     E=10 with the Spectral PNGs, normals E=1), serve --once (six 768^2
+     images, NI=3, E=10, two batches in flight), the HTTP API (concurrent
+     requests, /healthz, the drain) and benchmark nyu on two fabricated
+     480x640 samples with --parity (online launches only, the ensemble's
+     parity pins) and without it (shifted launches only), flash launches
+     exact per step;
+  9. the folded flash entry at its two shapes;
+  10. training at full SD2 width (the depth fine-tuning recipe).
 Prints the card's name and power limit, a JSON line of kernels, then, last,
 {"ok": true, "device": {...}}. Exits non-zero without a result when no CUDA
 device is present.
@@ -497,6 +505,7 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         serve_counts.update(serve_modalities(root, depth_dir))
+        serve_counts.update(cli_phase(root, depth_dir))
     folded_counts = folded_path()
     train_counts = train_phase()
     rows = (kernel_rows(results, serve_counts)
@@ -1658,6 +1667,509 @@ def serve_lcm(root: str, depth_dir: str) -> None:
         print(f"LCM {steps}-step E={e}: {len(draws) // runs} fresh noise "
               f"draws per request ({chunks} chunk(s) x {steps - 1})", flush=True)
     free(pipe)
+
+
+# Phase 8: the command-line entry points on the full-width checkpoints
+
+CLI_STEPS = 4  # the checkpoints' default_denoising_steps
+CLI_RES = 768  # and default_processing_resolution
+CLI_HW = (768, 768)
+RUN_SHAPES = [CLI_HW, CLI_HW, (480, 640)]
+SERVE_IMAGES = 6  # CLI_HW, in batches of NI=3 at E=10, two in flight, then one
+HTTP_BATCH_WAIT = 0.25
+NYU_SPLIT = "data_split/nyu_depth/labeled/filename_list_test.txt"
+NYU_DIR = "nyuv2/nyu_labeled_extracted.tar"  # a directory stands in for it
+NYU_HW = (480, 640)
+
+
+def pipe_spec(ckpt: str, mode: str, n_targets: int = 1):
+    """What expected_flash reads of a pipeline (configs, device, mode),
+    from a checkpoint's configs, for a pipeline that a CLI builds itself."""
+    import types
+
+    import torch
+
+    from marigold_tpu_torch.models import weights as W
+    from marigold_tpu_torch.models.unet import UNetConfig
+    from marigold_tpu_torch.models.vae import VAEConfig
+    from marigold_tpu_torch.pipelines.base import DiffusionCore
+
+    core = types.SimpleNamespace(
+        unet_cfg=UNetConfig.from_dict(W.read_config(os.path.join(ckpt, "unet"))),
+        vae_cfg=VAEConfig.from_dict(W.read_config(os.path.join(ckpt, "vae"))),
+        device=torch.device("cuda"),
+        decode_chunking=DiffusionCore.decode_chunking)
+    return types.SimpleNamespace(core=core, mode=mode, n_targets=n_targets)
+
+
+class _LoadTimer:
+    """Times every from_pretrained inside the block (the CLIs load their
+    own pipelines), so that a CLI's wall time can be split into the load
+    and the rest."""
+
+    def __enter__(self):
+        import torch
+
+        from marigold_tpu_torch.pipelines import base
+
+        self.seconds = 0.0
+        self._orig = base.BasePipeline.__dict__["from_pretrained"]
+        load = self._orig.__func__
+
+        def timed(cls, *args, **kwargs):
+            t = time.perf_counter()
+            pipe = load(cls, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t
+            return pipe
+
+        base.BasePipeline.from_pretrained = classmethod(timed)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from marigold_tpu_torch.pipelines import base
+
+        self.wall = time.perf_counter() - self.t0
+        base.BasePipeline.from_pretrained = self._orig
+
+    def ms_per(self, n: int) -> float:
+        """ms per item of the wall time without the loads."""
+        return (self.wall - self.seconds) * 1e3 / n
+
+
+def _release() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _write_images(folder: str, shapes: list, seed: int) -> list:
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder)
+    rng = np.random.default_rng(seed)
+    names = []
+    for i, hw in enumerate(shapes):
+        names.append(f"img{i}")
+        Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8)).save(
+            os.path.join(folder, f"img{i}.png"))
+    return names
+
+
+def _flash_gate(what: str, before: dict, want: dict, variant: str = None):
+    """The flash launches since `before`, by head width, held to `want`;
+    with `variant`, every one of them of that softmax mode."""
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    got = flash_by_width(before)
+    if got != want:
+        _fail(f"{what}: flash launches by head width {got} != {want}")
+    if variant is not None:
+        other = {k: n - before.get(k, 0) for k, n in fa.launches.items()
+                 if n != before.get(k, 0) and not k.startswith(variant)}
+        if other:
+            _fail(f"{what}: launches other than {variant}: {other}")
+    return got
+
+
+def cli_validate(root: str, depth_dir: str) -> None:
+    """validate_ckpt as a subprocess: the depth, normals and IID checkpoints
+    pass; a unet/ whose header names one wrong shape fails with the
+    diagnosis. The broken file holds its header only, which the validator
+    must accept, since it reads no tensor byte. The two processes run
+    together; the same validation in this process is timed beside them."""
+    import shutil
+    import struct
+
+    from marigold_tpu_torch.models import manifest
+
+    ckpts = [depth_dir] + [os.path.join(root, n) for n in (
+        "normals", "iid_appearance", "iid_lighting")]
+    broken = os.path.join(root, "broken")
+    os.makedirs(os.path.join(broken, "unet"))
+    for sub in ("vae", "text_encoder", "scheduler", "model_index.json"):
+        os.symlink(os.path.join(depth_dir, sub), os.path.join(broken, sub))
+    shutil.copy(os.path.join(depth_dir, "unet", "config.json"),
+                os.path.join(broken, "unet"))
+    fname = "diffusion_pytorch_model.fp16.safetensors"
+    with open(os.path.join(depth_dir, "unet", fname), "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header["conv_out.bias"]["shape"] = [5]
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(os.path.join(broken, "unet", fname), "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+
+    cmd = [sys.executable, "-m", "marigold_tpu_torch.cli.validate_ckpt",
+           "--variant", "fp16"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + args, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for args in (ckpts, [broken])]
+    (good, good_err), (bad, bad_err) = [p.communicate() for p in procs]
+    wall = time.perf_counter() - t0
+    if procs[0].returncode != 0 or good.count("RESULT: OK") != len(ckpts):
+        _fail(f"validate_ckpt on the serving checkpoints: rc "
+              f"{procs[0].returncode}\n{good}{good_err}")
+    diag = "shape mismatch conv_out.bias: expected [4] got [5]"
+    if procs[1].returncode == 0 or diag not in bad:
+        _fail(f"validate_ckpt on a wrong shape: rc {procs[1].returncode}\n"
+              f"{bad}{bad_err}")
+    t1 = time.perf_counter()
+    reports = [manifest.validate_checkpoint(d, "fp16") for d in ckpts]
+    inproc = time.perf_counter() - t1
+    if not all(r["ok"] for r in reports):
+        _fail("validate_checkpoint in this process disagrees")
+    print(f"validate_ckpt (two subprocesses together): {len(ckpts)} full-width "
+          f"checkpoints OK; the header-only unet/ with one wrong shape exits "
+          f"{procs[1].returncode} with '{diag}'; {wall * 1e3:.1f} ms wall for "
+          f"both, process start and imports included; the same {len(ckpts)} "
+          f"validations in this process {inproc * 1e3:.1f} ms", flush=True)
+
+
+def cli_run(root: str, depth_dir: str) -> None:
+    """run --modality depth at its defaults (bf16, Spectral through the
+    port's own table) on two 768^2 images and one 480x640, E=10, 4 steps;
+    then run --modality normals once at E=1."""
+    import numpy as np
+    from PIL import Image
+
+    from marigold_tpu_torch.cli import run as run_cli
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.pipelines import image_util
+
+    src, out = os.path.join(root, "run_in"), os.path.join(root, "run_out")
+    names = _write_images(src, RUN_SHAPES, 5)
+    spec = pipe_spec(depth_dir, "depth")
+    want = collections.Counter()
+    for hw in RUN_SHAPES:
+        # run pads each image to the 64-px grid (shape_bucketing)
+        ph, pw = image_util.resize_max_res_shape(*hw, CLI_RES)
+        padded = (-(-ph // 64) * 64, -(-pw // 64) * 64)
+        want.update(expected_flash(spec, padded, CLI_STEPS,
+                                   ensemble_size=ENSEMBLE_SIZE,
+                                   res=max(padded)))
+    before = dict(fa.launches)
+    with _LoadTimer() as timer:
+        rc = run_cli.main(["--modality", "depth", "--checkpoint", depth_dir,
+                           "--input_rgb_dir", src, "--output_dir", out,
+                           "--ensemble_size", str(ENSEMBLE_SIZE), "--seed",
+                           "0"])
+    if rc != 0:
+        _fail(f"run --modality depth exited {rc}")
+    _flash_gate("run depth", before, dict(want))
+    for name, hw in zip(names, RUN_SHAPES):
+        depth = np.load(os.path.join(out, "depth_npy", f"{name}_pred.npy"))
+        check_map(depth, hw, f"run {name}")
+        bw = np.asarray(Image.open(os.path.join(out, f"{name}_depth_bw.png")))
+        colored = Image.open(os.path.join(out, f"{name}_depth_colored.png"))
+        if bw.dtype != np.uint16 or bw.shape != hw or colored.mode != "RGB" \
+                or colored.size != hw[::-1]:
+            _fail(f"run {name}: bw {bw.dtype} {bw.shape}, colored "
+                  f"{colored.mode} {colored.size}")
+    _release()
+    print(f"run --modality depth (E={ENSEMBLE_SIZE}, {CLI_STEPS} steps, bf16, "
+          f"Spectral): {len(names)} images in {timer.wall:.2f} s, of which "
+          f"the load {timer.seconds:.2f} s: {timer.ms_per(len(names)):.1f} "
+          f"ms/map with the npy and PNG writes; flash launches {dict(want)} "
+          f"as expected; npy, 16-bit and RGB PNGs checked", flush=True)
+
+    nsrc, nout = os.path.join(root, "run_n_in"), os.path.join(root, "run_n_out")
+    _write_images(nsrc, RUN_SHAPES[:1], 6)
+    normals = os.path.join(root, "normals")
+    before = dict(fa.launches)
+    with _LoadTimer() as timer:
+        rc = run_cli.main(["--modality", "normals", "--checkpoint", normals,
+                           "--input_rgb_dir", nsrc, "--output_dir", nout,
+                           "--seed", "0"])
+    if rc != 0:
+        _fail(f"run --modality normals exited {rc}")
+    _flash_gate("run normals", before, expected_flash(
+        pipe_spec(normals, "normals"), RUN_SHAPES[0], CLI_STEPS, res=CLI_RES))
+    n = np.load(os.path.join(nout, "normals_npy", "img0_pred.npy"))
+    png = np.asarray(Image.open(os.path.join(nout, "img0_normals.png")))
+    dev = np.abs(np.linalg.norm(n, axis=-1) - 1.0).max()
+    if n.shape != RUN_SHAPES[0] + (3,) or dev > UNIT_TOL or \
+            png.shape != RUN_SHAPES[0] + (3,) or png.dtype != np.uint8:
+        _fail(f"run normals: {n.shape}, off the unit sphere by {dev}, png "
+              f"{png.shape} {png.dtype}")
+    _release()
+    print(f"run --modality normals (E=1): 1 image, "
+          f"{timer.ms_per(1):.1f} ms without the {timer.seconds:.2f} s load",
+          flush=True)
+
+
+def cli_serve_once(root: str, depth_dir: str) -> None:
+    """serve --once: six 768^2 images, NI=3, E=10, with two batches in
+    flight (the default) and then with one, timed in the same way."""
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch.cli import serve as serve_cli
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    watch = os.path.join(root, "serve_in")
+    names = _write_images(watch, [CLI_HW] * SERVE_IMAGES, 7)
+    ni = 3
+    per_batch = expected_flash(pipe_spec(depth_dir, "depth"), CLI_HW,
+                               CLI_STEPS, n_images=ni,
+                               ensemble_size=ENSEMBLE_SIZE, res=CLI_RES)
+    want = {d: n * (SERVE_IMAGES // ni) for d, n in per_batch.items()}
+    for in_flight in (2, 1):
+        out = os.path.join(root, f"serve_out{in_flight}")
+        before = dict(fa.launches)
+        torch.cuda.reset_peak_memory_stats()
+        with _LoadTimer() as timer:
+            rc = serve_cli.main(["--checkpoint", depth_dir, "--watch_dir",
+                                 watch, "--output_dir", out, "--once",
+                                 "--batch_images", str(ni), "--ensemble_size",
+                                 str(ENSEMBLE_SIZE), "--max_in_flight",
+                                 str(in_flight), "--poll_interval", "0.05",
+                                 "--seed", "0"])
+        if rc != 0:
+            _fail(f"serve --once --max_in_flight {in_flight} exited {rc}")
+        _flash_gate(f"serve --once --max_in_flight {in_flight}", before, want)
+        written = sorted(os.listdir(os.path.join(out, "depth_npy")))
+        if written != [f"{n}_pred.npy" for n in names]:
+            _fail(f"serve --once wrote {written}")
+        for name in names:
+            check_map(np.load(os.path.join(out, "depth_npy",
+                                           f"{name}_pred.npy")),
+                      CLI_HW, f"serve {name}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _release()
+        print(f"serve --once --max_in_flight {in_flight}: {SERVE_IMAGES} maps "
+              f"in {SERVE_IMAGES // ni} batches of NI={ni} E={ENSEMBLE_SIZE} "
+              f"in {timer.wall:.2f} s, of which the load {timer.seconds:.2f} "
+              f"s: {timer.ms_per(SERVE_IMAGES):.1f} ms/map with the npy and "
+              f"PNG writes; flash launches {want} as expected; peak device "
+              f"memory {peak:.2f} GiB", flush=True)
+
+
+def cli_http(root: str, depth_dir: str) -> None:
+    """serve(args, stop_event) in a thread on a free loopback port: three
+    concurrent npy requests (one batch), then one png request, /healthz, the
+    stop event and the drain."""
+    import io
+    import socket
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from marigold_tpu_torch.cli import serve as serve_cli
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    watch = os.path.join(root, "http_watch")
+    os.makedirs(watch)
+    args = serve_cli.build_parser().parse_args([
+        "--checkpoint", depth_dir, "--watch_dir", watch, "--output_dir",
+        os.path.join(root, "http_out"), "--batch_images", "3",
+        "--ensemble_size", "1", "--batch_wait", str(HTTP_BATCH_WAIT),
+        "--poll_interval", "0.1", "--http_port", str(port), "--seed", "0"])
+    stop = threading.Event()
+    rc = []
+    server = threading.Thread(target=lambda: rc.append(serve_cli.serve(args, stop)))
+    base = f"http://127.0.0.1:{port}"
+    rng = np.random.default_rng(8)
+    bodies = []
+    for _ in range(4):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, CLI_HW + (3,), dtype=np.uint8)
+                        ).save(buf, format="PNG")
+        bodies.append(buf.getvalue())
+
+    def post(body, fmt):
+        req = urllib.request.Request(f"{base}/v1/predict?format={fmt}",
+                                     data=body, method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read(), (time.perf_counter() - t) * 1e3
+
+    def health():
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            return json.loads(r.read())
+
+    before = dict(fa.launches)
+    server.start()
+    try:
+        for _ in range(600):
+            try:
+                health()
+                break
+            except OSError:
+                time.sleep(0.1)
+        else:
+            _fail("the HTTP server never came up")
+        results = {}
+
+        def one(i):
+            results[i] = post(bodies[i], "npy")
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if sorted(results) != [0, 1, 2]:
+            _fail(f"HTTP: answers for {sorted(results)} of 3 requests")
+        for i, (body, _) in results.items():
+            check_map(np.load(io.BytesIO(body)), CLI_HW, f"HTTP npy {i}")
+        body, png_ms = post(bodies[3], "png")
+        png = np.asarray(Image.open(io.BytesIO(body)))
+        if png.shape != CLI_HW or png.dtype != np.uint16:
+            _fail(f"HTTP png: {png.shape} {png.dtype}")
+        for _ in range(100):  # the loop settles its stats after the reply
+            h = health()
+            if h["served"] == 4:
+                break
+            time.sleep(0.05)
+        if h["served"] != 4 or h["pending"] != 0 or h["batches"] != 2:
+            _fail(f"HTTP /healthz: {h}")
+    finally:
+        stop.set()
+        server.join(timeout=300)
+    if server.is_alive() or rc != [0]:
+        _fail(f"HTTP server: alive {server.is_alive()}, rc {rc}")
+    spec = pipe_spec(depth_dir, "depth")
+    want = collections.Counter(expected_flash(spec, CLI_HW, CLI_STEPS,
+                                              n_images=3, res=CLI_RES))
+    want.update(expected_flash(spec, CLI_HW, CLI_STEPS, n_images=1,
+                               res=CLI_RES))
+    _flash_gate("HTTP", before, dict(want))
+    _release()
+    npy_ms = sorted(ms for _, ms in results.values())
+    print(f"HTTP API (E=1, {CLI_STEPS} steps, {CLI_HW[0]}x{CLI_HW[1]}, batch_wait "
+          f"{HTTP_BATCH_WAIT} s): three concurrent npy requests in one batch, "
+          f"round trips {', '.join(f'{ms:.1f}' for ms in npy_ms)} ms; one png "
+          f"request alone {png_ms:.1f} ms (with the batch wait); /healthz {h}; "
+          f"drained, rc 0", flush=True)
+
+
+def write_nyu(base: str, n: int) -> int:
+    """The first n lines of the NYU test split as fabricated samples: random
+    480x640 RGB and a smooth depth in mm (uint16), the same for the raw and
+    the filled depth. Returns n."""
+    import numpy as np
+    from PIL import Image
+
+    with open(NYU_SPLIT) as f:
+        lines = [ln.split() for ln in f.readlines()[:n]]
+    root = os.path.join(base, NYU_DIR)
+    rng = np.random.default_rng(9)
+    h, w = NYU_HW
+    g = np.sin(np.linspace(0, 3, h)[:, None] + np.linspace(0, 2, w)[None, :])
+    mm = ((2.0 + 1.5 * (g + 1) / 2) * 1000).astype(np.uint16)
+    for rgb_rel, depth_rel, filled_rel in lines:
+        for rel in (rgb_rel, depth_rel, filled_rel):
+            os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(root, rgb_rel))
+        for rel in (depth_rel, filled_rel):
+            Image.fromarray(mm).save(os.path.join(root, rel))
+    return len(lines)
+
+
+def cli_benchmark(root: str, depth_dir: str) -> None:
+    """benchmark --benchmark nyu at the protocol's own pins (E=10, 1 step,
+    native resolution): --limit 1 with --parity (online launches only, the
+    ensemble at reg_max_res 1024 and gauge_anchor 0; one sample shows the
+    pins, and its ensemble is the reference's host BFGS), then --limit 2
+    without it (shifted launches only)."""
+    import numpy as np
+
+    from marigold_tpu_torch.cli import benchmark as bench_cli
+    from marigold_tpu_torch.ops import attention as attn
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.pipelines import base
+
+    nyu = os.path.join(root, "nyu")
+    write_nyu(nyu, 2)
+    steps = bench_cli.DEFAULTS["depth"]["denoise_steps"]
+    e = bench_cli.DEFAULTS["depth"]["ensemble_size"]
+    one = expected_flash(pipe_spec(depth_dir, "depth"), NYU_HW, steps,
+                         ensemble_size=e, res=max(NYU_HW))
+    real = base.ensemble_depth
+    seen = []
+
+    def spy(depth, **kw):
+        seen.append((kw.get("reg_max_res"), kw.get("gauge_anchor")))
+        return real(depth, **kw)
+
+    env = os.environ.get("MARIGOLD_TPU_FLASH_SOFTMAX")
+    base.ensemble_depth = spy
+    try:
+        for parity in (True, False):
+            out = os.path.join(root, f"bench_{'parity' if parity else 'serving'}")
+            n = 1 if parity else 2
+            want = {d: c * n for d, c in one.items()}
+            seen.clear()
+            before = dict(fa.launches)
+            with _LoadTimer() as timer:
+                rc = bench_cli.main(["--modality", "depth", "--benchmark",
+                                     "nyu", "--checkpoint", depth_dir,
+                                     "--base_data_dir", nyu, "--output_dir",
+                                     out, "--limit", str(n)]
+                                    + (["--parity"] if parity else []))
+            if rc != 0:
+                _fail(f"benchmark nyu (parity={parity}) exited {rc}")
+            variant = "online" if parity else "shifted"
+            _flash_gate(f"benchmark nyu {variant}", before, want, variant)
+            pins = (1024, False) if parity else (96, True)
+            if seen != [pins] * n:
+                _fail(f"benchmark nyu (parity={parity}): ensemble calls {seen}, "
+                      f"want {[pins] * n}")
+            csv = os.path.join(out, "depth", "nyu", "eval_metric",
+                               "per_sample_metrics.csv")
+            with open(csv) as f:
+                rows = f.read().strip().splitlines()
+            values = [float(v) for row in rows[1:] for v in row.split(",")[1:]]
+            if len(rows) != n + 1 or not np.isfinite(values).all():
+                _fail(f"benchmark nyu (parity={parity}): CSV {rows}")
+            print(f"benchmark nyu (parity={parity}): {n} samples {NYU_HW[0]}x"
+                  f"{NYU_HW[1]} E={e} {steps} step, {variant} flash launches "
+                  f"{want} only, ensemble (reg_max_res, gauge_anchor) {pins}, "
+                  f"CSV {rows[0].split(',')[1:3]} = {rows[1].split(',')[1:3]}; "
+                  f"{timer.ms_per(n):.1f} ms/sample with the eval, without "
+                  f"the {timer.seconds:.2f} s load", flush=True)
+            _release()
+            if parity:
+                attn.set_flash_softmax("shifted")
+                if env is None:
+                    os.environ.pop("MARIGOLD_TPU_FLASH_SOFTMAX")
+                else:
+                    os.environ["MARIGOLD_TPU_FLASH_SOFTMAX"] = env
+    finally:
+        base.ensemble_depth = real
+
+
+def cli_phase(root: str, depth_dir: str) -> dict:
+    """Phase 8: validate_ckpt, run, serve --once, the HTTP API and the
+    benchmark harness on the full-width checkpoints written by phases 4 and
+    7. Returns the flash launch counts of its run."""
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    fa.launches.clear()  # these paths' run starts here
+    cli_validate(root, depth_dir)
+    cli_run(root, depth_dir)
+    cli_serve_once(root, depth_dir)
+    cli_http(root, depth_dir)
+    cli_benchmark(root, depth_dir)
+    counts = dict(fa.launches)  # and ends here
+    print(f"CLI phase flash launches by variant: {counts}; phase ran in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
 
 
 def conv_kernel_rows(results: dict, counts: dict) -> list:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -43,6 +44,7 @@ from marigold_tpu_torch.ops import conv as conv_ops
 from marigold_tpu_torch.ops import winograd as winograd_ops
 
 CONV_IMPLS = ("xla", "pallas", "winograd")
+_PREPARE_LOCK = threading.Lock()  # Conv2d.prepared_weight's cache fill
 _CONV_IMPL = os.environ.get("MARIGOLD_TPU_CONV", "xla")
 if _CONV_IMPL not in CONV_IMPLS:
     raise ValueError(f"MARIGOLD_TPU_CONV must be one of {CONV_IMPLS}, "
@@ -85,10 +87,18 @@ class Conv2d(nn.Conv2d):
         key = (impl, w.data_ptr(), w._version, w.dtype, w.device)
         cached = self.__dict__.get("_prepared")
         if cached is None or cached[0] != key:
-            with torch.no_grad():
-                prep = (conv_ops.taps(w) if impl == "pallas"
-                        else winograd_ops.filter_transform(w))
-            cached = self.__dict__["_prepared"] = (key, prep)
+            # serving threads fill the cache under a lock, each on its own
+            # CUDA stream: the weight is published only once its stream has
+            # finished writing it, so another stream never reads it early
+            with _PREPARE_LOCK:
+                cached = self.__dict__.get("_prepared")
+                if cached is None or cached[0] != key:
+                    with torch.no_grad():
+                        prep = (conv_ops.taps(w) if impl == "pallas"
+                                else winograd_ops.filter_transform(w))
+                    if prep.is_cuda:
+                        torch.cuda.current_stream(prep.device).synchronize()
+                    cached = self.__dict__["_prepared"] = (key, prep)
         return cached[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,17 @@ _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 # safetensors
 
 
+def read_safetensors_header(path: str) -> dict[str, tuple[tuple, str]]:
+    """{name: (shape, dtype)} of one .safetensors file from its header
+    alone (the 8-byte length and the JSON after it); no tensor byte is
+    read. dtype is the format's own name ("F16", "F32", ...)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    return {name: (tuple(meta["shape"]), meta["dtype"])
+            for name, meta in header.items() if name != "__metadata__"}
+
+
 def read_safetensors(path: str) -> dict[str, torch.Tensor]:
     """All tensors of one .safetensors file, on the CPU."""
     with open(path, "rb") as f:

@@ -19,6 +19,7 @@ has no transposed layout, so it is linear + attention.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -26,8 +27,13 @@ import torch
 from marigold_tpu_torch.ops import flash_attention as fa
 
 FLASH_MIN_SEQ = 1024
-# "shifted" (serving default) or "online" (the reference-exact pin)
-_FLASH_SOFTMAX = "shifted"
+# "shifted" (serving default) or "online" (the reference-exact pin); the
+# environment variable sets the import-time mode, as in the JAX package, so
+# that the parity pin reaches child processes
+_FLASH_SOFTMAX = os.environ.get("MARIGOLD_TPU_FLASH_SOFTMAX", "shifted")
+if _FLASH_SOFTMAX not in fa.SOFTMAX_MODES:
+    raise ValueError("MARIGOLD_TPU_FLASH_SOFTMAX must be shifted|online, got "
+                     f"{_FLASH_SOFTMAX!r}")
 
 
 def get_flash_softmax() -> str:

@@ -32,7 +32,6 @@ launches.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
@@ -41,7 +40,7 @@ from marigold_tpu_torch.ops import cuda_build
 
 SOURCES = ("conv3x3.cu",)
 
-launches: collections.Counter = collections.Counter()
+launches = cuda_build.LaunchCounter()
 
 
 def supports(x_shape, w_shape, stride, padding, dtype) -> bool:
@@ -176,7 +175,7 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
             x_nhwc.data_ptr(), out.data_ptr(), b, c, h, w, k,
             torch.cuda.current_stream().cuda_stream)
     raise_on(lib, err, "conv3x3")
-    launches["conv3x3"] += 1
+    launches.add("conv3x3")
     return out
 
 

@@ -12,11 +12,13 @@ sources in the repository are compiled.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -33,6 +35,23 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when reused), "log": build.log path}
 BUILD_INFO: dict[str, dict] = {}
+# one build at a time: serving threads may reach a library's first use
+# together, and their object files would share the process id in their names
+_BUILD_LOCK = threading.Lock()
+
+
+class LaunchCounter(collections.Counter):
+    """Kernel launches by variant. `add` is the one place a wrapper counts a
+    launch; it takes a lock, since serving threads launch concurrently and
+    `counter[key] += 1` is a read-modify-write."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._lock = threading.Lock()
+
+    def add(self, key: str) -> None:
+        with self._lock:
+            self[key] += 1
 
 
 def find_nvcc() -> str:
@@ -69,6 +88,13 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Compile (if needed) and load `lib<name>.so` from `csrc/<sources>`."""
     if name in _LIBS:
         return _LIBS[name]
+    with _BUILD_LOCK:
+        if name not in _LIBS:
+            _build_and_load(name, sources)
+    return _LIBS[name]
+
+
+def _build_and_load(name: str, sources: tuple[str, ...]) -> None:
     so = BUILD_DIR / f"{name}-{build_key(sources)}" / f"lib{name}.so"
     log = so.parent / "build.log"
     seconds = 0.0
@@ -105,7 +131,5 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
                 f"({' '.join(cmd[-2:])}):\n{err}"
             )
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _LIBS[name] = lib
     BUILD_INFO[name] = {"seconds": seconds, "log": str(log)}
-    return lib
+    _LIBS[name] = ctypes.CDLL(str(so))

@@ -52,7 +52,6 @@ requires grad. `launches` counts kernel launches by variant
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
 from typing import Optional
@@ -77,7 +76,7 @@ LSE_PAD = 1e30
 SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_fwd_d512_sm90.cu")
 BWD_SOURCES = ("flash_bwd_sm90.cu",)
 
-launches: collections.Counter = collections.Counter()
+launches = cuda_build.LaunchCounter()
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -327,7 +326,7 @@ def flash_attention(
             int(softmax == "online"), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "flash attention")
-    launches[f"{softmax}_d{d}"] += 1
+    launches.add(f"{softmax}_d{d}")
     return out
 
 
@@ -359,7 +358,7 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "folded flash attention")
-    launches[f"folded_d{d}"] += 1
+    launches.add(f"folded_d{d}")
     return out
 
 
@@ -388,7 +387,7 @@ def flash_attention_lse(
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "flash attention lse")
-    launches[f"lse_d{d}"] += 1
+    launches.add(f"lse_d{d}")
     return out, lse
 
 
@@ -465,7 +464,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "flash attention dQ")
-    launches[f"bwd_dq_d{d}"] += 1
+    launches.add(f"bwd_dq_d{d}")
     return dq
 
 
@@ -485,7 +484,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "flash attention dK/dV")
-    launches[f"bwd_dkv_d{d}"] += 1
+    launches.add(f"bwd_dkv_d{d}")
     return dk, dv
 
 

@@ -37,7 +37,6 @@ launches.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import os
 
@@ -52,7 +51,7 @@ BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
 G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 AT = ((1, 1, 1, 0), (0, 1, -1, -1))
 
-launches: collections.Counter = collections.Counter()
+launches = cuda_build.LaunchCounter()
 
 
 def supports(x_shape, w_shape, stride, padding, dtype) -> bool:
@@ -143,5 +142,5 @@ def winograd3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             out.data_ptr(), b, c, h, w, k,
             torch.cuda.current_stream().cuda_stream)
     conv_ops.raise_on(lib, err, "winograd")
-    launches["winograd"] += 1
+    launches.add("winograd")
     return out

@@ -51,7 +51,8 @@ from marigold_tpu_torch.pipelines.ensemble import (
 
 logger = logging.getLogger(__name__)
 
-# decoded 768 px images per VAE decode call (the JAX package's base cap)
+# decoded 768 px images per VAE decode call (the JAX package's base cap);
+# MARIGOLD_DECODE_CAP overrides it
 DECODE_CAP_768 = 20
 
 
@@ -197,13 +198,17 @@ class DiffusionCore:
     def decode_chunking(total: int, crop_hw: tuple, mode: str = "depth",
                         n_targets: int = 1) -> tuple[int, int]:
         """(n_chunks, rows_per_chunk) of the decode stage: at most
-        DECODE_CAP_768 decoded 768 px images per call, scaled inversely
-        with output pixels, chunks balanced. The cap counts decoded images:
-        an IID row decodes n_targets of them."""
+        DECODE_CAP_768 decoded 768 px images per call ($MARIGOLD_DECODE_CAP
+        when set, read at each call), scaled inversely with output pixels,
+        chunks balanced. The cap counts decoded images: an IID row decodes
+        n_targets of them. The port caches no program, so the JAX package's
+        fault of a cap read at trace time but missing from its cache key
+        has no counterpart here."""
         px = max(crop_hw[0] * crop_hw[1], 1)
         if mode == "iid":
             px *= max(n_targets, 1)
-        cap = max(1, int(DECODE_CAP_768 * (768 * 768) / px))
+        base_cap = int(os.environ.get("MARIGOLD_DECODE_CAP", DECODE_CAP_768))
+        cap = max(1, int(base_cap * (768 * 768) / px))
         n_dec = -(-total // min(cap, total))
         return n_dec, -(-total // n_dec)
 
@@ -296,14 +301,14 @@ class BasePipeline:
                         variant: Optional[str] = None):
         """device: "cuda" (the default), "cpu" or a torch.device. Without a
         CUDA device the caller must ask for the CPU: there is no silent
-        fallback."""
+        fallback, and a CUDA device asked for without one raises."""
         if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "from_pretrained runs on the CUDA device by default and "
-                    "torch.cuda.is_available() is False; pass device='cpu' "
-                    "to run on the CPU")
             device = "cuda"
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "from_pretrained runs on the CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run on the CPU")
         core, pipe_cfg = load_pipeline_components(ckpt_dir, dtype, device, variant)
         return cls(core, pipe_cfg)
 

@@ -8,7 +8,9 @@ Counterpart of `marigold_tpu/pipelines/image_util.py`:
     applied as two contractions;
   * `resize_host` is the torchvision-antialias numpy resize of the host
     resize-back path;
-  * `colorize_depth_maps` imports matplotlib only when called;
+  * `colorize_depth_maps` colours with the port's own copy of matplotlib's
+    "Spectral" (the CLIs' default, so depth colouring needs no matplotlib)
+    and imports matplotlib for any other colour map;
   * `hwc2chw`, `srgb2linear`, `linear2srgb` and `norm_to_rgb` serve the
     normals and IID outputs.
 """
@@ -182,19 +184,57 @@ def hwc2chw(hwc: np.ndarray) -> np.ndarray:
     return np.moveaxis(hwc, -1, 0)
 
 
+# matplotlib's `_Spectral_data`: the 11 ColorBrewer anchors, as bytes
+_SPECTRAL_ANCHORS = (
+    (158, 1, 66), (213, 62, 79), (244, 109, 67), (253, 174, 97),
+    (254, 224, 139), (255, 255, 191), (230, 245, 152), (171, 221, 164),
+    (102, 194, 165), (50, 136, 189), (94, 79, 162))
+LUT_SIZE = 256  # matplotlib's rcParams["image.lut"]
+
+
+def linear_segmented_lut(anchors, n: int = LUT_SIZE) -> np.ndarray:
+    """[n, 3] float64 table of evenly spaced RGB anchors in [0, 1],
+    interpolated linearly as matplotlib's `LinearSegmentedColormap.from_list`
+    builds its lookup table (`colors._create_lookup_table`, gamma 1)."""
+    y = np.asarray(anchors, np.float64)
+    x = np.linspace(0.0, 1.0, len(y)) * (n - 1)
+    xind = (n - 1) * np.linspace(0.0, 1.0, n)
+    ind = np.searchsorted(x, xind)[1:-1]
+    dist = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    mid = dist[:, None] * (y[ind] - y[ind - 1]) + y[ind - 1]
+    return np.clip(np.concatenate([y[:1], mid, y[-1:]]), 0.0, 1.0)
+
+
+SPECTRAL_LUT = linear_segmented_lut(np.asarray(_SPECTRAL_ANCHORS) / 255.0)
+
+
+def apply_lut(lut: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """x in [0, 1] -> lut rows, indexed as a matplotlib Colormap indexes a
+    float array: floor(x * N) in x's dtype, x == 1 to the last row."""
+    n = lut.shape[0]
+    xa = np.array(x, copy=True)
+    xa *= xa.dtype.type(n)
+    xa[xa == n] = n - 1
+    return lut[np.clip(xa.astype(np.int64), 0, n - 1)]
+
+
 def colorize_depth_maps(depth_map, min_depth: float = 0.0, max_depth: float = 1.0,
                         cmap: str = "Spectral") -> np.ndarray:
     """Depth [H, W] (or [B, H, W]) -> colored [B, 3, H, W] in [0, 1].
-    Needs matplotlib, imported here."""
-    import matplotlib
-
+    "Spectral" uses the port's own table; any other colour map needs
+    matplotlib, imported here (ImportError without it)."""
     depth = np.asarray(depth_map, np.float32)
     if depth.ndim == 2:
         depth = depth[None]
     depth = depth.reshape((-1,) + depth.shape[-2:])
     rng = max(max_depth - min_depth, 1e-8)
     d = np.clip((depth - min_depth) / rng, 0, 1)
-    colored = matplotlib.colormaps[cmap](d, bytes=False)[..., 0:3]
+    if cmap == "Spectral":
+        colored = apply_lut(SPECTRAL_LUT, d)
+    else:
+        import matplotlib
+
+        colored = matplotlib.colormaps[cmap](d, bytes=False)[..., 0:3]
     return np.moveaxis(colored, -1, 1)
 
 

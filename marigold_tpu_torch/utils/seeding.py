@@ -11,7 +11,15 @@ from __future__ import annotations
 
 import random
 
+import numpy as np
 import torch
+
+
+def seed_all(seed: int) -> None:
+    """Seed the host RNGs (python, numpy). The pipelines draw their noise
+    from explicit torch.Generators, so no global torch seed is set."""
+    random.seed(seed)
+    np.random.seed(seed % (2**32))
 
 
 def generate_seed_sequence(initial_seed: int, length: int,

@@ -9,8 +9,10 @@ and the 3x3 conv kernels (nine-tap, Winograd) against their plain
 PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slices on the card against the CPU: depth at
 E=1 and E=3, normals and IID appearance at E=1, and bf16 normals and IID
-requests through the flash kernels against plain attention. They skip
-without a CUDA device.
+requests through the flash kernels against plain attention, and the
+command-line entry points on the card (run, and serve with two batches in
+flight against one at a time), and eval's LPIPS on the card against the
+CPU. They skip without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed:
@@ -350,6 +352,118 @@ def test_bf16_modality_through_the_flash_kernels(cuda, tmp_path, monkeypatch,
     else:
         assert diff.max() <= IID_TOL[0] and diff.mean() <= IID_TOL[1], \
             (diff.max(), diff.mean())
+
+
+def _cli_images(folder, n, hw=(256, 256)):
+    import numpy as np
+    from PIL import Image
+
+    folder.mkdir()
+    rng = np.random.default_rng(4)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, hw + (3,), dtype=np.uint8)).save(
+            folder / f"img{i}.png")
+
+
+def test_run_cli_on_the_card(cuda, tmp_path):
+    """run --modality depth on the card by default, bf16, with its files
+    checked and the flash launches exact (3 d=64 per UNet forward, one
+    d=512 launch in the encoder and one in the decoder per image);
+    --full_precision reaches the kernels' NotImplementedError and falls
+    back to nothing."""
+    import numpy as np
+    from PIL import Image
+
+    from marigold_tpu_torch.cli.run import main
+
+    ckpt = tmp_path / "ckpt"
+    _narrow_checkpoint(ckpt, 8, 4)
+    _cli_images(tmp_path / "in", 2)
+    steps = 4
+    argv = ["--checkpoint", str(ckpt), "--input_rgb_dir", str(tmp_path / "in"),
+            "--denoise_steps", str(steps), "--processing_res", "256",
+            "--seed", "0"]
+    before = dict(fa.launches)
+    assert main(argv + ["--output_dir", str(tmp_path / "out")]) == 0
+    delta = {k: n - before.get(k, 0) for k, n in fa.launches.items()
+             if n != before.get(k, 0)}
+    assert delta == {"shifted_d64": 2 * 3 * steps, "shifted_d512": 2 * 2}
+    for i in range(2):
+        depth = np.load(tmp_path / "out" / "depth_npy" / f"img{i}_pred.npy")
+        assert depth.shape == (256, 256) and np.isfinite(depth).all()
+        assert 0.0 <= depth.min() and depth.max() <= 1.0
+        bw = np.asarray(Image.open(tmp_path / "out" / f"img{i}_depth_bw.png"))
+        assert bw.dtype == np.uint16 and bw.shape == (256, 256)
+        colored = Image.open(tmp_path / "out" / f"img{i}_depth_colored.png")
+        assert colored.mode == "RGB" and colored.size == (256, 256)
+    with pytest.raises(NotImplementedError):
+        main(argv + ["--output_dir", str(tmp_path / "fp32"), "--full_precision"])
+
+
+def test_serve_batches_in_flight_match_one_at_a_time(cuda, tmp_path):
+    """serve --once with two batches in flight (each on its own CUDA stream)
+    writes the maps that one batch at a time writes, to the bit: each batch
+    draws its noise from its own generator."""
+    import numpy as np
+
+    from marigold_tpu_torch.cli.serve import main
+
+    ckpt = tmp_path / "ckpt"
+    _narrow_checkpoint(ckpt, 8, 4)
+    _cli_images(tmp_path / "watch", 6)
+    maps = {}
+    for in_flight in (2, 1):
+        out = tmp_path / f"out{in_flight}"
+        before = dict(fa.launches)
+        assert main(["--checkpoint", str(ckpt), "--watch_dir",
+                     str(tmp_path / "watch"), "--output_dir", str(out),
+                     "--once", "--batch_images", "2", "--ensemble_size", "3",
+                     "--denoise_steps", "2", "--processing_res", "256",
+                     "--max_in_flight", str(in_flight), "--poll_interval",
+                     "0.05", "--seed", "3"]) == 0
+        assert fa.launches["shifted_d64"] - before.get("shifted_d64", 0) == \
+            3 * 3 * 2
+        maps[in_flight] = [np.load(out / "depth_npy" / f"img{i}_pred.npy")
+                           for i in range(6)]
+    for a, b in zip(maps[2], maps[1]):
+        assert a.shape == (256, 256) and np.isfinite(a).all()
+        np.testing.assert_array_equal(a, b)
+
+
+def test_lpips_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """LPIPS on the card (its default device) gives the CPU's metric within
+    1e-5 on one random weight file, with cuDNN's TF32 allowed by the
+    caller: the metric's convolutions run in full fp32."""
+    import os
+    import sys
+
+    import numpy as np
+
+    from marigold_tpu_torch.eval.lpips import get_lpips
+
+    scripts = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts")
+    sys.path.insert(0, scripts)
+    try:
+        from export_lpips_weights import random_init_flat
+    finally:
+        sys.path.pop(0)
+    path = str(tmp_path / "lpips.npz")
+    np.savez(path, **random_init_flat(seed=3))
+    rng = np.random.default_rng(4)
+    a, b = (rng.random((96, 128, 3)).astype(np.float32) for _ in range(2))
+    on_card, on_cpu = get_lpips(path), get_lpips(path, "cpu")
+    assert on_card.params["lins"][0].device.type == "cuda"
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = [on_card(x, y) for x, y in ((a, b), (b, a), (a, a))]
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ref = [on_cpu(x, y) for x, y in ((a, b), (b, a), (a, a))]
+    assert got[0] > 0 and got[2] == 0.0
+    for g, r in zip(got, ref):
+        assert abs(g - r) <= 1e-5
 
 
 def _conv_inputs(gen, b, c, h, w, k):

@@ -196,7 +196,9 @@ def test_reference_exact_mode_like_jax(seed):
 
 
 def test_reference_alignment_solve_is_the_same_code():
-    """gauge_anchor=False: identical parameters from identical inputs."""
+    """gauge_anchor=False: identical parameters from identical inputs. The
+    port's cost function builds the JAX one's values in another way (pair
+    differences row by row, the median by partition)."""
     rng = np.random.default_rng(5)
     _, members = _oracle_ensemble(rng, E=4, H=40, W=48)
     small = members[:, None]
@@ -211,6 +213,26 @@ def test_reference_alignment_solve_is_the_same_code():
         np.testing.assert_array_equal(
             TE.reference_alignment_solve(small, m, x0, **kw),
             JE.reference_alignment_solve(small, m, x0, **kw))
+
+
+@pytest.mark.parametrize("reduction,affine", [("median", True),
+                                               ("median", False),
+                                               ("mean", True)])
+def test_reference_alignment_solve_matches_jax_at_ten_members(reduction, affine):
+    """The host cost function builds its pair differences row by row and
+    takes the median by partition; the parameters stay identical to the
+    JAX package's at E=10 (an even member count: the lower median)."""
+    rng = np.random.default_rng(6)
+    _, members = _oracle_ensemble(rng, E=10, H=48, W=64)
+    flat = members.reshape(10, -1)
+    span = flat.max(1) - flat.min(1)
+    x0 = (np.concatenate([1.0 / span, -flat.min(1) / span]) if affine
+          else 1.0 / span)
+    kw = dict(affine=affine, reduction=reduction, regularizer_strength=0.02,
+              max_iter=50, tol=1e-6)
+    np.testing.assert_array_equal(
+        TE.reference_alignment_solve(members[:, None], None, x0, **kw),
+        JE.reference_alignment_solve(members[:, None], None, x0, **kw))
 
 
 # ------------------------------------------------------------------ #
