@@ -47,7 +47,19 @@ Phases, none of which catches its own failure:
      parity pins) and without it (shifted launches only), flash launches
      exact per step;
   9. the folded flash entry at its two shapes;
-  10. training at full SD2 width (the depth fine-tuning recipe).
+  10. training at full SD2 width (the depth fine-tuning recipe);
+  11. the training entry point, cli/train.py, on the four shipped recipes
+     (depth, normals, IID appearance, IID lighting) at full SD2 width, each
+     through an overlay config (split lists, max_iter, periods; for normals
+     and IID the effective batch) on datasets fabricated in their own
+     layouts: depth 2 iterations of 16 micro-steps with the recipe's
+     2-worker loader, validation and visualization, then --resume_run for
+     a third; the others 2 iterations with validation; flash launches exact
+     from the batch and validation shapes; the run-dir files and the saved
+     UNets' channels; the loader's rate, a profiled window of micro-steps,
+     one micro-step under each remat mode (none, full, save_heavy) at the
+     recipe's micro-batch and at 4x it, and one Adafactor update against
+     Adam's.
 Prints the card's name and power limit, a JSON line of kernels, then, last,
 {"ok": true, "device": {...}}. Exits non-zero without a result when no CUDA
 device is present.
@@ -507,7 +519,10 @@ def main() -> None:
         serve_counts.update(serve_modalities(root, depth_dir))
         serve_counts.update(cli_phase(root, depth_dir))
     folded_counts = folded_path()
-    train_counts = train_phase()
+    train_counts = collections.Counter(train_phase())
+    cli_train_counts = train_cli_phase()
+    train_counts.update(cli_train_counts)
+    serve_counts.update(cli_train_counts)  # the serving kernels it ran
     rows = (kernel_rows(results, serve_counts)
             + train_kernel_rows(train_results, train_counts)
             + [folded_kernel_row(folded_results, folded_counts)]
@@ -2528,6 +2543,671 @@ def train_kernel_rows(results: dict, counts: dict) -> list:
             **{k: timed[k] for k in ROW_TIMES},
         })
     return rows
+
+
+# The training entry point, phase 11: `python -m marigold_tpu_torch.cli.train`
+# (its setup and run, in this process so that the launch counters can be
+# read) on the four shipped recipes, each through a small overlay config
+# whose base_config is the recipe. The overlay replaces only the split-list
+# paths (lists of the first lines of the shipped ones; where the shipped
+# list is missing, lines of the same dataset's val/vis list), max_iter, the
+# periods and, for normals and IID, effective_batch_size (to bound the
+# phase's time); depth runs its recipe's loader as shipped (micro-batch 2,
+# effective batch 32, 2 forked workers). The datasets are fabricated in
+# each dataset's own layout, member names and native geometry.
+CLI_TRAIN_RECIPES = [
+    # (run, recipe, effective batch override, saved UNet in/out channels)
+    ("depth", "config/train_marigold_depth.yaml", None, (8, 4)),
+    ("normals", "config/train_marigold_normals.yaml", 4, (8, 4)),
+    ("iid_appearance", "config/train_marigold_iid_appearance.yaml", 4, (12, 8)),
+    ("iid_lighting", "config/train_marigold_iid_lighting.yaml", 4, (16, 12)),
+]
+CLI_TRAIN_ITERS = 2
+CLI_TRAIN_SAMPLES = {"train": 8, "val": 4, "vis": 4}
+# hypersim depth train: 12 samples, so that with vkitti's 8 an epoch is 10
+# batches of 2 and the resume lands mid-epoch (32 micro-steps in 2 iterations)
+CLI_TRAIN_HYPERSIM_DEPTH = 12
+CLI_PROFILE_STEPS = 3
+REMAT_MODES = ("none", "full", "save_heavy")
+REMAT_BATCH_REPEATS = (1, 4)
+# IID train split lists the repository does not ship: lines of the same
+# dataset's vis / val list stand in (the shipped configs name these files)
+CLI_TRAIN_STANDIN_SPLITS = {
+    "data_split/interiorverse_iid/interiorverse_train_scenes_85.txt":
+        ("data_split/interiorverse_iid/interiorverse_vis_scenes_85.txt", 4),
+    "data_split/hypersim_iid/hypersim_train_filtered.txt":
+        ("data_split/hypersim_iid/hypersim_val.txt", 4),
+}
+
+
+def _png(path: str, arr, **kw) -> None:
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(arr).save(path, compress_level=1, **kw)
+
+
+def _noise_rgb(rng, h: int, w: int):
+    import numpy as np
+
+    return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def _uniform(rng, lo: float, hi: float, h: int, w: int):
+    import numpy as np
+
+    return rng.uniform(lo, hi, (h, w, 3)).astype(np.float32)
+
+
+def _smooth(rng, h: int, w: int, lo: float, hi: float):
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    g = np.sin(xx / rng.uniform(60, 200) + rng.uniform(0, 6)) * np.cos(
+        yy / rng.uniform(60, 200))
+    return lo + (hi - lo) * (g + 1) / 2
+
+
+def _unit_normals(rng, h: int, w: int):
+    import numpy as np
+
+    n = rng.standard_normal((h, w, 3)).astype(np.float32)
+    n[..., 2] = np.abs(n[..., 2]) + 0.3
+    return n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+
+def _npy(path: str, arr) -> None:
+    import numpy as np
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.save(path, arr)
+
+
+def _sample_writers(rng):
+    """Per dataset name: a writer of one split line's files under a root,
+    in the dataset's layout and native geometry."""
+    import json
+
+    import numpy as np
+
+    from marigold_tpu_torch.data.exr import write_exr
+
+    def hypersim_depth(root, rgb, depth, *_):  # 768x1024, depth in mm
+        _png(os.path.join(root, rgb), _noise_rgb(rng, 768, 1024))
+        _png(os.path.join(root, depth),
+             (_smooth(rng, 768, 1024, 0.5, 20.0) * 1000).astype(np.uint16))
+
+    def vkitti_depth(root, rgb, depth):  # 375x1242 jpg, depth in cm
+        _png(os.path.join(root, rgb), _noise_rgb(rng, 375, 1242), quality=90)
+        _png(os.path.join(root, depth),
+             (_smooth(rng, 375, 1242, 3.0, 79.0) * 100).astype(np.uint16))
+
+    def nyu_depth(root, rgb, depth, filled):  # 480x640, mm
+        _png(os.path.join(root, rgb), _noise_rgb(rng, 480, 640))
+        mm = (_smooth(rng, 480, 640, 1.0, 9.0) * 1000).astype(np.uint16)
+        _png(os.path.join(root, depth), mm)
+        _png(os.path.join(root, filled), mm)
+
+    def kitti_depth(root, rgb, depth, _focal):  # 375x1242, 1/256 m, sparse
+        _png(os.path.join(root, rgb), _noise_rgb(rng, 375, 1242))
+        d = (_smooth(rng, 375, 1242, 5.0, 70.0) * 256).astype(np.uint16)
+        d[::3] = 0
+        _png(os.path.join(root, depth), d)
+
+    def normals(h, w):
+        def write(root, rgb, normal):
+            _png(os.path.join(root, rgb), _noise_rgb(rng, h, w))
+            _npy(os.path.join(root, normal), _unit_normals(rng, h, w))
+        return write
+
+    def interiorverse_iid(root, im, albedo, material, mask):  # 480x640 EXR
+        for rel in (im, albedo, material, mask):
+            os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        write_exr(os.path.join(root, im), _uniform(rng, 0, 2, 480, 640))
+        write_exr(os.path.join(root, albedo), _uniform(rng, 0, 1, 480, 640))
+        write_exr(os.path.join(root, material), _uniform(rng, 0, 1, 480, 640))
+        write_exr(os.path.join(root, mask), _uniform(rng, 1, 1, 480, 640))
+
+    def hypersim_iid(root, rgb, albedo, shading, residual, stats):  # 768x1024
+        _png(os.path.join(root, rgb), _noise_rgb(rng, 768, 1024))
+        for rel, lo, hi in ((albedo, 0.05, 1.0), (shading, 0.0, 3.0),
+                            (residual, 0.0, 0.5)):
+            _npy(os.path.join(root, rel), _uniform(rng, lo, hi, 768, 1024))
+        with open(os.path.join(root, stats), "w") as f:
+            json.dump({}, f)
+
+    return {
+        "hypersim_depth": hypersim_depth, "vkitti_depth": vkitti_depth,
+        "nyu_depth": nyu_depth, "kitti_depth": kitti_depth,
+        "hypersim_normals": normals(768, 1024),
+        "interiorverse_normals": normals(480, 640),
+        "sintel_normals": normals(436, 1024),
+        "interiorverse_iid": interiorverse_iid, "hypersim_iid": hypersim_iid,
+    }
+
+
+def build_train_data(base: str, lists: str, recipes: list, seed: int) -> dict:
+    """Fabricates every dataset the recipes' train, val and vis splits name
+    under `base` (tar archives where the config names a .tar) and writes
+    their split lists under `lists`. -> {shipped list path: written path}."""
+    import tarfile
+
+    import numpy as np
+
+    from marigold_tpu_torch.config import recursive_load_config
+
+    written: dict = {}  # shipped list -> written list
+    members: dict = {}  # dataset dir -> {line: dataset name}
+    for _, recipe, _, _ in recipes:
+        ds_cfg = recursive_load_config(recipe).dataset
+        for split in ("train", "val", "vis"):
+            entries = ds_cfg.get(split) or []
+            if split == "train":
+                entries = entries["dataset_list"]
+            for e in entries:
+                shipped = e["filenames"]
+                n = CLI_TRAIN_SAMPLES[split]
+                if e["name"] == "hypersim_depth" and split == "train":
+                    n = CLI_TRAIN_HYPERSIM_DEPTH
+                src, skip = CLI_TRAIN_STANDIN_SPLITS.get(shipped, (shipped, 0))
+                with open(src) as f:
+                    lines = [ln.split() for ln in f if ln.strip()][skip:skip + n]
+                if e["name"] == "kitti_depth":
+                    lines = [ln for ln in lines if ln[1] != "None"]
+                out = os.path.join(lists, shipped.replace("/", "__"))
+                with open(out, "w") as f:
+                    f.write("\n".join(" ".join(ln) for ln in lines) + "\n")
+                written[shipped] = out
+                for ln in lines:
+                    files = [t for t in ln if t != "(val)"]
+                    members.setdefault(e["dir"], {})[tuple(files)] = e["name"]
+    t0 = time.perf_counter()
+    n_files = sum(len(files) for samples in members.values() for files in samples)
+    # PNG, EXR and npy writes release the GIL: write the samples in threads,
+    # each with its own generator (the draws differ from a serial write's)
+    jobs = [(os.path.join(base, d + ".staging" if d.endswith(".tar") else d),
+             files, name) for d, samples in members.items()
+            for files, name in samples.items()]
+    seeds = np.random.SeedSequence(seed).spawn(len(jobs))
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job, s: _sample_writers(np.random.default_rng(s))[
+            job[2]](job[0], *job[1]), jobs, seeds))
+    for d in members:
+        is_tar = d.endswith(".tar")
+        root = os.path.join(base, d + ".staging" if is_tar else d)
+        if is_tar:
+            with tarfile.open(os.path.join(base, d), "w") as tar:
+                for dp, _, fs in os.walk(root):
+                    for fn in fs:
+                        full = os.path.join(dp, fn)
+                        tar.add(full, arcname=os.path.relpath(full, root))
+            import shutil
+
+            shutil.rmtree(root)
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(base) for f in fs)
+    print(f"train data: {n_files} files of {sum(map(len, members.values()))} "
+          f"samples in {len(members)} dataset dirs ({size / 2**30:.2f} GiB) "
+          f"fabricated in {time.perf_counter() - t0:.1f} s", flush=True)
+    return written
+
+
+def write_overlay(folder: str, run: str, recipe: str, lists: dict,
+                  eff_bs) -> str:
+    """An overlay config on top of the shipped recipe (printed replacement
+    by replacement), named as the recipe so that the run dir is too."""
+    import copy
+
+    import yaml
+
+    from marigold_tpu_torch.config import recursive_load_config
+
+    shipped = recursive_load_config(recipe)
+    dataset = copy.deepcopy(shipped.dataset.to_dict())
+    for split in ("train", "val", "vis"):
+        entries = dataset.get(split) or []
+        if split == "train":
+            entries = entries["dataset_list"]
+        for e in entries:
+            print(f"  {run} overlay: dataset.{split}[{e['disp_name']}].filenames "
+                  f"{e['filenames']} -> {lists[e['filenames']]}", flush=True)
+            e["filenames"] = lists[e["filenames"]]
+    periods = {"save_period": CLI_TRAIN_ITERS, "backup_period": 0,
+               "validation_period": CLI_TRAIN_ITERS,
+               "visualization_period": CLI_TRAIN_ITERS}
+    overlay = {"base_config": [os.path.abspath(recipe)], "dataset": dataset,
+               "max_iter": CLI_TRAIN_ITERS, "trainer": periods}
+    print(f"  {run} overlay: max_iter {shipped.max_iter} -> {CLI_TRAIN_ITERS}",
+          flush=True)
+    for k, v in periods.items():
+        print(f"  {run} overlay: trainer.{k} {shipped.trainer[k]} -> {v}", flush=True)
+    if eff_bs is not None:
+        overlay["dataloader"] = {"effective_batch_size": eff_bs}
+        print(f"  {run} overlay: dataloader.effective_batch_size "
+              f"{shipped.dataloader.effective_batch_size} -> {eff_bs}", flush=True)
+    path = os.path.join(folder, run, os.path.basename(recipe))
+    os.makedirs(os.path.dirname(path))
+    with open(path, "w") as f:
+        yaml.safe_dump(overlay, f)
+    return path
+
+
+def _sample_hw(ds, i: int = 0) -> tuple:
+    s = ds[i]
+    return tuple((s["rgb_norm"] if "rgb_norm" in s else s["rgb"]).shape[:2])
+
+
+def train_stream_hw(trainer, seed: int, n: int, skip: int = 0) -> list:
+    """The input size of each of the next n micro-batches the trainer's
+    loader yields: a replica of its MixedBatchSampler (same datasets, seed
+    and probabilities), epoch by epoch as the loader draws them, the first
+    `skip` batches skipped (the loader's resume position)."""
+    import bisect
+    import random
+
+    from marigold_tpu_torch.data import MixedBatchSampler
+
+    s = trainer.train_loader.batch_sampler
+    prob = trainer.cfg.dataset.train.get("prob_ls")
+    rep = MixedBatchSampler(s.src_dataset_ls, s.batch_size, shuffle=s.shuffle,
+                            prob=list(prob) if prob else None,
+                            generator=random.Random(seed))
+    cum = trainer.train_loader.dataset.cumulative_sizes
+    hw = [_sample_hw(ds) for ds in s.src_dataset_ls]
+    out = []
+    while len(out) < n:
+        for b in list(rep)[skip:]:
+            out.append(hw[bisect.bisect_right(cum, b[0])])
+        skip = 0
+    return out[:n]
+
+
+def expected_cli_train(trainer, hws: list, val_passes: int) -> dict:
+    """Exact flash launches of a CLI run: per micro-step at its input size,
+    the UNet self-attentions' lse forward, dQ and dK/dV kernels and the VAE
+    encodes of the RGB and of each 3-channel target group under no_grad
+    (the serving d=512 kernel); per validation/visualization pass, each
+    sample's request (expected_flash) in the shifted mode."""
+    core = trainer.core
+    encodes = 1 + (len(trainer.model.target_names) if trainer.modality == "iid"
+                   else 1)
+    want = collections.Counter()
+    for hw in hws:
+        for key, n in expected_train_launches(core, hw, 1).items():
+            # expected_train_launches counts the depth trainer's 2 encodes
+            want[key] += n // 2 * encodes if key.startswith("shifted") else n
+    v = trainer.cfg.validation
+    loaders = list(trainer.val_loaders) + list(trainer.vis_loaders)
+    for loader in loaders:
+        for i in range(len(loader.dataset)):
+            hw = _sample_hw(loader.dataset, i)
+            res = int(v.processing_res) or max(hw)
+            for d, n in expected_flash(trainer.model, hw, int(v.denoising_steps),
+                                       res=res).items():
+                want[f"shifted_d{d}"] += n * val_passes
+    return {k: int(n) for k, n in want.items() if n}
+
+
+def _instrument(trainer) -> dict:
+    """Host-clock times of the trainer's micro-steps (each ended by a
+    synchronize), its optimizer applies' end times and its validation
+    passes."""
+    import torch
+
+    times = {"micro": [], "apply_end": [], "validate": []}
+    step, apply, validate = trainer.train_step, trainer.apply_step, trainer.validate
+
+    def micro(*a, **k):
+        t = time.perf_counter()
+        m = step(*a, **k)
+        torch.cuda.synchronize()
+        times["micro"].append((time.perf_counter() - t) * 1e3)
+        return m
+
+    def applied(*a, **k):
+        out = apply(*a, **k)
+        torch.cuda.synchronize()
+        times["apply_end"].append(time.perf_counter())
+        return out
+
+    def validated():
+        t = time.perf_counter()
+        validate()
+        times["validate"].append((time.perf_counter() - t) * 1e3)
+
+    trainer.train_step, trainer.apply_step, trainer.validate = micro, applied, validated
+    return times
+
+
+def _cli_train_run(argv: list, failures: list, what: str, skip: int = 0):
+    """setup + run of cli/train.py (its main), the flash counts set to 0
+    just before and read just after. -> (trainer, counts, times, want)."""
+    import logging
+
+    import torch
+
+    from marigold_tpu_torch.cli import train as cli_train
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    handlers = logging.getLogger().handlers[:]
+    try:
+        t0 = time.perf_counter()
+        trainer, t_end = cli_train.setup(argv)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        times = _instrument(trainer)
+        start_iter = trainer.effective_iter
+        n_micro = (int(trainer.cfg.max_iter) - start_iter) * trainer.accumulation_steps
+        hws = train_stream_hw(trainer, int(trainer.cfg.dataloader.seed), n_micro,
+                              skip=trainer.n_batch_in_epoch)
+        val_passes = sum(1 for it in range(start_iter + 1, int(trainer.cfg.max_iter) + 1)
+                         if trainer.val_period and it % trainer.val_period == 0)
+        want = expected_cli_train(trainer, hws, val_passes)
+        fa.launches.clear()  # this run of the training CLI starts here
+        t0 = time.perf_counter()
+        rc = cli_train.run(trainer, t_end)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(fa.launches)  # ... and ends here
+    finally:
+        for h in logging.getLogger().handlers[len(handlers):]:
+            h.close()
+        logging.getLogger().handlers[:] = handlers
+    print(f"{what}: setup {setup_s:.1f} s, run {wall:.1f} s, rc {rc}; "
+          f"{n_micro} micro-steps of {sorted(collections.Counter(hws).items())}; "
+          f"flash launches {counts}, expected from the shapes {want}", flush=True)
+    if rc != 0:
+        failures.append(f"{what}: rc {rc}")
+    if counts != want:
+        failures.append(f"{what}: flash launches {counts} != {want}")
+    return trainer, counts, times, hws
+
+
+def _check_run_dir(run_dir: str, iters: list, channels: tuple, failures: list,
+                   what: str) -> None:
+    import json
+
+    need = ["config.yaml", "code_snapshot.tar",
+            "checkpoint/latest/unet/config.json", "checkpoint/latest/trainer.json",
+            "checkpoint/latest/opt_state.safetensors"]
+    need += [f"checkpoint/iter_{i:06d}/unet/config.json" for i in iters]
+    missing = [p for p in need if not os.path.exists(os.path.join(run_dir, p))]
+    with open(os.path.join(run_dir, "checkpoint/latest/unet/config.json")) as f:
+        ucfg = json.load(f)
+    got = (ucfg["in_channels"], ucfg["out_channels"])
+    print(f"{what}: run dir files present: {not missing}; saved UNet in/out "
+          f"channels {got} (want {channels})", flush=True)
+    if missing:
+        failures.append(f"{what}: missing {missing}")
+    if got != channels:
+        failures.append(f"{what}: saved UNet channels {got} != {channels}")
+
+
+def _check_metrics(trainer, failures: list, what: str) -> None:
+    import math
+
+    import numpy as np
+
+    train = [e for e in trainer.metrics_log if "loss" in e]
+    val = [e for e in trainer.metrics_log if "val" in e]
+    for e in train:
+        print(f"  {what} iter {e['iter']}: loss {e['loss']:.6f} grad_norm "
+              f"{e['grad_norm']:.6f} lr {e['lr']:.6e} n_batch_in_epoch "
+              f"{e['n_batch_in_epoch']}", flush=True)
+        if not (np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])):
+            failures.append(f"{what}: non-finite loss at iter {e['iter']}")
+    for e in val:
+        vals = {k: v for k, v in e.items() if k not in ("iter", "val")}
+        print(f"  {what} validation at iter {e['iter']} on {e['val']}: "
+              f"{ {k: round(float(v), 6) for k, v in vals.items()} }", flush=True)
+        if not vals or not all(math.isfinite(float(v)) for v in vals.values()):
+            failures.append(f"{what}: validation metrics {e}")
+    want_val = (len(trainer.val_loaders) if trainer.val_period and any(
+        e["iter"] % trainer.val_period == 0 for e in train) else 0)
+    if len(val) != want_val:
+        failures.append(f"{what}: {len(val)} validation results, want {want_val}")
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cli_train_measures(trainer, failures: list, micro_ms: float) -> None:
+    """After the depth runs, on the same trainer: the loader's samples/s
+    with its 2 workers, a profiled window of micro-steps fed by the loader,
+    one micro-step under each remat mode (peak memory, flash launches), and
+    one Adafactor update against Adam's."""
+    import torch
+
+    from marigold_tpu_torch.data import DataLoader
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.train import train_step as ts
+
+    loader = trainer.train_loader
+    fresh = DataLoader(loader.dataset, batch_sampler=loader.batch_sampler,
+                       num_workers=loader.num_workers, seed=1)
+    n_batches, n_samples = 0, 0
+    t0 = time.perf_counter()
+    for batch in fresh:
+        n_batches += 1
+        n_samples += len(batch["rgb_norm"])
+        if n_batches == len(loader):
+            break
+    load_s = time.perf_counter() - t0
+    print(f"loader, {loader.num_workers} forked workers: {n_samples} samples in "
+          f"{n_batches} batches, {load_s:.2f} s ({n_samples / load_s:.1f} samples/s, "
+          f"pool start included), against the depth run's micro-steps: "
+          f"{1e3 * loader.batch_sampler.batch_size / micro_ms:.1f} samples/s "
+          f"({micro_ms:.1f} ms per micro-step of {loader.batch_sampler.batch_size})",
+          flush=True)
+
+    it = iter(fresh)
+
+    def window():
+        for _ in range(CLI_PROFILE_STEPS):
+            trainer.train_step(trainer.state, trainer.text_embed,
+                               trainer._assemble_batch(next(it)),
+                               trainer._step_generator())
+
+    profile_request(window, TRAIN_CLASSES,
+                    f"{CLI_PROFILE_STEPS} CLI micro-steps fed by the loader")
+    trainer.state.acc, trainer.state.mini_step = None, 0
+
+    batch = trainer._assemble_batch(next(it))
+    del it
+    core = trainer.core
+    kwargs = trainer._step_kwargs()
+    static = torch.cuda.memory_allocated() / 2**30
+    # the peak after the VAE encodes (the UNet forward and backward and the
+    # gradients): the encodes' own transients are reset away
+    encode = core.vae.encode_mean_scaled
+    after_encode = {}
+
+    def encode_then_reset(x):
+        out = encode(x)
+        torch.cuda.synchronize()
+        after_encode["peak"] = max(after_encode.get("peak", 0.0),
+                                   torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    core.vae.encode_mean_scaled = encode_then_reset
+    # the recipe's micro-batch, and 4x it (the JAX recipes' fastest
+    # single-chip micro-batch) where activations outweigh the gradients
+    for reps in REMAT_BATCH_REPEATS:
+        big = {k: torch.cat([v] * reps) for k, v in batch.items()}
+        results = {}
+        for mode in REMAT_MODES:
+            loss_and_grad = ts.make_loss_and_grad(core.unet, core.vae, core.schedule,
+                                                  **dict(kwargs, remat=mode))
+            grads = None
+            _free()
+            after_encode.clear()
+            torch.cuda.reset_peak_memory_stats()
+            fa.launches.clear()
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grad(
+                trainer.state.params, trainer.text_embed, big,
+                torch.Generator(device=trainer.device).manual_seed(7))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            unet_peak = torch.cuda.max_memory_allocated() / 2**30
+            results[mode] = (float(loss), dict(fa.launches),
+                             max(unet_peak, after_encode["peak"]), unet_peak, ms)
+        for mode, (loss, counts, peak, unet_peak, ms) in results.items():
+            print(f"remat {mode}: one micro-step [{', '.join(map(str, big['rgb_norm'].shape))}] "
+                  f"{ms:.1f} ms, peak device memory {peak:.2f} GiB, after the VAE "
+                  f"encodes {unet_peak:.2f} GiB ({static:.2f} GiB of parameters and "
+                  f"Adam state before the step), loss {loss:.6f}, flash launches "
+                  f"{counts}", flush=True)
+        base, full, heavy = (results[m][1] for m in ("none", "full", "save_heavy"))
+        if heavy.get("lse_d64") != base.get("lse_d64") or not base.get("lse_d64") \
+                or full.get("lse_d64") != 2 * base.get("lse_d64", 0):
+            failures.append(f"remat lse launches: none {base}, full {full}, "
+                            f"save_heavy {heavy}")
+        for key in ("bwd_dq_d64", "bwd_dkv_d64"):
+            if not (base.get(key) == full.get(key) == heavy.get(key)):
+                failures.append(f"remat {key}: {base}, {full}, {heavy}")
+        for mode in ("full", "save_heavy"):
+            rel = abs(results[mode][0] - results["none"][0]) / abs(results["none"][0])
+            if not rel <= 1e-3:
+                failures.append(f"remat {mode} loss rel diff {rel}")
+        del big
+    core.vae.encode_mean_scaled = encode
+
+    # one Adafactor update against one Adam update, on the same gradients
+    adam = trainer.optimizer
+    ada = ts.make_optimizer(float(trainer.cfg.lr), trainer.lr_schedule_fn, 1,
+                            name="adafactor")
+    ada_state = ada.init(trainer.state.params)
+    ms = {}
+    for name, opt, st in (("Adam", adam, trainer.state), ("Adafactor", ada, ada_state)):
+        ms[name] = []
+        for _ in range(2):
+            st.acc = {n: g.float().clone() for n, g in grads.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.apply(st)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    def state_bytes(opt, st):  # the update rule's state, accumulator excluded
+        return sum(t.numel() * t.element_size() for g in opt.groups
+                   for t in getattr(st, g).values())
+
+    print(f"optimizer apply ms (host clock around a synchronize, 2 calls): Adam "
+          f"{ms['Adam'][0]:.1f}, {ms['Adam'][1]:.1f}; Adafactor {ms['Adafactor'][0]:.1f}, "
+          f"{ms['Adafactor'][1]:.1f}; state bytes Adam {state_bytes(adam, trainer.state)}, "
+          f"Adafactor {state_bytes(ada, ada_state)} ({len(ada_state.v_row)} of "
+          f"{len(trainer.state.params)} tensors factored)", flush=True)
+    bad = [n for n, p in trainer.state.params.items() if not torch.isfinite(p).all()]
+    if bad:
+        failures.append(f"non-finite parameters after the updates: {bad[:8]}")
+    del grads, ada_state
+
+
+def train_cli_phase() -> dict:
+    """The training CLI on the four shipped recipes at full SD2 width.
+    Returns the flash launch counts of its runs."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    _free()
+    failures: list = []
+    total = collections.Counter()
+    tmp = tempfile.TemporaryDirectory()
+    base_ckpt = os.path.join(tmp.name, "ckpt")
+    t0 = time.perf_counter()
+    write_checkpoint(os.path.join(base_ckpt, "stable-diffusion-2"), 0, sd2=True)
+    print(f"SD2 base checkpoint written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    base_data = os.path.join(tmp.name, "data")
+    lists_dir = os.path.join(tmp.name, "splits")
+    os.makedirs(lists_dir)
+    lists = build_train_data(base_data, lists_dir, CLI_TRAIN_RECIPES, seed=0)
+    out = os.path.join(tmp.name, "runs")
+    common = ["--base_ckpt_dir", base_ckpt, "--base_data_dir", base_data,
+              "--output_dir", out, "--no_wandb", "--device", "cuda"]
+    for run, recipe, eff_bs, channels in CLI_TRAIN_RECIPES:
+        cfg_path = write_overlay(os.path.join(tmp.name, "configs"), run, recipe,
+                                 lists, eff_bs)
+        run_dir = os.path.join(out, os.path.splitext(os.path.basename(recipe))[0])
+        trainer, counts, times, hws = _cli_train_run(
+            ["--config", cfg_path] + common, failures, f"cli.train {run}")
+        total.update(counts)
+        _check_run_dir(run_dir, [CLI_TRAIN_ITERS], channels, failures, run)
+        _check_metrics(trainer, failures, run)
+        if run == "depth":
+            micro = times["micro"]
+            k = trainer.accumulation_steps
+            ends = times["apply_end"]
+            warm = sorted(micro[k:])
+            print(f"depth CLI run (the recipe's loader, {trainer.train_loader.num_workers} "
+                  f"workers): ms per micro-step {micro[0]:.1f} first, median of the "
+                  f"{len(micro) - k} of iteration 2 {warm[len(warm) // 2]:.1f} (min "
+                  f"{warm[0]:.1f}, max {warm[-1]:.1f}); ms per effective iteration of "
+                  f"{k} micro-steps, iteration 2 (apply end to apply end, loader "
+                  f"waits included) {(ends[1] - ends[0]) * 1e3:.1f}; "
+                  f"validation pass ms {times['validate']}", flush=True)
+            with open(os.path.join(run_dir, "checkpoint/latest/trainer.json")) as f:
+                saved = json.load(f)
+            state_before = (saved["effective_iter"], saved["epoch"],
+                            saved["n_batch_in_epoch"], saved["step"])
+            # the lr logged at iteration 3: the schedule's next value
+            lr_next = trainer.optimizer.learning_rate(CLI_TRAIN_ITERS + 1)
+            del trainer
+            _free()
+            # resume from checkpoint/latest for one more iteration
+            cfg_file = os.path.join(run_dir, "config.yaml")
+            with open(cfg_file) as f:
+                cfg = yaml.safe_load(f)
+            cfg["max_iter"] = CLI_TRAIN_ITERS + 1
+            with open(cfg_file, "w") as f:
+                yaml.safe_dump(cfg, f)
+            print(f"  depth resume: {cfg_file} max_iter {CLI_TRAIN_ITERS} -> "
+                  f"{CLI_TRAIN_ITERS + 1}; checkpoint/latest at (iter, epoch, batch "
+                  f"in epoch, micro-steps) {state_before}", flush=True)
+            trainer, counts, times, _ = _cli_train_run(
+                ["--resume_run", os.path.join(run_dir, "checkpoint", "latest")]
+                + common, failures, "cli.train depth --resume_run")
+            total.update(counts)
+            first = [e for e in trainer.metrics_log if "loss" in e]
+            resumed_at = (first[0]["iter"] if first else None,
+                          first[0]["lr"] if first else None)
+            want_batches = state_before[2] + k
+            print(f"  depth resume: continued at iteration {resumed_at[0]}, logged "
+                  f"lr {resumed_at[1]} (the schedule's at iteration "
+                  f"{CLI_TRAIN_ITERS + 1}: {lr_next}); updates {trainer.state.count}, "
+                  f"micro-steps {trainer.state.step}, epoch {trainer.epoch}, "
+                  f"batch in epoch {trainer.n_batch_in_epoch}", flush=True)
+            n_epoch = len(trainer.train_loader)
+            if resumed_at != (CLI_TRAIN_ITERS + 1, lr_next) or \
+                    trainer.state.count != CLI_TRAIN_ITERS + 1 or \
+                    trainer.state.step != state_before[3] + k or \
+                    (trainer.epoch - state_before[1]) * n_epoch + \
+                    trainer.n_batch_in_epoch != want_batches:
+                failures.append(f"resume: at {resumed_at}, step {trainer.state.step}, "
+                                f"epoch {trainer.epoch}, batch {trainer.n_batch_in_epoch}")
+            _check_run_dir(run_dir, [CLI_TRAIN_ITERS, CLI_TRAIN_ITERS + 1], channels,
+                           failures, "depth resumed")
+            cli_train_measures(trainer, failures, warm[len(warm) // 2])
+        del trainer
+        _free()
+        shutil.rmtree(run_dir)
+    tmp.cleanup()
+    print(f"training CLI phase flash launches: {dict(total)}", flush=True)
+    if failures:
+        _fail(f"training CLI phase: {failures}")
+    return dict(total)
 
 
 SERVE_CLASSES = [("flash", r"flash_fwd"),

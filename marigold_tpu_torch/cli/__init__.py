@@ -1,7 +1,7 @@
 """Command-line entry points of the PyTorch port.
 
 Counterpart of `marigold_tpu/cli/`: `run`, `serve`, `validate_ckpt`,
-`infer`, `eval` and `benchmark`, each run as
+`infer`, `eval`, `benchmark` and `train`, each run as
 `python -m marigold_tpu_torch.cli.<name>` or in-process through
 `main(argv)`, with the JAX CLIs' arguments, defaults and output files.
 
@@ -10,7 +10,7 @@ persistent compile cache of `utils/compile_cache.py`) has no counterpart:
 the port compiles no program, so there is no cache to keep, and the device
 is an argument instead. Every CLI that runs a model takes `--device`
 (`add_device_argument`) and hands it to `from_pretrained(device=...)`,
-eval to `get_lpips(device=...)`:
+eval to `get_lpips(device=...)`, train to its trainer:
 "cuda" by default, which raises without a card; the CPU only when asked.
 """
 

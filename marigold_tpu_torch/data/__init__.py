@@ -1,9 +1,8 @@
 """Dataset registry.
 
 Copy of `marigold_tpu/data/__init__.py` for the PyTorch port, with the
-eval datasets' modules copied beside it. The training input (`loader.py`,
-`mixed_sampler.py`) is not copied yet, so `DataLoader`, `default_collate`,
-`ConcatDataset` and `MixedBatchSampler` are not exported.
+dataset modules, the loader and the mixed sampler copied beside it (all
+framework free).
 
 Behavioral reference: src/dataset/__init__.py:57-107 — 17 named datasets;
 `mixed` spec (train only) returns a list of datasets for the
@@ -30,6 +29,11 @@ from marigold_tpu_torch.data.depth_datasets import (
     NYUDepthDataset,
     ScanNetDepthDataset,
     VirtualKITTIDepthDataset,
+)
+from marigold_tpu_torch.data.loader import DataLoader, default_collate  # noqa: F401
+from marigold_tpu_torch.data.mixed_sampler import (  # noqa: F401
+    ConcatDataset,
+    MixedBatchSampler,
 )
 from marigold_tpu_torch.data.other_datasets import (
     DIODENormalsDataset,

@@ -488,13 +488,28 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int
     return dk, dv
 
 
+@torch.library.custom_op("marigold_tpu_torch::flash_attention_lse",
+                         mutates_args=())
+def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention_lse` as a dispatcher op, so that a selective
+    activation-checkpoint policy can see it and keep its outputs
+    (`train/train_step.py`, remat "save_heavy"): a Python call through
+    ctypes is invisible to the policy and would launch again when the
+    forward is recomputed in the backward, as the JAX package's remat policy
+    keeps its `custom_vjp` call. Not differentiable itself:
+    `FlashAttentionFunction` calls it."""
+    out, lse = flash_attention_lse(q, k, v, num_heads)
+    return out, lse
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention: the port of the TPU package's
     `flash_attention_dt` custom VJP (`_flash_dt_fwd`, `_flash_dt_bwd`).
 
     apply(q, k, v, num_heads, softmax) with q: [B, Nq, C], k/v: [B, Nk, C].
     For 64-wide heads the forward is the exact online softmax with the row
-    logsumexp (`flash_attention_lse`), whatever the serving `softmax` mode,
+    logsumexp (`flash_attention_lse_op`), whatever the serving `softmax` mode,
     and the backward runs the dQ and dK/dV kernels (`flash_attention_bwd`).
     Other widths (the 512-wide VAE head, whose rows the TPU package's
     `_use_pallas_bwd` also rejects) run the serving forward in `softmax`
@@ -506,7 +521,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         ctx.num_heads = num_heads
         ctx.kernel_bwd = q.shape[2] // num_heads in TRAIN_HEAD_DIMS
         if ctx.kernel_bwd:
-            out, lse = flash_attention_lse(q, k, v, num_heads)
+            out, lse = flash_attention_lse_op(q, k, v, num_heads)
             ctx.save_for_backward(q, k, v, out, lse)
         else:
             out = flash_attention(q, k, v, num_heads, softmax)

@@ -6,7 +6,8 @@ Counterpart of `marigold_tpu/train/checkpoints.py`. A checkpoint dir holds
     the JAX package and the reference stack;
   * scheduler/scheduler_config.json;
   * opt_state.safetensors (optional): the optimizer state as named tensors,
-    "mu.<param>", "nu.<param>", "acc.<param>" (mid-window only), and the
+    "<group>.<param>" for the update rule's groups (Adam "mu", "nu";
+    Adafactor "v_row", "v_col", "v") and "acc" (mid-window only), and the
     0-d int64 counters "count", "mini_step";
   * trainer.json: the trainer's position (effective iter, epoch, batch in
     epoch, best metric, in_evaluation, seed sequence, micro-step count).
@@ -33,25 +34,26 @@ _COUNTERS = ("count", "mini_step")
 
 
 def flatten_opt_state(opt_state: dict) -> dict[str, torch.Tensor]:
-    """{"mu": {...}, "nu": {...}, "acc": {...} or None, "count": int,
+    """{<group>: {param: tensor}, "acc": {...} or None, "count": int,
     "mini_step": int} -> named tensors."""
     flat = {}
-    for group in ("mu", "nu", "acc"):
-        for name, t in (opt_state.get(group) or {}).items():
-            flat[f"{group}.{name}"] = t
+    for group, tensors in opt_state.items():
+        if group not in _COUNTERS:
+            for name, t in (tensors or {}).items():
+                flat[f"{group}.{name}"] = t
     for c in _COUNTERS:
         flat[c] = torch.tensor(int(opt_state[c]), dtype=torch.int64)
     return flat
 
 
 def unflatten_opt_state(flat: dict[str, torch.Tensor]) -> dict:
-    out: dict[str, Any] = {"mu": {}, "nu": {}, "acc": {}}
+    out: dict[str, Any] = {"acc": {}}
     for key, t in flat.items():
         if key in _COUNTERS:
             out[key] = int(t)
         else:
             group, name = key.split(".", 1)
-            out[group][name] = t
+            out.setdefault(group, {})[name] = t
     out["acc"] = out["acc"] or None
     return out
 

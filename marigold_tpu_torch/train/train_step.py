@@ -12,41 +12,75 @@ Mixed precision as in the JAX package: the fp32 masters are cast to
 (`torch.func.functional_call` of the UNet module with the cast tensors), so
 the matmuls and convs run in bf16 and the gradients arrive in fp32 through
 the cast; latents, targets and the loss stay fp32. `torch.autocast` is not
-used: its per-op casts follow another policy.
+used: its per-op casts follow another policy. `grad_dtype` (e.g. bf16)
+differentiates with respect to the cast parameters instead, so the
+gradients are stored in that dtype; the forward runs in `compute_dtype`
+whatever `grad_dtype` says (the JAX package runs it in `grad_dtype` when
+`compute_dtype` is None, a fault the port does not copy).
 
-The optimizer is Adam with optax's semantics (b1 0.9, b2 0.999, eps 1e-8
-outside the square root, bias correction, learning rate lr * schedule(count)
-with count the number of updates already applied), behind k-step gradient
-accumulation that averages like `optax.MultiSteps`. Accumulation is always
-the two-step shape of the JAX package's `make_accum_pair`: `micro_step`
-adds a micro-batch's gradients to the accumulator, `apply_step` applies the
-mean at each k-th micro-step, so `split_accum` true and false are one
-implementation here. Between windows the accumulator is freed.
+Remat modes for the UNet forward, as `_apply_remat` in the JAX package:
+"none" keeps every activation, "full" recomputes the whole forward in the
+backward (`torch.utils.checkpoint`), "save_heavy" recomputes only the
+elementwise chains: a selective-checkpoint policy keeps the outputs of
+matmuls, convolutions and the flash lse forward (the dispatcher op
+`ops/flash_attention.py:flash_attention_lse_op`), so the flash forward does
+not launch again in the backward.
 
-Not ported (ROADMAP queue 1, "Training"): the `save_heavy` remat policy,
-`grad_dtype`, `accum_dtype`, Adafactor and ZeRO-sharded optimizer state;
-asking for one raises NotImplementedError.
+The optimizers have optax's semantics: Adam (b1 0.9, b2 0.999, eps 1e-8
+outside the square root, bias correction) and Adafactor
+(`optax.adafactor(lr, multiply_by_parameter_scale=False,
+clipping_threshold=1.0)` with its defaults: decay rate 0.8, factored second
+moments for tensors whose two largest dims are >= 128, eps 1e-30, block-RMS
+clipping at 1, no momentum, no weight decay), learning rate lr *
+schedule(count) with count the number of updates already applied, behind
+k-step gradient accumulation that averages like `optax.MultiSteps`.
+Accumulation is always the two-step shape of the JAX package's
+`make_accum_pair`: `micro_step` adds a micro-batch's gradients to the
+accumulator, `apply_step` applies the mean at each k-th micro-step, so
+`split_accum` true and false are one implementation here. `accum_dtype`
+(e.g. bf16) keeps the running sum in that dtype, as the JAX
+`gradient_accumulation` does. Between windows the accumulator is freed.
+
+Not ported (ROADMAP queue 1, "Multi-GPU"): ZeRO-sharded optimizer state;
+asking for it raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from marigold_tpu_torch.core.scheduler import DiffusionSchedule
+# imported for its dispatcher op, which SAVE_HEAVY_OPS names
+from marigold_tpu_torch.ops import flash_attention  # noqa: F401
 from marigold_tpu_torch.train.loss import get_loss
 from marigold_tpu_torch.train.multi_res_noise import multi_res_noise_like
 
-ROADMAP_TRAIN = "ROADMAP queue 1, 'Training'"
+ROADMAP_MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
 
 
 def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {ROADMAP_TRAIN}")
+    return NotImplementedError(f"{what} is not ported yet: {ROADMAP_MULTI_GPU}")
+
+
+def as_dtype(name) -> Optional[torch.dtype]:
+    """A config dtype ("bfloat16", a torch.dtype or None) -> torch.dtype."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype: {name!r}")
+    return dtype
 
 
 def downsample_valid_mask(valid_mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
@@ -57,14 +91,34 @@ def downsample_valid_mask(valid_mask: torch.Tensor, factor: int = 8) -> torch.Te
     return F.max_pool2d(invalid, factor, factor) < 0.5
 
 
-def _check_remat(remat) -> bool:
-    """-> whether to recompute the UNet forward in the backward."""
+# The ops whose outputs "save_heavy" keeps: the products whose recompute
+# costs real FLOPs (the JAX policy's dot_general, conv_general_dilated and
+# the flash custom_vjp call).
+_aten = torch.ops.aten
+SAVE_HEAVY_OPS = frozenset({
+    _aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+    _aten.baddbmm.default, _aten.convolution.default,
+    torch.ops.marigold_tpu_torch.flash_attention_lse.default,
+})
+
+
+def _save_heavy_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVE_HEAVY_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_runner(remat) -> Callable:
+    """-> run(fwd, x): the UNet forward fwd(x) under the remat mode,
+    "none"/False/None, "full"/True or "save_heavy" (module docstring)."""
     if remat in (False, None, "none"):
-        return False
+        return lambda fwd, x: fwd(x)
     if remat in (True, "full"):
-        return True
+        return lambda fwd, x: checkpoint(fwd, x, use_reentrant=False)
     if remat == "save_heavy":
-        raise not_ported("the 'save_heavy' remat policy")
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _save_heavy_policy)
+        return lambda fwd, x: checkpoint(fwd, x, use_reentrant=False,
+                                         context_fn=context)
     raise ValueError(f"unknown remat mode: {remat!r}")
 
 
@@ -85,15 +139,16 @@ def make_loss_and_grad(
     params: name -> fp32 master tensor (the UNet's parameter names);
     `unet` is only the module skeleton run by functional_call. batch:
     rgb_norm [B, 3, H, W] and gt_norm [B, 3k, H, W] in [-1, 1], optional
-    valid_mask [B, 1, H, W] bool, on the model's device. timesteps [B] and
-    noise (the latent-shaped fp32 noise) are drawn from `generator` unless
-    given, so a test can pass the JAX package's draws. Returns the fp32
-    loss (0-d) and name -> fp32 gradient."""
-    if grad_dtype is not None:
-        raise not_ported("grad_dtype (gradients stored in a narrower dtype)")
+    valid_mask [B, 1, H, W] bool, on the model's device; each 3-channel
+    group of gt_norm is encoded on its own and the latents concatenated
+    (IID targets). timesteps [B] and noise (the latent-shaped fp32 noise)
+    are drawn from `generator` unless given, so a test can pass the JAX
+    package's draws. Returns the fp32 loss (0-d) and name -> gradient,
+    fp32 or `grad_dtype`."""
     loss_inner = get_loss(loss_name)
     ds = vae.cfg.downscale_factor
-    full_remat = _check_remat(remat)
+    grad_dtype = as_dtype(grad_dtype)
+    run_fwd = remat_runner(remat)
 
     def encode(x: torch.Tensor) -> torch.Tensor:
         dtype = next(vae.parameters()).dtype
@@ -136,17 +191,20 @@ def make_loss_and_grad(
                 return torch.func.functional_call(
                     unet, cast, (xx, timesteps, text_embed))
 
-            pred = (checkpoint(fwd, x, use_reentrant=False) if full_remat
-                    else fwd(x)).float()
+            pred = run_fwd(fwd, x).float()
             if mask is not None:
                 diff = loss_inner(pred, target, reduction="none")
                 n = mask.sum().clamp(min=1)
                 loss = torch.where(mask, diff, torch.zeros_like(diff)).sum() / n
             else:
                 loss = loss_inner(pred, target, reduction="mean")
-            grads = torch.autograd.grad(loss, [params[n] for n in names],
+            # grad_dtype: the gradients of the cast parameters, stored in
+            # grad_dtype (no fp32 copy when it is the compute dtype)
+            wrt = cast if grad_dtype is not None else params
+            grads = torch.autograd.grad(loss, [wrt[n] for n in names],
                                         allow_unused=True)
-        grads = {n: torch.zeros_like(params[n]) if g is None else g
+        grads = {n: (torch.zeros_like(wrt[n]) if g is None else g).to(
+                     grad_dtype or torch.float32)
                  for n, g in zip(names, grads)}
         return loss.detach(), grads
 
@@ -176,30 +234,38 @@ class TrainState:
     """fp32 master parameters and the optimizer state, by parameter name.
 
     step counts micro-steps (as the JAX TrainState.step does), count the
-    Adam updates applied, mini_step the micro-steps of the current window;
-    acc is the window's gradient sum (None between windows)."""
+    updates applied, mini_step the micro-steps of the current window; acc
+    is the window's gradient sum (None between windows). Adam keeps mu and
+    nu; Adafactor keeps v_row and v_col for factored tensors and v for the
+    others."""
 
     params: dict
-    mu: dict
-    nu: dict
+    mu: dict = dataclasses.field(default_factory=dict)
+    nu: dict = dataclasses.field(default_factory=dict)
     step: int = 0
     count: int = 0
     mini_step: int = 0
     acc: Optional[dict] = None
+    v_row: dict = dataclasses.field(default_factory=dict)
+    v_col: dict = dataclasses.field(default_factory=dict)
+    v: dict = dataclasses.field(default_factory=dict)
 
 
-class Adam:
-    """Adam with optax.adam's semantics (and its defaults) under
-    optax.MultiSteps-style accumulation of `accumulation_steps`
-    micro-steps. Updates run in place under no_grad."""
+class _AccumulatingOptimizer:
+    """k-step accumulation (optax.MultiSteps' mean, the JAX
+    `gradient_accumulation` running sum in `accum_dtype`) in front of one
+    update rule. Updates run in place under no_grad."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    groups: tuple = ()  # the TrainState fields of the update rule
 
     def __init__(self, lr: float, lr_schedule_fn: Optional[Callable] = None,
-                 accumulation_steps: int = 1):
+                 accumulation_steps: int = 1, accum_dtype=None):
         self.lr = float(lr)
         self.lr_schedule_fn = lr_schedule_fn
         self.k = int(accumulation_steps)
+        # as in the JAX make_optimizer, a narrower accumulator only exists
+        # behind accumulation
+        self.accum_dtype = as_dtype(accum_dtype) if self.k > 1 else None
 
     def learning_rate(self, count: int) -> float:
         """lr at the update that follows `count` applied updates."""
@@ -208,75 +274,192 @@ class Adam:
         return float(np.float32(self.lr) * np.float32(self.lr_schedule_fn(count)))
 
     def init(self, params: dict) -> TrainState:
+        raise NotImplementedError
+
+    def export(self, state: TrainState) -> dict:
+        """The optimizer state as train/checkpoints.py stores it."""
+        return {**{g: getattr(state, g) for g in self.groups},
+                "acc": state.acc, "count": state.count,
+                "mini_step": state.mini_step}
+
+    def restore(self, params: dict, opt_state: Optional[dict],
+                device) -> TrainState:
+        """A TrainState from checkpointed masters and optimizer state (a
+        fresh state when opt_state is None)."""
+        if opt_state is None:
+            return self.init(params)
+        groups = {g: opt_state.get(g) or {} for g in self.groups}
+        if set().union(*groups.values()) != set(params):
+            raise ValueError("the checkpoint's optimizer state does not cover the "
+                             "parameters: it was written by another optimizer "
+                             f"than {type(self).__name__}")
+        on = lambda group: {n: t.to(device) for n, t in group.items()}  # noqa: E731
+        return TrainState(
+            params=params, count=opt_state["count"],
+            mini_step=opt_state["mini_step"],
+            acc=None if opt_state["acc"] is None else on(opt_state["acc"]),
+            **{g: on(t) for g, t in groups.items()})
+
+    @torch.no_grad()
+    def accumulate(self, state: TrainState, grads: dict) -> None:
+        """Adds one micro-step's gradients to the window's sum (in
+        accum_dtype: each gradient rounded to it, then the sum rounded, as
+        `a + g.astype(a.dtype)` in the JAX package)."""
+        dtype = self.accum_dtype or torch.float32
+        if state.acc is None:
+            state.acc = {n: g.to(dtype) for n, g in grads.items()}
+        else:
+            for n, g in grads.items():
+                state.acc[n].add_(g.to(dtype))
+        state.step += 1
+        state.mini_step += 1
+
+    @torch.no_grad()
+    def apply(self, state: TrainState) -> None:
+        """One update with the mean of the window's gradients (fp32); frees
+        the accumulator."""
+        if state.acc is None:
+            raise RuntimeError("apply without accumulated gradients")
+        scalars = self._scalars(state.count)
+        for n, p in state.params.items():
+            g = state.acc.pop(n).float()
+            if self.k > 1:
+                g.div_(self.k)
+            self._update(state, n, p, g, *scalars)
+        state.acc = None
+        state.count += 1
+        state.mini_step = 0
+
+    def _scalars(self, count: int) -> tuple:
+        """The update's host scalars after `count` applied updates."""
+        raise NotImplementedError
+
+    def _update(self, state: TrainState, n: str, p: torch.Tensor,
+                g: torch.Tensor, *scalars) -> None:
+        raise NotImplementedError
+
+
+class Adam(_AccumulatingOptimizer):
+    """optax.adam's semantics and defaults."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    groups = ("mu", "nu")
+
+    def init(self, params: dict) -> TrainState:
         return TrainState(
             params=params,
             mu={n: torch.zeros_like(p) for n, p in params.items()},
             nu={n: torch.zeros_like(p) for n, p in params.items()},
         )
 
-    @torch.no_grad()
-    def accumulate(self, state: TrainState, grads: dict) -> None:
-        """Adds one micro-step's gradients to the window's sum."""
-        if state.acc is None:
-            state.acc = {n: g.float() for n, g in grads.items()}
-        else:
-            for n, g in grads.items():
-                state.acc[n].add_(g)
-        state.step += 1
-        state.mini_step += 1
+    def _scalars(self, count):
+        """(lr, bias corrections 1 and 2), in fp32 as optax computes them."""
+        t = np.float32(count + 1)
+        return (self.learning_rate(count),
+                float(1.0 - np.float32(self.b1) ** t),
+                float(1.0 - np.float32(self.b2) ** t))
 
-    @torch.no_grad()
-    def apply(self, state: TrainState) -> None:
-        """One Adam update with the mean of the window's gradients; frees
-        the accumulator."""
-        if state.acc is None:
-            raise RuntimeError("apply without accumulated gradients")
-        count = state.count + 1
-        bc1 = float(1.0 - np.float32(self.b1) ** np.float32(count))
-        bc2 = float(1.0 - np.float32(self.b2) ** np.float32(count))
-        step_size = self.learning_rate(state.count)
-        for n, p in state.params.items():
-            g = state.acc.pop(n)
-            if self.k > 1:
-                g.div_(self.k)
-            mu, nu = state.mu[n], state.nu[n]
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            denom = (nu / bc2).sqrt_().add_(self.eps)
-            p.sub_((mu / bc1).div_(denom), alpha=step_size)
-        state.acc = None
-        state.count = count
-        state.mini_step = 0
+    def _update(self, state, n, p, g, lr, bc1, bc2):
+        mu, nu = state.mu[n], state.nu[n]
+        mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+        nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+        denom = (nu / bc2).sqrt_().add_(self.eps)
+        p.sub_((mu / bc1).div_(denom), alpha=lr)
+
+
+class Adafactor(_AccumulatingOptimizer):
+    """optax.adafactor(lr, multiply_by_parameter_scale=False,
+    clipping_threshold=1.0) with optax's other defaults.
+
+    A tensor is factored over its two largest dims (d1 second, d0 largest,
+    chosen by `np.argsort` of the shape as optax chooses them) when the
+    second is >= min_dim_size_to_factor: v_row averages g^2 over d0, v_col
+    over d1. The port's layouts (OIHW, [out, in]) differ from the JAX
+    package's (HWIO, [in, out]), so the two may factor a tensor with d0 and
+    d1 swapped; the estimate v_row * v_col / mean(v_row) is symmetric in
+    them, so the update is the same up to rounding."""
+
+    decay_rate, eps, min_dim_size_to_factor, clipping_threshold = (
+        0.8, 1e-30, 128, 1.0)
+    groups = ("v_row", "v_col", "v")
+
+    def factored_dims(self, shape) -> Optional[tuple[int, int]]:
+        """(d1, d0) of optax's `_factored_dims`, or None."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < self.min_dim_size_to_factor:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    def init(self, params: dict) -> TrainState:
+        state = TrainState(params=params)
+        for n, p in params.items():
+            dims = self.factored_dims(tuple(p.shape))
+            if dims is None:
+                state.v[n] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                state.v_row[n] = p.new_zeros(shape[:d0] + shape[d0 + 1:])
+                state.v_col[n] = p.new_zeros(shape[:d1] + shape[d1 + 1:])
+        return state
+
+    def _scalars(self, count):
+        """(lr, decay, 1 - decay): optax's _decay_rate_pow, in fp32."""
+        decay = np.float32(1.0) - np.float32(count + 1) ** np.float32(
+            -self.decay_rate)
+        return self.learning_rate(count), float(decay), float(np.float32(1.0) - decay)
+
+    def _update(self, state, n, p, g, lr, keep, take):
+        g2 = g * g + self.eps
+        dims = self.factored_dims(tuple(p.shape))
+        if dims is None:
+            v = state.v[n].mul_(keep).add_(g2, alpha=take)
+            u = g * v.rsqrt()
+        else:
+            d1, d0 = dims
+            v_row = state.v_row[n].mul_(keep).add_(g2.mean(d0), alpha=take)
+            v_col = state.v_col[n].mul_(keep).add_(g2.mean(d1), alpha=take)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt_()
+            u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+        del g2
+        rms = u.square().mean().sqrt()
+        u.div_(torch.clamp(rms / self.clipping_threshold, min=1.0))
+        p.sub_(u, alpha=lr)
+
+
+_OPTIMIZERS = {"adam": Adam, "adafactor": Adafactor}
 
 
 def make_optimizer(lr: float, lr_schedule_fn: Optional[Callable] = None,
                    accumulation_steps: int = 1, name: str = "adam",
-                   accum_dtype=None) -> Adam:
-    """Adam (+ schedule) with k-step accumulation: the reference's
-    optimizer. Adafactor and a narrower accumulator are not ported."""
-    if name.lower() != "adam":
-        raise not_ported(f"optimizer {name!r} (Adam is ported)")
-    if accum_dtype is not None:
-        raise not_ported("accum_dtype (a narrower gradient accumulator)")
-    return Adam(lr, lr_schedule_fn, accumulation_steps)
+                   accum_dtype=None) -> _AccumulatingOptimizer:
+    """Adam (the reference's optimizer) or Adafactor, with the schedule and
+    k-step accumulation, the running sum in accum_dtype (fp32 when None)."""
+    cls = _OPTIMIZERS.get(name.lower())
+    if cls is None:
+        raise ValueError(f"unknown optimizer: {name}")
+    return cls(lr, lr_schedule_fn, accumulation_steps, accum_dtype)
 
 
 def global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, fp32 (optax's
-    global_norm)."""
+    global_norm of the upcast gradients)."""
     return torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g.float()) for g in grads.values()]))
 
 
-def make_train_step(unet, vae, schedule: DiffusionSchedule, optimizer: Adam,
-                    **loss_kwargs):
+def make_train_step(unet, vae, schedule: DiffusionSchedule,
+                    optimizer: _AccumulatingOptimizer, **loss_kwargs):
     """-> (micro_step, apply_step).
 
     micro_step(state, text_embed, batch, generator=None, timesteps=None,
     noise=None) -> {"loss", "grad_norm"} (0-d fp32 device tensors) computes
     one micro-batch's loss and gradients and adds them to the accumulator;
-    apply_step(state) applies the Adam update with their mean. The caller
-    runs apply_step after every `optimizer.k`-th micro_step."""
+    apply_step(state) applies the update with their mean. The caller runs
+    apply_step after every `optimizer.k`-th micro_step."""
     loss_and_grad = make_loss_and_grad(unet, vae, schedule, **loss_kwargs)
 
     def micro_step(state: TrainState, text_embed, batch, generator=None,

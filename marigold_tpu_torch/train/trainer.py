@@ -1,8 +1,10 @@
-"""Depth fine-tuning trainer on one GPU.
+"""Fine-tuning trainers on one GPU: depth, normals and IID.
 
-Counterpart of `marigold_tpu/train/trainer.py` (`MarigoldTrainerBase`,
-`MarigoldDepthTrainer`) without a mesh or multiple hosts: conv_in surgery
-of the loaded SD2 UNet, fp32 master parameters with Adam and k-step
+Counterpart of `marigold_tpu/train/trainer.py` (`MarigoldTrainerBase`, the
+depth, normals and IID trainers, `get_trainer_cls`) without a mesh or
+multiple hosts: conv surgery of the loaded SD2 UNet (conv_in to 8 channels
+for depth and normals; conv_in to 4 * (n + 1) and conv_out to 4 * n for
+IID's n targets), fp32 master parameters with Adam or Adafactor and k-step
 gradient accumulation (train_step.py), per-micro-step seeded randomness
 from a pre-generated global seed sequence (deterministic resume), the
 effective-iteration callbacks (backup checkpoint / validation / latest
@@ -10,22 +12,22 @@ checkpoint / visualization), best-checkpoint gating on the first
 validation set's main metric, a time budget, and save/resume.
 
 The train loader is any iterable of dict batches in the JAX trainer's
-layout: NHWC arrays (numpy or torch) `rgb_norm` [B, H, W, 3] in [-1, 1],
-the depth target under `cfg.gt_depth_type` [B, H, W, 1] and the mask under
-`cfg.gt_mask_type` [B, H, W, 1]. Validation loaders yield `rgb_int`,
-`depth_raw_linear` and `valid_mask_raw` for one image; validation runs the
-port's pipeline at ensemble size 1. Visualization writes PNGs and runs only
-where PIL and matplotlib are installed. Metrics go to the `logging` module
-and to `metrics_log` (there is no TensorBoard writer in the port).
+layout, NHWC arrays (numpy or torch): depth takes `rgb_norm` [B, H, W, 3]
+in [-1, 1], the target under `cfg.gt_depth_type` [B, H, W, 1] and the mask
+under `cfg.gt_mask_type`; normals `rgb_norm` and `cfg.gt_normals_type`
+[B, H, W, 3]; IID `rgb` and each target [B, H, W, 3] in [0, 1]. Validation
+loaders yield one image per batch, as the data layer's eval datasets do;
+validation runs the port's pipeline. Visualization writes PNGs (depth in
+the port's own Spectral colours). The JAX trainer's scalars go to
+`utils/logging_util.py:tb_logger`, to the `logging` module and to
+`metrics_log`.
 
-Not ported (ROADMAP queue 1, "Training"): the normals and IID trainers,
-`cli/train.py` and the data layer, mesh/ZeRO/multi-host, Adafactor,
-`save_heavy`, `grad_dtype`/`accum_dtype`.
+Not ported (ROADMAP queue 1, "Multi-GPU"): mesh, ZeRO and multi-host
+training.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import logging
 import os
 from datetime import datetime
@@ -51,6 +53,7 @@ from marigold_tpu_torch.train.train_step import (
     make_train_step,
     not_ported,
 )
+from marigold_tpu_torch.utils.logging_util import tb_logger
 from marigold_tpu_torch.utils.seeding import (
     generate_seed_sequence,
     generator_from_seed,
@@ -106,6 +109,7 @@ class MarigoldTrainerBase:
         self.optimizer = make_optimizer(
             float(cfg.lr), self.lr_schedule_fn, self.accumulation_steps,
             name=opt_cfg.get("name", "adam"),
+            # e.g. "bfloat16": the running sum in that dtype (opt-in)
             accum_dtype=opt_cfg.get("accum_dtype"),
         )
         self.state = self.optimizer.init(self._master_params())
@@ -164,7 +168,9 @@ class MarigoldTrainerBase:
             multi_res_noise_cfg=dict(mrn) if mrn else None,
             use_mask=cfg.get("gt_mask_type") is not None,
             compute_dtype=self.core.dtype,
+            # bool (yaml true/false) or "none" / "full" / "save_heavy"
             remat=cfg.trainer.get("remat", False),
+            # e.g. "bfloat16": gradients stored in that dtype (opt-in)
             grad_dtype=(cfg.get("optimizer") or {}).get("grad_dtype"),
         )
 
@@ -237,6 +243,12 @@ class MarigoldTrainerBase:
                         "n_batch_in_epoch": self.n_batch_in_epoch,
                     }
                     self.metrics_log.append(entry)
+                    tb_logger.log_dict(
+                        {"train/loss": loss, "train/grad_norm": entry["grad_norm"]},
+                        global_step=self.effective_iter)
+                    tb_logger.log_scalar("lr", entry["lr"], self.effective_iter)
+                    tb_logger.log_scalar("n_batch_in_epoch", self.n_batch_in_epoch,
+                                         self.effective_iter)
                     logger.info(f"iter {self.effective_iter:5d} (epoch "
                                 f"{self.epoch:2d}): loss={loss:.5f}")
 
@@ -302,6 +314,8 @@ class MarigoldTrainerBase:
                         f"{val_name}: {result}")
             self.metrics_log.append({"iter": self.effective_iter,
                                      "val": val_name, **result})
+            tb_logger.log_dict({f"val/{val_name}/{k}": v for k, v in result.items()},
+                               global_step=self.effective_iter)
             if i == 0:  # best-checkpoint gate on the first val dataset
                 value = result[main_metric]
                 goal = self.cfg.validation.main_val_metric_goal
@@ -316,9 +330,6 @@ class MarigoldTrainerBase:
         raise NotImplementedError
 
     def visualize(self):
-        if not all(importlib.util.find_spec(m) for m in ("PIL", "matplotlib")):
-            logger.warning("visualization needs PIL and matplotlib; skipped")
-            return
         self._sync_params_to_core()
         for vis_loader in self.vis_loaders:
             name = getattr(getattr(vis_loader, "dataset", None), "disp_name", "vis")
@@ -356,10 +367,7 @@ class MarigoldTrainerBase:
             "step": st.step,
             "process_count": 1,
         }
-        opt_state = None
-        if save_train_state:
-            opt_state = {"mu": st.mu, "nu": st.nu, "acc": st.acc,
-                         "count": st.count, "mini_step": st.mini_step}
+        opt_state = self.optimizer.export(st) if save_train_state else None
         save_train_ckpt(ckpt_dir, self.core.unet_cfg, st.params,
                         self.core.schedule, trainer_state, opt_state)
 
@@ -371,16 +379,8 @@ class MarigoldTrainerBase:
             self._set_unet(unet_cfg, params)
         # the checkpoint's scheduler config is authoritative on resume
         self.core.schedule = schedule
-        dev = self.device
-        masters = {n: t.to(dev).requires_grad_() for n, t in params.items()}
-        self.state = self.optimizer.init(masters) if opt_state is None else TrainState(
-            params=masters,
-            mu={n: t.to(dev) for n, t in opt_state["mu"].items()},
-            nu={n: t.to(dev) for n, t in opt_state["nu"].items()},
-            count=opt_state["count"], mini_step=opt_state["mini_step"],
-            acc=(None if opt_state["acc"] is None else
-                 {n: t.to(dev) for n, t in opt_state["acc"].items()}),
-        )
+        masters = {n: t.to(self.device).requires_grad_() for n, t in params.items()}
+        self.state = self.optimizer.restore(masters, opt_state, self.device)
         self.state.step = int(trainer_state.get("step", 0))
         self._build_train_step()
         if load_trainer_state:
@@ -446,3 +446,104 @@ class MarigoldDepthTrainer(MarigoldTrainerBase):
             out.depth_colored.save(os.path.join(
                 out_dir, f"iter_{self.effective_iter:06d}_{name}.png"))
 
+
+class MarigoldNormalsTrainer(MarigoldTrainerBase):
+    modality = "normals"
+    _apply_surgery = MarigoldDepthTrainer._apply_surgery  # conv_in to 8
+
+    def _assemble_batch(self, batch):
+        gt_type = self.cfg.get("gt_normals_type", "normals")
+        return {"rgb_norm": _nchw(batch["rgb_norm"], self.device),
+                "gt_norm": _nchw(batch[gt_type], self.device)}
+
+    def validate_single_dataset(self, val_loader) -> dict:
+        tracker = M.MetricTracker(*self.cfg.eval.eval_metrics)
+        kwargs = self._val_pipe_kwargs()
+        for batch in val_loader:
+            rgb_int = np.asarray(batch["rgb_int"][0], np.uint8)
+            pred = self.model(rgb_int, **kwargs).normals_np
+            gt = np.asarray(batch["normals"][0])
+            if pred.shape != gt.shape:
+                pred = image_util.resize_np(pred, gt.shape[:2], "bilinear")
+                pred /= np.clip(np.linalg.norm(pred, axis=-1, keepdims=True),
+                                1e-6, None)
+            err = M.compute_cosine_error(pred, gt, masked=True)
+            for name in self.cfg.eval.eval_metrics:
+                tracker.update(name, M.NORMALS_METRICS[name](err))
+        return tracker.result()
+
+    def _visualize_dataset(self, vis_loader, out_dir):
+        kwargs = self._val_pipe_kwargs()
+        for batch in vis_loader:
+            rgb_int = np.asarray(batch["rgb_int"][0], np.uint8)
+            out = self.model(rgb_int, **kwargs)
+            name = os.path.splitext(
+                os.path.basename(batch["rgb_relative_path"][0]))[0]
+            out.normals_img.save(os.path.join(
+                out_dir, f"iter_{self.effective_iter:06d}_{name}.png"))
+
+
+class MarigoldIIDTrainer(MarigoldTrainerBase):
+    modality = "iid"
+
+    def _apply_surgery(self):
+        if self.core.unet_cfg.in_channels == 4:
+            cfg, sd = surgery.replace_conv_in_out_multimodal(
+                self.core.unet_cfg, self.core.unet.state_dict(),
+                len(self.model.target_names), self.core.vae_cfg.latent_channels)
+            self._set_unet(cfg, sd)
+
+    def _assemble_batch(self, batch):
+        # rgb and each target: [0, 1] -> [-1, 1] (reference :286-288)
+        rgb = _nchw(batch["rgb"], self.device) * 2.0 - 1.0
+        targets = [_nchw(batch[t], self.device) * 2.0 - 1.0
+                   for t in self.model.target_names]
+        out = {"rgb_norm": rgb, "gt_norm": torch.cat(targets, dim=1)}
+        if self.gt_mask_type is not None:
+            out["valid_mask"] = _nchw(batch[self.gt_mask_type], self.device,
+                                      torch.bool)
+        return out
+
+    def validate_single_dataset(self, val_loader) -> dict:
+        tracker = M.MetricTracker()
+        kwargs = self._val_pipe_kwargs()
+        use_mask = bool(self.cfg.validation.get("use_mask", False))
+        for batch in val_loader:
+            rgb01 = np.asarray(batch["rgb"][0], np.float32)
+            out = self.model(rgb01, **kwargs)
+            for t in self.model.target_names:
+                pred = np.moveaxis(out[t].array, 0, -1)  # [H, W, 3]
+                gt = np.asarray(batch[t][0])
+                if pred.shape != gt.shape:
+                    pred = image_util.resize_np(pred, gt.shape[:2], "bilinear")
+                mask = None
+                if use_mask and f"mask_{t}" in batch:
+                    mask = np.asarray(batch[f"mask_{t}"][0], bool)
+                tracker.update(f"psnr_{t}", M.compute_iid_metric(
+                    pred, gt, t, M.psnr, valid_mask=mask, metric_name="psnr"))
+        result = tracker.result()
+        result["psnr"] = float(np.mean(list(result.values()))) if result else 0.0
+        return result
+
+    def _visualize_dataset(self, vis_loader, out_dir):
+        kwargs = self._val_pipe_kwargs()
+        for batch in vis_loader:
+            rgb01 = np.asarray(batch["rgb"][0], np.float32)
+            out = self.model(rgb01, **kwargs)
+            name = os.path.splitext(
+                os.path.basename(batch["rgb_relative_path"][0]))[0]
+            for entry in out:
+                entry.image.save(os.path.join(
+                    out_dir, f"iter_{self.effective_iter:06d}_{name}_{entry.name}.png"))
+
+
+trainer_name_class_dict = {
+    "MarigoldDepthTrainer": MarigoldDepthTrainer,
+    "MarigoldNormalsTrainer": MarigoldNormalsTrainer,
+    "MarigoldIIDTrainer": MarigoldIIDTrainer,
+}
+
+
+def get_trainer_cls(trainer_name: str):
+    """Registry (reference src/trainer/__init__.py:36-44)."""
+    return trainer_name_class_dict[trainer_name]

@@ -3,7 +3,7 @@ SD2-layout checkpoint of tests/fixtures.py (4-channel UNet, fp32, CPU) with
 in-memory batches: surgery, accumulation, callbacks and checkpoints, a
 resume that restores every tensor bit for bit, the overfit sanity check of
 tests/test_trainer.py, and a saved UNet that the JAX package loads with
-equal values. The step itself is held against JAX in
+equal values, from the depth, normals and IID trainers. The step itself is held against JAX in
 test_torch_train_step.py."""
 
 import os
@@ -14,10 +14,30 @@ import torch
 
 from fixtures import make_tiny_checkpoint
 from marigold_tpu.models import weights as JW
-from marigold_tpu_torch import MarigoldDepthPipeline
+from marigold_tpu_torch import (
+    MarigoldDepthPipeline,
+    MarigoldIIDPipeline,
+    MarigoldNormalsPipeline,
+)
 from marigold_tpu_torch.config import Config
 from marigold_tpu_torch.models import weights as TW
-from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
+from marigold_tpu_torch.train.trainer import (
+    MarigoldDepthTrainer,
+    MarigoldIIDTrainer,
+    MarigoldNormalsTrainer,
+    get_trainer_cls,
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tier-1 runs six test processes on the CPU's cores; torch's own
+    thread pool in each of them would oversubscribe the cores several
+    times over (tiny models gain nothing from it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfg(max_iter=2, **trainer):
@@ -146,11 +166,55 @@ def test_loss_decreases_on_overfit(sd2_ckpt, tmp_path):
     assert np.mean(losses[-4:]) < np.mean(losses[:4]) * 1.5
 
 
-def test_saved_unet_loads_in_the_jax_package(sd2_ckpt, tmp_path):
-    trainer = _trainer(sd2_ckpt, tmp_path, max_iter=1, validation_period=0)
+LIGHTING = {
+    "target_names": ["albedo", "shading", "residual"],
+    "albedo": {"prediction_space": "linear", "up_to_scale": False},
+    "shading": {"prediction_space": "linear", "up_to_scale": True},
+    "residual": {"prediction_space": "linear", "up_to_scale": True},
+}
+
+
+def _modality_trainer(sd2_ckpt, out, modality):
+    """The normals or IID lighting trainer on the SD2 checkpoint, as
+    cli/train.py builds it, with in-memory batches in its layout."""
+    rng = np.random.default_rng(9)
+    if modality == "normals":
+        pipe = MarigoldNormalsPipeline.from_pretrained(
+            sd2_ckpt, dtype=torch.float32, device="cpu")
+        n = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+        batches = [{"rgb_norm": rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32),
+                    "normals": n / np.linalg.norm(n, axis=-1, keepdims=True)}] * 2
+        cls = MarigoldNormalsTrainer
+    else:
+        pipe = MarigoldIIDPipeline.from_pretrained(sd2_ckpt, dtype=torch.float32,
+                                                   device="cpu")
+        pipe.target_properties = LIGHTING
+        pipe.target_names = LIGHTING["target_names"]
+        pipe.n_targets = 3
+        batches = [{k: rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+                    for k in ("rgb", "albedo", "shading", "residual")}] * 2
+        cls = MarigoldIIDTrainer
+    cfg = _cfg(1, validation_period=0)
+    cfg["gt_mask_type"] = None
+    return cls(cfg=cfg, model=pipe, train_dataloader=batches,
+               out_dir_ckpt=str(out / "ckpt"), out_dir_eval=str(out / "eval"),
+               out_dir_vis=str(out / "vis"), accumulation_steps=2)
+
+
+@pytest.mark.parametrize("modality,channels", [
+    ("depth", (8, 4)), ("normals", (8, 4)), ("iid", (16, 12))])
+def test_saved_unet_loads_in_the_jax_package(sd2_ckpt, tmp_path, modality,
+                                             channels):
+    """The surgered UNet each trainer saves loads in the JAX package, leaf
+    for leaf."""
+    if modality == "depth":
+        trainer = _trainer(sd2_ckpt, tmp_path, max_iter=1, validation_period=0)
+    else:
+        trainer = _modality_trainer(sd2_ckpt, tmp_path, modality)
+        assert get_trainer_cls(type(trainer).__name__) is type(trainer)
     trainer.train()
     cfg, tree = JW.load_unet(str(tmp_path / "ckpt" / "iter_000001" / "unet"))
-    assert cfg.in_channels == 8
+    assert (cfg.in_channels, cfg.out_channels) == channels
     jax_sd = TW.from_jax_tree(tree)
     assert jax_sd.keys() == trainer.state.params.keys()
     for n, p in trainer.state.params.items():
@@ -158,20 +222,13 @@ def test_saved_unet_loads_in_the_jax_package(sd2_ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("what,cfg", [
-    ("Adafactor", {"optimizer": Config(name="Adafactor")}),
-    ("accum_dtype", {"optimizer": Config(name="Adam", accum_dtype="bfloat16")}),
-    ("grad_dtype", {"optimizer": Config(name="Adam", grad_dtype="bfloat16")}),
     ("shard_states", {"optimizer": Config(name="Adam", shard_states=True)}),
-    ("save_heavy", {"trainer": None}),
 ])
 def test_unported_options_raise(sd2_ckpt, tmp_path, what, cfg):
     pipe = MarigoldDepthPipeline.from_pretrained(sd2_ckpt, dtype=torch.float32,
                                                  device="cpu")
     full = _cfg()
-    if what == "save_heavy":
-        full.trainer["remat"] = "save_heavy"
-    else:
-        full.update(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    full.update(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Multi-GPU'"):
         MarigoldDepthTrainer(full, pipe, [], str(tmp_path), str(tmp_path),
                              str(tmp_path), accumulation_steps=2)
