@@ -11,7 +11,10 @@ Phases, none of which catches its own failure:
   3. each kernel against its plain PyTorch version at the main path's shapes
      (flash forward in both softmax modes, also at the E=10 rows' level-0
      shape, the folded flash entry, the nine-tap and Winograd 3x3 convs, the
-     training flash kernels), with errors and CUDA-event times of the
+     training flash kernels, and the fp32 kernels of `--full_precision`:
+     the flash forward at both head widths in both softmax modes, the
+     folded entry, the nine-tap and Winograd convs, against their plain
+     fp32 versions with TF32 off), with errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
      function and, beside the shifted kernel, its row shift, beside the
      conv kernels their weight rearrangement and blocks launched, beside the
@@ -58,8 +61,20 @@ Phases, none of which catches its own failure:
      from the batch and validation shapes; the run-dir files and the saved
      UNets' channels; the loader's rate, a profiled window of micro-steps,
      one micro-step under each remat mode (none, full, save_heavy) at the
-     recipe's micro-batch and at 4x it, and one Adafactor update against
-     Adam's.
+     recipe's micro-batch and at 4x it, where full must peak at least
+     1 GiB and save_heavy some memory below none, and one Adafactor update
+     against Adam's;
+  12. `--full_precision`: run and serve --once for one 768 px depth map at
+     E=1 in fp32 (the fp32 flash kernels, TF32 off), the same request in
+     process against every attention on the plain path, under the online
+     pin and under each opt-in conv mode (the fp32 conv kernels), and the
+     folded entry in fp32, fp32 launches exact;
+  13. checkpoint loads: the full SD2 load by fastload and by the
+     per-tensor path (MARIGOLD_TPU_FASTLOAD=0), bit for bit, the cold start
+     of a fresh process to its first E=1 768 px map with each, and one warm
+     request split into phases by PhaseTimer (run after phase 6);
+  14. the native tar reader: the depth loader with 2 forked workers over a
+     fabricated 480x640 tar, native against tarfile, batches identical.
 Prints the card's name and power limit, a JSON line of kernels, then, last,
 {"ok": true, "device": {...}}. Exits non-zero without a result when no CUDA
 device is present.
@@ -107,13 +122,14 @@ def build_kernels():
     from marigold_tpu_torch.ops import winograd as wino_ops
 
     builds = (fa._library, fa._bwd_library, conv_ops._library,
-              wino_ops._library)  # every library of the paths driven here
+              wino_ops._library, fa._f32_library,
+              conv_ops.f32_library)  # every library of the paths driven here
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda f: f(), builds))
     wall = time.perf_counter() - t0
     for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
-                 "winograd"):
+                 "winograd", "flash_attention_f32", "conv_f32"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build: {name} nvcc {info['seconds']:.2f} s", flush=True)
         with open(info["log"]) as f:
@@ -473,6 +489,182 @@ def check_train_kernels() -> dict:
     return results
 
 
+# The fp32 kernels (`--full_precision`): the flash forward of both head
+# widths in both softmax modes, the folded entry, and the two conv kernels,
+# against their plain fp32 versions at the main path's shapes. Both sum fp32
+# products in different orders, so they agree to a few fp32 ulps of the
+# largest output: max|err| <= F32_TOL_REL * max|ref| + F32_TOL_ABS. TF32 or
+# bf16 inputs (~3 decimal digits) would miss this by an order of magnitude.
+F32_TOL_REL = 1e-4
+F32_TOL_ABS = 1e-6
+# (name, B, N, C, heads); "odd" masks ragged query and key tiles
+F32_FLASH_CASES = [
+    ("unet_l0", 1, 9216, 320, 5),
+    ("vae_mid", 1, 9216, 512, 1),
+    ("odd", 2, 1100, 128, 2),
+]
+F32_FOLDED_CASE = ("folded_b10", 50, 9216, 64)
+# the card's published fp32 peak outside the tensor cores (H100 SXM data
+# sheet, 700 W): the bound of an FFMA kernel's operations
+PEAK_FP32_FLOPS = 67e12
+F32_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_f32.cu"
+F32_ROWS = [
+    ("flash_shifted_d64_f32", "marigold_tpu/ops/flash_attention.py:396",
+     ("shifted", 64), "unet_l0"),
+    ("flash_shifted_d512_f32", "marigold_tpu/ops/flash_attention.py:429",
+     ("shifted", 512), "vae_mid"),
+    ("flash_online_f32", "marigold_tpu/ops/flash_attention.py:460",
+     ("online", None), "unet_l0"),
+]
+
+
+def bound_f32(flops: float, nbytes: float) -> tuple:
+    """(bound_ms, "operations" or "bytes") against the fp32 CUDA-core
+    peak."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _f32_record(results, key, what, out, ref, ms, plain_ms, lib_ms, b, extra=""):
+    import torch
+
+    err = (out - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    tol = F32_TOL_REL * ref_max + F32_TOL_ABS
+    print(f"fp32 kernel {what}: max_abs_err {err:.3e} max|ref| {ref_max:.3e} "
+          f"tol {tol:.3e} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+          f"library {lib_ms:.3f} ms bound {b[0]:.3f} ms ({b[1]}){extra}",
+          flush=True)
+    if not err <= tol or not bool(torch.isfinite(out).all()):
+        _fail(f"fp32 kernel {what}: max_abs_err {err} > {tol} or non-finite")
+    results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=b[0], bound_by=b[1])
+
+
+def check_f32_kernels() -> dict:
+    """The fp32 kernels against their plain fp32 versions with TF32 off for
+    both (the setting `--full_precision` runs with), CUDA-event times of
+    the kernel, the plain version and the library call (SDPA in fp32;
+    F.conv2d, cuDNN without TF32), and bounds against the fp32 peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, b, n, c, heads in F32_FLASH_CASES:
+        q, k, v = (torch.randn((b, n, c), generator=gen, device="cuda")
+                   for _ in range(3))
+        d = c // heads
+        for mode in fa.SOFTMAX_MODES:
+            def plain():
+                return torch.cat([fa.flash_attention_plain(
+                    q[i:i + 1], k[i:i + 1], v[i:i + 1], heads, mode)
+                    for i in range(b)])
+
+            out = fa.flash_attention(q, k, v, heads, mode)
+            ref = plain()
+            torch.cuda.synchronize()
+            ms = _time_ms(lambda: fa.flash_attention(q, k, v, heads, mode), 10)
+            plain_ms = _time_ms(plain, 3)
+            lib_ms = sdpa_ms(q, k, v, heads)
+            bb = bound_f32(4.0 * b * heads * n * n * d,
+                           4 * 4 * b * n * c + (4 * b * heads * n
+                                                if mode == "shifted" else 0))
+            _f32_record(results, (name, mode, d),
+                        f"{name:9s} {mode:7s} [{b},{n},{c}] h={heads}", out,
+                        ref, ms, plain_ms, lib_ms, bb,
+                        f"; {4.0 * b * heads * n * n * d / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v
+    name, bh, n, d = F32_FOLDED_CASE
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda")
+               for _ in range(3))
+
+    def folded_plain():
+        return torch.cat([
+            fa.flash_attention_plain(q[i:i + PLAIN_CHUNK], k[i:i + PLAIN_CHUNK],
+                                     v[i:i + PLAIN_CHUNK], 1, "online")
+            for i in range(0, bh, PLAIN_CHUNK)])
+
+    out = fa.flash_attention_folded(q, k, v)
+    ref = folded_plain()
+    torch.cuda.synchronize()
+    _f32_record(results, (name, "folded", d), f"{name} [{bh},{n},{d}]", out,
+                ref, _time_ms(lambda: fa.flash_attention_folded(q, k, v), 3),
+                _time_ms(folded_plain, 2), sdpa_ms(q, k, v, 1),
+                bound_f32(4.0 * bh * n * n * d, 4 * 4 * bh * n * d))
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+    name, b, c, k, hw = next(cs for cs in CONV_CASES if cs[0] == CONV_ROW_CASE)
+    x = torch.randn((b, c, hw, hw), generator=gen, device="cuda")
+    w = torch.randn((k, c, 3, 3), generator=gen, device="cuda") / (3.0 * c ** 0.5)
+    bias = torch.randn((k,), generator=gen, device="cuda")
+    lib_ms = _time_ms(lambda: F.conv2d(x, w, bias, padding=1), 10)
+    nbytes = 4 * (x.numel() + w.numel() + k + b * k * hw * hw)
+    for kname, fn, plain, prepare, flops_per in (
+            ("conv3x3", conv_ops.conv3x3, conv_ops.conv3x3_plain,
+             conv_ops.taps, 18),
+            ("winograd", wino_ops.winograd3x3, wino_ops.winograd3x3_plain,
+             wino_ops.filter_transform, 8)):
+        prepared = prepare(w)
+        out = fn(x, w, bias, prepared=prepared)
+        ref = plain(x, w, bias)
+        torch.cuda.synchronize()
+        ms = _time_ms(lambda: fn(x, w, bias, prepared=prepared), 5)
+        _f32_record(results, (kname, name),
+                    f"{kname:8s} {name} [{b},{c},{hw},{hw}]->{k}", out, ref,
+                    ms, _time_ms(lambda: plain(x, w, bias), 2), lib_ms,
+                    bound_f32(flops_per * b * hw * hw * c * k, nbytes),
+                    f"; {18.0 * b * hw * hw * c * k / ms / 1e9:.1f} "
+                    "direct-conv TFLOP/s")
+        del out, ref, prepared
+    del x, w
+    torch.cuda.empty_cache()
+    return results
+
+
+def f32_kernel_rows(results: dict, counts: dict) -> list:
+    """The fp32 rows of the JSON line; `counts` are the fp32 counters'
+    launches on the paths driven ("shifted_d64", ..., "conv3x3",
+    "winograd")."""
+    rows = []
+    for name, replaces, (mode, d), case in F32_ROWS:
+        mine = {key: r for key, r in results.items()
+                if key[1] == mode and (d is None or key[2] == d)}
+        rows.append({
+            "name": name, "route": "cuda", "source": F32_SOURCE,
+            "replaces": replaces,
+            "launches": sum(n for key, n in counts.items()
+                            if key.startswith(mode) and
+                            (d is None or key == f"{mode}_d{d}")),
+            "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+            **{k: mine[(case, mode, 64 if d is None else d)][k]
+               for k in ROW_TIMES},
+        })
+    name = F32_FOLDED_CASE[0]
+    folded = results[(name, "folded", F32_FOLDED_CASE[3])]
+    rows.append({"name": "flash_folded_f32", "route": "cuda",
+                 "source": F32_SOURCE,
+                 "replaces": "marigold_tpu/ops/flash_attention.py:522",
+                 "launches": sum(n for key, n in counts.items()
+                                 if key.startswith("folded")),
+                 **{k: folded[k] for k in ("max_abs_err",) + ROW_TIMES}})
+    for kname, replaces in (("conv3x3", "marigold_tpu/ops/conv.py:176"),
+                            ("winograd", "marigold_tpu/ops/winograd.py:251")):
+        r = results[(kname, CONV_ROW_CASE)]
+        rows.append({"name": f"{kname}_f32", "route": "cuda",
+                     "source": "marigold_tpu_torch/csrc/conv_f32.cu",
+                     "replaces": replaces, "launches": counts.get(kname, 0),
+                     **{k: r[k] for k in ("max_abs_err",) + ROW_TIMES}})
+    return rows
+
+
 def kernel_rows(results: dict, counts: dict) -> list:
     rows = []
     for name, replaces, (mode, d), case, source in KERNEL_ROWS:
@@ -508,6 +700,7 @@ def main() -> None:
     folded_results = check_folded()
     conv_results = check_conv_kernels()
     train_results = check_train_kernels()
+    f32_results = check_f32_kernels()
     with tempfile.TemporaryDirectory() as root:
         depth_dir = os.path.join(root, "depth")
         pipe = load_serving_pipe(depth_dir)
@@ -516,8 +709,11 @@ def main() -> None:
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
+        load_phase(depth_dir)
         serve_counts.update(serve_modalities(root, depth_dir))
         serve_counts.update(cli_phase(root, depth_dir))
+        f32_counts = full_precision_phase(root, depth_dir)
+        tario_phase(root)
     folded_counts = folded_path()
     train_counts = collections.Counter(train_phase())
     cli_train_counts = train_cli_phase()
@@ -526,9 +722,10 @@ def main() -> None:
     rows = (kernel_rows(results, serve_counts)
             + train_kernel_rows(train_results, train_counts)
             + [folded_kernel_row(folded_results, folded_counts)]
-            + conv_kernel_rows(conv_results, serve_counts))
+            + conv_kernel_rows(conv_results, serve_counts)
+            + f32_kernel_rows(f32_results, f32_counts))
     missing = [r["name"] for r in rows if r["launches"] == 0]
-    if missing or len(rows) != 9:
+    if missing or len(rows) != 9 + len(F32_ROWS) + 3:
         _fail(f"kernels never launched by the main path: {missing}")
     print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
@@ -2187,6 +2384,388 @@ def cli_phase(root: str, depth_dir: str) -> dict:
     return counts
 
 
+# Phase 12, `--full_precision`: the depth slice in fp32 storage through the
+# entry points a user calls, run and serve --once, at 768 px E=1 4 steps on
+# the full-width checkpoint (every attention of >= 1024 tokens on the fp32
+# flash kernel, TF32 off for cuBLAS and cuDNN), then the same request in
+# process against every attention on the plain path, under the online pin,
+# and under each opt-in conv mode (the fp32 conv kernels).
+F32_HW = (768, 768)
+F32_STEPS = 4
+# The fp32 map with the kernels against every attention on the plain path
+# (fp32 logits and softmax, fp32 P @ V): both sum fp32 in other orders, and
+# 4 steps of the random-weight UNet and the decoder carry the differences.
+# Measured once on the card (NVIDIA H100 80GB HBM3, 700.00 W): max 5.19e-06
+# shifted, 6.77e-06 online, 6.97e-06 and 4.98e-06 for the fp32 conv kernels
+# against cuDNN's convs; held to 1e-4, ~14x the largest.
+F32_DEPTH_TOL = 1e-4
+
+
+def f32_launches() -> dict:
+    """Every fp32 kernel launch so far: the flash variants by their names,
+    "conv3x3" and "winograd"."""
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    out = collections.Counter(fa.launches_f32)
+    out.update(conv_ops.launches_f32)
+    out.update(wino_ops.launches_f32)
+    return dict(out)
+
+
+def _f32_gate(what: str, before: dict, want: dict) -> dict:
+    """The fp32 launches since `before`, held to `want`; no bf16 kernel
+    launched meanwhile is checked by the caller's bf16 counters."""
+    now = f32_launches()
+    got = {k: n - before.get(k, 0) for k, n in now.items()
+           if n != before.get(k, 0)}
+    if got != want:
+        _fail(f"{what}: fp32 launches {got} != {want}")
+    return got
+
+
+def _f32_flash_want(ckpt: str, mode: str = "shifted") -> dict:
+    """fp32 flash launches of one E=1 request at F32_HW, by variant."""
+    return {f"{mode}_d{d}": n for d, n in expected_flash(
+        pipe_spec(ckpt, "depth"), F32_HW, F32_STEPS, res=max(F32_HW)).items()}
+
+
+def full_precision_phase(root: str, depth_dir: str) -> dict:
+    """Phase 12. Returns the fp32 launches of its run (the fp32 rows'
+    `launches`)."""
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.cli import run as run_cli
+    from marigold_tpu_torch.cli import serve as serve_cli
+    from marigold_tpu_torch.models import layers
+    from marigold_tpu_torch.ops import attention as attn
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    t_phase = time.perf_counter()
+    for counter in (fa.launches_f32, conv_ops.launches_f32,
+                    wino_ops.launches_f32):
+        counter.clear()  # the fp32 paths' run starts here
+    bf16_before = sum(fa.launches.values())
+    want = _f32_flash_want(depth_dir)
+
+    src = os.path.join(root, "f32_in")
+    names = _write_images(src, [F32_HW], 21)
+    for what, fn in (
+            ("run --full_precision", lambda out: run_cli.main([
+                "--modality", "depth", "--checkpoint", depth_dir,
+                "--input_rgb_dir", src, "--output_dir", out,
+                "--ensemble_size", "1", "--denoise_steps", str(F32_STEPS),
+                "--processing_res", str(max(F32_HW)), "--seed", "0",
+                "--full_precision"])),
+            ("serve --once --full_precision", lambda out: serve_cli.main([
+                "--checkpoint", depth_dir, "--watch_dir", src, "--output_dir",
+                out, "--once", "--batch_images", "1", "--ensemble_size", "1",
+                "--denoise_steps", str(F32_STEPS), "--processing_res",
+                str(max(F32_HW)), "--max_in_flight", "1", "--poll_interval",
+                "0.05", "--seed", "0", "--full_precision"]))):
+        out = os.path.join(root, what.split()[0] + "_f32_out")
+        before = f32_launches()
+        with _LoadTimer() as timer:
+            rc = fn(out)
+        if rc != 0:
+            _fail(f"{what} exited {rc}")
+        _f32_gate(what, before, want)
+        depth = np.load(os.path.join(out, "depth_npy", f"{names[0]}_pred.npy"))
+        check_map(depth, F32_HW, what)
+        _release()
+        print(f"{what}: 1 map at {F32_HW[0]}x{F32_HW[1]} E=1 {F32_STEPS} "
+              f"steps in {timer.wall:.2f} s, of which the load "
+              f"{timer.seconds:.2f} s: {timer.ms_per(1):.1f} ms/map with the "
+              f"writes; fp32 flash launches {want} as expected; TF32 "
+              f"matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+              f"{torch.backends.cudnn.allow_tf32}; depth mean "
+              f"{depth.mean():.4f} std {depth.std():.4f}", flush=True)
+
+    # in process: the same request with the kernels, on the plain path,
+    # under the online pin and under each conv mode
+    pipe = MarigoldDepthPipeline.from_pretrained(
+        depth_dir, dtype=torch.float32, device="cuda", variant="fp16")
+    img = np.random.default_rng(22).integers(0, 256, F32_HW + (3,),
+                                             dtype=np.uint8)
+
+    def request():
+        return pipe(img, denoising_steps=F32_STEPS, ensemble_size=1, seed=0,
+                    color_map=None).depth_np
+
+    maps, times = {}, {}
+    for mode in ("shifted", "online"):
+        attn.set_flash_softmax(mode)
+        runs = []
+        for _ in range(2):
+            before = f32_launches()
+            depth, ms = _timed(request)
+            _f32_gate(f"fp32 request {mode}", before, _f32_flash_want(
+                depth_dir, mode))
+            check_map(depth, F32_HW, f"fp32 request {mode}")
+            runs.append((depth, ms))
+        if not np.array_equal(runs[0][0], runs[1][0]):
+            _fail(f"fp32 request {mode}: same seed gave different maps")
+        maps[mode], times[mode] = runs[0][0], [ms for _, ms in runs]
+    attn.set_flash_softmax("shifted")
+    saved, attn.FLASH_MIN_SEQ = attn.FLASH_MIN_SEQ, 1 << 30
+    try:
+        plain, plain_ms = _timed(request)
+    finally:
+        attn.FLASH_MIN_SEQ = saved
+    diffs = {m: np.abs(maps[m] - plain) for m in maps}
+    print(f"fp32 768 px depth E=1: kernels (first, warm ms) shifted "
+          f"{times['shifted'][0]:.1f}, {times['shifted'][1]:.1f}; online "
+          f"{times['online'][0]:.1f}, {times['online'][1]:.1f}; every attention "
+          f"plain {plain_ms:.1f} ms; kernels vs plain: "
+          + "; ".join(f"{m} max {d.max():.3e} mean {d.mean():.3e}"
+                      for m, d in diffs.items())
+          + f" (tolerance {F32_DEPTH_TOL})", flush=True)
+    if max(d.max() for d in diffs.values()) > F32_DEPTH_TOL:
+        _fail(f"fp32 depth with kernels differs from plain by more than "
+              f"{F32_DEPTH_TOL}")
+
+    for mode, key in (("pallas", "conv3x3"), ("winograd", "winograd")):
+        gated = gated_convs(pipe, F32_HW, mode)
+        conv_want = {key: gated["unet"] * F32_STEPS + gated["encode"]
+                     + gated["decode"], **_f32_flash_want(depth_dir)}
+        saved_impl, layers._CONV_IMPL = layers._CONV_IMPL, mode
+        try:
+            before = f32_launches()
+            depth, ms = _timed(request)
+            _f32_gate(f"fp32 request, conv mode {mode}", before, conv_want)
+        finally:
+            layers._CONV_IMPL = saved_impl
+        check_map(depth, F32_HW, f"fp32 request, conv mode {mode}")
+        d = np.abs(depth - maps["shifted"])
+        print(f"fp32 768 px depth E=1 under MARIGOLD_TPU_CONV={mode}: "
+              f"{ms:.1f} ms (first call: the weights rearranged), fp32 "
+              f"{key} launches {conv_want[key]} as expected; against "
+              f"cuDNN's convs max {d.max():.3e} mean {d.mean():.3e}",
+              flush=True)
+        if d.max() > F32_DEPTH_TOL:
+            _fail(f"fp32 conv mode {mode} differs from cuDNN's by {d.max()}")
+    del pipe
+    _release()
+
+    # the folded entry's fp32 path, as a caller of the public function runs it
+    name, bh, n, d = F32_FOLDED_CASE
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda")
+               for _ in range(3))
+    before = f32_launches()
+    out = fa.flash_attention_folded(q, k, v)
+    torch.cuda.synchronize()
+    _f32_gate("fp32 folded path", before, {f"folded_d{d}": 1})
+    if not bool(torch.isfinite(out).all()):
+        _fail("fp32 folded path: non-finite output")
+    del q, k, v, out
+    counts = f32_launches()  # and ends here
+    if sum(fa.launches.values()) != bf16_before:
+        _fail("fp32 phase launched bf16 flash kernels")
+    print(f"fp32 phase launches by variant: {counts}; phase ran in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+# Phase 13, checkpoint loads: the full SD2 load (UNet, VAE and CLIP from
+# the depth checkpoint's fp16 files, in bf16 on the card) by fastload and
+# by the per-tensor path (MARIGOLD_TPU_FASTLOAD=0), every parameter held
+# bit for bit between the two; the cold start of a fresh process to its
+# first E=1 768 px map, with each path; and one warm E=1 768 px request
+# split into its phases by utils/profiling.py's PhaseTimer.
+COLD_START = """
+import sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from marigold_tpu_torch import MarigoldDepthPipeline
+img = np.random.default_rng(0).integers(0, 256, (768, 768, 3), dtype=np.uint8)
+t1 = time.perf_counter()
+pipe = MarigoldDepthPipeline.from_pretrained(sys.argv[1], dtype=torch.bfloat16,
+                                             variant="fp16")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+depth = pipe(img, denoising_steps=4, ensemble_size=1, seed=0,
+             color_map=None).depth_np
+t3 = time.perf_counter()
+assert depth.shape == (768, 768) and np.isfinite(depth).all()
+print(f"COLD {t1 - t0:.3f} {t2 - t1:.3f} {t3 - t2:.3f} {t3 - t0:.3f}")
+"""
+
+
+def load_phase(depth_dir: str) -> None:
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.models import weights as W
+    from marigold_tpu_torch.utils.profiling import PhaseTimer
+
+    parts = (("unet", W.load_unet), ("vae", W.load_vae),
+             ("text_encoder", W.load_text_encoder))
+    loads, times = {}, {}
+    for label, flag in (("fastload", "1"), ("per-tensor", "0"),
+                        ("fastload again", "1")):
+        os.environ["MARIGOLD_TPU_FASTLOAD"] = flag
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mods = {sub: load(os.path.join(depth_dir, sub), torch.bfloat16,
+                          "cuda", "fp16") for sub, load in parts}
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        if label != "fastload again":
+            loads[label] = mods
+        del mods
+    os.environ.pop("MARIGOLD_TPU_FASTLOAD")
+    n_params, mismatched = 0, []
+    for sub, _ in parts:
+        fast = loads["fastload"][sub].state_dict()
+        slow = loads["per-tensor"][sub].state_dict()
+        if fast.keys() != slow.keys():
+            _fail(f"load {sub}: the two paths give other parameter names")
+        for name, t in fast.items():
+            n_params += t.numel()
+            u = slow[name]
+            if t.dtype != u.dtype or t.shape != u.shape or t.device != u.device \
+                    or not torch.equal(t.view(torch.int16), u.view(torch.int16)):
+                mismatched.append(f"{sub}.{name}")
+    if mismatched:
+        _fail(f"fastload and the per-tensor load differ: {mismatched[:8]}")
+    del loads
+    _release()
+    print(f"checkpoint load, UNet + VAE + CLIP ({n_params / 1e6:.1f} M "
+          f"parameters, fp16 files -> bf16 on the card, files in the page "
+          f"cache): fastload {times['fastload']:.2f} s and "
+          f"{times['fastload again']:.2f} s, per-tensor "
+          f"{times['per-tensor']:.2f} s; every parameter bit-identical",
+          flush=True)
+
+    for flag in ("1", "0"):
+        env = dict(os.environ, MARIGOLD_TPU_FASTLOAD=flag)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", COLD_START, depth_dir],
+                              capture_output=True, text=True, env=env,
+                              timeout=300, cwd=os.path.dirname(
+                                  os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("COLD")]
+        if proc.returncode != 0 or not line:
+            _fail(f"cold start (MARIGOLD_TPU_FASTLOAD={flag}): rc "
+                  f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        imp, load, first, total = map(float, line[0].split()[1:])
+        print(f"cold start, MARIGOLD_TPU_FASTLOAD={flag}: a fresh process to "
+              f"its first E=1 768 px map in {total:.2f} s (imports "
+              f"{imp:.2f}, from_pretrained {load:.2f}, first request "
+              f"{first:.2f}; {wall:.2f} s of process wall, interpreter start "
+              f"included; the kernel libraries already built)", flush=True)
+
+    pipe = MarigoldDepthPipeline.from_pretrained(
+        depth_dir, dtype=torch.bfloat16, device="cuda", variant="fp16")
+    img = np.random.default_rng(24).integers(0, 256, (768, 768, 3),
+                                             dtype=np.uint8)
+    pipe(img, denoising_steps=4, seed=0, color_map=None)  # warm
+    timer = pipe.phase_timer = PhaseTimer()
+    t0 = time.perf_counter()
+    depth = pipe(img, denoising_steps=4, seed=0, color_map=None).depth_np
+    wall = (time.perf_counter() - t0) * 1e3
+    check_map(depth, (768, 768), "PhaseTimer request")
+    want = {"host pre": 2, "encode": 1, "denoise": 1, "decode": 1,
+            "ensemble": 1, "host post": 1}
+    if dict(timer.counts) != want:
+        _fail(f"PhaseTimer phases {dict(timer.counts)} != {want}")
+    print(f"one warm E=1 768 px request (bf16, 4 steps) by PhaseTimer, "
+          f"{wall:.1f} ms of wall with a synchronize at each edge:\n"
+          f"{timer.report()}", flush=True)
+    del pipe
+    _release()
+
+
+# Phase 14, the native tar reader: the depth recipe's loader (micro-batch
+# 2, 2 forked workers, flip augmentation, the depth normalizer) over a
+# fabricated NYU-layout tar of 480x640 samples, read by the native reader
+# and by tarfile in turns (two runs each): samples/s of each run and the
+# batches held equal.
+TARIO_SAMPLES = 32
+TARIO_HW = (480, 640)
+
+
+def tario_phase(root: str) -> None:
+    import tarfile
+
+    import numpy as np
+
+    from marigold_tpu_torch import data as tdata
+    from marigold_tpu_torch.data import tario
+    from marigold_tpu_torch.utils import depth_transform as tdt
+
+    if tario.load_lib() is None:
+        _fail("the native tar reader did not build on this machine")
+    rng = np.random.default_rng(25)
+    stage, lines = os.path.join(root, "tario_stage"), []
+    os.makedirs(os.path.join(stage, "train"))
+    for i in range(TARIO_SAMPLES):
+        _png(os.path.join(stage, "train", f"rgb_{i}.png"),
+             _noise_rgb(rng, *TARIO_HW))
+        for kind in ("depth", "filled"):
+            mm = (_smooth(rng, *TARIO_HW, 0.5, 9.0) * 1000).astype(np.uint16)
+            _png(os.path.join(stage, "train", f"{kind}_{i}.png"), mm)
+        lines.append(f"train/rgb_{i}.png train/depth_{i}.png train/filled_{i}.png")
+    with tarfile.open(os.path.join(root, "nyu.tar"), "w") as tar:
+        tar.add(os.path.join(stage, "train"), arcname="train")
+    split = os.path.join(root, "tario_split.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(lines))
+
+    def batches(native: bool):
+        saved = tario._lib, tario._build_failed
+        if not native:
+            tario._lib, tario._build_failed = None, True
+        try:
+            ds = tdata.get_dataset(
+                {"name": "nyu_depth", "disp_name": "nyu", "dir": "nyu.tar",
+                 "filenames": split, "eigen_valid_mask": False},
+                base_data_dir=root, mode=tdata.DatasetMode.TRAIN,
+                augmentation_args={"lr_flip_p": 0.5},
+                depth_transform=tdt.get_depth_normalizer(
+                    {"type": "scale_shift_depth", "clip": True,
+                     "norm_min": -1.0, "norm_max": 1.0,
+                     "min_max_quantile": 0.02}))
+            ds[0]  # the parent opens the archive before the workers fork
+            if ds.tar_obj.native is not native:
+                _fail(f"tar reader native={ds.tar_obj.native}, want {native}")
+            loader = tdata.DataLoader(ds, batch_size=2, shuffle=True, seed=3,
+                                      num_workers=2)
+            t0 = time.perf_counter()
+            out = list(loader)
+            return out, time.perf_counter() - t0
+        finally:
+            tario._lib, tario._build_failed = saved
+
+    rates = {True: [], False: []}
+    runs = {}
+    for native in (True, False, False, True):  # in turns
+        runs[native], s = batches(native)
+        rates[native].append(TARIO_SAMPLES / s)
+    if len(runs[True]) != len(runs[False]) or any(
+            a.keys() != b.keys() or any(
+                not np.array_equal(a[k], b[k], equal_nan=True)
+                if isinstance(a[k], np.ndarray) else a[k] != b[k] for k in a)
+            for a, b in zip(runs[True], runs[False])):
+        _fail("the loader's batches differ between the native reader and "
+              "tarfile")
+    print(f"tar loader ({TARIO_SAMPLES} samples of {TARIO_HW[0]}x"
+          f"{TARIO_HW[1]}, micro-batch 2, 2 forked workers, pool start "
+          f"included; native, tarfile, tarfile, native): native reader "
+          f"{', '.join(f'{r:.1f}' for r in rates[True])} samples/s, tarfile "
+          f"{', '.join(f'{r:.1f}' for r in rates[False])} samples/s; batches "
+          f"identical; the native library {tario.library_path()}", flush=True)
+
+
 def conv_kernel_rows(results: dict, counts: dict) -> list:
     rows = []
     for kname, source, replaces in (
@@ -2570,6 +3149,8 @@ CLI_TRAIN_HYPERSIM_DEPTH = 12
 CLI_PROFILE_STEPS = 3
 REMAT_MODES = ("none", "full", "save_heavy")
 REMAT_BATCH_REPEATS = (1, 4)
+REMAT_GATED_REPEATS = 4  # [8, 3, 480, 640]: activations outweigh the state
+REMAT_FULL_MARGIN = 1.0  # GiB
 # IID train split lists the repository does not ship: lines of the same
 # dataset's vis / val list stand in (the shipped configs name these files)
 CLI_TRAIN_STANDIN_SPLITS = {
@@ -3079,6 +3660,17 @@ def cli_train_measures(trainer, failures: list, micro_ms: float) -> None:
             rel = abs(results[mode][0] - results["none"][0]) / abs(results["none"][0])
             if not rel <= 1e-3:
                 failures.append(f"remat {mode} loss rel diff {rel}")
+        if reps == REMAT_GATED_REPEATS:
+            # block-by-block remat lowers the whole step's peak: full by at
+            # least REMAT_FULL_MARGIN GiB, save_heavy below none
+            none, full, heavy = (results[m][2] for m in REMAT_MODES)
+            print(f"remat peaks at micro-batch {len(big['rgb_norm'])}: none "
+                  f"{none:.2f}, full {full:.2f} ({none - full:.2f} GiB less), "
+                  f"save_heavy {heavy:.2f} ({none - heavy:.2f} GiB less)",
+                  flush=True)
+            if not (full <= none - REMAT_FULL_MARGIN and heavy < none):
+                failures.append(f"remat peaks none {none:.2f}, full {full:.2f}, "
+                                f"save_heavy {heavy:.2f} GiB")
         del big
     core.vae.encode_mean_scaled = encode
 

@@ -12,6 +12,13 @@ is an argument instead. Every CLI that runs a model takes `--device`
 (`add_device_argument`) and hands it to `from_pretrained(device=...)`,
 eval to `get_lpips(device=...)`, train to its trainer:
 "cuda" by default, which raises without a card; the CPU only when asked.
+
+`--full_precision` (`run`, `serve`) runs the pipeline in fp32 through the
+fp32 kernels (`csrc/flash_fwd_f32.cu`, `csrc/conv_f32.cu`) and, by
+`set_full_precision`, turns TF32 off for every other fp32 product: cuBLAS
+matmuls (`torch.backends.cuda.matmul.allow_tf32`, off by default) and cuDNN
+convolutions (`torch.backends.cudnn.allow_tf32`, on by default), so that no
+fp32 product on the card keeps only TF32's ~10 mantissa bits.
 """
 
 from __future__ import annotations
@@ -19,6 +26,15 @@ from __future__ import annotations
 import argparse
 
 DEVICES = ("cuda", "cpu")
+
+
+def set_full_precision() -> None:
+    """fp32 products in full fp32 on the card: TF32 off for cuBLAS matmuls
+    and cuDNN convolutions (process-wide flags)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def add_device_argument(

@@ -4,9 +4,8 @@ Counterpart of `marigold_tpu/cli/run.py` (role parity: script/{depth,
 normals,iid}/run.py in the reference): run a checkpoint over a folder of
 images and save npy + PNG outputs, with the same arguments and file names.
 The pipeline runs on `--device` (cuda unless cpu is asked for), in bf16
-unless `--full_precision`; fp32 on the card needs the fp32 kernel path
-(ROADMAP queue 1, "fp32 kernel path") and raises NotImplementedError until
-then.
+unless `--full_precision`, which runs it in fp32 through the fp32 kernels
+with TF32 off (`cli/__init__.py:set_full_precision`).
 
 Example:
   python -m marigold_tpu_torch.cli.run --modality depth \
@@ -24,7 +23,7 @@ import os
 
 import numpy as np
 
-from marigold_tpu_torch.cli import add_device_argument
+from marigold_tpu_torch.cli import add_device_argument, set_full_precision
 
 EXTENSION_LIST = [".jpg", ".jpeg", ".png"]
 
@@ -115,6 +114,8 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
 
     dtype = torch.float32 if args.full_precision else torch.bfloat16
+    if args.full_precision:
+        set_full_precision()
     # --half_precision also prefers fp16 weight-variant files when the
     # checkpoint ships them (reference script/depth/run.py:203-215); the
     # loader falls back to the plain files when no variant exists

@@ -39,7 +39,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from marigold_tpu_torch.cli import add_device_argument
+from marigold_tpu_torch.cli import add_device_argument, set_full_precision
 from marigold_tpu_torch.cli.run import pipeline_class, save_one
 
 EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
@@ -102,6 +102,8 @@ def _load_pipeline(args):
     import torch
 
     dtype = torch.float32 if args.full_precision else torch.bfloat16
+    if args.full_precision:
+        set_full_precision()
     return pipeline_class(args.modality).from_pretrained(
         args.checkpoint, dtype=dtype, device=args.device,
         variant=None if args.full_precision else "fp16",

@@ -1,9 +1,9 @@
 """Base depth dataset — host-side numpy, HWC layout (TPU-native).
 
 Copy of `marigold_tpu/data/base_depth.py` for the PyTorch port (framework
-free, so shared as it is). One difference: tar archives are read through
-`TarReader`, Python's tarfile behind a lock, the path the JAX package's
-`data/tario.py` falls back to when its native indexed reader cannot build.
+free, so shared as it is). Tar archives are read through `data/tario.py`'s
+`TarIndex`, the native indexed reader (tarfile when it cannot build), as in
+the JAX package.
 
 Behavioral reference: src/dataset/base_depth_dataset.py — modes
 RGB_ONLY/EVAL/TRAIN, filename lists from data_split txt files, transparent
@@ -22,7 +22,6 @@ import io
 import os
 import random
 import tarfile
-import threading
 from enum import Enum
 from typing import Optional
 
@@ -135,7 +134,9 @@ class BaseDepthDataset:
     def _read_bytes(self, rel_path) -> bytes:
         if self.is_tar:
             if self.tar_obj is None:
-                self.tar_obj = TarReader(self.dataset_dir)
+                from .tario import TarIndex
+
+                self.tar_obj = TarIndex(self.dataset_dir)
             return self.tar_obj.read(rel_path)
         with open(os.path.join(self.dataset_dir, rel_path), "rb") as f:
             return f.read()
@@ -245,32 +246,6 @@ class BaseDepthDataset:
         if getattr(self, "tar_obj", None) is not None:
             self.tar_obj.close()
             self.tar_obj = None
-
-
-class TarReader:
-    """Members of a tar archive by relative path. read(name) -> bytes.
-    Thread-safe (tarfile keeps one file position per archive)."""
-
-    def __init__(self, path: str):
-        self.path = path
-        self._tar = tarfile.open(path)
-        self._lock = threading.Lock()
-
-    def read(self, name: str) -> bytes:
-        with self._lock:
-            for candidate in (name, "./" + name.lstrip("./"), name.lstrip("./")):
-                try:
-                    member = self._tar.extractfile(candidate)
-                except KeyError:
-                    continue
-                if member is not None:
-                    return member.read()
-            raise KeyError(name)
-
-    def close(self):
-        if self._tar is not None:
-            self._tar.close()
-            self._tar = None
 
 
 def get_pred_name(rgb_basename: str, name_mode: DepthFileNameMode,

@@ -18,7 +18,6 @@ import numpy as np
 
 from marigold_tpu_torch.data.base_depth import (
     DatasetMode,
-    TarReader,
     bilinear_resize,
     nearest_resize,
 )
@@ -85,7 +84,9 @@ class BaseIIDDataset:
     def _read_bytes(self, rel_path) -> bytes:
         if self.is_tar:
             if self.tar_obj is None:
-                self.tar_obj = TarReader(self.dataset_dir)
+                from .tario import TarIndex
+
+                self.tar_obj = TarIndex(self.dataset_dir)
             return self.tar_obj.read(rel_path)
         with open(os.path.join(self.dataset_dir, rel_path), "rb") as f:
             return f.read()

@@ -19,7 +19,6 @@ from PIL import Image
 
 from marigold_tpu_torch.data.base_depth import (
     DatasetMode,
-    TarReader,
     bilinear_resize,
 )
 
@@ -183,7 +182,9 @@ class BaseNormalsDataset:
     def _read_bytes(self, rel_path) -> bytes:
         if self.is_tar:
             if self.tar_obj is None:
-                self.tar_obj = TarReader(self.dataset_dir)
+                from .tario import TarIndex
+
+                self.tar_obj = TarIndex(self.dataset_dir)
             return self.tar_obj.read(rel_path)
         with open(os.path.join(self.dataset_dir, rel_path), "rb") as f:
             return f.read()

@@ -53,14 +53,15 @@ _WORKER_HANDLES_RESET = False  # per-forked-process flag
 
 
 def _reset_inherited_io(dataset) -> None:
-    """Close tar handles inherited through fork so each worker reopens its
-    own. The port reads tars with `data/base_depth.py:TarReader` (Python's
-    tarfile), which seeks a file offset that a fork shares between the
-    processes: two processes interleaving seek+read corrupt member bytes.
-    Walks ConcatDataset-style wrappers."""
+    """Close tar handles inherited through fork that read through tarfile,
+    so that each worker reopens its own: tarfile seeks a file offset that a
+    fork shares between the processes, and two processes interleaving
+    seek+read corrupt member bytes. The native reader (`data/tario.py`,
+    pread on its own offsets) is kept with its index. Walks
+    ConcatDataset-style wrappers."""
     for ds in getattr(dataset, "datasets", [dataset]):
         tar = getattr(ds, "tar_obj", None)
-        if tar is not None:
+        if tar is not None and not getattr(tar, "native", False):
             try:
                 tar.close()
             except Exception:

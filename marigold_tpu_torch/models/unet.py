@@ -5,12 +5,19 @@ the diffusers names, so a diffusers `unet/` state dict loads as it is.
 Self-attention goes through `ops/attention.py` (the Hopper flash kernel at
 >= 1024 tokens on CUDA), cross-attention over the length-2 empty-prompt
 embedding through the plain attention.
+
+The forward runs as regions, each down block, the mid block and each up
+block, through an optional `block_runner(fn, *args)`: the training step's
+remat modes make each region its own activation checkpoint
+(`train/train_step.py:remat_runner`), so the backward recomputes and holds
+one region's activations at a time. The skip connections cross regions as
+the down blocks' saved outputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -210,6 +217,13 @@ class _Block(nn.Module):
         self.resnets = nn.ModuleList(resnets)
         self.attentions = nn.ModuleList(attentions) if attentions else None
 
+    def forward(self, region: Callable, *args):
+        """region(self, *args): the UNet's `_down_block`, `_mid_block` or
+        `_up_block` on this block, so that `torch.func.functional_call` can
+        run a region on substituted parameters (the training step's remat
+        regions, recomputed in the backward)."""
+        return region(self, *args)
+
 
 def _down_skip_channels(b: list, layers_per_block: int) -> list:
     skips = [b[0]]  # conv_in
@@ -287,9 +301,13 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = Conv2d(b[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps: Union[int, torch.Tensor],
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                block_runner: Optional[Callable] = None) -> torch.Tensor:
         """sample: [B, in_ch, H, W]; timesteps: int, [] or [B];
-        encoder_hidden_states: [1 or B, L, cross_dim] -> [B, out_ch, H, W]."""
+        encoder_hidden_states: [1 or B, L, cross_dim] -> [B, out_ch, H, W].
+        block_runner(fn, *args) -> fn(*args) runs each down, mid and up
+        block (the training step's remat regions); None calls it."""
+        run = block_runner or (lambda fn, *args: fn(*args))
         bsz = sample.shape[0]
         if isinstance(timesteps, torch.Tensor):
             t = timesteps.to(sample.device).expand(bsz)
@@ -307,32 +325,59 @@ class UNet2DConditionModel(nn.Module):
         h = self.conv_in(sample)
         skips = [h]
         for blk in self.down_blocks:
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
-                if blk.attentions is not None:
-                    h = blk.attentions[j](h, ctx)
-                skips.append(h)
-            if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0].conv(h)
-                skips.append(h)
-
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h = mid.attentions[0](h, ctx)
-        h = mid.resnets[1](h, temb)
-
+            outs = run(_down_block, blk, h, temb, ctx)
+            skips.extend(outs)
+            h = outs[-1]
+        h = run(_mid_block, self.mid_block, h, temb, ctx)
         for blk in self.up_blocks:
-            for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb)
-                if blk.attentions is not None:
-                    h = blk.attentions[j](h, ctx)
-            if hasattr(blk, "upsamplers"):
-                h = upsample_nearest_2x(h)
-                # odd sizes: stride-2 downsampling rounds up (11 -> 6), so 2x
-                # overshoots (12); crop to the next skip's size
-                th, tw = skips[-1].shape[2:]
-                h = h[:, :, :th, :tw]
-                h = blk.upsamplers[0].conv(h)
+            n = len(blk.resnets)
+            block_skips = skips[-n:]
+            del skips[-n:]
+            # the next block's first skip sets the upsampled size
+            out_hw = tuple(skips[-1].shape[2:]) if skips else None
+            h = run(_up_block, blk, h, temb, ctx, out_hw, *block_skips)
 
         h = self.conv_norm_out(h, act="silu")
         return self.conv_out(h)
+
+
+def _down_block(blk: _Block, h: torch.Tensor, temb: torch.Tensor,
+                ctx: torch.Tensor) -> tuple:
+    """One down block -> its outputs, each a skip connection (the last is
+    the next block's input)."""
+    outs = []
+    for j, res in enumerate(blk.resnets):
+        h = res(h, temb)
+        if blk.attentions is not None:
+            h = blk.attentions[j](h, ctx)
+        outs.append(h)
+    if hasattr(blk, "downsamplers"):
+        h = blk.downsamplers[0].conv(h)
+        outs.append(h)
+    return tuple(outs)
+
+
+def _mid_block(mid: _Block, h: torch.Tensor, temb: torch.Tensor,
+               ctx: torch.Tensor) -> torch.Tensor:
+    h = mid.resnets[0](h, temb)
+    h = mid.attentions[0](h, ctx)
+    return mid.resnets[1](h, temb)
+
+
+def _up_block(blk: _Block, h: torch.Tensor, temb: torch.Tensor,
+              ctx: torch.Tensor, out_hw: Optional[tuple],
+              *skips: torch.Tensor) -> torch.Tensor:
+    """One up block on its skips (in the down path's order, consumed from
+    the last); `out_hw` is the size after the upsampler."""
+    skips = list(skips)
+    for j, res in enumerate(blk.resnets):
+        h = res(torch.cat([h, skips.pop()], dim=1), temb)
+        if blk.attentions is not None:
+            h = blk.attentions[j](h, ctx)
+    if hasattr(blk, "upsamplers"):
+        h = upsample_nearest_2x(h)
+        # odd sizes: stride-2 downsampling rounds up (11 -> 6), so 2x
+        # overshoots (12); crop to the next skip's size
+        h = h[:, :, :out_hw[0], :out_hw[1]]
+        h = blk.upsamplers[0].conv(h)
+    return h

@@ -17,6 +17,11 @@ package: an 8-byte little-endian header length, a JSON header of
 `from_jax_tree` carries the JAX package's parameter trees across (HWIO ->
 OIHW, [in, out] -> [out, in]; embeddings as they are), the inverse of the
 JAX package's `torch_to_tree`.
+
+The component loaders (`load_unet`, `load_vae`, `load_text_encoder`) load
+onto the CUDA device unless given another, and raise without one, as the
+JAX package's load onto its default accelerator; they go through
+`models/fastload.py` unless MARIGOLD_TPU_FASTLOAD=0.
 """
 
 from __future__ import annotations
@@ -259,31 +264,59 @@ def write_config(cfg: Mapping[str, Any], dirpath: str,
         json.dump(dict(cfg), f, indent=2)
 
 
-def load_unet(subdir: str, dtype=torch.float32, device="cpu",
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA device when None; a CUDA device without one
+    raises (no silent fallback to the CPU: the CPU is asked for by
+    `device="cpu"`)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port loads onto the CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device='cpu' to load "
+            "onto the CPU")
+    return device
+
+
+def load_component(cls, cfg, subdir: str, dtype, device, variant=None,
+                   strip_prefix: str = "") -> nn.Module:
+    """One component dir -> `cls(cfg)` in `dtype` on `device` (None: the
+    CUDA device, raising without one), by `models/fastload.py` unless
+    MARIGOLD_TPU_FASTLOAD=0 selects the per-tensor path (`load_state_dict`
+    + `build_module`). Either path raises on a failed load."""
+    from marigold_tpu_torch.models import fastload
+
+    device = resolve_device(device)
+    if fastload.enabled():
+        return fastload.load_module(cls, cfg, subdir, dtype, device, variant,
+                                    strip_prefix)
+    return build_module(cls, cfg, load_state_dict(subdir, variant, strip_prefix),
+                        dtype, device)
+
+
+def load_unet(subdir: str, dtype=torch.float32, device=None,
               variant: Optional[str] = None):
     from marigold_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 
     cfg = UNetConfig.from_dict(read_config(subdir))
-    return build_module(UNet2DConditionModel, cfg,
-                        load_state_dict(subdir, variant), dtype, device)
+    return load_component(UNet2DConditionModel, cfg, subdir, dtype, device,
+                          variant)
 
 
-def load_vae(subdir: str, dtype=torch.float32, device="cpu",
+def load_vae(subdir: str, dtype=torch.float32, device=None,
              variant: Optional[str] = None):
     from marigold_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
     cfg = VAEConfig.from_dict(read_config(subdir))
-    return build_module(AutoencoderKL, cfg, load_state_dict(subdir, variant),
-                        dtype, device)
+    return load_component(AutoencoderKL, cfg, subdir, dtype, device, variant)
 
 
-def load_text_encoder(subdir: str, dtype=torch.float32, device="cpu",
+def load_text_encoder(subdir: str, dtype=torch.float32, device=None,
                       variant: Optional[str] = None):
     from marigold_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 
     cfg = CLIPTextConfig.from_dict(read_config(subdir))
-    sd = load_state_dict(subdir, variant, strip_prefix="text_model.")
-    return build_module(CLIPTextModel, cfg, sd, dtype, device)
+    return load_component(CLIPTextModel, cfg, subdir, dtype, device, variant,
+                          strip_prefix="text_model.")
 
 
 def save_component(cfg_dict: Mapping[str, Any], state_dict: Mapping[str, torch.Tensor],

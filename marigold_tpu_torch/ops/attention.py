@@ -2,7 +2,9 @@
 
 Counterpart of `marigold_tpu/ops/attention.py`: unmasked self-attention on a
 CUDA tensor with at least 1024 query and key tokens goes to the Hopper
-flash kernel in the current softmax mode; everything else (shorter
+flash kernel in the current softmax mode, bf16 or fp32 (`--full_precision`
+reaches the fp32 kernel, as the JAX package sends fp32 to its Pallas
+kernel); everything else (shorter
 sequences, the length-2 empty-prompt cross-attention, masked attention and
 every CPU tensor) goes to `xla_attention`, the plain fp32-softmax
 attention. With grad enabled and an input that requires grad, the flash

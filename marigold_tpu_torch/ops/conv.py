@@ -1,6 +1,6 @@
 """SAME-padded stride-1 3x3 convolution as nine shifted products: the
-hand-written Hopper kernel (`csrc/conv3x3.cu`) and its plain PyTorch
-version.
+hand-written Hopper kernels (`csrc/conv3x3.cu` for bf16, `csrc/conv_f32.cu`
+for fp32) and their plain PyTorch version.
 
 Replaces the TPU package's `marigold_tpu/ops/conv.py:_conv3x3_pallas` (the
 nine-tap kernel, opt-in under MARIGOLD_TPU_CONV=pallas):
@@ -23,11 +23,16 @@ no counterpart: TMA reads the SAME padding as zeros.
 least 128 and multiples of 128, bf16 or fp32) without the TPU VMEM plan
 (`_plan`), which has no counterpart here: the kernel tiles any such shape.
 
-On a CUDA tensor `conv3x3` launches the kernel (bf16, no autograd) or
-raises; on a CPU tensor it runs `conv3x3_plain`. `KernelConvFunction`
+fp32 storage (`--full_precision`) takes the FFMA implicit GEMM of
+`csrc/conv_f32.cu`, which reads x straight from NCHW (the tap's shift and
+the zero padding per element) and the same `[9, K, C]` weight, with fp32
+sums; it needs no NHWC scratch.
+
+On a CUDA tensor `conv3x3` launches the kernel (bf16 or fp32, no autograd)
+or raises; on a CPU tensor it runs `conv3x3_plain`. `KernelConvFunction`
 carries a kernel conv under autograd with the plain conv gradients, as the
-TPU package's custom VJP takes XLA's. `launches["conv3x3"]` counts kernel
-launches.
+TPU package's custom VJP takes XLA's. `launches["conv3x3"]` counts bf16
+kernel launches, `launches_f32["conv3x3"]` fp32 ones.
 """
 
 from __future__ import annotations
@@ -39,8 +44,11 @@ import torch
 from marigold_tpu_torch.ops import cuda_build
 
 SOURCES = ("conv3x3.cu",)
+F32_SOURCES = ("conv_f32.cu",)  # the fp32 nine-tap and Winograd kernels
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 launches = cuda_build.LaunchCounter()
+launches_f32 = cuda_build.LaunchCounter()
 
 
 def supports(x_shape, w_shape, stride, padding, dtype) -> bool:
@@ -99,23 +107,37 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def f32_library() -> ctypes.CDLL:
+    """The fp32 library, shared with `ops/winograd.py`."""
+    lib = cuda_build.load_library("conv_f32", F32_SOURCES)
+    fn = lib.mt_conv3x3_f32_fwd
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.mt_winograd_f32_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.mt_winograd_f32_fwd.restype = ctypes.c_int
+        lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def blocks(b: int, c: int, h: int, w: int, k: int) -> int:
     """Blocks the kernel launches for x [b, c, h, w] -> k channels."""
     return _library().mt_conv3x3_blocks(b, c, h, w, k)
 
 
 def check_cuda(x, weight, bias, what: str) -> None:
-    """What the conv kernels take: CUDA bf16 contiguous tensors on one
-    device, a gated shape, no autograd."""
+    """What the conv kernels take: CUDA contiguous tensors on one device,
+    all bf16 or all fp32, a gated shape, no autograd."""
     if x.device.type != "cuda":
         raise ValueError(f"no {what} kernel for device {x.device}")
-    if x.dtype == torch.float32:
-        raise NotImplementedError(
-            f"the {what} kernel takes bf16; see ROADMAP queue 1, \"fp32 "
-            "kernel path\"")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: x is {x.dtype}, the kernels take "
+                         f"{KERNEL_DTYPES}")
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{what}: {name} is {t.dtype}, the kernel takes bf16")
+        if t.dtype != x.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, x is {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -133,14 +155,15 @@ def check_cuda(x, weight, bias, what: str) -> None:
 
 def check_prepared(prepared: torch.Tensor, shape: tuple, x: torch.Tensor,
                    what: str) -> None:
-    """A rearranged weight handed to a kernel: bf16, contiguous, on x's
-    device, of `shape`, 16-byte aligned (TMA reads it)."""
-    if prepared.dtype != torch.bfloat16 or prepared.device != x.device or \
+    """A rearranged weight handed to a kernel: x's dtype, contiguous, on
+    x's device, of `shape`, 16-byte aligned (TMA and float4 loads read
+    it)."""
+    if prepared.dtype != x.dtype or prepared.device != x.device or \
             not prepared.is_contiguous() or tuple(prepared.shape) != shape or \
             prepared.data_ptr() % 16:
         raise ValueError(
             f"{what}: the prepared weight must be a contiguous 16-byte aligned "
-            f"bf16 {shape} tensor on {x.device}, got {prepared.dtype} "
+            f"{x.dtype} {shape} tensor on {x.device}, got {prepared.dtype} "
             f"{tuple(prepared.shape)} on {prepared.device}")
 
 
@@ -155,9 +178,9 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
             prepared: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, C, H, W] * weight [K, C, 3, 3] + bias [K] -> [B, K, H, W],
     SAME padding, stride 1. On a CUDA tensor this launches the Hopper
-    kernel (bf16; C, K multiples of 128; no autograd) or raises; on a CPU
-    tensor it runs `conv3x3_plain`. `prepared`, if given, is `taps(weight)`
-    computed earlier (the CPU path ignores it)."""
+    kernel (bf16 or fp32; C, K multiples of 128; no autograd) or raises; on
+    a CPU tensor it runs `conv3x3_plain`. `prepared`, if given, is
+    `taps(weight)` computed earlier (the CPU path ignores it)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias)
     check_cuda(x, weight, bias, "conv3x3")
@@ -166,6 +189,17 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     if prepared is None:
         prepared = taps(weight)
     check_prepared(prepared, (9, k, c), x, "conv3x3")
+    if x.dtype == torch.float32:
+        out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
+        lib = f32_library()
+        with torch.cuda.device(x.device):
+            err = lib.mt_conv3x3_f32_fwd(
+                x.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), b, c, h, w, k,
+                torch.cuda.current_stream().cuda_stream)
+        raise_on(lib, err, "conv3x3 (fp32)")
+        launches_f32.add("conv3x3")
+        return out
     x_nhwc = torch.empty((b, h, w, c), device=x.device, dtype=x.dtype)
     out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
     lib = _library()

@@ -1,8 +1,9 @@
 """Flash attention for long self-attention: hand-written Hopper kernels
-(`csrc/flash_fwd_sm90.cu` for every 64-wide forward,
+(`csrc/flash_fwd_sm90.cu` for every 64-wide bf16 forward,
 `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one, `csrc/flash_attention.cu`
-for the C entry points, `csrc/flash_bwd_sm90.cu` for the dQ and dK/dV
-backward) and their plain PyTorch versions.
+for their C entry points, `csrc/flash_bwd_sm90.cu` for the dQ and dK/dV
+backward, `csrc/flash_fwd_f32.cu` for the fp32 forward of both head widths)
+and their plain PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
@@ -33,21 +34,29 @@ it, as the TPU package's `_flash_dt_fwd`/`_flash_dt_bwd` do. The kernels
 for that take 64-wide heads; other widths (the 512-wide VAE head) take the
 serving forward and the plain backward `flash_attention_bwd_plain`.
 
-On the H100 the kernels are bound by tensor-core throughput (about N/2
+fp32 storage (`--full_precision`) takes the serving forwards of both head
+widths, in both softmax modes and the folded entry, to `csrc/flash_fwd_f32.cu`
+(CUDA-core FFMA tiles with fp32 P meeting fp32 V, as the Pallas kernels
+take fp32 storage); their launches count in `launches_f32`. The training
+forward with the logsumexp and the backward pair take bf16 only: fp32 raises
+NotImplementedError naming ROADMAP queue 2, "fp32 lse and backward pair".
+
+On the H100 the bf16 kernels are bound by tensor-core throughput (about N/2
 FLOP per byte at the UNet shapes); the notes in the .cu files say what each
 design does about it and, for the 512-wide forward, what was measured to
 bind it. Every kernel reads q/k/v (the backward also dO) and writes its
 outputs through TMA tensor maps, whose preconditions `check_tma` holds: a
 16-byte aligned base, a row stride that is a multiple of 16 bytes and at
-least one row. A tensor that breaks them raises; it is never copied into
-shape.
+least one row (the fp32 kernel's float4 loads need the same). A tensor that
+breaks them raises; it is never copied into shape.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it runs the
 plain version only for a tensor on the CPU. The raw kernel wrappers are not
 differentiable and raise when called with grad enabled on an input that
 requires grad. `launches` counts kernel launches by variant
 ("shifted_d64", "shifted_d512", "online_d64", "online_d512", "lse_d64",
-"bwd_dq_d64", "bwd_dkv_d64", "folded_d64", "folded_d512").
+"bwd_dq_d64", "bwd_dkv_d64", "folded_d64", "folded_d512") for bf16, and
+`launches_f32` those of the fp32 kernel by the same names.
 """
 
 from __future__ import annotations
@@ -75,8 +84,13 @@ LSE_PAD = 1e30
 
 SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_fwd_d512_sm90.cu")
 BWD_SOURCES = ("flash_bwd_sm90.cu",)
+F32_SOURCES = ("flash_fwd_f32.cu",)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the serving forwards
+F32_TRAINING = ('fp32 training takes no flash kernel yet: see ROADMAP queue '
+                '2, "fp32 lse and backward pair"')
 
 launches = cuda_build.LaunchCounter()
+launches_f32 = cuda_build.LaunchCounter()
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -216,6 +230,39 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _f32_library() -> ctypes.CDLL:
+    lib = cuda_build.load_library("flash_attention_f32", F32_SOURCES)
+    fn = lib.mt_flash_fwd_f32
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
+                    ld: int, online: bool, variant: str) -> None:
+    """One serving forward on q's stream: the bf16 Hopper kernels or the
+    fp32 one, by q's dtype, counted as `variant` in `launches` or
+    `launches_f32`."""
+    lib, fn, counter = ((_library(), "mt_flash_attention_fwd", launches)
+                        if q.dtype == torch.bfloat16 else
+                        (_f32_library(), "mt_flash_fwd_f32", launches_f32))
+    with torch.cuda.device(q.device):
+        err = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            shift.data_ptr() if shift is not None else None, out.data_ptr(),
+            b, heads, q.shape[1], k.shape[1], d, ld, ld, ld,
+            1.0 / math.sqrt(d), int(online),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, err, f"flash attention ({q.dtype})")
+    counter.add(variant)
+
+
 def _bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_bwd", BWD_SOURCES)
     _bind(lib, "mt_flash_attention_bwd_dq", 7, 8)
@@ -252,19 +299,18 @@ def _check_inputs(q, k, v, num_heads, softmax="online"):
 
 
 def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
-                b_h: int) -> None:
-    """What the CUDA kernels take: bf16, contiguous, 16-byte aligned, a
-    head width they are instantiated for, no autograd."""
+                b_h: int, dtypes: tuple = KERNEL_DTYPES) -> None:
+    """What the CUDA kernels take: one of `dtypes` (bf16 and fp32 for the
+    serving forwards; the training kernels pass bf16 alone, and fp32 raises
+    NotImplementedError for them), contiguous, 16-byte aligned, a head
+    width they are instantiated for, no autograd."""
     q = next(iter(tensors.values()))
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    if q.dtype == torch.float32:
-        raise NotImplementedError(
-            "flash attention on CUDA takes bf16; the fp32 kernel path is a "
-            "ROADMAP item"
-        )
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash attention on CUDA takes bf16, got {q.dtype}")
+    if q.dtype == torch.float32 and q.dtype not in dtypes:
+        raise NotImplementedError(F32_TRAINING)
+    if q.dtype not in dtypes:
+        raise ValueError(f"flash attention on CUDA takes {dtypes}, got {q.dtype}")
     if head_dim not in head_dims:
         raise ValueError(f"head dim {head_dim} not in the kernel's {head_dims}")
     for name, t in tensors.items():
@@ -303,30 +349,22 @@ def flash_attention(
     softmax: str = "shifted",
 ) -> torch.Tensor:
     """softmax(Q K^T / sqrt(d)) V per head. q: [B, Nq, C], k/v: [B, Nk, C]
-    -> [B, Nq, C]. On a CUDA tensor this launches the Hopper kernel (bf16
-    only; head dim 64 or 512; contiguous inputs; no autograd) or raises; on
-    a CPU tensor it runs `flash_attention_plain`."""
+    -> [B, Nq, C]. On a CUDA tensor this launches the Hopper kernel (bf16,
+    or fp32 on `csrc/flash_fwd_f32.cu`; head dim 64 or 512; contiguous
+    inputs; no autograd) or raises; on a CPU tensor it runs
+    `flash_attention_plain`."""
     _check_inputs(q, k, v, num_heads, softmax)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, num_heads, softmax)
-    b, nq, c = q.shape
-    nk = k.shape[1]
+    b, _, c = q.shape
     d = c // num_heads
     _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, b * num_heads)
     check_tma({"q": q, "k": k, "v": v})
 
     shift = row_shift(q, k, num_heads) if softmax == "shifted" else None
     out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.mt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            shift.data_ptr() if shift is not None else None, out.data_ptr(),
-            b, num_heads, nq, nk, d, c, c, c, 1.0 / math.sqrt(d),
-            int(softmax == "online"), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(lib, err, "flash attention")
-    launches.add(f"{softmax}_d{d}")
+    _launch_forward(q, k, v, shift, out, b, num_heads, d, c,
+                    softmax == "online", f"{softmax}_d{d}")
     return out
 
 
@@ -336,9 +374,9 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
     k/v [BH, Nk, D] -> [BH, Nq, D]; the TPU package's first
     `flash_attention` (`marigold_tpu/ops/flash_attention.py:471`). On a CUDA
     tensor this launches the online kernel with BH batches of one D-wide
-    head (bf16, D 64 or 512; no padding of D or N: the kernel masks ragged
-    N) or raises; on a CPU tensor it runs the plain online forward with one
-    head."""
+    head (bf16 or fp32, D 64 or 512; no padding of D or N: the kernel masks
+    ragged N) or raises; on a CPU tensor it runs the plain online forward
+    with one head."""
     _check_inputs(q, k, v, 1)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, 1, "online")
@@ -350,15 +388,7 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
     _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, bh)
     check_tma({"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.mt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
-            bh, 1, nq, k.shape[1], d, d, d, d, 1.0 / math.sqrt(d), 1,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(lib, err, "folded flash attention")
-    launches.add(f"folded_d{d}")
+    _launch_forward(q, k, v, None, out, bh, 1, d, d, True, f"folded_d{d}")
     return out
 
 
@@ -375,7 +405,8 @@ def flash_attention_lse(
     b, nq, c = q.shape
     nk = k.shape[1]
     d = c // num_heads
-    _check_cuda({"q": q, "k": k, "v": v}, d, TRAIN_HEAD_DIMS, b * num_heads)
+    _check_cuda({"q": q, "k": k, "v": v}, d, TRAIN_HEAD_DIMS, b * num_heads,
+                (torch.bfloat16,))
     check_tma({"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty((b * num_heads, nq), device=q.device, dtype=torch.float32)
@@ -441,7 +472,7 @@ def flash_attention_bwd(
         raise ValueError(f"lse must be contiguous fp32 [{b * num_heads}, {nq}]")
     check_tma({"q": q, "k": k, "v": v, "dout": dout})
     _check_cuda({"q": q, "k": k, "v": v, "dout": dout}, d, TRAIN_HEAD_DIMS,
-                b * num_heads)
+                b * num_heads, (torch.bfloat16,))
     lse_p, delta_p = bwd_stats(out, lse, dout, num_heads)
     return (flash_attention_bwd_dq(q, k, v, dout, lse_p, delta_p, num_heads),
             *flash_attention_bwd_dkv(q, k, v, dout, lse_p, delta_p, num_heads))

@@ -1,5 +1,6 @@
-"""Winograd F(2x2, 3x3) convolution: the hand-written Hopper kernel
-(`csrc/winograd.cu`) and its plain PyTorch version.
+"""Winograd F(2x2, 3x3) convolution: the hand-written Hopper kernels
+(`csrc/winograd.cu` for bf16, `csrc/conv_f32.cu` for fp32) and their plain
+PyTorch version.
 
 Replaces the TPU package's `marigold_tpu/ops/winograd.py:_winograd_impl`
 (opt-in under MARIGOLD_TPU_CONV=winograd). For each 2x2 output tile and its
@@ -27,12 +28,17 @@ second reads. The TPU wrapper's pixel unshuffle into four phases and its
 8-aligned phase width exist to give Mosaic unit-stride slices; the input
 transform reads x's rows from NCHW instead.
 
+fp32 storage (`--full_precision`) takes `csrc/conv_f32.cu`: an fp32 input
+transform writing V as [16, C, T] (tiles innermost), then FFMA products of
+each M_ij summed over all of C and added into the four output phases, fp32
+throughout; V rounds nowhere, as the plain version's cast to fp32 is exact.
+
 `supports` is the TPU package's gate (that of `ops/conv.py` plus even H and
 W, and H*W at most MARIGOLD_TPU_WINO_MAX_HW when that is set and non-zero,
 read on every call) without the TPU VMEM plan. On a CUDA tensor
-`winograd3x3` launches the kernel (bf16, no autograd) or raises; on a CPU
-tensor it runs `winograd3x3_plain`. `launches["winograd"]` counts kernel
-launches.
+`winograd3x3` launches the kernel (bf16 or fp32, no autograd) or raises; on
+a CPU tensor it runs `winograd3x3_plain`. `launches["winograd"]` counts
+bf16 kernel launches, `launches_f32["winograd"]` fp32 ones.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 AT = ((1, 1, 1, 0), (0, 1, -1, -1))
 
 launches = cuda_build.LaunchCounter()
+launches_f32 = cuda_build.LaunchCounter()
 
 
 def supports(x_shape, w_shape, stride, padding, dtype) -> bool:
@@ -118,8 +125,8 @@ def winograd3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                 *, prepared: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, C, H, W] * weight [K, C, 3, 3] + bias [K] -> [B, K, H, W] by
     F(2x2, 3x3), SAME padding, stride 1, H and W even. On a CUDA tensor
-    this launches the Hopper kernels (bf16; C, K multiples of 128; no
-    autograd) or raises; on a CPU tensor it runs `winograd3x3_plain`.
+    this launches the Hopper kernels (bf16 or fp32; C, K multiples of 128;
+    no autograd) or raises; on a CPU tensor it runs `winograd3x3_plain`.
     `prepared`, if given, is `filter_transform(weight)` computed earlier
     (the CPU path ignores it)."""
     if x.shape[2] % 2 or x.shape[3] % 2:
@@ -132,6 +139,19 @@ def winograd3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if prepared is None:
         prepared = filter_transform(weight)
     conv_ops.check_prepared(prepared, (16, k, c), x, "winograd")
+    if x.dtype == torch.float32:
+        v = torch.empty((16, c, b * (h // 2) * (w // 2)), device=x.device,
+                        dtype=x.dtype)
+        out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
+        lib = conv_ops.f32_library()
+        with torch.cuda.device(x.device):
+            err = lib.mt_winograd_f32_fwd(
+                x.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, c, h, w, k,
+                torch.cuda.current_stream().cuda_stream)
+        conv_ops.raise_on(lib, err, "winograd (fp32)")
+        launches_f32.add("winograd")
+        return out
     v = torch.empty((16, b * (h // 2) * (w // 2), c), device=x.device,
                     dtype=x.dtype)
     out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)

@@ -22,10 +22,18 @@ consistency step and re-noises with fresh noise drawn from the request's
 generator at every step but the last (`DiffusionCore.step_noise`), in a
 fixed order, so that a seed fixes the map for a fixed chunking. With no
 compiled-program cache there is no cache key to carry the sampler.
+
+`BasePipeline.phase_timer`, None by default, takes a
+`utils/profiling.py:PhaseTimer`: the single-image path then times its
+phases, "host pre" (decode, resize, pad and upload: two calls per
+request), "encode", "denoise", "decode" (one each per member chunk),
+"ensemble" and "host post" (readback and the resize back), synchronizing
+the device at each edge, so it is a measurement, not a serving mode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -217,10 +225,13 @@ class DiffusionCore:
 # checkpoint loading
 
 
-def load_pipeline_components(ckpt_dir: str, dtype=torch.bfloat16, device="cpu",
+def load_pipeline_components(ckpt_dir: str, dtype=torch.bfloat16, device=None,
                              variant: Optional[str] = None):
     """A diffusers pipeline dir (model_index.json + unet/ vae/ text_encoder/
-    scheduler/) -> (DiffusionCore, pipeline config dict)."""
+    scheduler/) -> (DiffusionCore, pipeline config dict), on `device`: the
+    CUDA device when None, raising without one (`weights.resolve_device`);
+    the CPU only when asked for."""
+    device = W.resolve_device(device)
     pipe_cfg: dict[str, Any] = {}
     index_path = os.path.join(ckpt_dir, "model_index.json")
     if os.path.exists(index_path):
@@ -290,6 +301,7 @@ class BasePipeline:
     def __init__(self, core: DiffusionCore, pipe_cfg: dict):
         self.core = core
         self.pipe_cfg = pipe_cfg
+        self.phase_timer = None  # a utils.profiling.PhaseTimer, when timing
         self.default_denoising_steps = pipe_cfg.get("default_denoising_steps")
         self.default_processing_resolution = pipe_cfg.get(
             "default_processing_resolution")
@@ -302,13 +314,6 @@ class BasePipeline:
         """device: "cuda" (the default), "cpu" or a torch.device. Without a
         CUDA device the caller must ask for the CPU: there is no silent
         fallback, and a CUDA device asked for without one raises."""
-        if device is None:
-            device = "cuda"
-        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "from_pretrained runs on the CUDA device by default and "
-                "torch.cuda.is_available() is False; pass device='cpu' to "
-                "run on the CPU")
         core, pipe_cfg = load_pipeline_components(ckpt_dir, dtype, device, variant)
         return cls(core, pipe_cfg)
 
@@ -392,42 +397,56 @@ class BasePipeline:
                 "see ROADMAP queue 1, \"Spatial parallelism\"")
         core = self.core
         ds = core.vae_cfg.downscale_factor
-        x, h0, w0 = pad_to_multiple_of(rgb_norm[None],
-                                       max(64, ds) if shape_bucketing else ds)
-        hp, wp = x.shape[1:3]
-        rgb = torch.from_numpy(np.ascontiguousarray(x)).to(core.device)
-        rgb_lat = core.encode_rgb(rgb.permute(0, 3, 1, 2).contiguous())
+        with self._phase("host pre"):
+            x, h0, w0 = pad_to_multiple_of(
+                rgb_norm[None], max(64, ds) if shape_bucketing else ds)
+            hp, wp = x.shape[1:3]
+            rgb = torch.from_numpy(np.ascontiguousarray(x)).to(core.device)
+        with self._phase("encode"):
+            rgb_lat = core.encode_rgb(rgb.permute(0, 3, 1, 2).contiguous())
         gen = self._noise_generator(seed)
         noise = self._noise(ensemble_size, *rgb_lat.shape[2:], gen)
         chunk = self._chunk(ensemble_size, hp, wp, batch_size)
-        preds = torch.cat([core.infer(rgb_lat, noise[s:s + chunk],
-                                      denoising_steps, mode=self.mode,
-                                      n_targets=self.n_targets, generator=gen)
-                           for s in range(0, ensemble_size, chunk)])
+        preds = []
+        for s in range(0, ensemble_size, chunk):  # core.infer, phase by phase
+            with self._phase("denoise"):
+                lat = core.denoise(rgb_lat, noise[s:s + chunk], denoising_steps,
+                                   generator=gen)
+            with self._phase("decode"):
+                preds.append(core.decode(lat, self.mode, self.n_targets))
+        preds = torch.cat(preds)
         unc = None
-        if ensemble_size == 1:
-            pred = preds[:, :, :h0, :w0]
-        else:
-            kw = self._ensemble_kwargs(ensemble_kwargs)
-            if self.mode == "depth" and not _is_reference_ensemble(
-                    self.mode, ensemble_size, kw):
-                mask = torch.zeros((1, 1, hp, wp), dtype=torch.bool,
-                                   device=core.device)
-                mask[:, :, :h0, :w0] = True
-                pred, unc = self._ensemble(preds, kw, valid_mask=mask)
-                pred, unc = pred[:, :, :h0, :w0], unc[:, :, :h0, :w0]
+        with self._phase("ensemble"):
+            if ensemble_size == 1:
+                pred = preds[:, :, :h0, :w0]
             else:
-                pred, unc = self._ensemble(preds[:, :, :h0, :w0], kw)
-        maps = [t[0].permute(1, 2, 0).cpu().numpy().astype(np.float32)
-                for t in ((pred,) if unc is None else (pred, unc))]
-        if out_hw is not None and out_hw != (h0, w0):
-            maps = [image_util.resize_host(m, out_hw, resample_method)
-                    for m in maps]
-            if self.mode == "normals":
-                norm = np.linalg.norm(maps[0], axis=-1, keepdims=True)
-                maps[0] = maps[0] / np.clip(norm, 1e-6, None)
-        maps = [m.astype(np.float32) for m in maps]
+                kw = self._ensemble_kwargs(ensemble_kwargs)
+                if self.mode == "depth" and not _is_reference_ensemble(
+                        self.mode, ensemble_size, kw):
+                    mask = torch.zeros((1, 1, hp, wp), dtype=torch.bool,
+                                       device=core.device)
+                    mask[:, :, :h0, :w0] = True
+                    pred, unc = self._ensemble(preds, kw, valid_mask=mask)
+                    pred, unc = pred[:, :, :h0, :w0], unc[:, :, :h0, :w0]
+                else:
+                    pred, unc = self._ensemble(preds[:, :, :h0, :w0], kw)
+        with self._phase("host post"):
+            maps = [t[0].permute(1, 2, 0).cpu().numpy().astype(np.float32)
+                    for t in ((pred,) if unc is None else (pred, unc))]
+            if out_hw is not None and out_hw != (h0, w0):
+                maps = [image_util.resize_host(m, out_hw, resample_method)
+                        for m in maps]
+                if self.mode == "normals":
+                    norm = np.linalg.norm(maps[0], axis=-1, keepdims=True)
+                    maps[0] = maps[0] / np.clip(norm, 1e-6, None)
+            maps = [m.astype(np.float32) for m in maps]
         return maps[0], (maps[1] if unc is not None else None)
+
+    def _phase(self, name: str):
+        """`phase_timer.phase(name)`, or a no-op without a timer."""
+        if self.phase_timer is None:
+            return contextlib.nullcontext()
+        return self.phase_timer.phase(name)
 
     def _single_infer(self, input_image, denoising_steps: Optional[int],
                       ensemble_size: int, processing_res: Optional[int],
@@ -447,13 +466,14 @@ class BasePipeline:
             raise ValueError(f"processing_res={processing_res}, "
                              f"ensemble_size={ensemble_size}")
         self._check_inference_step(denoising_steps)
-        rgb_norm = image_to_array(input_image)
-        input_h, input_w = rgb_norm.shape[:2]
-        if processing_res > 0 and max(input_h, input_w) != processing_res:
-            nh, nw = image_util.resize_max_res_shape(input_h, input_w,
-                                                     processing_res)
-            rgb_norm = image_util.resize_np(rgb_norm, (nh, nw),
-                                            method=resample_method)
+        with self._phase("host pre"):
+            rgb_norm = image_to_array(input_image)
+            input_h, input_w = rgb_norm.shape[:2]
+            if processing_res > 0 and max(input_h, input_w) != processing_res:
+                nh, nw = image_util.resize_max_res_shape(input_h, input_w,
+                                                         processing_res)
+                rgb_norm = image_util.resize_np(rgb_norm, (nh, nw),
+                                                method=resample_method)
         return self._infer_fused(
             rgb_norm, denoising_steps=denoising_steps,
             ensemble_size=ensemble_size, batch_size=batch_size, seed=seed,

@@ -19,12 +19,22 @@ whatever `grad_dtype` says (the JAX package runs it in `grad_dtype` when
 `compute_dtype` is None, a fault the port does not copy).
 
 Remat modes for the UNet forward, as `_apply_remat` in the JAX package:
-"none" keeps every activation, "full" recomputes the whole forward in the
+"none" keeps every activation, "full" recomputes the forward in the
 backward (`torch.utils.checkpoint`), "save_heavy" recomputes only the
 elementwise chains: a selective-checkpoint policy keeps the outputs of
 matmuls, convolutions and the flash lse forward (the dispatcher op
 `ops/flash_attention.py:flash_attention_lse_op`), so the flash forward does
-not launch again in the backward.
+not launch again in the backward. Both run block by block: each down
+block, the mid block and each up block of the UNet is its own checkpoint
+region (`models/unet.py`'s `block_runner`), whose outputs, the skip
+connections among them, are saved, so the backward recomputes and holds one
+region's activations at a time; XLA's recompute in the reference is
+scheduled per consumer, and this is the port's nearest eager form. One
+checkpoint around the whole forward would recompute every activation at
+the start of the backward and hold them all, saving no memory. A region
+recomputed in the backward runs after `functional_call` has restored the
+module's own parameters, so each region substitutes its block's cast
+parameters itself.
 
 The optimizers have optax's semantics: Adam (b1 0.9, b2 0.999, eps 1e-8
 outside the square root, bias correction) and Adafactor
@@ -108,18 +118,42 @@ def _save_heavy_policy(ctx, op, *args, **kwargs):
 
 
 def remat_runner(remat) -> Callable:
-    """-> run(fwd, x): the UNet forward fwd(x) under the remat mode,
-    "none"/False/None, "full"/True or "save_heavy" (module docstring)."""
+    """-> run(fn, *args): fn(*args) as one region under the remat mode,
+    "none"/False/None (a plain call), "full"/True or "save_heavy" (its own
+    checkpoint; module docstring)."""
     if remat in (False, None, "none"):
-        return lambda fwd, x: fwd(x)
+        return lambda fn, *args: fn(*args)
     if remat in (True, "full"):
-        return lambda fwd, x: checkpoint(fwd, x, use_reentrant=False)
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
     if remat == "save_heavy":
         context = functools.partial(create_selective_checkpoint_contexts,
                                     _save_heavy_policy)
-        return lambda fwd, x: checkpoint(fwd, x, use_reentrant=False,
-                                         context_fn=context)
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            context_fn=context)
     raise ValueError(f"unknown remat mode: {remat!r}")
+
+
+def unet_block_runner(unet: torch.nn.Module, params: dict,
+                      run: Callable) -> Callable:
+    """The UNet forward's `block_runner` for remat: each down, mid and up
+    block through `run` (`remat_runner`), on its own entries of `params`
+    (name -> tensor, the UNet's parameter names) by `functional_call`, so
+    that the region recomputed in the backward, after the outer
+    `functional_call` has returned, still runs on them."""
+    prefixes = {id(m): name + "." for name, m in unet.named_modules()
+                if name == "mid_block" or
+                name.rsplit(".", 1)[0] in ("down_blocks", "up_blocks")}
+    block_params = {
+        key: {n[len(prefix):]: t for n, t in params.items()
+              if n.startswith(prefix)}
+        for key, prefix in prefixes.items()}
+
+    def block_runner(region, block, *args):
+        mine = block_params[id(block)]
+        return run(lambda *a: torch.func.functional_call(
+            block, mine, (region, *a)), *args)
+
+    return block_runner
 
 
 def make_loss_and_grad(
@@ -148,7 +182,8 @@ def make_loss_and_grad(
     loss_inner = get_loss(loss_name)
     ds = vae.cfg.downscale_factor
     grad_dtype = as_dtype(grad_dtype)
-    run_fwd = remat_runner(remat)
+    run_region = remat_runner(remat)
+    blockwise = remat not in (False, None, "none")
 
     def encode(x: torch.Tensor) -> torch.Tensor:
         dtype = next(vae.parameters()).dtype
@@ -187,11 +222,10 @@ def make_loss_and_grad(
             x = torch.cat([rgb_latent, noisy.to(rgb_latent.dtype)], dim=1)
             x = x.to(cast["conv_in.weight"].dtype)
 
-            def fwd(xx):
-                return torch.func.functional_call(
-                    unet, cast, (xx, timesteps, text_embed))
-
-            pred = run_fwd(fwd, x).float()
+            kwargs = ({"block_runner": unet_block_runner(unet, cast, run_region)}
+                      if blockwise else {})
+            pred = torch.func.functional_call(
+                unet, cast, (x, timesteps, text_embed), kwargs).float()
             if mask is not None:
                 diff = loss_inner(pred, target, reduction="none")
                 n = mask.sum().clamp(min=1)

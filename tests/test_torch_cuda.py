@@ -5,8 +5,9 @@ csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles, every
 512-wide one that of csrc/flash_fwd_d512_sm90.cu, with 64-row query tiles
 and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
 with 128-row output blocks and 64-row stages)
-and the 3x3 conv kernels (nine-tap, Winograd) against their plain
-PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
+and the 3x3 conv kernels (nine-tap, Winograd), and the fp32 kernels of
+`--full_precision` (csrc/flash_fwd_f32.cu, csrc/conv_f32.cu), against
+their plain PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slices on the card against the CPU: depth at
 E=1 and E=3, normals and IID appearance at E=1, and bf16 normals and IID
 requests through the flash kernels against plain attention, and the
@@ -106,8 +107,8 @@ def test_shifted_kernel_clamps_a_spiky_key(cuda):
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 128, 64)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q.float(), k.float(), v.float(), 1)
+    with pytest.raises(NotImplementedError, match="fp32 lse and backward pair"):
+        fa.flash_attention_lse(q.float(), k.float(), v.float(), 1)
     with pytest.raises(ValueError):
         fa.flash_attention(q.half(), k.half(), v.half(), 1)
     with pytest.raises(ValueError, match="head dim"):
@@ -368,9 +369,9 @@ def _cli_images(folder, n, hw=(256, 256)):
 def test_run_cli_on_the_card(cuda, tmp_path):
     """run --modality depth on the card by default, bf16, with its files
     checked and the flash launches exact (3 d=64 per UNet forward, one
-    d=512 launch in the encoder and one in the decoder per image);
-    --full_precision reaches the kernels' NotImplementedError and falls
-    back to nothing."""
+    d=512 launch in the encoder and one in the decoder per image); then
+    --full_precision: fp32 maps, finite, in [0, 1], of the input's shape,
+    through the fp32 kernels with the same launch counts."""
     import numpy as np
     from PIL import Image
 
@@ -396,8 +397,17 @@ def test_run_cli_on_the_card(cuda, tmp_path):
         assert bw.dtype == np.uint16 and bw.shape == (256, 256)
         colored = Image.open(tmp_path / "out" / f"img{i}_depth_colored.png")
         assert colored.mode == "RGB" and colored.size == (256, 256)
-    with pytest.raises(NotImplementedError):
-        main(argv + ["--output_dir", str(tmp_path / "fp32"), "--full_precision"])
+    before = dict(fa.launches_f32)
+    assert main(argv + ["--output_dir", str(tmp_path / "fp32"),
+                        "--full_precision"]) == 0
+    delta = {k: n - before.get(k, 0) for k, n in fa.launches_f32.items()
+             if n != before.get(k, 0)}
+    assert delta == {"shifted_d64": 2 * 3 * steps, "shifted_d512": 2 * 2}
+    assert not torch.backends.cudnn.allow_tf32
+    for i in range(2):
+        depth = np.load(tmp_path / "fp32" / "depth_npy" / f"img{i}_pred.npy")
+        assert depth.shape == (256, 256) and np.isfinite(depth).all()
+        assert 0.0 <= depth.min() and depth.max() <= 1.0
 
 
 def test_serve_batches_in_flight_match_one_at_a_time(cuda, tmp_path):
@@ -516,8 +526,12 @@ def test_conv3x3_odd_pixel_count(cuda):
 def test_conv_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x, wt, bias = _conv_inputs(cuda, 1, 128, 8, 8, 128)
     for fn in (tconv.conv3x3, twino.winograd3x3):
-        with pytest.raises(NotImplementedError):
-            fn(x.float(), wt.float(), bias.float())
+        with pytest.raises(ValueError, match="x is torch.float32"):
+            fn(x.float(), wt, bias)
+        with pytest.raises(ValueError, match="kernels take"):
+            fn(x.half(), wt.half(), bias.half())
+        with pytest.raises(ValueError, match="prepared weight"):
+            fn(x.float(), wt.float(), bias.float(), prepared=tconv.taps(wt))
         with pytest.raises(ValueError, match="gated"):
             fn(x[:, :64].contiguous(), wt[:, :64].contiguous(), bias)
         with pytest.raises(RuntimeError, match="KernelConvFunction"):
@@ -574,6 +588,66 @@ def test_folded_flash_matches_plain(cuda, bh, n, d):
     assert (out.float() - ref.float()).abs().max().item() <= tol
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fa.flash_attention_folded(*_qkv(cuda, 1, 64, 32))
+
+
+# The fp32 kernels (`--full_precision`) against their plain fp32 versions,
+# TF32 off for both: fp32 sums in another order, so a few fp32 ulps of the
+# largest output (the chip_smoke.py tolerance, 1e-4 * max|ref| + 1e-6).
+F32_TOL_REL, F32_TOL_ABS = 1e-4, 1e-6
+
+
+def _f32_close(out, ref):
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    tol = F32_TOL_REL * ref.abs().max().item() + F32_TOL_ABS
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("softmax", ["shifted", "online"])
+@pytest.mark.parametrize("b,nq,nk,c,heads", [
+    (2, 1300, 1300, 320, 5),   # d=64, B > 1, ragged against the 64-row tiles
+    (1, 77, 130, 64, 1),       # d=64, fewer rows than one tile, nq != nk
+    (3, 1100, 700, 512, 1),    # d=512: nq > nk, ragged against 32, B = 3
+    (1, 33, 1300, 512, 1),     # d=512: one row past a 32-row tile
+])
+def test_f32_kernel_matches_plain(cuda, b, nq, nk, c, heads, softmax):
+    q = torch.randn((b, nq, c), generator=cuda, device="cuda")
+    k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
+            for _ in range(2))
+    key = f"{softmax}_d{c // heads}"
+    before, bf16 = fa.launches_f32[key], sum(fa.launches.values())
+    out = fa.flash_attention(q, k, v, heads, softmax)
+    assert fa.launches_f32[key] == before + 1
+    assert sum(fa.launches.values()) == bf16
+    _f32_close(out, fa.flash_attention_plain(q, k, v, heads, softmax))
+
+
+@pytest.mark.parametrize("bh,n,d", [(5, 1030, 64), (3, 700, 512)])
+def test_f32_folded_flash_matches_plain(cuda, bh, n, d):
+    q, k, v = _qkv(cuda, bh, n, d, torch.float32)
+    before = fa.launches_f32[f"folded_d{d}"]
+    out = fa.flash_attention_folded(q, k, v)
+    assert fa.launches_f32[f"folded_d{d}"] == before + 1
+    _f32_close(out, fa.flash_attention_plain(q, k, v, 1, "online"))
+
+
+@pytest.mark.parametrize("kernel", ["conv3x3", "winograd"])
+@pytest.mark.parametrize("b,c,h,w,k", [
+    (2, 128, 12, 12, 128),   # narrower than one 64-pixel tile
+    (1, 256, 10, 34, 384),   # ragged against the tiles
+    (3, 640, 24, 24, 640),   # a UNet level
+    (1, 128, 96, 96, 256),   # a VAE level
+])
+def test_f32_conv_kernels_match_plain(cuda, kernel, b, c, h, w, k):
+    x, wt, bias = (t.float() for t in _conv_inputs(cuda, b, c, h, w, k))
+    fn, plain, counter = {
+        "conv3x3": (tconv.conv3x3, tconv.conv3x3_plain, tconv.launches_f32),
+        "winograd": (twino.winograd3x3, twino.winograd3x3_plain,
+                     twino.launches_f32),
+    }[kernel]
+    before = counter[kernel]
+    out = fn(x, wt, bias)
+    assert counter[kernel] == before + 1 and out.shape == (b, k, h, w)
+    _f32_close(out, plain(x, wt, bias))
 
 
 @pytest.mark.parametrize("b,nq,nk,c,heads", [

@@ -18,6 +18,7 @@ from marigold_tpu.config import recursive_load_config
 from marigold_tpu.data import exr as jexr
 from marigold_tpu_torch import data as tdata
 from marigold_tpu_torch.data import exr as texr
+from marigold_tpu_torch.data import tario
 from test_benchmark_protocol import BENCHES, REPO, _split_lines
 from marigold_tpu.cli.benchmark import PROTOCOLS
 
@@ -63,7 +64,7 @@ def test_dataset_samples_match_jax(tmp_path, modality, bench, builder, n):
 
 def test_nyu_tar_archive_matches_jax(tmp_path):
     """The NYU tree packed as the tar its config names: both packages read
-    the members, and the port's copy reads them with tarfile."""
+    the members, and the port's copy reads them with its native reader."""
     from test_benchmark_protocol import build_depth_nyu
 
     cfg_path = PROTOCOLS["depth"]["nyu"][0]
@@ -81,7 +82,7 @@ def test_nyu_tar_archive_matches_jax(tmp_path):
         jds, tds = _datasets(cfg_path, base, mode)
         assert tds.is_tar and jds.is_tar
         _assert_same_samples(jds, tds, 2)
-        assert isinstance(tds.tar_obj, tdata.base_depth.TarReader)
+        assert isinstance(tds.tar_obj, tario.TarIndex) and tds.tar_obj.native
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])

@@ -70,7 +70,7 @@ def _port_model(kind, jax_models, tiny_ckpt, route):
                          TW.load_text_encoder),
     }[kind]
     if route == "disk":
-        return load(os.path.join(tiny_ckpt, kind))
+        return load(os.path.join(tiny_ckpt, kind), device="cpu")
     jcfg, params = jax_models[kind]
     return TW.build_module(cls, cfg_cls.from_dict(jcfg.to_dict()),
                            TW.from_jax_tree(params), torch.float32, "cpu")
@@ -134,7 +134,8 @@ def test_clip_empty_prompt_matches_jax(route, jax_models, tiny_ckpt):
 
 
 def test_load_bf16_onto_device_dtype(tiny_ckpt):
-    unet = TW.load_unet(os.path.join(tiny_ckpt, "unet"), dtype=torch.bfloat16)
+    unet = TW.load_unet(os.path.join(tiny_ckpt, "unet"), dtype=torch.bfloat16,
+                        device="cpu")
     assert all(p.dtype == torch.bfloat16 for p in unet.parameters())
     assert not any(p.requires_grad for p in unet.parameters())
 
@@ -213,8 +214,8 @@ def test_text_projection_and_position_ids_are_dropped(tiny_ckpt, tmp_path):
     dst = tmp_path / "text_encoder"
     TW.write_config(TW.read_config(src), str(dst))
     TW.write_safetensors(sd, str(dst / "model.safetensors"))
-    clip = TW.load_text_encoder(str(dst))
-    ref = TW.load_text_encoder(src)
+    clip = TW.load_text_encoder(str(dst), device="cpu")
+    ref = TW.load_text_encoder(src, device="cpu")
     with torch.no_grad():
         torch.testing.assert_close(clip.encode_empty_prompt(),
                                    ref.encode_empty_prompt(), atol=0, rtol=0)

@@ -164,10 +164,10 @@ def models(tmp_path_factory):
         mp.setenv("MARIGOLD_TPU_FASTLOAD", "0")
         jcfg4, jparams4 = JW.load_unet(os.path.join(ckpt, "unet"))
         vae_cfg, vae_params = JW.load_vae(os.path.join(ckpt, "vae"))
-    unet4 = TW.load_unet(os.path.join(ckpt, "unet"))
+    unet4 = TW.load_unet(os.path.join(ckpt, "unet"), device="cpu")
     out = {"jvae_cfg": vae_cfg, "jvae": vae_params,
            "jsched": JSchedule.from_pretrained(os.path.join(ckpt, "scheduler")),
-           "tvae": TW.load_vae(os.path.join(ckpt, "vae")),
+           "tvae": TW.load_vae(os.path.join(ckpt, "vae"), device="cpu"),
            "tsched": TSchedule.from_pretrained(os.path.join(ckpt, "scheduler"))}
     surg = {
         "normals": (lambda c, p: jsurgery.replace_conv_in(c, p, 8),

@@ -167,7 +167,7 @@ def models(tmp_path_factory):
         jcfg4, jparams4 = JW.load_unet(os.path.join(ckpt, "unet"))
         vae_cfg, vae_params = JW.load_vae(os.path.join(ckpt, "vae"))
     jcfg, jparams = jsurgery.replace_conv_in(jcfg4, jparams4, 8)
-    unet4 = TW.load_unet(os.path.join(ckpt, "unet"))
+    unet4 = TW.load_unet(os.path.join(ckpt, "unet"), device="cpu")
     tcfg, tsd = tsurgery.replace_conv_in(unet4.cfg, unet4.state_dict(), 8)
     text = np.random.default_rng(5).standard_normal((1, 2, jcfg.cross_attention_dim))
     return dict(
@@ -175,7 +175,7 @@ def models(tmp_path_factory):
         jsched=JSchedule.from_pretrained(os.path.join(ckpt, "scheduler")),
         tcfg4=unet4.cfg, tcfg=tcfg, tsd=tsd,
         unet=TW.build_module(UNet2DConditionModel, tcfg, tsd, torch.float32, "cpu"),
-        tvae=TW.load_vae(os.path.join(ckpt, "vae")),
+        tvae=TW.load_vae(os.path.join(ckpt, "vae"), device="cpu"),
         tsched=TSchedule.from_pretrained(os.path.join(ckpt, "scheduler")),
         text=text.astype(np.float32))
 
