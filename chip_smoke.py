@@ -11,10 +11,11 @@ Phases, none of which catches its own failure:
   3. each kernel against its plain PyTorch version at the main path's shapes
      (flash forward in both softmax modes, also at the E=10 rows' level-0
      shape, the folded flash entry, the nine-tap and Winograd 3x3 convs, the
-     training flash kernels, and the fp32 kernels of `--full_precision`:
-     the flash forward at both head widths in both softmax modes, the
-     folded entry, the nine-tap and Winograd convs, against their plain
-     fp32 versions with TF32 off), with errors and CUDA-event times of the
+     training flash kernels, and the fp32 kernels: the flash forward at
+     both head widths in both softmax modes, the folded entry, the
+     training forward with the logsumexp, dQ and dK/dV, the nine-tap and
+     Winograd convs, against their plain fp32 versions with TF32 off), with
+     errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
      function and, beside the shifted kernel, its row shift, beside the
      conv kernels their weight rearrangement and blocks launched, beside the
@@ -50,7 +51,13 @@ Phases, none of which catches its own failure:
      parity pins) and without it (shifted launches only), flash launches
      exact per step;
   9. the folded flash entry at its two shapes;
-  10. training at full SD2 width (the depth fine-tuning recipe);
+  10. training at full SD2 width (the depth fine-tuning recipe), then the
+     same trainer on the checkpoint loaded in fp32 (TF32 off): one
+     iteration of 2 micro-steps under each remat mode (none, full,
+     save_heavy) through the fp32 training kernels, fp32 launches exact,
+     ms per micro-step and peak memory, a profile of one micro-step, and
+     one micro-step's loss and every gradient against every attention on
+     the plain path;
   11. the training entry point, cli/train.py, on the four shipped recipes
      (depth, normals, IID appearance, IID lighting) at full SD2 width, each
      through an overlay config (split lists, max_iter, periods; for normals
@@ -122,14 +129,15 @@ def build_kernels():
     from marigold_tpu_torch.ops import winograd as wino_ops
 
     builds = (fa._library, fa._bwd_library, conv_ops._library,
-              wino_ops._library, fa._f32_library,
+              wino_ops._library, fa._f32_library, fa._f32_bwd_library,
               conv_ops.f32_library)  # every library of the paths driven here
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda f: f(), builds))
     wall = time.perf_counter() - t0
     for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
-                 "winograd", "flash_attention_f32", "conv_f32"):
+                 "winograd", "flash_attention_f32", "flash_attention_bwd_f32",
+                 "conv_f32"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build: {name} nvcc {info['seconds']:.2f} s", flush=True)
         with open(info["log"]) as f:
@@ -508,6 +516,20 @@ F32_FOLDED_CASE = ("folded_b10", 50, 9216, 64)
 # sheet, 700 W): the bound of an FFMA kernel's operations
 PEAK_FP32_FLOPS = 67e12
 F32_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_f32.cu"
+F32_BWD_SOURCE = "marigold_tpu_torch/csrc/flash_bwd_f32.cu"
+# The fp32 training kernels at the TRAIN_KERNEL_CASES shapes of these names
+# (the first one's times stand for the rows), each against its plain
+# version at the fp32 tolerance, two backward calls held to the same bits.
+F32_TRAIN_CASES = ("train_l0", "train_l1", "ragged_nq_nk")
+# (row name, TPU site, launch key, what it is checked on, source)
+F32_TRAIN_ROWS = [
+    ("flash_lse_d64_f32", "marigold_tpu/ops/flash_attention.py:638",
+     "lse_d64", ("out", "lse"), F32_SOURCE),
+    ("flash_bwd_dq_d64_f32", "marigold_tpu/ops/flash_attention.py:800",
+     "bwd_dq_d64", ("dq",), F32_BWD_SOURCE),
+    ("flash_bwd_dkv_d64_f32", "marigold_tpu/ops/flash_attention.py:832",
+     "bwd_dkv_d64", ("dk", "dv"), F32_BWD_SOURCE),
+]
 F32_ROWS = [
     ("flash_shifted_d64_f32", "marigold_tpu/ops/flash_attention.py:396",
      ("shifted", 64), "unet_l0"),
@@ -600,6 +622,7 @@ def check_f32_kernels() -> dict:
                 bound_f32(4.0 * bh * n * n * d, 4 * 4 * bh * n * d))
     del q, k, v, out, ref
     torch.cuda.empty_cache()
+    check_f32_train_kernels(results, gen)
 
     name, b, c, k, hw = next(cs for cs in CONV_CASES if cs[0] == CONV_ROW_CASE)
     x = torch.randn((b, c, hw, hw), generator=gen, device="cuda")
@@ -629,10 +652,85 @@ def check_f32_kernels() -> dict:
     return results
 
 
+def check_f32_train_kernels(results: dict, gen) -> None:
+    """The fp32 training kernels (lse forward, dQ, dK/dV) against their
+    plain versions, TF32 off, into `results` under (case, "train", what);
+    the times of the kernel, the plain version and SDPA in fp32, forward
+    and whole backward; the bounds against the fp32 peak."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    for name, b, nq, nk, c, heads in TRAIN_KERNEL_CASES:
+        if name not in F32_TRAIN_CASES:
+            continue
+        q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
+                for _ in range(2))
+        k, v = (torch.randn((b, nk, c), generator=gen, device="cuda")
+                for _ in range(2))
+        d = c // heads
+        out, lse = fa.flash_attention_lse(q, k, v, heads)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+        out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
+        refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
+        # the kernels use no atomics: a second call gives the same bits
+        again = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        print(f"fp32 kernel {name} bwd: two calls bit-identical: {same}",
+              flush=True)
+        if not same:
+            _fail(f"fp32 kernel {name}: two backward calls differ")
+        del again
+        lse_pad, delta_pad = fa.bwd_stats(out, lse, g, heads)
+        fwd = (_time_ms(lambda: fa.flash_attention_lse(q, k, v, heads), 10),
+               _time_ms(lambda: fa.flash_attention_lse_plain(q, k, v, heads), 3),
+               sdpa_ms(q, k, v, heads))
+        dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, g, lse_pad, delta_pad, heads), 10)
+        dkv_ms = _time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, g, lse_pad, delta_pad, heads), 10)
+        bwd_ms = _time_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, heads), 10)
+        bwd_plain_ms = _time_ms(
+            lambda: fa.flash_attention_bwd_plain(q, k, v, g, heads), 3)
+        bwd_lib_ms = sdpa_ms(q, k, v, heads, backward=True)
+        # as the bf16 rows count them: the forward 4, dQ 6 (S, dP, dQ) and
+        # dK/dV 8 (S, dP, dV, dK) N^2 d per head; fp32 [B, N, C] tensors
+        # read or written, and the fp32 row statistics
+        pairs = b * heads * nq * nk * d
+        stats = 4 * b * heads * nq
+
+        def io(n_q, n_kv):
+            return 4 * b * c * (n_q * nq + n_kv * nk)
+
+        what = f"{name:12s} [{b},{nq}x{nk},{c}] h={heads}"
+        for key, got, ref, ms, plain_ms, lib_ms, bb in (
+                ("out", out, out_p, *fwd, bound_f32(4.0 * pairs, io(2, 2) + stats)),
+                ("lse", lse, lse_p, *fwd, bound_f32(4.0 * pairs, io(2, 2) + stats)),
+                ("dq", grads[0], refs[0], dq_ms, bwd_plain_ms, bwd_lib_ms,
+                 bound_f32(6.0 * pairs, io(3, 2) + 2 * stats)),
+                ("dk", grads[1], refs[1], dkv_ms, bwd_plain_ms, bwd_lib_ms,
+                 bound_f32(8.0 * pairs, io(2, 4) + 2 * stats)),
+                ("dv", grads[2], refs[2], dkv_ms, bwd_plain_ms, bwd_lib_ms,
+                 bound_f32(8.0 * pairs, io(2, 4) + 2 * stats))):
+            flops = {"out": 4, "lse": 4, "dq": 6}.get(key, 8) * pairs
+            _f32_record(results, (name, "train", key), f"{what} {key:3s}", got,
+                        ref, ms, plain_ms, lib_ms, bb,
+                        f"; {flops / ms / 1e9:.1f} TFLOP/s")
+        print(f"  fp32 {what}: whole backward (delta + dQ + dK/dV) "
+              f"{bwd_ms:.3f} ms ({14.0 * pairs / bwd_ms / 1e9:.1f} TFLOP/s) "
+              f"against plain {bwd_plain_ms:.3f} ms and sdpa {bwd_lib_ms:.3f} "
+              "ms", flush=True)
+        del q, k, v, g, out, lse, grads, out_p, lse_p, refs, lse_pad, delta_pad
+        torch.cuda.empty_cache()
+
+
 def f32_kernel_rows(results: dict, counts: dict) -> list:
     """The fp32 rows of the JSON line; `counts` are the fp32 counters'
-    launches on the paths driven ("shifted_d64", ..., "conv3x3",
-    "winograd")."""
+    launches on the paths driven ("shifted_d64", ..., "lse_d64",
+    "bwd_dq_d64", "bwd_dkv_d64", "conv3x3", "winograd"). A backward row's
+    plain and library times are those of the whole backward."""
     rows = []
     for name, replaces, (mode, d), case in F32_ROWS:
         mine = {key: r for key, r in results.items()
@@ -655,6 +753,14 @@ def f32_kernel_rows(results: dict, counts: dict) -> list:
                  "launches": sum(n for key, n in counts.items()
                                  if key.startswith("folded")),
                  **{k: folded[k] for k in ("max_abs_err",) + ROW_TIMES}})
+    for name, replaces, key, whats, source in F32_TRAIN_ROWS:
+        timed = results[(F32_TRAIN_CASES[0], "train", whats[0])]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts.get(key, 0),
+            "max_abs_err": max(r["max_abs_err"] for k, r in results.items()
+                               if k[1] == "train" and k[2] in whats),
+            **{k: timed[k] for k in ROW_TIMES}})
     for kname, replaces in (("conv3x3", "marigold_tpu/ops/conv.py:176"),
                             ("winograd", "marigold_tpu/ops/winograd.py:251")):
         r = results[(kname, CONV_ROW_CASE)]
@@ -694,6 +800,11 @@ def main() -> None:
     import torch
 
     t0 = time.perf_counter()
+
+    def done(what: str) -> None:  # every phase shares the run's time limit
+        print(f"chip_smoke.py at {time.perf_counter() - t0:.1f} s: {what} "
+              "done", flush=True)
+
     smi = check_card()
     build_kernels()
     results = check_kernels()
@@ -701,6 +812,7 @@ def main() -> None:
     conv_results = check_conv_kernels()
     train_results = check_train_kernels()
     f32_results = check_f32_kernels()
+    done("the kernel checks")
     with tempfile.TemporaryDirectory() as root:
         depth_dir = os.path.join(root, "depth")
         pipe = load_serving_pipe(depth_dir)
@@ -709,14 +821,27 @@ def main() -> None:
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
+        done("serving")
         load_phase(depth_dir)
+        done("the load phase")
         serve_counts.update(serve_modalities(root, depth_dir))
+        done("the modalities")
         serve_counts.update(cli_phase(root, depth_dir))
+        done("the CLI phase")
         f32_counts = full_precision_phase(root, depth_dir)
         tario_phase(root)
     folded_counts = folded_path()
-    train_counts = collections.Counter(train_phase())
-    cli_train_counts = train_cli_phase()
+    done("--full_precision, tar and folded phases")
+    with tempfile.TemporaryDirectory() as base_ckpt:
+        # one SD2 base checkpoint (4-channel UNet) for the training phases
+        sd2 = os.path.join(base_ckpt, "stable-diffusion-2")
+        write_checkpoint(sd2, 0, sd2=True)
+        train_counts = collections.Counter(train_phase(sd2))
+        done("the SD2 checkpoint and the training phase")
+        f32_counts = collections.Counter(f32_counts)
+        f32_counts.update(f32_train_phase(sd2))
+        done("the fp32 fine-tuning phase")
+        cli_train_counts = train_cli_phase(base_ckpt)
     train_counts.update(cli_train_counts)
     serve_counts.update(cli_train_counts)  # the serving kernels it ran
     rows = (kernel_rows(results, serve_counts)
@@ -725,7 +850,7 @@ def main() -> None:
             + conv_kernel_rows(conv_results, serve_counts)
             + f32_kernel_rows(f32_results, f32_counts))
     missing = [r["name"] for r in rows if r["launches"] == 0]
-    if missing or len(rows) != 9 + len(F32_ROWS) + 3:
+    if missing or len(rows) != 9 + len(F32_ROWS) + 3 + len(F32_TRAIN_ROWS):
         _fail(f"kernels never launched by the main path: {missing}")
     print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
@@ -2819,12 +2944,16 @@ TRAIN_CLASSES = [("flash backward (dQ, dK/dV)", r"flash_bwd_"),
                  ("norm/elementwise/optimizer/other", r".")]
 
 
-def expected_train_launches(core, hw: tuple, micro_steps: int) -> dict:
+def expected_train_launches(core, hw: tuple, micro_steps: int,
+                            remat: str = "none") -> dict:
     """Flash launches of `micro_steps` micro-steps at input size hw, from
     the shapes: each UNet self-attention with >= FLASH_MIN_SEQ tokens runs
-    the lse forward, the dQ and the dK/dV kernel once (64-wide heads, no
-    remat); the two VAE encodes (rgb, target) under no_grad run the serving
-    kernel of the mid attention (one head)."""
+    the lse forward, the dQ and the dK/dV kernel once (64-wide heads),
+    and remat "full" runs its lse forward again when the backward
+    recomputes its block ("save_heavy" keeps the forward's outputs); the
+    two VAE encodes (rgb, target) under no_grad run the serving kernel of
+    the mid attention (one head). The bf16 and the fp32 counters take the
+    same keys."""
     from marigold_tpu_torch.ops import flash_attention as fa
     from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
 
@@ -2837,8 +2966,10 @@ def expected_train_launches(core, hw: tuple, micro_steps: int) -> dict:
             continue
         if d not in fa.TRAIN_HEAD_DIMS:
             raise AssertionError(f"head dim {d} has no training kernel")
-        for key in ("lse", "bwd_dq", "bwd_dkv"):
-            want[f"{key}_d{d}"] = want.get(f"{key}_d{d}", 0) + n * micro_steps
+        for key, runs in (("lse", 2 if remat == "full" else 1),
+                          ("bwd_dq", 1), ("bwd_dkv", 1)):
+            want[f"{key}_d{d}"] = (want.get(f"{key}_d{d}", 0)
+                                   + runs * n * micro_steps)
     return want
 
 
@@ -2867,36 +2998,12 @@ def _train_batches(seed: int, n: int) -> list:
     return out
 
 
-def train_phase() -> dict:
-    """The depth fine-tuning path at full SD2 width. Returns the flash
-    launch counts of its main-path run."""
-    import gc
-    import os
-    import tempfile
-
-    import numpy as np
-    import torch
-
-    from marigold_tpu_torch import MarigoldDepthPipeline
+def train_config(max_iter: int):
+    """The depth recipe's training config (module comment above), remat
+    "none", no periodic saves, validation or visualization."""
     from marigold_tpu_torch.config import Config
-    from marigold_tpu_torch.ops import attention as attn
-    from marigold_tpu_torch.ops import flash_attention as fa
-    from marigold_tpu_torch.train.train_step import make_loss_and_grad
-    from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    seed = 0
-    failures = []
-    tmp = tempfile.TemporaryDirectory()
-    root = os.path.join(tmp.name, "sd2")
-    t0 = time.perf_counter()
-    write_checkpoint(root, seed, sd2=True)
-    print(f"SD2 checkpoint (4-channel UNet) written in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    pipe = MarigoldDepthPipeline.from_pretrained(
-        root, dtype=torch.bfloat16, device="cuda", variant="fp16")
-    cfg = Config(
+    return Config(
         lr=3.0e-5,
         lr_scheduler=Config(name="IterExponential", kwargs=Config(
             total_iter=25000, final_ratio=0.01, warmup_steps=0)),
@@ -2909,7 +3016,7 @@ def train_phase() -> dict:
         optimizer=Config(name="Adam"),
         gt_depth_type="depth_raw_norm",
         gt_mask_type="valid_mask_raw",
-        max_epoch=10000, max_iter=TRAIN_ITERS,
+        max_epoch=10000, max_iter=max_iter,
         validation=Config(denoising_steps=1, ensemble_size=1, processing_res=0,
                           match_input_res=False, resample_method="bilinear",
                           main_val_metric="abs_relative_difference",
@@ -2917,6 +3024,32 @@ def train_phase() -> dict:
         eval=Config(alignment="least_square", align_max_res=None,
                     eval_metrics=["abs_relative_difference", "delta1_acc"]),
     )
+
+
+def train_phase(root: str) -> dict:
+    """The depth fine-tuning path at full SD2 width, on the SD2 checkpoint
+    at `root`. Returns the flash launch counts of its main-path run."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.ops import attention as attn
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.train.train_step import make_loss_and_grad
+    from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    seed = 0
+    failures = []
+    tmp = tempfile.TemporaryDirectory()
+    pipe = MarigoldDepthPipeline.from_pretrained(
+        root, dtype=torch.bfloat16, device="cuda", variant="fp16")
+    cfg = train_config(TRAIN_ITERS)
     batches = _train_batches(seed, TRAIN_ITERS * TRAIN_ACCUM)
     out_dir = os.path.join(tmp.name, "run")
     t0 = time.perf_counter()
@@ -3122,6 +3255,167 @@ def train_kernel_rows(results: dict, counts: dict) -> list:
             **{k: timed[k] for k in ROW_TIMES},
         })
     return rows
+
+
+# The fp32 fine-tuning phase (after phase 10): MarigoldDepthTrainer on the
+# SD2 checkpoint of the training phases loaded in fp32, so that the step
+# runs with compute_dtype fp32 on the fp32 lse forward, dQ and dK/dV
+# kernels (and the fp32 d=512 serving kernel in the VAE encodes), TF32 off
+# for cuBLAS and cuDNN as `--full_precision` sets it. One effective
+# iteration of F32_TRAIN_ACCUM micro-steps of [2, 3, 480, 640] under each
+# remat mode, by trainer.train(), fp32 launches exact per mode.
+F32_TRAIN_ACCUM = 2
+# One micro-step with the kernels against the same draws with every
+# attention on the plain path, both fp32 with TF32 off: they differ by fp32
+# summation order only (the kernels' outputs lie within a few 1e-7 of the
+# plain versions' largest, phase 3), carried through one UNet forward and
+# backward. Loss: relative difference; each gradient tensor: relative L2
+# distance, the tensor's norm floored at 1e-30.
+F32_TRAIN_LOSS_TOL = 1e-5
+F32_TRAIN_GRAD_TOL = 1e-3
+
+
+def f32_train_phase(root: str) -> dict:
+    """fp32 fine-tuning on the SD2 checkpoint at `root`. Returns the fp32
+    launches of its trainer runs by variant."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.ops import attention as attn
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.train.train_step import make_loss_and_grad
+    from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
+
+    t_phase = time.perf_counter()
+    _free()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        pipe = MarigoldDepthPipeline.from_pretrained(
+            root, dtype=torch.float32, device="cuda", variant="fp16")
+        batches = _train_batches(3, F32_TRAIN_ACCUM)
+        out_dir = os.path.join(tmp.name, "run")
+        trainer = MarigoldDepthTrainer(
+            train_config(len(REMAT_MODES)), pipe, batches,
+            os.path.join(out_dir, "ckpt"), os.path.join(out_dir, "eval"),
+            os.path.join(out_dir, "vis"), accumulation_steps=F32_TRAIN_ACCUM)
+        torch.cuda.synchronize()
+        print(f"fp32 trainer: compute dtype {trainer.core.dtype}, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+              "(the fp32 pipeline, masters and Adam state)", flush=True)
+        bf16_before = sum(fa.launches.values())
+        fa.launches_f32.clear()  # the fp32 fine-tuning path's run starts here
+        for i, mode in enumerate(REMAT_MODES):
+            trainer.cfg.trainer.remat = mode
+            trainer._build_train_step()
+            trainer.max_iter = i + 1  # one more effective iteration
+            step, micro_ms = trainer.train_step, []
+
+            def timed_step(*args, step=step, micro_ms=micro_ms):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                micro_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            trainer.train_step = timed_step
+            want = expected_train_launches(trainer.core, TRAIN_HW,
+                                           F32_TRAIN_ACCUM, mode)
+            before = dict(fa.launches_f32)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: n - before.get(k, 0) for k, n in fa.launches_f32.items()
+                   if n != before.get(k, 0)}
+            loss = trainer.metrics_log[-1]["loss"]
+            print(f"fp32 remat {mode}: trainer.train() 1 iteration of "
+                  f"{F32_TRAIN_ACCUM} micro-steps [{TRAIN_BATCH}, 3, "
+                  f"{TRAIN_HW[0]}, {TRAIN_HW[1]}] in {wall:.1f} s (Adam "
+                  f"apply and the fp32 backup save included); ms per "
+                  f"micro-step {', '.join(f'{m:.1f}' for m in micro_ms)}; peak "
+                  f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                  f" GiB; loss {loss:.6f}; fp32 flash launches {got}, expected "
+                  f"{want}", flush=True)
+            if got != want:
+                failures.append(f"remat {mode}: fp32 launches {got} != {want}")
+            if not np.isfinite(loss) or trainer.effective_iter != i + 1:
+                failures.append(f"remat {mode}: loss {loss}, effective_iter "
+                                f"{trainer.effective_iter}")
+            shutil.rmtree(os.path.join(out_dir, "ckpt",
+                                       trainer._get_backup_ckpt_name()))
+        counts = dict(fa.launches_f32)  # ... and ends here
+        if sum(fa.launches.values()) != bf16_before:
+            failures.append("the fp32 trainer launched bf16 flash kernels")
+        profile_request(
+            lambda: trainer.train_step(trainer.state, trainer.text_embed,
+                                       trainer._assemble_batch(batches[1]),
+                                       trainer._step_generator()),
+            TRAIN_CLASSES, f"one fp32 micro-step [{TRAIN_BATCH}, 3, "
+            f"{TRAIN_HW[0]}, {TRAIN_HW[1]}] (remat save_heavy)")
+
+        # one micro-step's loss and gradients, kernels against plain
+        # attention, on the same draws
+        core = trainer.core
+        trainer.cfg.trainer.remat = "none"
+        loss_and_grad = make_loss_and_grad(core.unet, core.vae, core.schedule,
+                                           **trainer._step_kwargs())
+        batch = trainer._assemble_batch(batches[0])
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        ds = core.vae_cfg.downscale_factor
+        t_draw = torch.randint(0, core.schedule.num_train_timesteps,
+                               (TRAIN_BATCH,), generator=gen, device="cuda")
+        noise = torch.randn((TRAIN_BATCH, core.vae_cfg.latent_channels,
+                             TRAIN_HW[0] // ds, TRAIN_HW[1] // ds),
+                            generator=gen, device="cuda")
+        loss_k, grads_k = loss_and_grad(trainer.state.params, trainer.text_embed,
+                                        batch, timesteps=t_draw, noise=noise)
+        saved, attn.FLASH_MIN_SEQ = attn.FLASH_MIN_SEQ, 1 << 30
+        try:
+            loss_p, grads_p = loss_and_grad(trainer.state.params,
+                                            trainer.text_embed, batch,
+                                            timesteps=t_draw, noise=noise)
+        finally:
+            attn.FLASH_MIN_SEQ = saved
+        rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        rel = {n: float((grads_k[n] - g).norm() / g.norm().clamp(min=1e-30))
+               for n, g in grads_p.items()}
+        worst = max(rel, key=rel.get)
+        num = sum(((grads_k[n] - grads_p[n]) ** 2).sum() for n in grads_p)
+        den = sum((grads_p[n] ** 2).sum() for n in grads_p)
+        print(f"fp32 micro-step, kernels vs plain attention: loss "
+              f"{float(loss_k):.8f} vs {float(loss_p):.8f} (rel {rel_loss:.2e}, "
+              f"tol {F32_TRAIN_LOSS_TOL}); gradient rel L2 whole "
+              f"{float(num.sqrt() / den.sqrt()):.2e}, per tensor worst "
+              f"{rel[worst]:.2e} at {worst}, median "
+              f"{sorted(rel.values())[len(rel) // 2]:.2e} (tol "
+              f"{F32_TRAIN_GRAD_TOL}, {len(rel)} tensors)", flush=True)
+        if not rel_loss <= F32_TRAIN_LOSS_TOL:
+            failures.append(f"fp32 micro-step loss rel diff {rel_loss}")
+        bad = [n for n, r in rel.items() if not r <= F32_TRAIN_GRAD_TOL]
+        if bad:
+            failures.append(f"fp32 gradients off plain: {bad[:8]}")
+        del grads_k, grads_p, loss_and_grad, trainer, pipe
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        _free()
+        tmp.cleanup()
+    print(f"fp32 fine-tuning phase launches by variant: {counts}; phase ran in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if failures:
+        _fail(f"fp32 fine-tuning phase: {failures}")
+    return counts
 
 
 # The training entry point, phase 11: `python -m marigold_tpu_torch.cli.train`
@@ -3704,9 +3998,10 @@ def cli_train_measures(trainer, failures: list, micro_ms: float) -> None:
     del grads, ada_state
 
 
-def train_cli_phase() -> dict:
-    """The training CLI on the four shipped recipes at full SD2 width.
-    Returns the flash launch counts of its runs."""
+def train_cli_phase(base_ckpt: str) -> dict:
+    """The training CLI on the four shipped recipes at full SD2 width, from
+    the SD2 checkpoint `base_ckpt`/stable-diffusion-2. Returns the flash
+    launch counts of its runs."""
     import shutil
     import tempfile
 
@@ -3717,11 +4012,6 @@ def train_cli_phase() -> dict:
     failures: list = []
     total = collections.Counter()
     tmp = tempfile.TemporaryDirectory()
-    base_ckpt = os.path.join(tmp.name, "ckpt")
-    t0 = time.perf_counter()
-    write_checkpoint(os.path.join(base_ckpt, "stable-diffusion-2"), 0, sd2=True)
-    print(f"SD2 base checkpoint written in {time.perf_counter() - t0:.1f} s",
-          flush=True)
     base_data = os.path.join(tmp.name, "data")
     lists_dir = os.path.join(tmp.name, "splits")
     os.makedirs(lists_dir)

@@ -8,7 +8,9 @@
 //   * _flash_kernel_dt_shifted_kblocked (shifted softmax, d = 512; :429)
 //   * _flash_kernel_dt                  (exact online softmax; :460)
 //   * _flash_kernel                     (the folded [BH, N, D] entry; :522),
-//     run as the online variant with one head per batch row.
+//     run as the online variant with one head per batch row;
+//   * _flash_kernel_dt_lse              (the training forward, d = 64; :638):
+//     the online variant that also writes the row logsumexp.
 // The bf16 forwards are flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu;
 // wgmma takes no fp32 operand, and TF32 keeps ~10 mantissa bits, which is
 // not full precision, so this kernel multiplies on the CUDA cores.
@@ -21,6 +23,8 @@
 //            exp(m_old - m_new) when the max grows;
 //   out_r = (sum_j p_j v_j) / max(sum_j p_j, 1e-30), P meeting V in fp32.
 // Key columns j >= nk get p_j = 0; query rows r >= nq are not stored.
+// The training entry also writes lse_r = m + log(max(sum_j p_j, 1e-30)),
+// [B*H, nq] fp32, the statistic the backward (flash_bwd_f32.cu) reads.
 //
 // Layout: q/k/v/o are [B, N, ld] fp32, head h at channels [D h, D h + D).
 // One block of 256 threads (16 x 16) takes BM query rows of one (b, h) and
@@ -108,8 +112,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ shift, float* __restrict__ o,
-                     int H, int nq, int nk, int ldq, int ldkv, int ldo,
-                     float scale) {
+                     float* __restrict__ lse, int H, int nq, int nk, int ldq,
+                     int ldkv, int ldo, float scale) {
   constexpr int BM = Tile<D>::BM, BN = Tile<D>::BN;
   constexpr int RM = BM / 16, CN = BN / 16, DV = D / 64;
   constexpr int LQ = D + 4, LP = BN + 4;
@@ -239,9 +243,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ob = o + (size_t)b * nq * ldo + (size_t)h * D;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
-    const float inv = 1.f / fmaxf(half_warp_sum(l[i]), 1e-30f);
+    const float l_sum = fmaxf(half_warp_sum(l[i]), 1e-30f);
+    const float inv = 1.f / l_sum;
     const int r = m0 + ty + 16 * i;
     if (r >= nq) continue;
+    if (ONLINE && lse != nullptr && tx == 0)
+      lse[(size_t)bh * nq + r] = m[i] + logf(l_sum);
 #pragma unroll
     for (int g = 0; g < DV; ++g) {
       float4 out = acc[i][g];
@@ -256,8 +263,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D, bool ONLINE>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* shift, float* o, int B, int H, int nq, int nk,
-                   int ldq, int ldkv, int ldo, float scale,
+                   const float* shift, float* o, float* lse, int B, int H,
+                   int nq, int nk, int ldq, int ldkv, int ldo, float scale,
                    cudaStream_t stream) {
   auto kernel = flash_fwd_f32_kernel<D, ONLINE>;
   constexpr int SMEM = smem_floats<D>() * 4;
@@ -265,8 +272,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + Tile<D>::BM - 1) / Tile<D>::BM, B * H);
-  kernel<<<grid, THREADS, SMEM, stream>>>(q, k, v, shift, o, H, nq, nk, ldq,
-                                          ldkv, ldo, scale);
+  kernel<<<grid, THREADS, SMEM, stream>>>(q, k, v, shift, o, lse, H, nq, nk,
+                                          ldq, ldkv, ldo, scale);
   return cudaGetLastError();
 }
 
@@ -275,10 +282,10 @@ cudaError_t launch_mode(const float* q, const float* k, const float* v,
                         const float* shift, float* o, int B, int H, int nq,
                         int nk, int ldq, int ldkv, int ldo, float scale,
                         int online, cudaStream_t stream) {
-  return online ? launch<D, true>(q, k, v, shift, o, B, H, nq, nk, ldq, ldkv,
-                                  ldo, scale, stream)
-                : launch<D, false>(q, k, v, shift, o, B, H, nq, nk, ldq, ldkv,
-                                   ldo, scale, stream);
+  return online ? launch<D, true>(q, k, v, shift, o, nullptr, B, H, nq, nk,
+                                  ldq, ldkv, ldo, scale, stream)
+                : launch<D, false>(q, k, v, shift, o, nullptr, B, H, nq, nk,
+                                   ldq, ldkv, ldo, scale, stream);
 }
 
 }  // namespace
@@ -311,6 +318,23 @@ int mt_flash_fwd_f32(const void* q, const void* k, const void* v,
     return (int)launch_mode<512>(qf, kf, vf, sh, of, B, H, nq, nk, ldq, ldkv,
                                  ldo, scale, online, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The training forward: the online variant at D = 64 that also writes
+// lse [B*H, nq] fp32. Arguments and preconditions as mt_flash_fwd_f32's
+// (the signature of flash_attention.cu's bf16 mt_flash_attention_fwd_lse).
+int mt_flash_fwd_lse_f32(const void* q, const void* k, const void* v, void* o,
+                         void* lse, int B, int H, int nq, int nk, int D,
+                         int ldq, int ldkv, int ldo, float scale,
+                         void* stream) {
+  if (B < 1 || H < 1 || nq < 1 || nk < 1 || B * H > 65535 || ldq % 4 ||
+      ldkv % 4 || ldo % 4 || D != 64 || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<64, true>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), nullptr, static_cast<float*>(o),
+      static_cast<float*>(lse), B, H, nq, nk, ldq, ldkv, ldo, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* mt_cuda_error_string(int err) {

@@ -2,8 +2,8 @@
 (`csrc/flash_fwd_sm90.cu` for every 64-wide bf16 forward,
 `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one, `csrc/flash_attention.cu`
 for their C entry points, `csrc/flash_bwd_sm90.cu` for the dQ and dK/dV
-backward, `csrc/flash_fwd_f32.cu` for the fp32 forward of both head widths)
-and their plain PyTorch versions.
+backward, `csrc/flash_fwd_f32.cu` for the fp32 forwards, `csrc/flash_bwd_f32.cu`
+for the fp32 backward) and their plain PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
@@ -34,12 +34,13 @@ it, as the TPU package's `_flash_dt_fwd`/`_flash_dt_bwd` do. The kernels
 for that take 64-wide heads; other widths (the 512-wide VAE head) take the
 serving forward and the plain backward `flash_attention_bwd_plain`.
 
-fp32 storage (`--full_precision`) takes the serving forwards of both head
-widths, in both softmax modes and the folded entry, to `csrc/flash_fwd_f32.cu`
-(CUDA-core FFMA tiles with fp32 P meeting fp32 V, as the Pallas kernels
-take fp32 storage); their launches count in `launches_f32`. The training
-forward with the logsumexp and the backward pair take bf16 only: fp32 raises
-NotImplementedError naming ROADMAP queue 2, "fp32 lse and backward pair".
+fp32 storage takes every kernel to a CUDA-core FFMA design, as the Pallas
+kernels take fp32 storage: the serving forwards of both head widths, in both
+softmax modes and the folded entry (`--full_precision`), and the training
+forward with the logsumexp to `csrc/flash_fwd_f32.cu` (fp32 P meeting fp32
+V), the dQ and dK/dV backward to `csrc/flash_bwd_f32.cu` (fp32 P and dS), so
+that fine-tuning on fp32 weights (`compute_dtype` fp32) runs on them too;
+their launches count in `launches_f32`.
 
 On the H100 the bf16 kernels are bound by tensor-core throughput (about N/2
 FLOP per byte at the UNet shapes); the notes in the .cu files say what each
@@ -47,7 +48,7 @@ design does about it and, for the 512-wide forward, what was measured to
 bind it. Every kernel reads q/k/v (the backward also dO) and writes its
 outputs through TMA tensor maps, whose preconditions `check_tma` holds: a
 16-byte aligned base, a row stride that is a multiple of 16 bytes and at
-least one row (the fp32 kernel's float4 loads need the same). A tensor that
+least one row (the fp32 kernels' float4 loads need the same). A tensor that
 breaks them raises; it is never copied into shape.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it runs the
@@ -56,7 +57,7 @@ differentiable and raise when called with grad enabled on an input that
 requires grad. `launches` counts kernel launches by variant
 ("shifted_d64", "shifted_d512", "online_d64", "online_d512", "lse_d64",
 "bwd_dq_d64", "bwd_dkv_d64", "folded_d64", "folded_d512") for bf16, and
-`launches_f32` those of the fp32 kernel by the same names.
+`launches_f32` those of the fp32 kernels by the same names.
 """
 
 from __future__ import annotations
@@ -85,9 +86,8 @@ LSE_PAD = 1e30
 SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_fwd_d512_sm90.cu")
 BWD_SOURCES = ("flash_bwd_sm90.cu",)
 F32_SOURCES = ("flash_fwd_f32.cu",)
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the serving forwards
-F32_TRAINING = ('fp32 training takes no flash kernel yet: see ROADMAP queue '
-                '2, "fp32 lse and backward pair"')
+F32_BWD_SOURCES = ("flash_bwd_f32.cu",)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # every kernel has both
 
 launches = cuda_build.LaunchCounter()
 launches_f32 = cuda_build.LaunchCounter()
@@ -240,7 +240,29 @@ def _f32_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
+    _bind(lib, "mt_flash_fwd_lse_f32", 5, 8)
     return lib
+
+
+def _f32_bwd_library() -> ctypes.CDLL:
+    lib = cuda_build.load_library("flash_attention_bwd_f32", F32_BWD_SOURCES)
+    _bind(lib, "mt_flash_bwd_dq_f32", 7, 8)
+    _bind(lib, "mt_flash_bwd_dkv_f32", 8, 8)
+    return lib
+
+
+def _entry(dtype: torch.dtype, kernel: str):
+    """(library, C function, counter) of a kernel, "fwd" (the serving
+    forwards), "fwd_lse", "bwd_dq" or "bwd_dkv", for the storage dtype: the
+    bf16 Hopper kernels count in `launches`, the fp32 ones in
+    `launches_f32`. The two C functions of a kernel take the same
+    arguments."""
+    forward = kernel.startswith("fwd")
+    if dtype == torch.bfloat16:
+        lib = _library() if forward else _bwd_library()
+        return lib, getattr(lib, f"mt_flash_attention_{kernel}"), launches
+    lib = _f32_library() if forward else _f32_bwd_library()
+    return lib, getattr(lib, f"mt_flash_{kernel}_f32"), launches_f32
 
 
 def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
@@ -248,11 +270,9 @@ def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
     """One serving forward on q's stream: the bf16 Hopper kernels or the
     fp32 one, by q's dtype, counted as `variant` in `launches` or
     `launches_f32`."""
-    lib, fn, counter = ((_library(), "mt_flash_attention_fwd", launches)
-                        if q.dtype == torch.bfloat16 else
-                        (_f32_library(), "mt_flash_fwd_f32", launches_f32))
+    lib, fn, counter = _entry(q.dtype, "fwd")
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             shift.data_ptr() if shift is not None else None, out.data_ptr(),
             b, heads, q.shape[1], k.shape[1], d, ld, ld, ld,
@@ -299,18 +319,16 @@ def _check_inputs(q, k, v, num_heads, softmax="online"):
 
 
 def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
-                b_h: int, dtypes: tuple = KERNEL_DTYPES) -> None:
-    """What the CUDA kernels take: one of `dtypes` (bf16 and fp32 for the
-    serving forwards; the training kernels pass bf16 alone, and fp32 raises
-    NotImplementedError for them), contiguous, 16-byte aligned, a head
-    width they are instantiated for, no autograd."""
+                b_h: int) -> None:
+    """What the CUDA kernels take: bf16 or fp32 (KERNEL_DTYPES; fp16 and
+    others raise ValueError), contiguous, 16-byte aligned, a head width they
+    are instantiated for, no autograd."""
     q = next(iter(tensors.values()))
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    if q.dtype == torch.float32 and q.dtype not in dtypes:
-        raise NotImplementedError(F32_TRAINING)
-    if q.dtype not in dtypes:
-        raise ValueError(f"flash attention on CUDA takes {dtypes}, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(
+            f"flash attention on CUDA takes {KERNEL_DTYPES}, got {q.dtype}")
     if head_dim not in head_dims:
         raise ValueError(f"head dim {head_dim} not in the kernel's {head_dims}")
     for name, t in tensors.items():
@@ -397,28 +415,27 @@ def flash_attention_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (out [B, Nq, C], lse [B*H, Nq] fp32), exact
     online softmax. On a CUDA tensor this launches the Hopper kernel (bf16,
-    head dim 64) or raises; on a CPU tensor it runs
-    `flash_attention_lse_plain`."""
+    or fp32 on `csrc/flash_fwd_f32.cu`; head dim 64) or raises; on a CPU
+    tensor it runs `flash_attention_lse_plain`."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, num_heads)
     b, nq, c = q.shape
     nk = k.shape[1]
     d = c // num_heads
-    _check_cuda({"q": q, "k": k, "v": v}, d, TRAIN_HEAD_DIMS, b * num_heads,
-                (torch.bfloat16,))
+    _check_cuda({"q": q, "k": k, "v": v}, d, TRAIN_HEAD_DIMS, b * num_heads)
     check_tma({"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty((b * num_heads, nq), device=q.device, dtype=torch.float32)
-    lib = _library()
+    lib, fn, counter = _entry(q.dtype, "fwd_lse")
     with torch.cuda.device(q.device):
-        err = lib.mt_flash_attention_fwd_lse(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, num_heads, nq, nk, d, c, c, c,
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, err, "flash attention lse")
-    launches.add(f"lse_d{d}")
+    _raise_on(lib, err, f"flash attention lse ({q.dtype})")
+    counter.add(f"lse_d{d}")
     return out, lse
 
 
@@ -456,9 +473,9 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients (dq, dk, dv) from the training forward's out and
     lse. On a CUDA tensor this launches the dQ kernel and the dK/dV kernel
-    (bf16, head dim 64; q, k, v and dout as TMA takes them, `check_tma`) or
-    raises; on a CPU tensor it runs `flash_attention_bwd_plain` (which
-    recomputes the softmax itself)."""
+    (bf16, or fp32 on `csrc/flash_bwd_f32.cu`; head dim 64; q, k, v and
+    dout as TMA takes them, `check_tma`) or raises; on a CPU tensor it runs
+    `flash_attention_bwd_plain` (which recomputes the softmax itself)."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, num_heads)
@@ -472,7 +489,7 @@ def flash_attention_bwd(
         raise ValueError(f"lse must be contiguous fp32 [{b * num_heads}, {nq}]")
     check_tma({"q": q, "k": k, "v": v, "dout": dout})
     _check_cuda({"q": q, "k": k, "v": v, "dout": dout}, d, TRAIN_HEAD_DIMS,
-                b * num_heads, (torch.bfloat16,))
+                b * num_heads)
     lse_p, delta_p = bwd_stats(out, lse, dout, num_heads)
     return (flash_attention_bwd_dq(q, k, v, dout, lse_p, delta_p, num_heads),
             *flash_attention_bwd_dkv(q, k, v, dout, lse_p, delta_p, num_heads))
@@ -480,42 +497,43 @@ def flash_attention_bwd(
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
                            ) -> torch.Tensor:
-    """dQ [B, Nq, C] by the dQ kernel: lse and delta are the padded
-    [B*H, round_up(Nq, STAT_PAD)] fp32 rows of `bwd_stats`. Unchecked:
-    `flash_attention_bwd` checks the arguments before it calls this."""
+    """dQ [B, Nq, C] by the dQ kernel of q's dtype: lse and delta are the
+    padded [B*H, round_up(Nq, STAT_PAD)] fp32 rows of `bwd_stats`.
+    Unchecked: `flash_attention_bwd` checks the arguments before it calls
+    this."""
     b, nq, c = q.shape
     d = c // num_heads
     dq = torch.empty_like(q)
-    lib = _bwd_library()
+    lib, fn, counter = _entry(q.dtype, "bwd_dq")
     with torch.cuda.device(q.device):
-        err = lib.mt_flash_attention_bwd_dq(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, err, "flash attention dQ")
-    launches.add(f"bwd_dq_d{d}")
+    _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
+    counter.add(f"bwd_dq_d{d}")
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) [B, Nk, C] by the dK/dV kernel (CUDA bf16 only), arguments
-    as for `flash_attention_bwd_dq`."""
+    """(dK, dV) [B, Nk, C] by the dK/dV kernel of q's dtype, arguments as
+    for `flash_attention_bwd_dq`."""
     b, nq, c = q.shape
     d = c // num_heads
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _bwd_library()
+    lib, fn, counter = _entry(q.dtype, "bwd_dkv")
     with torch.cuda.device(q.device):
-        err = lib.mt_flash_attention_bwd_dkv(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(lib, err, "flash attention dK/dV")
-    launches.add(f"bwd_dkv_d{d}")
+    _raise_on(lib, err, f"flash attention dK/dV ({q.dtype})")
+    counter.add(f"bwd_dkv_d{d}")
     return dk, dv
 
 
@@ -528,8 +546,9 @@ def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (`train/train_step.py`, remat "save_heavy"): a Python call through
     ctypes is invisible to the policy and would launch again when the
     forward is recomputed in the backward, as the JAX package's remat policy
-    keeps its `custom_vjp` call. Not differentiable itself:
-    `FlashAttentionFunction` calls it."""
+    keeps its `custom_vjp` call. Its outputs are out in q's dtype (fp32 for
+    an fp32 step, so the policy keeps them in fp32) and the fp32 lse. Not
+    differentiable itself: `FlashAttentionFunction` calls it."""
     out, lse = flash_attention_lse(q, k, v, num_heads)
     return out, lse
 

@@ -6,7 +6,8 @@ csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles, every
 and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
 with 128-row output blocks and 64-row stages)
 and the 3x3 conv kernels (nine-tap, Winograd), and the fp32 kernels of
-`--full_precision` (csrc/flash_fwd_f32.cu, csrc/conv_f32.cu), against
+`--full_precision` and fp32 training (csrc/flash_fwd_f32.cu,
+csrc/flash_bwd_f32.cu, csrc/conv_f32.cu), against
 their plain PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slices on the card against the CPU: depth at
 E=1 and E=3, normals and IID appearance at E=1, and bf16 normals and IID
@@ -107,10 +108,10 @@ def test_shifted_kernel_clamps_a_spiky_key(cuda):
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 128, 64)
-    with pytest.raises(NotImplementedError, match="fp32 lse and backward pair"):
-        fa.flash_attention_lse(q.float(), k.float(), v.float(), 1)
     with pytest.raises(ValueError):
         fa.flash_attention(q.half(), k.half(), v.half(), 1)
+    with pytest.raises(ValueError):
+        fa.flash_attention_lse(q.half(), k.half(), v.half(), 1)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, k, v, 2)  # d = 32
     nc = torch.randn((1, 64, 128), device="cuda").to(torch.bfloat16).transpose(1, 2)
@@ -628,6 +629,49 @@ def test_f32_folded_flash_matches_plain(cuda, bh, n, d):
     out = fa.flash_attention_folded(q, k, v)
     assert fa.launches_f32[f"folded_d{d}"] == before + 1
     _f32_close(out, fa.flash_attention_plain(q, k, v, 1, "online"))
+
+
+@pytest.mark.parametrize("b,nq,nk,c,heads", [
+    (1, 128, 128, 64, 1),     # two whole 64-row tiles
+    (1, 65, 127, 128, 2),     # a row past a tile, a key short of two
+    (2, 1300, 1100, 320, 5),  # ragged, B > 1, nq > nk
+])
+def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
+    """The fp32 lse forward (csrc/flash_fwd_f32.cu) and the dQ and dK/dV
+    kernels (csrc/flash_bwd_f32.cu) against their plain versions, fp32
+    launches counted and no bf16 kernel launched, two backward calls
+    bit-identical; then FlashAttentionFunction on fp32 leaves, through the
+    same three kernels."""
+    q, g = (torch.randn((b, nq, c), generator=cuda, device="cuda")
+            for _ in range(2))
+    k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
+            for _ in range(2))
+    keys = ("lse_d64", "bwd_dq_d64", "bwd_dkv_d64")
+    before, bf16 = dict(fa.launches_f32), sum(fa.launches.values())
+    out, lse = fa.flash_attention_lse(q, k, v, heads)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+    for key in keys:
+        assert fa.launches_f32[key] == before.get(key, 0) + 1
+    out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
+    refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
+    assert lse.dtype == torch.float32 and lse.shape == (b * heads, nq)
+    for got, ref in zip((out, lse, *grads), (out_p, lse_p, *refs)):
+        assert got.shape == ref.shape
+        _f32_close(got, ref)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.launches_f32)
+    out_f = fa.FlashAttentionFunction.apply(*leaves, heads, "shifted")
+    out_f.backward(g)
+    for key in keys:
+        assert fa.launches_f32[key] == before.get(key, 0) + 1
+    assert sum(fa.launches.values()) == bf16
+    _f32_close(out_f.detach(), out_p)
+    for leaf, ref in zip(leaves, refs):
+        _f32_close(leaf.grad, ref)
 
 
 @pytest.mark.parametrize("kernel", ["conv3x3", "winograd"])

@@ -49,6 +49,12 @@ def _t(x):
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
     (2, 300, 300, 128, 2),  # several heads, ragged against the 128 blocks
     (1, 200, 300, 64, 1),   # nq != nk
+    # the fp32 kernels' 64-row tiles (csrc/flash_fwd_f32.cu,
+    # csrc/flash_bwd_f32.cu): one whole tile, a row past it, a row short of
+    # two, two heads of 64
+    (1, 64, 64, 128, 2),
+    (1, 65, 127, 128, 2),
+    (1, 127, 65, 128, 2),
 ])
 def test_lse_plain_matches_tpu_kernel(rng, b, nq, nk, c, heads):
     q, k, v = _rand(rng, b, nq, c), _rand(rng, b, nk, c), _rand(rng, b, nk, c)
@@ -63,6 +69,12 @@ def test_lse_plain_matches_tpu_kernel(rng, b, nq, nk, c, heads):
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
     (2, 384, 384, 128, 2),
     (1, 200, 300, 64, 1),
+    # the fp32 kernels' 64-row tiles (csrc/flash_fwd_f32.cu,
+    # csrc/flash_bwd_f32.cu): one whole tile, a row past it, a row short of
+    # two, two heads of 64
+    (1, 64, 64, 128, 2),
+    (1, 65, 127, 128, 2),
+    (1, 127, 65, 128, 2),
 ])
 def test_bwd_plain_matches_tpu_kernels(rng, b, nq, nk, c, heads):
     q, g = _rand(rng, b, nq, c), _rand(rng, b, nq, c)
