@@ -7,14 +7,16 @@ Phases, none of which catches its own failure:
   2. build every kernel library from marigold_tpu_torch/csrc, one nvcc per
      source, all started together (ptxas registers, spills and warnings
      printed, and the HGMMA count of each kernel's SASS in the flash and
-     conv libraries where the toolkit has cuobjdump);
+     conv libraries where the toolkit has cuobjdump; a 3xTF32 kernel with
+     spills or without HGMMA fails);
   3. each kernel against its plain PyTorch version at the main path's shapes
      (flash forward in both softmax modes, also at the E=10 rows' level-0
      shape, the folded flash entry, the nine-tap and Winograd 3x3 convs, the
      training flash kernels, and the fp32 kernels: the flash forward at
      both head widths in both softmax modes, the folded entry, the
      training forward with the logsumexp, dQ and dK/dV, the nine-tap and
-     Winograd convs, against their plain fp32 versions with TF32 off), with
+     Winograd convs, against their plain fp32 versions with TF32 off, and
+     the 3xTF32 kernels' operand split bit for bit), with
      errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
      function and, beside the shifted kernel, its row shift, beside the
@@ -85,6 +87,12 @@ Phases, none of which catches its own failure:
 Prints the card's name and power limit, a JSON line of kernels, then, last,
 {"ok": true, "device": {...}}. Exits non-zero without a result when no CUDA
 device is present.
+
+    python3 chip_smoke.py --f32-kernels
+
+runs phases 1 and 2 and the fp32 kernels of phase 3, then stops: the short
+first call after a change to an fp32 kernel (run it under `timeout -s
+KILL`, since a wrong mbarrier parity hangs).
 """
 
 from __future__ import annotations
@@ -130,6 +138,7 @@ def build_kernels():
 
     builds = (fa._library, fa._bwd_library, conv_ops._library,
               wino_ops._library, fa._f32_library, fa._f32_bwd_library,
+              fa._split_library,
               conv_ops.f32_library)  # every library of the paths driven here
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -137,7 +146,7 @@ def build_kernels():
     wall = time.perf_counter() - t0
     for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
                  "winograd", "flash_attention_f32", "flash_attention_bwd_f32",
-                 "conv_f32"):
+                 "tf32_split", "conv_f32"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build: {name} nvcc {info['seconds']:.2f} s", flush=True)
         with open(info["log"]) as f:
@@ -146,15 +155,51 @@ def build_kernels():
                                            "C75", "arning")):
                     print("  ptxas:", line.strip(), flush=True)
     print(f"build: {len(builds)} libraries in {wall:.2f} s", flush=True)
+    hgmma = {}
     for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
-                 "winograd"):  # the wgmma ones
-        print_hgmma(os.path.join(os.path.dirname(
-            cuda_build.BUILD_INFO[name]["log"]), f"lib{name}.so"))
+                 "winograd", "flash_attention_f32",
+                 "flash_attention_bwd_f32"):  # the ones with wgmma kernels
+        hgmma.update(print_hgmma(os.path.join(os.path.dirname(
+            cuda_build.BUILD_INFO[name]["log"]), f"lib{name}.so")))
+    check_tf32_build(hgmma)
 
 
-def print_hgmma(lib: str) -> None:
+# The 3xTF32 wgmma kernels: (library, kernel name in the mangled symbol).
+TF32_KERNELS = [("flash_attention_f32", "flash_fwd_d512_f32_kernel"),
+                ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel")]
+
+
+def check_tf32_build(hgmma: dict) -> None:
+    """Each instantiation of the 3xTF32 kernels has HGMMA in its SASS (where
+    cuobjdump ran) and no spills in ptxas's report."""
+    import re
+
+    from marigold_tpu_torch.ops import cuda_build
+
+    for lib, kernel in TF32_KERNELS:
+        spills, fn = {}, None
+        with open(cuda_build.BUILD_INFO[lib]["log"]) as f:
+            for line in f:
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    fn = m.group(1)
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m and fn and kernel in fn:
+                    spills[fn] = int(m.group(1)) + int(m.group(2))
+                    fn = None
+        counts = {k: n for k, n in hgmma.items() if kernel in k}
+        print(f"build: {kernel}: HGMMA {sorted(counts.values())}, spill bytes "
+              f"{sorted(spills.values())}", flush=True)
+        if not spills or any(spills.values()):
+            _fail(f"{kernel}: ptxas reports spills or no entry: {spills}")
+        if hgmma and (not counts or not all(counts.values())):
+            _fail(f"{kernel}: no HGMMA in its SASS: {counts}")
+
+
+def print_hgmma(lib: str) -> dict:
     """HGMMA (wgmma) instructions per kernel in a library's SASS, from the
-    toolkit's cuobjdump where it has one."""
+    toolkit's cuobjdump where it has one; {} without it."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -162,7 +207,7 @@ def print_hgmma(lib: str) -> None:
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     if not os.path.isfile(tool):
         print(f"build: no cuobjdump at {tool}: HGMMA not counted", flush=True)
-        return
+        return {}
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     counts, fn = {}, None
@@ -175,6 +220,7 @@ def print_hgmma(lib: str) -> None:
             counts[fn] += 1
     for fn, n in counts.items():
         print(f"  sass: {n:3d} HGMMA in {fn}", flush=True)
+    return counts
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -500,23 +546,37 @@ def check_train_kernels() -> dict:
 # The fp32 kernels (`--full_precision`): the flash forward of both head
 # widths in both softmax modes, the folded entry, and the two conv kernels,
 # against their plain fp32 versions at the main path's shapes. Both sum fp32
-# products in different orders, so they agree to a few fp32 ulps of the
-# largest output: max|err| <= F32_TOL_REL * max|ref| + F32_TOL_ABS. TF32 or
-# bf16 inputs (~3 decimal digits) would miss this by an order of magnitude.
+# products in different orders (the 512-wide forward and dK/dV as 3xTF32,
+# ~2^-21 per product), so they agree to a few fp32 ulps of the largest
+# output: max|err| <= F32_TOL_REL * max|ref| + F32_TOL_ABS. TF32 or bf16
+# inputs (~3 decimal digits) would miss this by an order of magnitude.
 F32_TOL_REL = 1e-4
 F32_TOL_ABS = 1e-6
-# (name, B, N, C, heads); "odd" masks ragged query and key tiles
+# (name, B, N, C, heads); "odd" and "odd_d512" mask ragged query and key
+# tiles; "vae_enc_train" is the fp32 micro-step's VAE encode
 F32_FLASH_CASES = [
     ("unet_l0", 1, 9216, 320, 5),
     ("vae_mid", 1, 9216, 512, 1),
+    ("vae_enc_train", 2, 4800, 512, 1),
     ("odd", 2, 1100, 128, 2),
+    ("odd_d512", 2, 1100, 512, 1),
 ]
 F32_FOLDED_CASE = ("folded_b10", 50, 9216, 64)
-# the card's published fp32 peak outside the tensor cores (H100 SXM data
-# sheet, 700 W): the bound of an FFMA kernel's operations
+# The card's published peaks (H100 SXM data sheet, dense, 700 W): fp32
+# outside the tensor cores, and tf32 in them. An fp32-accurate product on
+# the tensor cores takes three tf32 passes (3xTF32), so the least time of
+# fp32 work is 3 ops / PEAK_TF32_FLOPS; an FFMA kernel's is ops /
+# PEAK_FP32_FLOPS, kept beside it.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 F32_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_f32.cu"
+F32_D512_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_d512_f32_sm90.cu"
 F32_BWD_SOURCE = "marigold_tpu_torch/csrc/flash_bwd_f32.cu"
+F32_DKV_SOURCE = "marigold_tpu_torch/csrc/flash_bwd_dkv_f32_sm90.cu"
+SPLIT_SOURCE = "marigold_tpu_torch/csrc/tf32_split.cu"
+# The operand split is bit-exact: cvt.rna.tf32.f32 and an fp32 subtraction
+# that is exact, against the same rounding done on the int32 bits.
+SPLIT_TOL = 0.0
 # The fp32 training kernels at the TRAIN_KERNEL_CASES shapes of these names
 # (the first one's times stand for the rows), each against its plain
 # version at the fp32 tolerance, two backward calls held to the same bits.
@@ -528,39 +588,56 @@ F32_TRAIN_ROWS = [
     ("flash_bwd_dq_d64_f32", "marigold_tpu/ops/flash_attention.py:800",
      "bwd_dq_d64", ("dq",), F32_BWD_SOURCE),
     ("flash_bwd_dkv_d64_f32", "marigold_tpu/ops/flash_attention.py:832",
-     "bwd_dkv_d64", ("dk", "dv"), F32_BWD_SOURCE),
+     "bwd_dkv_d64", ("dk", "dv"), F32_DKV_SOURCE),
 ]
+# (row name, TPU site, (mode, head dim), case whose times stand, source)
 F32_ROWS = [
     ("flash_shifted_d64_f32", "marigold_tpu/ops/flash_attention.py:396",
-     ("shifted", 64), "unet_l0"),
+     ("shifted", 64), "unet_l0", F32_SOURCE),
     ("flash_shifted_d512_f32", "marigold_tpu/ops/flash_attention.py:429",
-     ("shifted", 512), "vae_mid"),
+     ("shifted", 512), "vae_mid", F32_D512_SOURCE),
     ("flash_online_f32", "marigold_tpu/ops/flash_attention.py:460",
-     ("online", None), "unet_l0"),
+     ("online", 64), "unet_l0", F32_SOURCE),
+    ("flash_online_d512_f32", "marigold_tpu/ops/flash_attention.py:460",
+     ("online", 512), "vae_mid", F32_D512_SOURCE),
 ]
+F32_ROW_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "bound_ffma_ms")
 
 
 def bound_f32(flops: float, nbytes: float) -> tuple:
-    """(bound_ms, "operations" or "bytes") against the fp32 CUDA-core
-    peak."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound_ms, "operations" or "bytes", bound_ffma_ms): the least time
+    the card could take for fp32-accurate work, the larger of three tf32
+    passes at the tensor rate and the bytes at the memory rate; and the
+    same with the operations at the fp32 CUDA-core peak (the FFMA bound)."""
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_ffma = max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)
+    return ((t_ops, "operations", t_ffma) if t_ops >= t_bytes
+            else (t_bytes, "bytes", t_ffma))
 
 
-def _f32_record(results, key, what, out, ref, ms, plain_ms, lib_ms, b, extra=""):
+def _f32_record(results, key, what, out, ref, ms, plain_ms, lib_ms, b,
+                extra="", tol=None):
+    """Holds `out` to `ref` at the fp32 tolerance (or `tol`) and records
+    the row's numbers under `key`; lib_ms None where no library call
+    computes the function."""
     import torch
 
     err = (out - ref).abs().max().item()
     ref_max = ref.abs().max().item()
-    tol = F32_TOL_REL * ref_max + F32_TOL_ABS
+    if tol is None:
+        tol = F32_TOL_REL * ref_max + F32_TOL_ABS
+    lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
     print(f"fp32 kernel {what}: max_abs_err {err:.3e} max|ref| {ref_max:.3e} "
           f"tol {tol:.3e} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-          f"library {lib_ms:.3f} ms bound {b[0]:.3f} ms ({b[1]}){extra}",
-          flush=True)
+          f"library {lib} bound {b[0]:.3f} ms ({b[1]}; FFMA bound "
+          f"{b[2]:.3f} ms){extra}", flush=True)
     if not err <= tol or not bool(torch.isfinite(out).all()):
         _fail(f"fp32 kernel {what}: max_abs_err {err} > {tol} or non-finite")
     results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, bound_ms=b[0], bound_by=b[1])
+                        library_ms=lib_ms, bound_ms=b[0], bound_by=b[1],
+                        bound_ffma_ms=b[2])
 
 
 def check_f32_kernels() -> dict:
@@ -622,6 +699,7 @@ def check_f32_kernels() -> dict:
                 bound_f32(4.0 * bh * n * n * d, 4 * 4 * bh * n * d))
     del q, k, v, out, ref
     torch.cuda.empty_cache()
+    check_split(results, gen)
     check_f32_train_kernels(results, gen)
 
     name, b, c, k, hw = next(cs for cs in CONV_CASES if cs[0] == CONV_ROW_CASE)
@@ -652,6 +730,51 @@ def check_f32_kernels() -> dict:
     return results
 
 
+# The operand split's shapes: the d=512 forward's (q, k, v^T) at the VAE
+# mid shape, the row of the JSON line, and the dK/dV kernel's (q, dO, k, v,
+# q^T, dO^T) at the first training shape.
+SPLIT_CASES = [("vae_mid", 1, 9216, 9216, 512, 2, 1),
+               ("train_l0", 2, 4800, 4800, 320, 4, 2)]
+
+
+def check_split(results: dict, gen) -> None:
+    """The operand split (csrc/tf32_split.cu) against its plain version,
+    bit for bit, and its time beside the bytes' bound."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    for name, b, nq, nk, c, n_rows, n_cols in SPLIT_CASES:
+        q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
+                for _ in range(2))
+        k, v = (torch.randn((b, nk, c), generator=gen, device="cuda")
+                for _ in range(2))
+        rows, cols = ([q, k], [v]) if n_rows == 2 else ([q, g, k, v], [q, g])
+
+        def plain():
+            return ([fa.split_tf32_plain(x) for x in rows]
+                    + [fa.split_tf32_plain(fa.transpose_tf32_plain(x))
+                       for x in cols])
+
+        got, ref = fa.split_tf32(rows, cols), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for pg, pr in zip(got, ref)
+                   for x, y in zip(pg, pr))
+        print(f"tf32 split {name}: {len(rows)} tensors and {len(cols)} "
+              f"transposed, bit-identical to plain: {same}", flush=True)
+        out = torch.cat([t.flatten() for pair in got for t in pair])
+        expect = torch.cat([t.flatten() for pair in ref for t in pair])
+        del got, ref
+        nbytes = 12 * sum(x.numel() for x in rows + cols)
+        _f32_record(results, ("tf32_split", name),
+                    f"tf32 split {name} [{b},{nq}/{nk},{c}]", out, expect,
+                    _time_ms(lambda: fa.split_tf32(rows, cols), 10),
+                    _time_ms(plain, 3), None, bound_f32(0.0, nbytes),
+                    f"; {nbytes / 1e9:.3f} GB moved", tol=SPLIT_TOL)
+        del q, g, k, v, rows, cols, out, expect
+        torch.cuda.empty_cache()
+
+
 def check_f32_train_kernels(results: dict, gen) -> None:
     """The fp32 training kernels (lse forward, dQ, dK/dV) against their
     plain versions, TF32 off, into `results` under (case, "train", what);
@@ -670,7 +793,13 @@ def check_f32_train_kernels(results: dict, gen) -> None:
                 for _ in range(2))
         d = c // heads
         out, lse = fa.flash_attention_lse(q, k, v, heads)
+        before = dict(fa.launches_f32)
         grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+        got = {key: n - before.get(key, 0) for key, n in fa.launches_f32.items()
+               if n != before.get(key, 0)}
+        want = {"bwd_dq_d64": 1, "tf32_split": 1, "bwd_dkv_d64": 1}
+        if got != want:  # dK/dV on the 3xTF32 kernel, after its split
+            _fail(f"fp32 kernel {name} bwd: launches {got} != {want}")
         out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
         refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
         # the kernels use no atomics: a second call gives the same bits
@@ -732,18 +861,14 @@ def f32_kernel_rows(results: dict, counts: dict) -> list:
     "bwd_dq_d64", "bwd_dkv_d64", "conv3x3", "winograd"). A backward row's
     plain and library times are those of the whole backward."""
     rows = []
-    for name, replaces, (mode, d), case in F32_ROWS:
+    for name, replaces, (mode, d), case, source in F32_ROWS:
         mine = {key: r for key, r in results.items()
-                if key[1] == mode and (d is None or key[2] == d)}
+                if len(key) == 3 and key[1] == mode and key[2] == d}
         rows.append({
-            "name": name, "route": "cuda", "source": F32_SOURCE,
-            "replaces": replaces,
-            "launches": sum(n for key, n in counts.items()
-                            if key.startswith(mode) and
-                            (d is None or key == f"{mode}_d{d}")),
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts.get(f"{mode}_d{d}", 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
-            **{k: mine[(case, mode, 64 if d is None else d)][k]
-               for k in ROW_TIMES},
+            **{k: mine[(case, mode, d)][k] for k in F32_ROW_TIMES},
         })
     name = F32_FOLDED_CASE[0]
     folded = results[(name, "folded", F32_FOLDED_CASE[3])]
@@ -752,7 +877,7 @@ def f32_kernel_rows(results: dict, counts: dict) -> list:
                  "replaces": "marigold_tpu/ops/flash_attention.py:522",
                  "launches": sum(n for key, n in counts.items()
                                  if key.startswith("folded")),
-                 **{k: folded[k] for k in ("max_abs_err",) + ROW_TIMES}})
+                 **{k: folded[k] for k in ("max_abs_err",) + F32_ROW_TIMES}})
     for name, replaces, key, whats, source in F32_TRAIN_ROWS:
         timed = results[(F32_TRAIN_CASES[0], "train", whats[0])]
         rows.append({
@@ -760,14 +885,22 @@ def f32_kernel_rows(results: dict, counts: dict) -> list:
             "replaces": replaces, "launches": counts.get(key, 0),
             "max_abs_err": max(r["max_abs_err"] for k, r in results.items()
                                if k[1] == "train" and k[2] in whats),
-            **{k: timed[k] for k in ROW_TIMES}})
+            **{k: timed[k] for k in F32_ROW_TIMES}})
+    split = results[("tf32_split", SPLIT_CASES[0][0])]
+    rows.append({"name": "tf32_split_f32", "route": "cuda",
+                 "source": SPLIT_SOURCE,
+                 "replaces": "marigold_tpu/ops/flash_attention.py:429",
+                 "launches": counts.get("tf32_split", 0),
+                 "max_abs_err": max(r["max_abs_err"] for k, r in results.items()
+                                    if k[0] == "tf32_split"),
+                 **{k: split[k] for k in F32_ROW_TIMES}})
     for kname, replaces in (("conv3x3", "marigold_tpu/ops/conv.py:176"),
                             ("winograd", "marigold_tpu/ops/winograd.py:251")):
         r = results[(kname, CONV_ROW_CASE)]
         rows.append({"name": f"{kname}_f32", "route": "cuda",
                      "source": "marigold_tpu_torch/csrc/conv_f32.cu",
                      "replaces": replaces, "launches": counts.get(kname, 0),
-                     **{k: r[k] for k in ("max_abs_err",) + ROW_TIMES}})
+                     **{k: r[k] for k in ("max_abs_err",) + F32_ROW_TIMES}})
     return rows
 
 
@@ -793,12 +926,14 @@ def kernel_rows(results: dict, counts: dict) -> list:
 ROW_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
-def main() -> None:
+def main(argv: list) -> None:
     import gc
     import tempfile
 
     import torch
 
+    if argv not in ([], ["--f32-kernels"]):
+        _fail(f"usage: python3 chip_smoke.py [--f32-kernels], got {argv}")
     t0 = time.perf_counter()
 
     def done(what: str) -> None:  # every phase shares the run's time limit
@@ -807,6 +942,11 @@ def main() -> None:
 
     smi = check_card()
     build_kernels()
+    if argv:
+        check_f32_kernels()
+        done("the fp32 kernel checks")
+        print(smi, flush=True)
+        return
     results = check_kernels()
     folded_results = check_folded()
     conv_results = check_conv_kernels()
@@ -850,7 +990,9 @@ def main() -> None:
             + conv_kernel_rows(conv_results, serve_counts)
             + f32_kernel_rows(f32_results, f32_counts))
     missing = [r["name"] for r in rows if r["launches"] == 0]
-    if missing or len(rows) != 9 + len(F32_ROWS) + 3 + len(F32_TRAIN_ROWS):
+    # 9 bf16 rows; fp32: F32_ROWS, the folded entry, the training rows,
+    # the split and the two convs
+    if missing or len(rows) != 9 + len(F32_ROWS) + 4 + len(F32_TRAIN_ROWS):
         _fail(f"kernels never launched by the main path: {missing}")
     print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
@@ -2551,9 +2693,13 @@ def _f32_gate(what: str, before: dict, want: dict) -> dict:
 
 
 def _f32_flash_want(ckpt: str, mode: str = "shifted") -> dict:
-    """fp32 flash launches of one E=1 request at F32_HW, by variant."""
-    return {f"{mode}_d{d}": n for d, n in expected_flash(
+    """fp32 flash launches of one E=1 request at F32_HW, by variant, and
+    the operand split's: one before each 512-wide forward."""
+    want = {f"{mode}_d{d}": n for d, n in expected_flash(
         pipe_spec(ckpt, "depth"), F32_HW, F32_STEPS, res=max(F32_HW)).items()}
+    if want.get(f"{mode}_d512"):
+        want["tf32_split"] = want[f"{mode}_d512"]
+    return want
 
 
 def full_precision_phase(root: str, depth_dir: str) -> dict:
@@ -2937,6 +3083,7 @@ TRAIN_GRAD_TOL = 1e-1
 TRAIN_PROJ_TOL = 2e-1
 TRAIN_CLASSES = [("flash backward (dQ, dK/dV)", r"flash_bwd_"),
                  ("flash forward", r"flash_fwd"),
+                 ("tf32 operand split", r"tf32_split"),
                  ("cudnn NCHW<->NHWC copies", r"nchwToNhwc|nhwcToNchw"),
                  ("conv (fprop, dgrad, wgrad)",
                   r"fprop|dgrad|wgrad|conv|winograd|nchw_to_nhwc"),
@@ -2945,7 +3092,7 @@ TRAIN_CLASSES = [("flash backward (dQ, dK/dV)", r"flash_bwd_"),
 
 
 def expected_train_launches(core, hw: tuple, micro_steps: int,
-                            remat: str = "none") -> dict:
+                            remat: str = "none", f32: bool = False) -> dict:
     """Flash launches of `micro_steps` micro-steps at input size hw, from
     the shapes: each UNet self-attention with >= FLASH_MIN_SEQ tokens runs
     the lse forward, the dQ and the dK/dV kernel once (64-wide heads),
@@ -2953,7 +3100,8 @@ def expected_train_launches(core, hw: tuple, micro_steps: int,
     recomputes its block ("save_heavy" keeps the forward's outputs); the
     two VAE encodes (rgb, target) under no_grad run the serving kernel of
     the mid attention (one head). The bf16 and the fp32 counters take the
-    same keys."""
+    same keys; with `f32` the fp32 counter's "tf32_split" too, one before
+    each 512-wide forward and each dK/dV launch."""
     from marigold_tpu_torch.ops import flash_attention as fa
     from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
 
@@ -2970,6 +3118,10 @@ def expected_train_launches(core, hw: tuple, micro_steps: int,
                           ("bwd_dq", 1), ("bwd_dkv", 1)):
             want[f"{key}_d{d}"] = (want.get(f"{key}_d{d}", 0)
                                    + runs * n * micro_steps)
+    if f32:
+        want["tf32_split"] = (want.get("shifted_d512", 0)
+                              + sum(n for key, n in want.items()
+                                    if key.startswith("bwd_dkv")))
     return want
 
 
@@ -3329,7 +3481,7 @@ def f32_train_phase(root: str) -> dict:
 
             trainer.train_step = timed_step
             want = expected_train_launches(trainer.core, TRAIN_HW,
-                                           F32_TRAIN_ACCUM, mode)
+                                           F32_TRAIN_ACCUM, mode, f32=True)
             before = dict(fa.launches_f32)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -4093,6 +4245,7 @@ def train_cli_phase(base_ckpt: str) -> dict:
 
 
 SERVE_CLASSES = [("flash", r"flash_fwd"),
+                 ("tf32 operand split", r"tf32_split"),
                  ("cudnn NCHW<->NHWC copies", r"nchwToNhwc|nhwcToNchw"),
                  ("conv", r"fprop|dgrad|conv|winograd|nchw_to_nhwc"),
                  ("gemm", r"gemm|cutlass|cublas|matmul"),
@@ -4143,4 +4296,4 @@ def profile_request(fn, classes=SERVE_CLASSES,
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

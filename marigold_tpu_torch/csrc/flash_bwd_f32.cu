@@ -1,49 +1,43 @@
-// Flash-attention backward in fp32 storage, d = 64: CUDA-core FFMA tiles in
-// shared memory, the fp32 counterpart of flash_bwd_sm90.cu.
+// Flash-attention backward dQ in fp32 storage, d = 64: CUDA-core FFMA tiles
+// in shared memory, the fp32 counterpart of flash_bwd_sm90.cu's dQ kernel.
 //
-// Replaces the fp32 instantiations of the TPU package's
+// Replaces the fp32 instantiation of the TPU package's
 // marigold_tpu/ops/flash_attention.py backward, `_flash_dt_bwd_pallas`:
-//   * _flash_bwd_dq_kernel  (dQ; the pallas_call at :800)
-//   * _flash_bwd_dkv_kernel (dK and dV; the pallas_call at :832).
-// The training forward that writes the logsumexp these kernels read is the
-// online variant of flash_fwd_f32.cu (mt_flash_fwd_lse_f32). As there, wgmma
-// takes no fp32 operand and TF32 is not full precision, so the products run
-// on the CUDA cores, and P and dS stay fp32 (the plain version's casts to
-// the storage dtype are no-ops in fp32).
+//   * _flash_bwd_dq_kernel  (dQ; the pallas_call at :800).
+// Its partner, _flash_bwd_dkv_kernel (dK and dV; :832), is
+// flash_bwd_dkv_f32_sm90.cu: 3xTF32 products on wgmma. The training forward
+// that writes the logsumexp both read is the online variant of
+// flash_fwd_f32.cu (mt_flash_fwd_lse_f32). Here the products run on the
+// CUDA cores, and P and dS stay fp32 (the plain version's casts to the
+// storage dtype are no-ops in fp32).
 //
 // Math per (batch, head), all fp32, as the TPU kernels compute it:
 //   S = Q K^T * scale;  P = exp(S - lse_row);  dP = dO V^T;
 //   dS = P o (dP - delta_row),  delta = rowsum(dO o O) (from the caller);
-//   dQ = dS K * scale;  dK = dS^T Q * scale;  dV = P^T dO.
+//   dQ = dS K * scale.
 // lse and delta are the caller's [B*H, ld_stat] rows padded to a multiple of
 // 64 (ops/flash_attention.py:bwd_stats): lse = 1e30 in a padded row makes
 // exp(S - lse) = 0, so padded query rows add nothing; key columns j >= nk
-// get P = 0 in the dQ kernel, and key rows past nk are not stored by the
-// dK/dV kernel.
+// get P = 0.
 //
-// Layout: q, dO and dQ are [B, nq, ldq], k, v, dK and dV [B, nk, ldkv] fp32,
-// head h at channels [64 h, 64 h + 64). Each block of 256 threads (16 x 16)
-// owns one 64-row output tile of one (b, h), so no two blocks write the
-// same element: no atomics, and two calls give the same bits.
-//   * dQ: one block per 64 query rows. Its Q and dO tiles and their lse and
-//     delta stay resident; it walks 64-key tiles of K and V: S and dP, each
-//     thread a 4 x 4 block (rows ty + 16 i, columns tx + 16 j), dS into
-//     shared memory, then dQ += dS K, each thread rows ty + 16 i and columns
-//     4 tx .. 4 tx + 3 in registers. Five [64, 68] tiles, 85 KB.
-//   * dK/dV: one block per 64 key rows. Its K and V tiles stay resident; it
-//     walks 64-row tiles of Q and dO with their lse and delta: S^T and dP^T
-//     (keys as rows), P^T and dS^T into shared memory, then dV += P^T dO and
-//     dK += dS^T Q. Six tiles, 102.5 KB.
-// Rows are padded to 68 floats, so the float4 reads of rows tx + 16 j fall
-// on distinct banks in each 8-lane phase, as in flash_fwd_f32.cu.
+// Layout: q, dO and dQ are [B, nq, ldq], k and v [B, nk, ldkv] fp32, head h
+// at channels [64 h, 64 h + 64). Each block of 256 threads (16 x 16) owns
+// one 64-row tile of dQ of one (b, h), so no two blocks write the same
+// element: no atomics, and two calls give the same bits. Its Q and dO tiles
+// and their lse and delta stay resident; it walks 64-key tiles of K and V:
+// S and dP, each thread a 4 x 4 block (rows ty + 16 i, columns tx + 16 j),
+// dS into shared memory, then dQ += dS K, each thread rows ty + 16 i and
+// columns 4 tx .. 4 tx + 3 in registers. Five [64, 68] tiles, 85 KB. Rows
+// are padded to 68 floats, so the float4 reads of rows tx + 16 j fall on
+// distinct banks in each 8-lane phase, as in flash_fwd_f32.cu.
 //
-// What bounds it on the H100: dQ does 6 N^2 D FLOPs per head and dK/dV 8,
-// over ~5 N D * 4 bytes, far above the ridge of the 67 TFLOP/s fp32
-// CUDA-core peak: both are bound by FFMA issue and the shared-memory reads
-// that feed it (8 FFMA per 16-byte read in each product). The design is the
-// simple one: one tile in flight, each product from float4 shared-memory
-// reads into register blocks. cp.async double buffering and 3xTF32 on
-// wgmma are later work.
+// What bounds it on the H100: 6 N^2 D FLOPs per head over ~5 N D * 4
+// bytes, far above the ridge of the 67 TFLOP/s fp32 CUDA-core peak: it is
+// bound by FFMA issue and the shared-memory reads that feed it (8 FFMA per
+// 16-byte read in each product). The design is the simple one: one tile in
+// flight, each product from float4 shared-memory reads into register
+// blocks. The tensor-core design of its partner (3xTF32 on wgmma,
+// flash_bwd_dkv_f32_sm90.cu) is ROADMAP work for it.
 
 #include <cuda_runtime.h>
 
@@ -199,73 +193,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   store_rows(dq + qoff, acc, scale, m0, nq, ldq, tx, ty);
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int H,
-                         int nq, int nk, int ldq, int ldkv, int ld_stat,
-                         float scale) {
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + TILE;
-  float* qs = vs + TILE;
-  float* gs = qs + TILE;
-  float* ps = gs + TILE;
-  float* dss = ps + TILE;
-  float* lse_s = dss + TILE;
-  float* delta_s = lse_s + BT;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int n0 = blockIdx.x * BT;
-  const size_t qoff = (size_t)b * nq * ldq + (size_t)h * D;
-  const size_t koff = (size_t)b * nk * ldkv + (size_t)h * D;
-
-  load_tile(ks, k + koff, n0, nk, ldkv, tid);
-  load_tile(vs, v + koff, n0, nk, ldkv, tid);
-  float4 dk_acc[4], dv_acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dk_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (int m0 = 0; m0 < nq; m0 += BT) {
-    load_tile(qs, q + qoff, m0, nq, ldq, tid);
-    load_tile(gs, dout + qoff, m0, nq, ldq, tid);
-    if (tid < BT) {
-      lse_s[tid] = lse[(size_t)bh * ld_stat + m0 + tid];
-      delta_s[tid] = delta[(size_t)bh * ld_stat + m0 + tid];
-    }
-    __syncthreads();
-    // keys as rows: s[i][j] = S^T[ty + 16 i][tx + 16 j], likewise dP^T
-    float s[4][4], dp[4][4];
-    rows_dot(s, ks, qs, tx, ty);
-    rows_dot(dp, vs, gs, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = expf(s[i][j] * scale - lse_s[c]);
-        ps[(ty + 16 * i) * LD + c] = p;
-        dss[(ty + 16 * i) * LD + c] = p * (dp[i][j] - delta_s[c]);
-      }
-    __syncthreads();
-    rows_times(dv_acc, ps, gs, tx, ty);
-    rows_times(dk_acc, dss, qs, tx, ty);
-    __syncthreads();
-  }
-  store_rows(dk + koff, dk_acc, scale, n0, nk, ldkv, tx, ty);
-  store_rows(dv + koff, dv_acc, 1.f, n0, nk, ldkv, tx, ty);
-}
-
 constexpr int DQ_SMEM = 5 * TILE * 4;
-constexpr int DKV_SMEM = (6 * TILE + 2 * BT) * 4;
 
 bool bad_args(int B, int H, int nq, int nk, int D_, int ldq, int ldkv,
               int ld_stat) {
@@ -280,8 +208,8 @@ extern "C" {
 // q and dout are [B, nq, ldq], k and v [B, nk, ldkv] fp32, 16-byte aligned,
 // with row strides a multiple of 4 elements; lse and delta [B*H, ld_stat]
 // fp32 with ld_stat >= nq rounded up to 64, padded as bwd_stats pads them.
-// dq is written in q's layout, dk and dv in k's. The signatures are those of
-// flash_bwd_sm90.cu's bf16 entry points. Each returns cudaSuccess (0),
+// dq is written in q's layout. The signature is that of flash_bwd_sm90.cu's
+// bf16 dQ entry point. It returns cudaSuccess (0),
 // cudaErrorInvalidValue for a head width other than 64 or a bad shape, or
 // the error of the attribute call or the launch.
 int mt_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
@@ -302,28 +230,6 @@ int mt_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), H, nq, nk, ldq, ldkv, ld_stat, scale);
-  return (int)cudaGetLastError();
-}
-
-int mt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                         const void* dout, const void* lse, const void* delta,
-                         void* dk, void* dv, int B, int H, int nq, int nk,
-                         int D_, int ldq, int ldkv, int ld_stat, float scale,
-                         void* stream) {
-  if (bad_args(B, H, nq, nk, D_, ldq, ldkv, ld_stat))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nk + BT - 1) / BT, B * H);
-  flash_bwd_dkv_f32_kernel<<<grid, THREADS, DKV_SMEM,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, nq, nk, ldq, ldkv,
-      ld_stat, scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,19 +1,20 @@
-// Flash-attention forward in fp32 storage, for `--full_precision`: CUDA-core
-// FFMA tiles in shared memory with fp32 online-softmax state.
+// Flash-attention forward in fp32 storage for 64-wide heads, for
+// `--full_precision` and fp32 training: CUDA-core FFMA tiles in shared
+// memory with fp32 online-softmax state.
 //
-// Replaces the fp32 instantiations of the TPU package's
+// Replaces the fp32 d = 64 instantiations of the TPU package's
 // marigold_tpu/ops/flash_attention.py kernels, which take fp32 storage and
 // feed the MXU in it ("MXU inputs in the storage dtype", :43-45):
 //   * _flash_kernel_dt_shifted          (shifted softmax, d = 64; :396)
-//   * _flash_kernel_dt_shifted_kblocked (shifted softmax, d = 512; :429)
 //   * _flash_kernel_dt                  (exact online softmax; :460)
 //   * _flash_kernel                     (the folded [BH, N, D] entry; :522),
 //     run as the online variant with one head per batch row;
 //   * _flash_kernel_dt_lse              (the training forward, d = 64; :638):
 //     the online variant that also writes the row logsumexp.
-// The bf16 forwards are flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu;
-// wgmma takes no fp32 operand, and TF32 keeps ~10 mantissa bits, which is
-// not full precision, so this kernel multiplies on the CUDA cores.
+// The 512-wide fp32 forward (:429, and :460 and :522 at d = 512) is
+// flash_fwd_d512_f32_sm90.cu: 3xTF32 on wgmma (tf32x3.cuh), which carries
+// fp32 inputs to ~2^-21 per product where one TF32 product keeps ~2^-11.
+// The bf16 forwards are flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu.
 //
 // Math per (batch, head, query row r), all fp32, as the plain version
 // (ops/flash_attention.py:_plain_forward) computes it:
@@ -26,30 +27,25 @@
 // The training entry also writes lse_r = m + log(max(sum_j p_j, 1e-30)),
 // [B*H, nq] fp32, the statistic the backward (flash_bwd_f32.cu) reads.
 //
-// Layout: q/k/v/o are [B, N, ld] fp32, head h at channels [D h, D h + D).
-// One block of 256 threads (16 x 16) takes BM query rows of one (b, h) and
-// walks the keys in tiles of BN rows: Q, K, V and P tiles in shared memory,
-// each thread holding a (BM/16) x (BN/16) block of S (rows ty + 16 i,
-// columns tx + 16 j) and a (BM/16) x (4 D/64) block of O (the same rows,
-// columns 4 tx + 64 g + e). The row max and sum are reductions over the 16
-// lanes of a half-warp (xor shuffles 8, 4, 2, 1).
-//   * D = 64:  BM = BN = 64; Q, K, V, P tiles of 17 KB each (68 KB).
-//   * D = 512: a 64 x 512 fp32 Q tile alone is 128 KB of the 227 KB a
-//     block may use, so the block takes fewer query rows: BM = BN = 32, Q,
-//     K and V tiles of 64.5 KB and P of 4.5 KB (198 KB, one block per SM),
-//     each thread holding 2 rows x 32 columns of O in registers.
-// Q and K rows are padded by 4 floats: a half-warp's float4 reads of K rows
-// tx + 16 j then fall on distinct banks in each 8-lane phase, and Q reads
-// are broadcasts. V rows are read as float4 across 16 consecutive lanes.
+// Layout: q/k/v/o are [B, N, ld] fp32, head h at channels [64 h, 64 h + 64).
+// One block of 256 threads (16 x 16) takes BM = 64 query rows of one (b, h)
+// and walks the keys in tiles of BN = 64 rows: Q, K, V and P tiles of 17 KB
+// each in shared memory (68 KB), each thread holding a 4 x 4 block of S
+// (rows ty + 16 i, columns tx + 16 j) and a 4 x 4 block of O (the same
+// rows, columns 4 tx + e). The row max and sum are reductions over the 16
+// lanes of a half-warp (xor shuffles 8, 4, 2, 1). Q and K rows are padded
+// by 4 floats: a half-warp's float4 reads of K rows tx + 16 j then fall on
+// distinct banks in each 8-lane phase, and Q reads are broadcasts. V rows
+// are read as float4 across 16 consecutive lanes.
 //
 // What bounds it on the H100: 4 N^2 D FLOPs per head over ~4 N D * 4 bytes,
 // about N/4 FLOP per byte, far above the ridge of the 67 TFLOP/s fp32
 // CUDA-core peak: it is bound by FFMA issue and by the shared-memory reads
-// that feed it (8 FFMA per 16-byte read in both products at D = 64). The
-// design keeps every product in registers from float4 shared-memory reads
-// and is simple: one tile in flight, no copy overlapped with the products.
-// Overlapping loads (cp.async double buffering) and larger per-thread tiles
-// are later work; 3xTF32 on wgmma would be the tensor-core design.
+// that feed it (8 FFMA per 16-byte read in both products). The design
+// keeps every product in registers from float4 shared-memory reads and is
+// simple: one tile in flight, no copy overlapped with the products. The
+// tensor-core design (3xTF32 on wgmma, as the d = 512 forward has it) is
+// ROADMAP work for these d = 64 forwards.
 
 #include <cuda_runtime.h>
 
@@ -59,27 +55,15 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr float EXP_CLAMP = 75.0f;
-
-template <int D>
-struct Tile;
-template <>
-struct Tile<64> {
-  static constexpr int BM = 64, BN = 64;
-};
-template <>
-struct Tile<512> {
-  static constexpr int BM = 32, BN = 32;
-};
-
-template <int D>
-constexpr int smem_floats() {
-  return Tile<D>::BM * (D + 4) + Tile<D>::BN * (D + 4) + Tile<D>::BN * D +
-         Tile<D>::BM * (Tile<D>::BN + 4);
-}
+constexpr int D = 64;   // head width
+constexpr int BM = 64;  // query rows per block
+constexpr int BN = 64;  // keys per tile
+constexpr int SMEM =
+    (BM * (D + 4) + BN * (D + 4) + BN * D + BM * (BN + 4)) * 4;
 
 // rows [n0, n0 + ROWS) of one head (channels [col, col + D)) of a [B, N, ld]
 // tensor into dst with row stride LDS floats; rows past n are zero
-template <int D, int ROWS, int LDS>
+template <int ROWS, int LDS>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int n0, int n, int ld, int tid) {
   constexpr int PER_ROW = D / 4;
@@ -107,14 +91,13 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <int D, bool ONLINE>
+template <bool ONLINE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ shift, float* __restrict__ o,
                      float* __restrict__ lse, int H, int nq, int nk, int ldq,
                      int ldkv, int ldo, float scale) {
-  constexpr int BM = Tile<D>::BM, BN = Tile<D>::BN;
   constexpr int RM = BM / 16, CN = BN / 16, DV = D / 64;
   constexpr int LQ = D + 4, LP = BN + 4;
   extern __shared__ float4 smem4[];
@@ -130,7 +113,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)b * nk * ldkv + (size_t)h * D;
   const float* vb = v + (size_t)b * nk * ldkv + (size_t)h * D;
 
-  load_rows<D, BM, LQ>(qs, qb, m0, nq, ldq, tid);
+  load_rows<BM, LQ>(qs, qb, m0, nq, ldq, tid);
 
   float row_shift[RM], m[RM], l[RM];
   float4 acc[RM][DV];
@@ -145,8 +128,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int n0 = 0; n0 < nk; n0 += BN) {
-    load_rows<D, BN, LQ>(ks, kb, n0, nk, ldkv, tid);
-    load_rows<D, BN, D>(vs, vb, n0, nk, ldkv, tid);
+    load_rows<BN, LQ>(ks, kb, n0, nk, ldkv, tid);
+    load_rows<BN, D>(vs, vb, n0, nk, ldkv, tid);
     __syncthreads();
 
     float s[RM][CN];
@@ -261,31 +244,19 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, bool ONLINE>
+template <bool ONLINE>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* shift, float* o, float* lse, int B, int H,
                    int nq, int nk, int ldq, int ldkv, int ldo, float scale,
                    cudaStream_t stream) {
-  auto kernel = flash_fwd_f32_kernel<D, ONLINE>;
-  constexpr int SMEM = smem_floats<D>() * 4;
+  auto kernel = flash_fwd_f32_kernel<ONLINE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + Tile<D>::BM - 1) / Tile<D>::BM, B * H);
+  const dim3 grid((nq + BM - 1) / BM, B * H);
   kernel<<<grid, THREADS, SMEM, stream>>>(q, k, v, shift, o, lse, H, nq, nk,
                                           ldq, ldkv, ldo, scale);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_mode(const float* q, const float* k, const float* v,
-                        const float* shift, float* o, int B, int H, int nq,
-                        int nk, int ldq, int ldkv, int ldo, float scale,
-                        int online, cudaStream_t stream) {
-  return online ? launch<D, true>(q, k, v, shift, o, nullptr, B, H, nq, nk,
-                                  ldq, ldkv, ldo, scale, stream)
-                : launch<D, false>(q, k, v, shift, o, nullptr, B, H, nq, nk,
-                                   ldq, ldkv, ldo, scale, stream);
 }
 
 }  // namespace
@@ -296,14 +267,15 @@ extern "C" {
 // aligned, with row strides a multiple of 4 elements; head h of width D at
 // channel D*h. `shift` is [B*H, nq] fp32 in shifted mode and ignored in
 // online mode. Returns cudaSuccess (0), cudaErrorInvalidValue for a head
-// width other than 64 or 512 or a bad shape, or the error of the attribute
+// width other than 64 (512 is mt_flash_fwd_d512_f32's, in
+// flash_fwd_d512_f32_sm90.cu) or a bad shape, or the error of the attribute
 // call or the launch.
 int mt_flash_fwd_f32(const void* q, const void* k, const void* v,
                      const void* shift, void* o, int B, int H, int nq, int nk,
-                     int D, int ldq, int ldkv, int ldo, float scale,
+                     int D_, int ldq, int ldkv, int ldo, float scale,
                      int online, void* stream) {
-  if (B < 1 || H < 1 || nq < 1 || nk < 1 || B * H > 65535 || ldq % 4 ||
-      ldkv % 4 || ldo % 4 || (!online && shift == nullptr))
+  if (B < 1 || H < 1 || nq < 1 || nk < 1 || B * H > 65535 || D_ != D ||
+      ldq % 4 || ldkv % 4 || ldo % 4 || (!online && shift == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -311,26 +283,23 @@ int mt_flash_fwd_f32(const void* q, const void* k, const void* v,
   const float* sh = static_cast<const float*>(shift);
   float* of = static_cast<float*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch_mode<64>(qf, kf, vf, sh, of, B, H, nq, nk, ldq, ldkv,
-                                ldo, scale, online, st);
-  if (D == 512)
-    return (int)launch_mode<512>(qf, kf, vf, sh, of, B, H, nq, nk, ldq, ldkv,
-                                 ldo, scale, online, st);
-  return (int)cudaErrorInvalidValue;
+  return online ? (int)launch<true>(qf, kf, vf, sh, of, nullptr, B, H, nq, nk,
+                                    ldq, ldkv, ldo, scale, st)
+                : (int)launch<false>(qf, kf, vf, sh, of, nullptr, B, H, nq,
+                                     nk, ldq, ldkv, ldo, scale, st);
 }
 
 // The training forward: the online variant at D = 64 that also writes
 // lse [B*H, nq] fp32. Arguments and preconditions as mt_flash_fwd_f32's
 // (the signature of flash_attention.cu's bf16 mt_flash_attention_fwd_lse).
 int mt_flash_fwd_lse_f32(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int B, int H, int nq, int nk, int D,
+                         void* lse, int B, int H, int nq, int nk, int D_,
                          int ldq, int ldkv, int ldo, float scale,
                          void* stream) {
   if (B < 1 || H < 1 || nq < 1 || nk < 1 || B * H > 65535 || ldq % 4 ||
-      ldkv % 4 || ldo % 4 || D != 64 || lse == nullptr)
+      ldkv % 4 || ldo % 4 || D_ != D || lse == nullptr)
     return (int)cudaErrorInvalidValue;
-  return (int)launch<64, true>(
+  return (int)launch<true>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), nullptr, static_cast<float*>(o),
       static_cast<float*>(lse), B, H, nq, nk, ldq, ldkv, ldo, scale,

@@ -2,8 +2,10 @@
 (`csrc/flash_fwd_sm90.cu` for every 64-wide bf16 forward,
 `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one, `csrc/flash_attention.cu`
 for their C entry points, `csrc/flash_bwd_sm90.cu` for the dQ and dK/dV
-backward, `csrc/flash_fwd_f32.cu` for the fp32 forwards, `csrc/flash_bwd_f32.cu`
-for the fp32 backward) and their plain PyTorch versions.
+backward; in fp32 `csrc/flash_fwd_f32.cu` for the 64-wide forwards,
+`csrc/flash_fwd_d512_f32_sm90.cu` for the 512-wide one, `csrc/flash_bwd_f32.cu`
+for dQ, `csrc/flash_bwd_dkv_f32_sm90.cu` for dK/dV and `csrc/tf32_split.cu`
+for the operand split of the last two) and their plain PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
@@ -34,13 +36,18 @@ it, as the TPU package's `_flash_dt_fwd`/`_flash_dt_bwd` do. The kernels
 for that take 64-wide heads; other widths (the 512-wide VAE head) take the
 serving forward and the plain backward `flash_attention_bwd_plain`.
 
-fp32 storage takes every kernel to a CUDA-core FFMA design, as the Pallas
-kernels take fp32 storage: the serving forwards of both head widths, in both
-softmax modes and the folded entry (`--full_precision`), and the training
-forward with the logsumexp to `csrc/flash_fwd_f32.cu` (fp32 P meeting fp32
-V), the dQ and dK/dV backward to `csrc/flash_bwd_f32.cu` (fp32 P and dS), so
-that fine-tuning on fp32 weights (`compute_dtype` fp32) runs on them too;
-their launches count in `launches_f32`.
+fp32 storage takes every kernel to an fp32-accurate design, as the Pallas
+kernels take fp32 storage: the serving forwards in both softmax modes and
+the folded entry (`--full_precision`), the training forward with the
+logsumexp and the dQ and dK/dV backward (fine-tuning on fp32 weights,
+`compute_dtype` fp32), P and dS in fp32. The 64-wide forwards and dQ run
+on the CUDA cores (FFMA, `csrc/flash_fwd_f32.cu`, `csrc/flash_bwd_f32.cu`);
+the 512-wide forward and dK/dV run 3xTF32 products on the tensor cores
+(`csrc/flash_fwd_d512_f32_sm90.cu`, `csrc/flash_bwd_dkv_f32_sm90.cu`): each
+operand x is split into tf32 parts hi + lo by one launch of
+`csrc/tf32_split.cu` before the kernel (`split_tf32`; the plain
+emulation is `split_tf32_plain`, `transpose_tf32_plain`,
+`matmul_tf32x3_plain`). Their launches count in `launches_f32`.
 
 On the H100 the bf16 kernels are bound by tensor-core throughput (about N/2
 FLOP per byte at the UNet shapes); the notes in the .cu files say what each
@@ -57,7 +64,8 @@ differentiable and raise when called with grad enabled on an input that
 requires grad. `launches` counts kernel launches by variant
 ("shifted_d64", "shifted_d512", "online_d64", "online_d512", "lse_d64",
 "bwd_dq_d64", "bwd_dkv_d64", "folded_d64", "folded_d512") for bf16, and
-`launches_f32` those of the fp32 kernels by the same names.
+`launches_f32` those of the fp32 kernels by the same names, and the
+operand split as "tf32_split".
 """
 
 from __future__ import annotations
@@ -85,8 +93,14 @@ LSE_PAD = 1e30
 
 SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_fwd_d512_sm90.cu")
 BWD_SOURCES = ("flash_bwd_sm90.cu",)
-F32_SOURCES = ("flash_fwd_f32.cu",)
-F32_BWD_SOURCES = ("flash_bwd_f32.cu",)
+F32_SOURCES = ("flash_fwd_f32.cu", "flash_fwd_d512_f32_sm90.cu")
+F32_BWD_SOURCES = ("flash_bwd_f32.cu", "flash_bwd_dkv_f32_sm90.cu")
+SPLIT_SOURCES = ("tf32_split.cu",)
+# The transposed tf32 copies permute each group of 8 columns so that an
+# m64nN accumulator's registers are a tf32 A fragment (csrc/tf32x3.cuh):
+# stored column 8g + i holds row 8g + TF32_PERM[i].
+TF32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+TF32_PAD = 8  # the transposed copies' columns: N rounded up to this
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # every kernel has both
 
 launches = cuda_build.LaunchCounter()
@@ -204,6 +218,96 @@ def flash_attention_bwd_plain(
             _unheads(dk).to(k.dtype), _unheads(dv).to(v.dtype))
 
 
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 (10 mantissa bits, to nearest, ties away from
+    zero) on the bits of its int32 view, as `cvt.rna.tf32.f32` rounds;
+    infinities and NaNs pass unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an fp32 tensor as `csrc/tf32_split.cu` and the kernels
+    split it: hi = rna_tf32(x), lo = rna_tf32(x - hi), both tf32 values
+    stored as fp32; x - hi is exact, so hi + lo carries x to ~2^-22."""
+    hi = _rna_tf32(x)
+    return hi, _rna_tf32(x - hi)
+
+
+def transpose_tf32_plain(x: torch.Tensor) -> torch.Tensor:
+    """[B, N, C] -> the transposed layout of the split's transposed copies:
+    [B, C, NP], NP = N rounded up to TF32_PAD, rows past N taken as zeros,
+    stored column 8g + i holding row 8g + TF32_PERM[i]."""
+    b, n, c = x.shape
+    npad = -(-n // TF32_PAD) * TF32_PAD
+    xt = x.new_zeros((b, c, npad))
+    xt[:, :, :n] = x.transpose(1, 2)
+    pos = torch.arange(npad, device=x.device)
+    perm = torch.tensor(TF32_PERM, device=x.device)
+    return xt[:, :, pos - pos % TF32_PAD + perm[pos % TF32_PAD]]
+
+
+def matmul_tf32x3_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32 as the 3xTF32 kernels compute it: each operand split by
+    `split_tf32_plain`, then lo.hi + hi.lo + hi.hi summed in fp32 (each
+    product of two tf32 values is exact in fp32), lo.lo dropped. For the
+    CPU tests; nothing on the main path calls it."""
+    a_hi, a_lo = split_tf32_plain(a)
+    b_hi, b_lo = split_tf32_plain(b)
+    return a_hi @ b_hi + (a_lo @ b_hi + a_hi @ b_lo)
+
+
+def _split_library() -> ctypes.CDLL:
+    lib = cuda_build.load_library("tf32_split", SPLIT_SOURCES)
+    fn = lib.mt_tf32_split
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def split_tf32(rows: list, cols: list = ()) -> list:
+    """The 3xTF32 kernels' operands: [(hi, lo)] of each fp32 [B, N, C]
+    tensor in `rows` (in its own layout), then of each in `cols` transposed
+    (`transpose_tf32_plain`'s layout), all with one B and C. On CUDA
+    tensors this is one launch of `csrc/tf32_split.cu` (at most 6 tensors,
+    C a multiple of 32), counted as "tf32_split" in `launches_f32`; on CPU
+    tensors it runs the plain versions."""
+    xs = [*rows, *cols]
+    if xs[0].device.type == "cpu":
+        return ([split_tf32_plain(x) for x in rows]
+                + [split_tf32_plain(transpose_tf32_plain(x)) for x in cols])
+    b, _, c = xs[0].shape
+    for x in xs:
+        if x.dtype != torch.float32 or x.ndim != 3 or x.shape[0] != b or \
+                x.shape[2] != c or not x.is_contiguous() or x.device != xs[0].device:
+            raise ValueError(f"split_tf32 takes contiguous fp32 [{b}, N, {c}] "
+                             f"tensors on one device, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    outs = [(torch.empty_like(x), torch.empty_like(x)) for x in rows]
+    for x in cols:
+        npad = -(-x.shape[1] // TF32_PAD) * TF32_PAD
+        outs.append(tuple(x.new_empty((b, c, npad)) for _ in range(2)))
+    n = len(xs)
+    ptrs = ctypes.c_void_p * n
+    lib = _split_library()
+    with torch.cuda.device(xs[0].device):
+        err = lib.mt_tf32_split(
+            ptrs(*(x.data_ptr() for x in xs)),
+            ptrs(*(hi.data_ptr() for hi, _ in outs)),
+            ptrs(*(lo.data_ptr() for _, lo in outs)),
+            (ctypes.c_int * n)(*(x.shape[1] for x in xs)),
+            (ctypes.c_int * n)(*([0] * len(rows) + [1] * len(cols))),
+            n, b, c, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "tf32 split")
+    launches_f32.add("tf32_split")
+    return outs
+
+
 def _bind(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int) -> None:
     """argtypes of `name`: n_ptr pointers, n_int ints, the fp32 scale, the
     stream; returns int (a cudaError_t)."""
@@ -241,13 +345,14 @@ def _f32_library() -> ctypes.CDLL:
         lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
     _bind(lib, "mt_flash_fwd_lse_f32", 5, 8)
+    _bind(lib, "mt_flash_fwd_d512_f32", 8, 7)
     return lib
 
 
 def _f32_bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_bwd_f32", F32_BWD_SOURCES)
     _bind(lib, "mt_flash_bwd_dq_f32", 7, 8)
-    _bind(lib, "mt_flash_bwd_dkv_f32", 8, 8)
+    _bind(lib, "mt_flash_bwd_dkv_f32", 16, 7)
     return lib
 
 
@@ -268,17 +373,27 @@ def _entry(dtype: torch.dtype, kernel: str):
 def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
                     ld: int, online: bool, variant: str) -> None:
     """One serving forward on q's stream: the bf16 Hopper kernels or the
-    fp32 one, by q's dtype, counted as `variant` in `launches` or
-    `launches_f32`."""
+    fp32 ones, by q's dtype (at d = 512 in fp32 the operand split, then the
+    3xTF32 kernel), counted as `variant` in `launches` or `launches_f32`."""
     lib, fn, counter = _entry(q.dtype, "fwd")
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            shift.data_ptr() if shift is not None else None, out.data_ptr(),
-            b, heads, q.shape[1], k.shape[1], d, ld, ld, ld,
-            1.0 / math.sqrt(d), int(online),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    nq, nk, scale = q.shape[1], k.shape[1], 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream().cuda_stream
+    shift_ptr = shift.data_ptr() if shift is not None else None
+    if q.dtype == torch.float32 and d == 512:
+        (q_hi, q_lo), (k_hi, k_lo), (vt_hi, vt_lo) = split_tf32([q, k], [v])
+        with torch.cuda.device(q.device):
+            err = lib.mt_flash_fwd_d512_f32(
+                q_hi.data_ptr(), q_lo.data_ptr(), k_hi.data_ptr(),
+                k_lo.data_ptr(), vt_hi.data_ptr(), vt_lo.data_ptr(), shift_ptr,
+                out.data_ptr(), b, heads, nq, nk, ld, ld, int(online), scale,
+                stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), shift_ptr,
+                out.data_ptr(), b, heads, nq, nk, d, ld, ld, ld, scale,
+                int(online), stream,
+            )
     _raise_on(lib, err, f"flash attention ({q.dtype})")
     counter.add(variant)
 
@@ -368,7 +483,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(Q K^T / sqrt(d)) V per head. q: [B, Nq, C], k/v: [B, Nk, C]
     -> [B, Nq, C]. On a CUDA tensor this launches the Hopper kernel (bf16,
-    or fp32 on `csrc/flash_fwd_f32.cu`; head dim 64 or 512; contiguous
+    or fp32: `csrc/flash_fwd_f32.cu` at head dim 64, the split and
+    `csrc/flash_fwd_d512_f32_sm90.cu` at 512; head dim 64 or 512; contiguous
     inputs; no autograd) or raises; on a CPU tensor it runs
     `flash_attention_plain`."""
     _check_inputs(q, k, v, num_heads, softmax)
@@ -473,8 +589,9 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients (dq, dk, dv) from the training forward's out and
     lse. On a CUDA tensor this launches the dQ kernel and the dK/dV kernel
-    (bf16, or fp32 on `csrc/flash_bwd_f32.cu`; head dim 64; q, k, v and
-    dout as TMA takes them, `check_tma`) or raises; on a CPU tensor it runs
+    (bf16, or fp32: dQ on `csrc/flash_bwd_f32.cu`, the split and dK/dV on
+    `csrc/flash_bwd_dkv_f32_sm90.cu`; head dim 64; q, k, v and dout as TMA
+    takes them, `check_tma`) or raises; on a CPU tensor it runs
     `flash_attention_bwd_plain` (which recomputes the softmax itself)."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
@@ -520,17 +637,24 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [B, Nk, C] by the dK/dV kernel of q's dtype, arguments as
-    for `flash_attention_bwd_dq`."""
+    for `flash_attention_bwd_dq`. In fp32 the operand split runs first (q,
+    dout, k and v; q and dout also transposed), then the 3xTF32 kernel."""
     b, nq, c = q.shape
     d = c // num_heads
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn, counter = _entry(q.dtype, "bwd_dkv")
+    if q.dtype == torch.float32:
+        operands = [t for pair in split_tf32([q, dout, k, v], [q, dout])
+                    for t in pair]
+        strides = (c,)
+    else:
+        operands, strides = [q, k, v, dout], (c, c)
     with torch.cuda.device(q.device):
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
+            *(t.data_ptr() for t in operands), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, nq,
+            k.shape[1], d, *strides, lse.shape[1], 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, f"flash attention dK/dV ({q.dtype})")
     counter.add(f"bwd_dkv_d{d}")

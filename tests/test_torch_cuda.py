@@ -7,7 +7,9 @@ and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
 with 128-row output blocks and 64-row stages)
 and the 3x3 conv kernels (nine-tap, Winograd), and the fp32 kernels of
 `--full_precision` and fp32 training (csrc/flash_fwd_f32.cu,
-csrc/flash_bwd_f32.cu, csrc/conv_f32.cu), against
+csrc/flash_bwd_f32.cu, csrc/conv_f32.cu; the 3xTF32 ones
+csrc/flash_fwd_d512_f32_sm90.cu and csrc/flash_bwd_dkv_f32_sm90.cu with
+their operand split, csrc/tf32_split.cu), against
 their plain PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slices on the card against the CPU: depth at
 E=1 and E=3, normals and IID appearance at E=1, and bf16 normals and IID
@@ -607,8 +609,8 @@ def _f32_close(out, ref):
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
     (2, 1300, 1300, 320, 5),   # d=64, B > 1, ragged against the 64-row tiles
     (1, 77, 130, 64, 1),       # d=64, fewer rows than one tile, nq != nk
-    (3, 1100, 700, 512, 1),    # d=512: nq > nk, ragged against 32, B = 3
-    (1, 33, 1300, 512, 1),     # d=512: one row past a 32-row tile
+    (3, 1100, 700, 512, 1),    # d=512: nq > nk, ragged against 64 and 8, B = 3
+    (1, 33, 1300, 512, 1),     # d=512: fewer rows than one 64-row tile
 ])
 def test_f32_kernel_matches_plain(cuda, b, nq, nk, c, heads, softmax):
     q = torch.randn((b, nq, c), generator=cuda, device="cuda")
@@ -620,6 +622,63 @@ def test_f32_kernel_matches_plain(cuda, b, nq, nk, c, heads, softmax):
     assert fa.launches_f32[key] == before + 1
     assert sum(fa.launches.values()) == bf16
     _f32_close(out, fa.flash_attention_plain(q, k, v, heads, softmax))
+
+
+@pytest.mark.parametrize("softmax", ["shifted", "online"])
+@pytest.mark.parametrize("b,nq,nk", [
+    (2, 1100, 1100),    # ragged against the 64-row and 64-key tiles
+    (1, 2784, 2780),    # the 768 px latent of a 375x1242 image; nk % 8 = 4
+])
+def test_f32_d512_forward_on_tf32x3(cuda, b, nq, nk, softmax):
+    """The 512-wide fp32 forward: one operand split, then the 3xTF32 wgmma
+    kernel (csrc/flash_fwd_d512_f32_sm90.cu), at the fp32 tolerance."""
+    q = torch.randn((b, nq, 512), generator=cuda, device="cuda")
+    k, v = (torch.randn((b, nk, 512), generator=cuda, device="cuda")
+            for _ in range(2))
+    before = dict(fa.launches_f32)
+    out = fa.flash_attention(q, k, v, 1, softmax)
+    got = {key: n - before.get(key, 0) for key, n in fa.launches_f32.items()
+           if n != before.get(key, 0)}
+    assert got == {f"{softmax}_d512": 1, "tf32_split": 1}
+    _f32_close(out, fa.flash_attention_plain(q, k, v, 1, softmax))
+
+
+@pytest.mark.parametrize("b,nq,nk", [(2, 1000, 1300), (1, 77, 130)])
+def test_tf32_split_matches_plain(cuda, b, nq, nk):
+    """csrc/tf32_split.cu against its plain version, bit for bit: rows in
+    their own layout and transposed ones, N ragged against 8 and 32."""
+    q = torch.randn((b, nq, 320), generator=cuda, device="cuda") * 10
+    k = torch.randn((b, nk, 320), generator=cuda, device="cuda") * 1e-3
+    got = fa.split_tf32([q, k], [q, k])
+    want = ([fa.split_tf32_plain(x) for x in (q, k)]
+            + [fa.split_tf32_plain(fa.transpose_tf32_plain(x)) for x in (q, k)])
+    torch.cuda.synchronize()
+    for pair, ref in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(pair, ref))
+
+
+def test_f32_dkv_on_tf32x3_ragged(cuda):
+    """fp32 dK/dV by the 3xTF32 kernel (csrc/flash_bwd_dkv_f32_sm90.cu)
+    after its split, nq and nk ragged against 64, 128 and 8, against the
+    plain backward; two calls give the same bits."""
+    b, nq, nk, c, heads = 2, 1300, 1100, 320, 5
+    q, g = (torch.randn((b, nq, c), generator=cuda, device="cuda")
+            for _ in range(2))
+    k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
+            for _ in range(2))
+    out, lse = fa.flash_attention_lse(q, k, v, heads)
+    lse_p, delta_p = fa.bwd_stats(out, lse, g, heads)
+    before = dict(fa.launches_f32)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse_p, delta_p, heads)
+    got = {key: n - before.get(key, 0) for key, n in fa.launches_f32.items()
+           if n != before.get(key, 0)}
+    assert got == {"bwd_dkv_d64": 1, "tf32_split": 1}
+    _, dk_ref, dv_ref = fa.flash_attention_bwd_plain(q, k, v, g, heads)
+    _f32_close(dk, dk_ref)
+    _f32_close(dv, dv_ref)
+    again = fa.flash_attention_bwd_dkv(q, k, v, g, lse_p, delta_p, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
 
 
 @pytest.mark.parametrize("bh,n,d", [(5, 1030, 64), (3, 700, 512)])
