@@ -15,8 +15,9 @@ Phases, none of which catches its own failure:
      training flash kernels, and the fp32 kernels: the flash forward at
      both head widths in both softmax modes, the folded entry, the
      training forward with the logsumexp, dQ and dK/dV, the nine-tap and
-     Winograd convs, against their plain fp32 versions with TF32 off, and
-     the 3xTF32 kernels' operand split bit for bit), with
+     Winograd convs at all nine conv shapes, against their plain fp32
+     versions with TF32 off, and the 3xTF32 kernels' operand splits bit
+     for bit), with
      errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
      function and, beside the shifted kernel, its row shift, beside the
@@ -76,8 +77,11 @@ Phases, none of which catches its own failure:
   12. `--full_precision`: run and serve --once for one 768 px depth map at
      E=1 in fp32 (the fp32 flash kernels, TF32 off), the same request in
      process against every attention on the plain path, under the online
-     pin and under each opt-in conv mode (the fp32 conv kernels), and the
-     folded entry in fp32, fp32 launches exact;
+     pin and under each opt-in conv mode (the fp32 conv kernels: a first
+     and a warm request each, timed beside the default's warm one, and a
+     profile of the warm request in each conv mode), and the
+     folded entry in fp32, fp32 launches exact (the nine-tap's split of x
+     counted apart);
   13. checkpoint loads: the full SD2 load by fastload and by the
      per-tensor path (MARIGOLD_TPU_FASTLOAD=0), bit for bit, the cold start
      of a fresh process to its first E=1 768 px map with each, and one warm
@@ -138,15 +142,15 @@ def build_kernels():
 
     builds = (fa._library, fa._bwd_library, conv_ops._library,
               wino_ops._library, fa._f32_library, fa._f32_bwd_library,
-              fa._split_library,
-              conv_ops.f32_library)  # every library of the paths driven here
+              fa._split_library, conv_ops.f32_library,
+              wino_ops.f32_library)  # every library of the paths driven here
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda f: f(), builds))
     wall = time.perf_counter() - t0
     for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
                  "winograd", "flash_attention_f32", "flash_attention_bwd_f32",
-                 "tf32_split", "conv_f32"):
+                 "tf32_split", "conv3x3_f32", "winograd_f32"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build: {name} nvcc {info['seconds']:.2f} s", flush=True)
         with open(info["log"]) as f:
@@ -157,8 +161,8 @@ def build_kernels():
     print(f"build: {len(builds)} libraries in {wall:.2f} s", flush=True)
     hgmma = {}
     for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
-                 "winograd", "flash_attention_f32",
-                 "flash_attention_bwd_f32"):  # the ones with wgmma kernels
+                 "winograd", "flash_attention_f32", "flash_attention_bwd_f32",
+                 "conv3x3_f32", "winograd_f32"):  # the ones with wgmma kernels
         hgmma.update(print_hgmma(os.path.join(os.path.dirname(
             cuda_build.BUILD_INFO[name]["log"]), f"lib{name}.so")))
     check_tf32_build(hgmma)
@@ -166,7 +170,9 @@ def build_kernels():
 
 # The 3xTF32 wgmma kernels: (library, kernel name in the mangled symbol).
 TF32_KERNELS = [("flash_attention_f32", "flash_fwd_d512_f32_kernel"),
-                ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel")]
+                ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel"),
+                ("conv3x3_f32", "conv3x3_f32_kernel"),
+                ("winograd_f32", "winograd_f32_gemm_kernel")]
 
 
 def check_tf32_build(hgmma: dict) -> None:
@@ -646,11 +652,8 @@ def check_f32_kernels() -> dict:
     the kernel, the plain version and the library call (SDPA in fp32;
     F.conv2d, cuDNN without TF32), and bounds against the fp32 peak."""
     import torch
-    import torch.nn.functional as F
 
-    from marigold_tpu_torch.ops import conv as conv_ops
     from marigold_tpu_torch.ops import flash_attention as fa
-    from marigold_tpu_torch.ops import winograd as wino_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -701,33 +704,64 @@ def check_f32_kernels() -> dict:
     torch.cuda.empty_cache()
     check_split(results, gen)
     check_f32_train_kernels(results, gen)
-
-    name, b, c, k, hw = next(cs for cs in CONV_CASES if cs[0] == CONV_ROW_CASE)
-    x = torch.randn((b, c, hw, hw), generator=gen, device="cuda")
-    w = torch.randn((k, c, 3, 3), generator=gen, device="cuda") / (3.0 * c ** 0.5)
-    bias = torch.randn((k,), generator=gen, device="cuda")
-    lib_ms = _time_ms(lambda: F.conv2d(x, w, bias, padding=1), 10)
-    nbytes = 4 * (x.numel() + w.numel() + k + b * k * hw * hw)
-    for kname, fn, plain, prepare, flops_per in (
-            ("conv3x3", conv_ops.conv3x3, conv_ops.conv3x3_plain,
-             conv_ops.taps, 18),
-            ("winograd", wino_ops.winograd3x3, wino_ops.winograd3x3_plain,
-             wino_ops.filter_transform, 8)):
-        prepared = prepare(w)
-        out = fn(x, w, bias, prepared=prepared)
-        ref = plain(x, w, bias)
-        torch.cuda.synchronize()
-        ms = _time_ms(lambda: fn(x, w, bias, prepared=prepared), 5)
-        _f32_record(results, (kname, name),
-                    f"{kname:8s} {name} [{b},{c},{hw},{hw}]->{k}", out, ref,
-                    ms, _time_ms(lambda: plain(x, w, bias), 2), lib_ms,
-                    bound_f32(flops_per * b * hw * hw * c * k, nbytes),
-                    f"; {18.0 * b * hw * hw * c * k / ms / 1e9:.1f} "
-                    "direct-conv TFLOP/s")
-        del out, ref, prepared
-    del x, w
-    torch.cuda.empty_cache()
+    check_f32_convs(results, gen)
     return results
+
+
+def check_f32_convs(results: dict, gen) -> None:
+    """The fp32 nine-tap and Winograd kernels against their plain versions
+    at all nine CONV_CASES, TF32 off: CUDA-event times of the kernel on
+    its prepared weight ("ms", what a cached Conv2d runs; the nine-tap's
+    includes its split of x), of the whole call with the weight's
+    preparation ("call_ms", what the autograd path runs), of the plain
+    version and of cuDNN's fp32 F.conv2d; the bound, the blocks launched
+    (against 132 SMs) and the device ms of each launch inside "ms". The
+    nine-tap's split of x is held to its plain version bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    for name, b, c, k, hw in CONV_CASES:
+        x = torch.randn((b, c, hw, hw), generator=gen, device="cuda")
+        w = (torch.randn((k, c, 3, 3), generator=gen, device="cuda")
+             / (3.0 * c ** 0.5))
+        bias = torch.randn((k,), generator=gen, device="cuda")
+        lib_ms = _time_ms(lambda: F.conv2d(x, w, bias, padding=1), 10)
+        nbytes = 4 * (x.numel() + w.numel() + k + b * k * hw * hw)
+        same = torch.equal(conv_ops.split_x_tf32(x),
+                           conv_ops.split_x_tf32_plain(x))
+        print(f"fp32 conv3x3 split of x {name}: bit-identical to plain: "
+              f"{same}", flush=True)
+        if not same:
+            _fail(f"fp32 conv3x3 split of x {name} differs from plain")
+        for kname, mod, fn, plain, flops_per in (
+                ("conv3x3", conv_ops, conv_ops.conv3x3, conv_ops.conv3x3_plain,
+                 18),
+                ("winograd", wino_ops, wino_ops.winograd3x3,
+                 wino_ops.winograd3x3_plain, 8)):
+            prepared = mod.prepare_weight(w)
+            out = fn(x, w, bias, prepared=prepared)
+            ref = plain(x, w, bias)
+            torch.cuda.synchronize()
+            ms = _time_ms(lambda: fn(x, w, bias, prepared=prepared), 10)
+            call_ms = _time_ms(lambda: fn(x, w, bias), 5)
+            split = launch_split(lambda: fn(x, w, bias, prepared=prepared))
+            n_blocks = mod.blocks_f32(b, c, hw, hw, k)
+            _f32_record(results, (kname, name),
+                        f"{kname:8s} {name:15s} [{b},{c},{hw},{hw}]->{k}", out,
+                        ref, ms, _time_ms(lambda: plain(x, w, bias), 2),
+                        lib_ms, bound_f32(flops_per * b * hw * hw * c * k,
+                                          nbytes),
+                        f"; {18.0 * b * hw * hw * c * k / ms / 1e9:.1f} "
+                        f"direct-conv TFLOP/s; call with the weight's "
+                        f"preparation {call_ms:.3f} ms; blocks {n_blocks} (132 "
+                        f"SMs); device ms per launch: {split}")
+            results[(kname, name)].update(call_ms=call_ms, blocks=n_blocks)
+            del out, ref, prepared
+        del x, w
+        torch.cuda.empty_cache()
 
 
 # The operand split's shapes: the d=512 forward's (q, k, v^T) at the VAE
@@ -858,7 +892,8 @@ def check_f32_train_kernels(results: dict, gen) -> None:
 def f32_kernel_rows(results: dict, counts: dict) -> list:
     """The fp32 rows of the JSON line; `counts` are the fp32 counters'
     launches on the paths driven ("shifted_d64", ..., "lse_d64",
-    "bwd_dq_d64", "bwd_dkv_d64", "conv3x3", "winograd"). A backward row's
+    "bwd_dq_d64", "bwd_dkv_d64", "conv3x3", "conv3x3_split", "winograd").
+    A backward row's
     plain and library times are those of the whole backward."""
     rows = []
     for name, replaces, (mode, d), case, source in F32_ROWS:
@@ -894,13 +929,20 @@ def f32_kernel_rows(results: dict, counts: dict) -> list:
                  "max_abs_err": max(r["max_abs_err"] for k, r in results.items()
                                     if k[0] == "tf32_split"),
                  **{k: split[k] for k in F32_ROW_TIMES}})
-    for kname, replaces in (("conv3x3", "marigold_tpu/ops/conv.py:176"),
-                            ("winograd", "marigold_tpu/ops/winograd.py:251")):
+    for kname, replaces, source in (
+            ("conv3x3", "marigold_tpu/ops/conv.py:176",
+             "marigold_tpu_torch/csrc/conv3x3_f32_sm90.cu"),
+            ("winograd", "marigold_tpu/ops/winograd.py:251",
+             "marigold_tpu_torch/csrc/winograd_f32_sm90.cu")):
+        mine = [r for key, r in results.items() if key[0] == kname]
         r = results[(kname, CONV_ROW_CASE)]
         rows.append({"name": f"{kname}_f32", "route": "cuda",
-                     "source": "marigold_tpu_torch/csrc/conv_f32.cu",
-                     "replaces": replaces, "launches": counts.get(kname, 0),
-                     **{k: r[k] for k in ("max_abs_err",) + F32_ROW_TIMES}})
+                     "source": source, "replaces": replaces,
+                     "launches": counts.get(kname, 0),
+                     "max_abs_err": max(m["max_abs_err"] for m in mine),
+                     **{k: r[k] for k in F32_ROW_TIMES + ("call_ms",)}})
+        if kname == "conv3x3":  # its split of x, timed inside its ms
+            rows[-1]["split_launches"] = counts.get("conv3x3_split", 0)
     return rows
 
 
@@ -2800,24 +2842,39 @@ def full_precision_phase(root: str, depth_dir: str) -> dict:
         _fail(f"fp32 depth with kernels differs from plain by more than "
               f"{F32_DEPTH_TOL}")
 
+    profile_request(request, what="one fp32 768x768 E=1 request on cuDNN's "
+                    "convs")
     for mode, key in (("pallas", "conv3x3"), ("winograd", "winograd")):
         gated = gated_convs(pipe, F32_HW, mode)
-        conv_want = {key: gated["unet"] * F32_STEPS + gated["encode"]
-                     + gated["decode"], **_f32_flash_want(depth_dir)}
+        n_convs = gated["unet"] * F32_STEPS + gated["encode"] + gated["decode"]
+        conv_want = {key: n_convs, **_f32_flash_want(depth_dir)}
+        if key == "conv3x3":  # the nine-tap's split of x, a launch of its own
+            conv_want["conv3x3_split"] = n_convs
         saved_impl, layers._CONV_IMPL = layers._CONV_IMPL, mode
+        runs = []
         try:
-            before = f32_launches()
-            depth, ms = _timed(request)
-            _f32_gate(f"fp32 request, conv mode {mode}", before, conv_want)
+            for _ in range(2):  # the first prepares the weights, then warm
+                before = f32_launches()
+                runs.append(_timed(request))
+                _f32_gate(f"fp32 request, conv mode {mode}", before, conv_want)
+            profile_request(request, what="one fp32 768x768 E=1 request "
+                            f"under MARIGOLD_TPU_CONV={mode}")
         finally:
             layers._CONV_IMPL = saved_impl
+        (depth, first_ms), (again, warm_ms) = runs
         check_map(depth, F32_HW, f"fp32 request, conv mode {mode}")
+        if not np.array_equal(depth, again):
+            _fail(f"fp32 request, conv mode {mode}: same seed gave different "
+                  "maps")
         d = np.abs(depth - maps["shifted"])
         print(f"fp32 768 px depth E=1 under MARIGOLD_TPU_CONV={mode}: "
-              f"{ms:.1f} ms (first call: the weights rearranged), fp32 "
-              f"{key} launches {conv_want[key]} as expected; against "
-              f"cuDNN's convs max {d.max():.3e} mean {d.mean():.3e}",
-              flush=True)
+              f"first {first_ms:.1f} ms (the weights prepared), warm "
+              f"{warm_ms:.1f} ms against the default (cuDNN's convs) warm "
+              f"{times['shifted'][1]:.1f} ms; fp32 launches per request "
+              f"{key} {n_convs}"
+              + (f", conv3x3_split {n_convs}" if key == "conv3x3" else "")
+              + f" as expected; against cuDNN's convs max {d.max():.3e} mean "
+              f"{d.mean():.3e}", flush=True)
         if d.max() > F32_DEPTH_TOL:
             _fail(f"fp32 conv mode {mode} differs from cuDNN's by {d.max()}")
     del pipe
@@ -4247,7 +4304,7 @@ def train_cli_phase(base_ckpt: str) -> dict:
 SERVE_CLASSES = [("flash", r"flash_fwd"),
                  ("tf32 operand split", r"tf32_split"),
                  ("cudnn NCHW<->NHWC copies", r"nchwToNhwc|nhwcToNchw"),
-                 ("conv", r"fprop|dgrad|conv|winograd|nchw_to_nhwc"),
+                 ("conv", r"fprop|dgrad|conv|winograd|nchw_to_nhwc|nchw_split"),
                  ("gemm", r"gemm|cutlass|cublas|matmul"),
                  ("norm/elementwise/other", r".")]
 

@@ -1,8 +1,9 @@
 // 3xTF32 building blocks for the fp32 wgmma kernels
-// (flash_fwd_d512_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu) and the operand
-// split they read (tf32_split.cu): the split of an fp32 value into two
-// TF32 parts, the tf32 wgmma wrappers, the accumulator-to-A-fragment
-// packing and the fp32 tensor-map encode.
+// (flash_fwd_d512_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu,
+// conv3x3_f32_sm90.cu, winograd_f32_sm90.cu) and the operand split the
+// first two read (tf32_split.cu): the split of an fp32 value into two TF32
+// parts, the tf32 wgmma wrappers, the accumulator-to-A-fragment packing and
+// the fp32 tensor-map encode.
 //
 // 3xTF32. wgmma takes fp32 storage only as tf32 (the top 19 bits of each
 // 32-bit word: 10 mantissa bits). One tf32 product keeps ~2^-11 of each
@@ -20,9 +21,10 @@
 // accumulator (the attention's P V over all keys, dK and dV over all
 // queries) lost ~7e-5 of the output's scale that way at 9216 keys
 // (measured on an H100 80GB HBM3 and reproduced by emulating the
-// truncation on the CPU); so each 64-key or 64-query tile sums into a
-// fresh accumulator that is then added into the running one with fp32
-// adds, rounded to nearest (~7e-6 in the emulation).
+// truncation on the CPU); so each 64-key or 64-query tile (in the convs,
+// each chunk of a few hundred wgmmas) sums into a fresh accumulator that
+// is then added into the running one with fp32 adds, rounded to nearest
+// (~7e-6 in the emulation).
 //
 // Hardware facts these kernels keep to: for .tf32 both wgmma operands are
 // K-major (no transpose bit, unlike bf16), so an operand whose reduction
@@ -125,6 +127,43 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(da), "r"(db), "r"(accumulate), "r"(KDESC_HI));
+}
+
+// d[64 x 128] (+)= A[64 x 8] B[128 x 8]^T in tf32, both K-major in shared
+// memory (descriptors' low words `da`, `db`: kdesc); accumulate = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64],
+                                                       uint32_t da, uint32_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 da, db;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "mov.b64 da, {%64, %67};\n"
+      "mov.b64 db, {%65, %67};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(da), "r"(db), "r"(accumulate), "r"(KDESC_HI));
 }
 

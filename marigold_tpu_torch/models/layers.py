@@ -77,12 +77,13 @@ class Conv2d(nn.Conv2d):
         return super().__getattr__(name)
 
     def prepared_weight(self, impl: str) -> torch.Tensor:
-        """The weight as kernel `impl` reads it (`ops.conv.taps` for
-        "pallas", `ops.winograd.filter_transform` for "winograd"), computed
-        once and reused until the weight changes: the cache is keyed on the
-        weight's `data_ptr()` and `_version`, which an in-place update, an
-        optimizer step and a load change, and is dropped when `conv.weight`
-        is fetched from outside (see `__getattr__`)."""
+        """The weight as kernel `impl` reads it (`ops.conv.prepare_weight`
+        for "pallas", `ops.winograd.prepare_weight` for "winograd": the taps
+        or the filter transform, split into tf32 parts for an fp32 weight),
+        computed once and reused until the weight changes: the cache is
+        keyed on the weight's `data_ptr()` and `_version`, which an in-place
+        update, an optimizer step and a load change, and is dropped when
+        `conv.weight` is fetched from outside (see `__getattr__`)."""
         w = self._parameters["weight"]
         key = (impl, w.data_ptr(), w._version, w.dtype, w.device)
         cached = self.__dict__.get("_prepared")
@@ -94,8 +95,8 @@ class Conv2d(nn.Conv2d):
                 cached = self.__dict__.get("_prepared")
                 if cached is None or cached[0] != key:
                     with torch.no_grad():
-                        prep = (conv_ops.taps(w) if impl == "pallas"
-                                else winograd_ops.filter_transform(w))
+                        prep = (conv_ops.prepare_weight(w) if impl == "pallas"
+                                else winograd_ops.prepare_weight(w))
                     if prep.is_cuda:
                         torch.cuda.current_stream(prep.device).synchronize()
                     cached = self.__dict__["_prepared"] = (key, prep)

@@ -1,6 +1,6 @@
 """SAME-padded stride-1 3x3 convolution as nine shifted products: the
-hand-written Hopper kernels (`csrc/conv3x3.cu` for bf16, `csrc/conv_f32.cu`
-for fp32) and their plain PyTorch version.
+hand-written Hopper kernels (`csrc/conv3x3.cu` for bf16,
+`csrc/conv3x3_f32_sm90.cu` for fp32) and their plain PyTorch version.
 
 Replaces the TPU package's `marigold_tpu/ops/conv.py:_conv3x3_pallas` (the
 nine-tap kernel, opt-in under MARIGOLD_TPU_CONV=pallas):
@@ -12,27 +12,32 @@ with fp32 accumulation and the result in the input's dtype. The port takes
 NCHW activations and OIHW weights as the models hold them. The wrapper
 rearranges the weight tap-major into `[9, K, C]` (C innermost: the K-major
 B operand the kernel's TMA reads), unless the caller passes it already
-rearranged (`prepared=`, what `models/layers.py:Conv2d` caches), and
-allocates the NHWC scratch that the library's first launch fills with a
-copy of x, so that each (tap, 64-channel block) of the A operand is one TMA
-box of 64 pixels x 128 bytes, as the TPU wrapper pads and flattens x
-outside its kernel. The TPU wrapper's H padding and column-wrap masks have
-no counterpart: TMA reads the SAME padding as zeros.
+prepared (`prepared=`, what `models/layers.py:Conv2d` caches;
+`prepare_weight`), and allocates the NHWC scratch that the library's first
+launch fills with a copy of x, so that each (tap, 64-channel block) of the
+A operand is one TMA box of 64 pixels x 128 bytes, as the TPU wrapper pads
+and flattens x outside its kernel. The TPU wrapper's H padding and
+column-wrap masks have no counterpart: TMA reads the SAME padding as zeros.
 
 `supports` is the TPU package's gate (3x3, stride 1, padding 1, C and K at
 least 128 and multiples of 128, bf16 or fp32) without the TPU VMEM plan
 (`_plan`), which has no counterpart here: the kernel tiles any such shape.
 
-fp32 storage (`--full_precision`) takes the FFMA implicit GEMM of
-`csrc/conv_f32.cu`, which reads x straight from NCHW (the tap's shift and
-the zero padding per element) and the same `[9, K, C]` weight, with fp32
-sums; it needs no NHWC scratch.
+fp32 storage (`--full_precision`) takes the 3xTF32 implicit GEMM of
+`csrc/conv3x3_f32_sm90.cu` on the tensor cores: each operand x = hi + lo in
+tf32 parts, lo.hi + hi.lo + hi.hi summed in fp32 (the arithmetic of
+`csrc/tf32x3.cuh`). Its weight is the split taps, `[2, 9, K, C]`
+(`taps_tf32`); x is split into NHWC hi and lo parts by a launch of its own
+(`split_x_tf32`, counted as "conv3x3_split"). `conv3x3_tf32x3_plain`
+emulates the kernel's arithmetic for the CPU tests.
 
 On a CUDA tensor `conv3x3` launches the kernel (bf16 or fp32, no autograd)
 or raises; on a CPU tensor it runs `conv3x3_plain`. `KernelConvFunction`
 carries a kernel conv under autograd with the plain conv gradients, as the
-TPU package's custom VJP takes XLA's. `launches["conv3x3"]` counts bf16
-kernel launches, `launches_f32["conv3x3"]` fp32 ones.
+TPU package's custom VJP takes XLA's; it passes no prepared weight, so the
+wrapper prepares it on every call. `launches["conv3x3"]` counts bf16
+kernel launches, `launches_f32["conv3x3"]` fp32 ones and
+`launches_f32["conv3x3_split"]` the fp32 split of x.
 """
 
 from __future__ import annotations
@@ -42,9 +47,13 @@ import ctypes
 import torch
 
 from marigold_tpu_torch.ops import cuda_build
+from marigold_tpu_torch.ops.flash_attention import split_tf32_plain
 
 SOURCES = ("conv3x3.cu",)
-F32_SOURCES = ("conv_f32.cu",)  # the fp32 nine-tap and Winograd kernels
+F32_SOURCES = ("conv3x3_f32_sm90.cu",)
+# input channels per fresh accumulator of the fp32 kernel (CHUNK_CB 32-wide
+# channel blocks x 9 taps of wgmma adds)
+F32_CHUNK = 128
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 launches = cuda_build.LaunchCounter()
@@ -93,6 +102,47 @@ def taps(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 0, 1).reshape(9, k, c).contiguous()
 
 
+def taps_tf32(weight: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's weight: `taps` of an fp32 OIHW weight split into
+    tf32 parts, [2, 9, K, C] (hi, lo)."""
+    return torch.stack(split_tf32_plain(taps(weight)))
+
+
+def prepare_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The weight as the kernel of its dtype reads it: `taps_tf32` for
+    fp32, `taps` otherwise."""
+    return taps_tf32(weight) if weight.dtype == torch.float32 else taps(weight)
+
+
+def split_x_tf32_plain(x: torch.Tensor) -> torch.Tensor:
+    """x [B, C, H, W] fp32 -> [2, B, H, W, C]: the NHWC hi and lo parts that
+    the fp32 kernel's A boxes read (`split_tf32_plain` of the NHWC copy)."""
+    return torch.stack(split_tf32_plain(x.permute(0, 2, 3, 1).contiguous()))
+
+
+def conv3x3_tf32x3_plain(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's arithmetic in plain PyTorch, for the CPU tests: x
+    and the taps split into tf32 parts, lo.hi + hi.lo + hi.hi of each tap
+    summed in fp32 into a fresh accumulator per F32_CHUNK input channels
+    (all nine taps), each added into the running sum, then the bias."""
+    b, c, h, w = x.shape
+    xh, xl = split_tf32_plain(torch.nn.functional.pad(x, (1, 1, 1, 1)))
+    wh, wl = split_tf32_plain(taps(weight))
+    run = x.new_zeros((b, weight.shape[0], h, w))
+    for c0 in range(0, c, F32_CHUNK):
+        ch = slice(c0, c0 + F32_CHUNK)
+        fresh = torch.zeros_like(run)
+        for t in range(9):
+            dy, dx = divmod(t, 3)
+            for xp, wp in ((xl, wh), (xh, wl), (xh, wh)):
+                fresh += torch.einsum("bchw,kc->bkhw",
+                                      xp[:, ch, dy:dy + h, dx:dx + w],
+                                      wp[t, :, ch])
+        run += fresh
+    return run + bias.reshape(1, -1, 1, 1)
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library("conv3x3", SOURCES)
     fn = lib.mt_conv3x3_fwd
@@ -108,15 +158,16 @@ def _library() -> ctypes.CDLL:
 
 
 def f32_library() -> ctypes.CDLL:
-    """The fp32 library, shared with `ops/winograd.py`."""
-    lib = cuda_build.load_library("conv_f32", F32_SOURCES)
+    lib = cuda_build.load_library("conv3x3_f32", F32_SOURCES)
     fn = lib.mt_conv3x3_f32_fwd
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.mt_winograd_f32_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        lib.mt_winograd_f32_fwd.restype = ctypes.c_int
+        lib.mt_conv3x3_f32_split.argtypes = [p, p, i, i, i, i, p]
+        lib.mt_conv3x3_f32_split.restype = ctypes.c_int
+        lib.mt_conv3x3_f32_blocks.argtypes = [i] * 5
+        lib.mt_conv3x3_f32_blocks.restype = i
         lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -125,6 +176,33 @@ def f32_library() -> ctypes.CDLL:
 def blocks(b: int, c: int, h: int, w: int, k: int) -> int:
     """Blocks the kernel launches for x [b, c, h, w] -> k channels."""
     return _library().mt_conv3x3_blocks(b, c, h, w, k)
+
+
+def blocks_f32(b: int, c: int, h: int, w: int, k: int) -> int:
+    """Blocks the fp32 kernel launches for x [b, c, h, w] -> k channels."""
+    return f32_library().mt_conv3x3_f32_blocks(b, c, h, w, k)
+
+
+def split_x_tf32(x: torch.Tensor) -> torch.Tensor:
+    """`split_x_tf32_plain` of a contiguous fp32 [B, C, H, W] tensor (C a
+    multiple of 32): on a CUDA tensor one launch of
+    `csrc/conv3x3_f32_sm90.cu`'s split, counted as "conv3x3_split" in
+    `launches_f32`; on a CPU tensor the plain version."""
+    if x.device.type == "cpu":
+        return split_x_tf32_plain(x)
+    if x.dtype != torch.float32 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"split_x_tf32 takes a contiguous fp32 [B, C, H, W] "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    b, c, h, w = x.shape
+    xs = torch.empty((2, b, h, w, c), device=x.device, dtype=x.dtype)
+    lib = f32_library()
+    with torch.cuda.device(x.device):
+        err = lib.mt_conv3x3_f32_split(
+            x.data_ptr(), xs.data_ptr(), b, c, h, w,
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(lib, err, "conv3x3 x split (fp32)")
+    launches_f32.add("conv3x3_split")
+    return xs
 
 
 def check_cuda(x, weight, bias, what: str) -> None:
@@ -180,21 +258,23 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     SAME padding, stride 1. On a CUDA tensor this launches the Hopper
     kernel (bf16 or fp32; C, K multiples of 128; no autograd) or raises; on
     a CPU tensor it runs `conv3x3_plain`. `prepared`, if given, is
-    `taps(weight)` computed earlier (the CPU path ignores it)."""
+    `prepare_weight(weight)` computed earlier (the CPU path ignores it)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias)
     check_cuda(x, weight, bias, "conv3x3")
     b, c, h, w = x.shape
     k = weight.shape[0]
     if prepared is None:
-        prepared = taps(weight)
-    check_prepared(prepared, (9, k, c), x, "conv3x3")
-    if x.dtype == torch.float32:
+        prepared = prepare_weight(weight)
+    f32 = x.dtype == torch.float32
+    check_prepared(prepared, (2, 9, k, c) if f32 else (9, k, c), x, "conv3x3")
+    if f32:
+        xs = split_x_tf32(x)
         out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
         lib = f32_library()
         with torch.cuda.device(x.device):
             err = lib.mt_conv3x3_f32_fwd(
-                x.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
+                xs.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), b, c, h, w, k,
                 torch.cuda.current_stream().cuda_stream)
         raise_on(lib, err, "conv3x3 (fp32)")

@@ -1,6 +1,6 @@
 """Winograd F(2x2, 3x3) convolution: the hand-written Hopper kernels
-(`csrc/winograd.cu` for bf16, `csrc/conv_f32.cu` for fp32) and their plain
-PyTorch version.
+(`csrc/winograd.cu` for bf16, `csrc/winograd_f32_sm90.cu` for fp32) and
+their plain PyTorch version.
 
 Replaces the TPU package's `marigold_tpu/ops/winograd.py:_winograd_impl`
 (opt-in under MARIGOLD_TPU_CONV=winograd). For each 2x2 output tile and its
@@ -22,16 +22,21 @@ fp32 and so do the output transform and the bias. The plain version rounds
 at the same places.
 
 The wrapper computes U (unless the caller passes it, `prepared=`, what
-`models/layers.py:Conv2d` caches) and allocates the scratch V
-[16, B * H/2 * W/2, C] that the kernel's first launch writes and its
-second reads. The TPU wrapper's pixel unshuffle into four phases and its
+`models/layers.py:Conv2d` caches; `prepare_weight`) and allocates the
+scratch V [16, B * H/2 * W/2, C] that the kernel's first launch writes and
+its second reads. The TPU wrapper's pixel unshuffle into four phases and its
 8-aligned phase width exist to give Mosaic unit-stride slices; the input
 transform reads x's rows from NCHW instead.
 
-fp32 storage (`--full_precision`) takes `csrc/conv_f32.cu`: an fp32 input
-transform writing V as [16, C, T] (tiles innermost), then FFMA products of
-each M_ij summed over all of C and added into the four output phases, fp32
-throughout; V rounds nowhere, as the plain version's cast to fp32 is exact.
+fp32 storage (`--full_precision`) takes the 3xTF32 kernels of
+`csrc/winograd_f32_sm90.cu` on the tensor cores (the arithmetic of
+`csrc/tf32x3.cuh`): an fp32 input transform that writes V split into tf32
+parts as [2, 16, T, C], then the products lo.hi + hi.lo + hi.hi of each
+M_ij summed in fp32 and added into the four output phases, against U split
+the same way, [2, 16, K, C] (`filter_transform_tf32`). V is rounded by
+nothing but its split (the plain version's round to fp32 is exact).
+`winograd3x3_tf32x3_plain` emulates the kernels' arithmetic for the CPU
+tests.
 
 `supports` is the TPU package's gate (that of `ops/conv.py` plus even H and
 W, and H*W at most MARIGOLD_TPU_WINO_MAX_HW when that is set and non-zero,
@@ -50,8 +55,13 @@ import torch
 
 from marigold_tpu_torch.ops import conv as conv_ops
 from marigold_tpu_torch.ops import cuda_build
+from marigold_tpu_torch.ops.flash_attention import split_tf32_plain
 
 SOURCES = ("winograd.cu",)
+F32_SOURCES = ("winograd_f32_sm90.cu",)
+# input channels per fresh accumulator of the fp32 GEMM (CHUNK_CB 32-wide
+# channel blocks of wgmma adds)
+F32_CHUNK = 640
 
 BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
 G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
@@ -83,6 +93,19 @@ def filter_transform(weight: torch.Tensor) -> torch.Tensor:
     return u.reshape(16, k, c).to(weight.dtype).contiguous()
 
 
+def filter_transform_tf32(weight: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's filter: `filter_transform` of an fp32 OIHW weight
+    split into tf32 parts, [2, 16, K, C] (hi, lo)."""
+    return torch.stack(split_tf32_plain(filter_transform(weight)))
+
+
+def prepare_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The filter as the kernel of its dtype reads it:
+    `filter_transform_tf32` for fp32, `filter_transform` otherwise."""
+    return (filter_transform_tf32(weight) if weight.dtype == torch.float32
+            else filter_transform(weight))
+
+
 def winograd3x3_plain(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch (even H and W): V rounded to
@@ -102,6 +125,27 @@ def winograd3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
+def winograd3x3_tf32x3_plain(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernels' arithmetic in plain PyTorch, for the CPU tests: V
+    in fp32 and U split into tf32 parts, lo.hi + hi.lo + hi.hi of each
+    M_ij summed in fp32 over F32_CHUNK input channels at a time, each chunk
+    taken through A^T M A into the output, then the bias."""
+    b, c, h, w = x.shape
+    bt = torch.tensor(BT, dtype=torch.float32, device=x.device)
+    at = torch.tensor(AT, dtype=torch.float32, device=x.device)
+    uh, ul = split_tf32_plain(filter_transform(weight).reshape(4, 4, -1, c))
+    d = torch.nn.functional.pad(x, (1, 1, 1, 1)).unfold(2, 4, 2).unfold(3, 4, 2)
+    vh, vl = split_tf32_plain(torch.einsum("ir,bcyxrs,js->bcyxij", bt, d, bt))
+    y = 0
+    for c0 in range(0, c, F32_CHUNK):
+        ch = slice(c0, c0 + F32_CHUNK)
+        m = sum(torch.einsum("bcyxij,ijkc->bkyxij", vp[:, ch], up[..., ch])
+                for vp, up in ((vl, uh), (vh, ul), (vh, uh)))
+        y = y + torch.einsum("pi,bkyxij,qj->bkypxq", at, m, at)
+    return y.reshape(b, -1, h, w) + bias.reshape(1, -1, 1, 1)
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library("winograd", SOURCES)
     fn = lib.mt_winograd_fwd
@@ -116,9 +160,28 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def f32_library() -> ctypes.CDLL:
+    lib = cuda_build.load_library("winograd_f32", F32_SOURCES)
+    fn = lib.mt_winograd_f32_fwd
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.mt_winograd_f32_blocks.argtypes = [i] * 5
+        lib.mt_winograd_f32_blocks.restype = i
+        lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def blocks(b: int, c: int, h: int, w: int, k: int) -> int:
     """Blocks of the kernel's GEMM launch for x [b, c, h, w] -> k."""
     return _library().mt_winograd_blocks(b, c, h, w, k)
+
+
+def blocks_f32(b: int, c: int, h: int, w: int, k: int) -> int:
+    """Blocks of the fp32 kernel's GEMM launch for x [b, c, h, w] -> k."""
+    return f32_library().mt_winograd_f32_blocks(b, c, h, w, k)
 
 
 def winograd3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -127,8 +190,8 @@ def winograd3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     F(2x2, 3x3), SAME padding, stride 1, H and W even. On a CUDA tensor
     this launches the Hopper kernels (bf16 or fp32; C, K multiples of 128;
     no autograd) or raises; on a CPU tensor it runs `winograd3x3_plain`.
-    `prepared`, if given, is `filter_transform(weight)` computed earlier
-    (the CPU path ignores it)."""
+    `prepared`, if given, is `prepare_weight(weight)` computed earlier (the
+    CPU path ignores it)."""
     if x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"winograd3x3 takes even H and W, got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -137,13 +200,15 @@ def winograd3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     b, c, h, w = x.shape
     k = weight.shape[0]
     if prepared is None:
-        prepared = filter_transform(weight)
-    conv_ops.check_prepared(prepared, (16, k, c), x, "winograd")
-    if x.dtype == torch.float32:
-        v = torch.empty((16, c, b * (h // 2) * (w // 2)), device=x.device,
+        prepared = prepare_weight(weight)
+    f32 = x.dtype == torch.float32
+    conv_ops.check_prepared(prepared, (2, 16, k, c) if f32 else (16, k, c), x,
+                            "winograd")
+    if f32:
+        v = torch.empty((2, 16, b * (h // 2) * (w // 2), c), device=x.device,
                         dtype=x.dtype)
         out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
-        lib = conv_ops.f32_library()
+        lib = f32_library()
         with torch.cuda.device(x.device):
             err = lib.mt_winograd_f32_fwd(
                 x.data_ptr(), prepared.data_ptr(), bias.data_ptr(),

@@ -253,7 +253,7 @@ def test_cached_kernel_weight_follows_the_weight(monkeypatch, impl):
     update, whether it bumps `_version` or goes through `.data` (which does
     not); the next output follows the new weight."""
     monkeypatch.setattr(TL, "_CONV_IMPL", impl)
-    prepare = tconv.taps if impl == "pallas" else twino.filter_transform
+    prepare = tconv.prepare_weight if impl == "pallas" else twino.prepare_weight
     torch.manual_seed(0)
     conv = TL.Conv2d(128, 128, 3, padding=1).eval().requires_grad_(False)
     x = torch.randn(1, 128, 6, 8)

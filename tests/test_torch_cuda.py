@@ -7,9 +7,10 @@ and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
 with 128-row output blocks and 64-row stages)
 and the 3x3 conv kernels (nine-tap, Winograd), and the fp32 kernels of
 `--full_precision` and fp32 training (csrc/flash_fwd_f32.cu,
-csrc/flash_bwd_f32.cu, csrc/conv_f32.cu; the 3xTF32 ones
-csrc/flash_fwd_d512_f32_sm90.cu and csrc/flash_bwd_dkv_f32_sm90.cu with
-their operand split, csrc/tf32_split.cu), against
+csrc/flash_bwd_f32.cu; the 3xTF32 ones csrc/flash_fwd_d512_f32_sm90.cu and
+csrc/flash_bwd_dkv_f32_sm90.cu with their operand split,
+csrc/tf32_split.cu, and the convs csrc/conv3x3_f32_sm90.cu and
+csrc/winograd_f32_sm90.cu), against
 their plain PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
 and without autograd, and the slices on the card against the CPU: depth at
 E=1 and E=3, normals and IID appearance at E=1, and bf16 normals and IID
@@ -405,7 +406,9 @@ def test_run_cli_on_the_card(cuda, tmp_path):
                         "--full_precision"]) == 0
     delta = {k: n - before.get(k, 0) for k, n in fa.launches_f32.items()
              if n != before.get(k, 0)}
-    assert delta == {"shifted_d64": 2 * 3 * steps, "shifted_d512": 2 * 2}
+    # each fp32 d=512 forward runs after one operand split (tf32_split)
+    assert delta == {"shifted_d64": 2 * 3 * steps, "shifted_d512": 2 * 2,
+                     "tf32_split": 2 * 2}
     assert not torch.backends.cudnn.allow_tf32
     for i in range(2):
         depth = np.load(tmp_path / "fp32" / "depth_npy" / f"img{i}_pred.npy")
@@ -733,24 +736,49 @@ def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
         _f32_close(leaf.grad, ref)
 
 
+def _conv_inputs_f32(gen, b, c, h, w, k):
+    """fp32 draws: their tf32 lo parts are not zero, as bf16 values' are."""
+    return (torch.randn((b, c, h, w), generator=gen, device="cuda"),
+            torch.randn((k, c, 3, 3), generator=gen, device="cuda")
+            / (3 * c ** 0.5),
+            torch.randn((k,), generator=gen, device="cuda"))
+
+
 @pytest.mark.parametrize("kernel", ["conv3x3", "winograd"])
 @pytest.mark.parametrize("b,c,h,w,k", [
     (2, 128, 12, 12, 128),   # narrower than one 64-pixel tile
     (1, 256, 10, 34, 384),   # ragged against the tiles
     (3, 640, 24, 24, 640),   # a UNet level
     (1, 128, 96, 96, 256),   # a VAE level
+    (10, 2560, 12, 12, 1280),  # the longest reduction (unet_2560_1280)
+    (1, 1920, 24, 24, 640),  # a decoder concat level, one image
 ])
 def test_f32_conv_kernels_match_plain(cuda, kernel, b, c, h, w, k):
-    x, wt, bias = (t.float() for t in _conv_inputs(cuda, b, c, h, w, k))
+    x, wt, bias = _conv_inputs_f32(cuda, b, c, h, w, k)
     fn, plain, counter = {
         "conv3x3": (tconv.conv3x3, tconv.conv3x3_plain, tconv.launches_f32),
         "winograd": (twino.winograd3x3, twino.winograd3x3_plain,
                      twino.launches_f32),
     }[kernel]
-    before = counter[kernel]
+    before = dict(counter)
     out = fn(x, wt, bias)
-    assert counter[kernel] == before + 1 and out.shape == (b, k, h, w)
+    want = {kernel: 1, **({"conv3x3_split": 1} if kernel == "conv3x3" else {})}
+    assert {key: n - before.get(key, 0) for key, n in counter.items()
+            if n != before.get(key, 0)} == want
+    assert out.shape == (b, k, h, w)
     _f32_close(out, plain(x, wt, bias))
+
+
+def test_f32_conv_wrappers_raise_on_an_unsplit_prepared_weight(cuda):
+    """The fp32 kernels read the split weight [2, ...]: the bare taps or
+    filter transform of an fp32 weight raise, as does bf16's."""
+    x, wt, bias = _conv_inputs_f32(cuda, 1, 128, 8, 8, 128)
+    for fn, prepare in ((tconv.conv3x3, tconv.taps),
+                        (twino.winograd3x3, twino.filter_transform)):
+        with pytest.raises(ValueError, match="prepared weight"):
+            fn(x, wt, bias, prepared=prepare(wt))
+        with pytest.raises(ValueError, match="prepared weight"):
+            fn(x, wt, bias, prepared=prepare(wt).bfloat16())
 
 
 @pytest.mark.parametrize("b,nq,nk,c,heads", [

@@ -1,9 +1,10 @@
 """The fp32 path of the port (`--full_precision`) against the JAX package on
 the CPU.
 
-The fp32 kernels (`csrc/flash_fwd_f32.cu`, `csrc/conv_f32.cu`) run only on
-the card, where `chip_smoke.py` and `tests/test_torch_cuda.py` hold them to
-their plain versions; here the plain versions, which a CPU tensor runs, are
+The fp32 kernels (`csrc/flash_fwd_f32.cu`, `csrc/conv3x3_f32_sm90.cu`,
+`csrc/winograd_f32_sm90.cu` and the others) run only on the card, where
+`chip_smoke.py` and `tests/test_torch_cuda.py` hold them to their plain
+versions; here the plain versions, which a CPU tensor runs, are
 held to the TPU kernels in Pallas interpret mode with fp32 inputs: the
 flash forward at d=64 (shifted and online) and d=512, the folded entry, the
 nine-tap and Winograd convs. Then a tiny fp32 depth `__call__` with every
