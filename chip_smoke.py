@@ -16,7 +16,8 @@ Phases, none of which catches its own failure:
      both head widths in both softmax modes, the folded entry, the
      training forward with the logsumexp, dQ and dK/dV, the nine-tap and
      Winograd convs at all nine conv shapes, against their plain fp32
-     versions with TF32 off, and the 3xTF32 kernels' operand splits bit
+     versions with TF32 off, the padded statistics the fp32 dQ kernel
+     writes against bwd_stats, and the 3xTF32 kernels' operand splits bit
      for bit), with
      errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
@@ -169,7 +170,9 @@ def build_kernels():
 
 
 # The 3xTF32 wgmma kernels: (library, kernel name in the mangled symbol).
-TF32_KERNELS = [("flash_attention_f32", "flash_fwd_d512_f32_kernel"),
+TF32_KERNELS = [("flash_attention_f32", "flash_fwd_d64_f32_kernel"),
+                ("flash_attention_f32", "flash_fwd_d512_f32_kernel"),
+                ("flash_attention_bwd_f32", "flash_bwd_dq_f32_kernel"),
                 ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel"),
                 ("conv3x3_f32", "conv3x3_f32_kernel"),
                 ("winograd_f32", "winograd_f32_gemm_kernel")]
@@ -552,8 +555,8 @@ def check_train_kernels() -> dict:
 # The fp32 kernels (`--full_precision`): the flash forward of both head
 # widths in both softmax modes, the folded entry, and the two conv kernels,
 # against their plain fp32 versions at the main path's shapes. Both sum fp32
-# products in different orders (the 512-wide forward and dK/dV as 3xTF32,
-# ~2^-21 per product), so they agree to a few fp32 ulps of the largest
+# products in different orders (every fp32 kernel as 3xTF32, ~2^-21 per
+# product), so they agree to a few fp32 ulps of the largest
 # output: max|err| <= F32_TOL_REL * max|ref| + F32_TOL_ABS. TF32 or bf16
 # inputs (~3 decimal digits) would miss this by an order of magnitude.
 F32_TOL_REL = 1e-4
@@ -575,9 +578,9 @@ F32_FOLDED_CASE = ("folded_b10", 50, 9216, 64)
 # PEAK_FP32_FLOPS, kept beside it.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
-F32_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_f32.cu"
+F32_D64_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_d64_f32_sm90.cu"
 F32_D512_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_d512_f32_sm90.cu"
-F32_BWD_SOURCE = "marigold_tpu_torch/csrc/flash_bwd_f32.cu"
+F32_DQ_SOURCE = "marigold_tpu_torch/csrc/flash_bwd_dq_f32_sm90.cu"
 F32_DKV_SOURCE = "marigold_tpu_torch/csrc/flash_bwd_dkv_f32_sm90.cu"
 SPLIT_SOURCE = "marigold_tpu_torch/csrc/tf32_split.cu"
 # The operand split is bit-exact: cvt.rna.tf32.f32 and an fp32 subtraction
@@ -590,20 +593,20 @@ F32_TRAIN_CASES = ("train_l0", "train_l1", "ragged_nq_nk")
 # (row name, TPU site, launch key, what it is checked on, source)
 F32_TRAIN_ROWS = [
     ("flash_lse_d64_f32", "marigold_tpu/ops/flash_attention.py:638",
-     "lse_d64", ("out", "lse"), F32_SOURCE),
+     "lse_d64", ("out", "lse"), F32_D64_SOURCE),
     ("flash_bwd_dq_d64_f32", "marigold_tpu/ops/flash_attention.py:800",
-     "bwd_dq_d64", ("dq",), F32_BWD_SOURCE),
+     "bwd_dq_d64", ("dq",), F32_DQ_SOURCE),
     ("flash_bwd_dkv_d64_f32", "marigold_tpu/ops/flash_attention.py:832",
      "bwd_dkv_d64", ("dk", "dv"), F32_DKV_SOURCE),
 ]
 # (row name, TPU site, (mode, head dim), case whose times stand, source)
 F32_ROWS = [
     ("flash_shifted_d64_f32", "marigold_tpu/ops/flash_attention.py:396",
-     ("shifted", 64), "unet_l0", F32_SOURCE),
+     ("shifted", 64), "unet_l0", F32_D64_SOURCE),
     ("flash_shifted_d512_f32", "marigold_tpu/ops/flash_attention.py:429",
      ("shifted", 512), "vae_mid", F32_D512_SOURCE),
     ("flash_online_f32", "marigold_tpu/ops/flash_attention.py:460",
-     ("online", 64), "unet_l0", F32_SOURCE),
+     ("online", 64), "unet_l0", F32_D64_SOURCE),
     ("flash_online_d512_f32", "marigold_tpu/ops/flash_attention.py:460",
      ("online", 512), "vae_mid", F32_D512_SOURCE),
 ]
@@ -650,7 +653,9 @@ def check_f32_kernels() -> dict:
     """The fp32 kernels against their plain fp32 versions with TF32 off for
     both (the setting `--full_precision` runs with), CUDA-event times of
     the kernel, the plain version and the library call (SDPA in fp32;
-    F.conv2d, cuDNN without TF32), and bounds against the fp32 peak."""
+    F.conv2d, cuDNN without TF32), the device ms of each launch inside a
+    flash call (the split, the kernel, the shifted mode's row shift), and
+    bounds against the fp32 peak."""
     import torch
 
     from marigold_tpu_torch.ops import flash_attention as fa
@@ -678,10 +683,13 @@ def check_f32_kernels() -> dict:
             bb = bound_f32(4.0 * b * heads * n * n * d,
                            4 * 4 * b * n * c + (4 * b * heads * n
                                                 if mode == "shifted" else 0))
+            split = launch_split(lambda: fa.flash_attention(q, k, v, heads,
+                                                            mode))
             _f32_record(results, (name, mode, d),
                         f"{name:9s} {mode:7s} [{b},{n},{c}] h={heads}", out,
                         ref, ms, plain_ms, lib_ms, bb,
-                        f"; {4.0 * b * heads * n * n * d / ms / 1e9:.1f} TFLOP/s")
+                        f"; {4.0 * b * heads * n * n * d / ms / 1e9:.1f} "
+                        f"TFLOP/s; device ms per launch: {split}")
         del q, k, v
     name, bh, n, d = F32_FOLDED_CASE
     q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda")
@@ -699,7 +707,9 @@ def check_f32_kernels() -> dict:
     _f32_record(results, (name, "folded", d), f"{name} [{bh},{n},{d}]", out,
                 ref, _time_ms(lambda: fa.flash_attention_folded(q, k, v), 3),
                 _time_ms(folded_plain, 2), sdpa_ms(q, k, v, 1),
-                bound_f32(4.0 * bh * n * n * d, 4 * 4 * bh * n * d))
+                bound_f32(4.0 * bh * n * n * d, 4 * 4 * bh * n * d),
+                "; device ms per launch: " + launch_split(
+                    lambda: fa.flash_attention_folded(q, k, v), 2))
     del q, k, v, out, ref
     torch.cuda.empty_cache()
     check_split(results, gen)
@@ -765,10 +775,10 @@ def check_f32_convs(results: dict, gen) -> None:
 
 
 # The operand split's shapes: the d=512 forward's (q, k, v^T) at the VAE
-# mid shape, the row of the JSON line, and the dK/dV kernel's (q, dO, k, v,
-# q^T, dO^T) at the first training shape.
+# mid shape, the row of the JSON line, and the fp32 backward's seven jobs
+# (q, dO, k, v, q^T, dO^T, k^T: split_bwd_f32) at the first training shape.
 SPLIT_CASES = [("vae_mid", 1, 9216, 9216, 512, 2, 1),
-               ("train_l0", 2, 4800, 4800, 320, 4, 2)]
+               ("train_l0", 2, 4800, 4800, 320, 4, 3)]
 
 
 def check_split(results: dict, gen) -> None:
@@ -783,7 +793,8 @@ def check_split(results: dict, gen) -> None:
                 for _ in range(2))
         k, v = (torch.randn((b, nk, c), generator=gen, device="cuda")
                 for _ in range(2))
-        rows, cols = ([q, k], [v]) if n_rows == 2 else ([q, g, k, v], [q, g])
+        rows, cols = ([q, k], [v]) if n_rows == 2 else ([q, g, k, v],
+                                                        [q, g, k])
 
         def plain():
             return ([fa.split_tf32_plain(x) for x in rows]
@@ -812,8 +823,10 @@ def check_split(results: dict, gen) -> None:
 def check_f32_train_kernels(results: dict, gen) -> None:
     """The fp32 training kernels (lse forward, dQ, dK/dV) against their
     plain versions, TF32 off, into `results` under (case, "train", what);
-    the times of the kernel, the plain version and SDPA in fp32, forward
-    and whole backward; the bounds against the fp32 peak."""
+    the padded lse and delta rows the dQ kernel writes against bwd_stats;
+    the times of the kernel (the forward's and dQ's with their split, dK/dV
+    on dQ's pairs), the plain version and SDPA in fp32, forward and whole
+    backward; the bounds against the fp32 peak."""
     import torch
 
     from marigold_tpu_torch.ops import flash_attention as fa
@@ -832,7 +845,7 @@ def check_f32_train_kernels(results: dict, gen) -> None:
         got = {key: n - before.get(key, 0) for key, n in fa.launches_f32.items()
                if n != before.get(key, 0)}
         want = {"bwd_dq_d64": 1, "tf32_split": 1, "bwd_dkv_d64": 1}
-        if got != want:  # dK/dV on the 3xTF32 kernel, after its split
+        if got != want:  # one split, read by both 3xTF32 kernels
             _fail(f"fp32 kernel {name} bwd: launches {got} != {want}")
         out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
         refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
@@ -845,14 +858,34 @@ def check_f32_train_kernels(results: dict, gen) -> None:
         if not same:
             _fail(f"fp32 kernel {name}: two backward calls differ")
         del again
-        lse_pad, delta_pad = fa.bwd_stats(out, lse, g, heads)
+        # the padded statistics the dQ kernel writes, against bwd_stats
+        parts = fa.split_bwd_f32(q, k, v, g)
+        _, lse_pad, delta_pad = fa.flash_attention_bwd_dq_f32(
+            q, k, v, out, lse, g, heads, parts)
+        lse_ref, delta_ref = fa.bwd_stats(out, lse, g, heads)
+        torch.cuda.synchronize()
+        d_err = (delta_pad - delta_ref).abs().max().item()
+        d_tol = F32_TOL_REL * delta_ref.abs().max().item() + F32_TOL_ABS
+        print(f"fp32 kernel {name} dQ's padded rows: lse bit-identical to "
+              f"bwd_stats: {torch.equal(lse_pad, lse_ref)}; delta max_abs_err "
+              f"{d_err:.3e} tol {d_tol:.3e}", flush=True)
+        if not torch.equal(lse_pad, lse_ref) or not d_err <= d_tol:
+            _fail(f"fp32 kernel {name}: dQ's padded lse/delta rows differ "
+                  "from bwd_stats")
+        del lse_ref, delta_ref
         fwd = (_time_ms(lambda: fa.flash_attention_lse(q, k, v, heads), 10),
                _time_ms(lambda: fa.flash_attention_lse_plain(q, k, v, heads), 3),
                sdpa_ms(q, k, v, heads))
-        dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, g, lse_pad, delta_pad, heads), 10)
+        dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq_f32(
+            q, k, v, out, lse, g, heads), 10)
+        dq_kernel_ms = _time_ms(lambda: fa.flash_attention_bwd_dq_f32(
+            q, k, v, out, lse, g, heads, parts), 10)
         dkv_ms = _time_ms(lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, g, lse_pad, delta_pad, heads), 10)
+            q, k, v, g, lse_pad, delta_pad, heads, parts), 10)
+        per_launch = {
+            "out": launch_split(lambda: fa.flash_attention_lse(q, k, v, heads)),
+            "dq": launch_split(lambda: fa.flash_attention_bwd_dq_f32(
+                q, k, v, out, lse, g, heads))}
         bwd_ms = _time_ms(
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, heads), 10)
         bwd_plain_ms = _time_ms(
@@ -860,7 +893,8 @@ def check_f32_train_kernels(results: dict, gen) -> None:
         bwd_lib_ms = sdpa_ms(q, k, v, heads, backward=True)
         # as the bf16 rows count them: the forward 4, dQ 6 (S, dP, dQ) and
         # dK/dV 8 (S, dP, dV, dK) N^2 d per head; fp32 [B, N, C] tensors
-        # read or written, and the fp32 row statistics
+        # read or written (dQ reads O for delta), and the fp32 row
+        # statistics (dQ reads lse and writes the padded lse and delta)
         pairs = b * heads * nq * nk * d
         stats = 4 * b * heads * nq
 
@@ -872,20 +906,25 @@ def check_f32_train_kernels(results: dict, gen) -> None:
                 ("out", out, out_p, *fwd, bound_f32(4.0 * pairs, io(2, 2) + stats)),
                 ("lse", lse, lse_p, *fwd, bound_f32(4.0 * pairs, io(2, 2) + stats)),
                 ("dq", grads[0], refs[0], dq_ms, bwd_plain_ms, bwd_lib_ms,
-                 bound_f32(6.0 * pairs, io(3, 2) + 2 * stats)),
+                 bound_f32(6.0 * pairs, io(4, 2) + 3 * stats)),
                 ("dk", grads[1], refs[1], dkv_ms, bwd_plain_ms, bwd_lib_ms,
                  bound_f32(8.0 * pairs, io(2, 4) + 2 * stats)),
                 ("dv", grads[2], refs[2], dkv_ms, bwd_plain_ms, bwd_lib_ms,
                  bound_f32(8.0 * pairs, io(2, 4) + 2 * stats))):
             flops = {"out": 4, "lse": 4, "dq": 6}.get(key, 8) * pairs
+            split = (f"; device ms per launch: {per_launch[key]}"
+                     if key in per_launch else "")
             _f32_record(results, (name, "train", key), f"{what} {key:3s}", got,
                         ref, ms, plain_ms, lib_ms, bb,
-                        f"; {flops / ms / 1e9:.1f} TFLOP/s")
-        print(f"  fp32 {what}: whole backward (delta + dQ + dK/dV) "
-              f"{bwd_ms:.3f} ms ({14.0 * pairs / bwd_ms / 1e9:.1f} TFLOP/s) "
-              f"against plain {bwd_plain_ms:.3f} ms and sdpa {bwd_lib_ms:.3f} "
-              "ms", flush=True)
+                        f"; {flops / ms / 1e9:.1f} TFLOP/s{split}")
+        print(f"  fp32 {what}: whole backward (split + dQ with delta + "
+              f"dK/dV) {bwd_ms:.3f} ms ({14.0 * pairs / bwd_ms / 1e9:.1f} "
+              f"TFLOP/s) against plain {bwd_plain_ms:.3f} ms and sdpa "
+              f"{bwd_lib_ms:.3f} ms; the dQ kernel alone on the split "
+              f"{dq_kernel_ms:.3f} ms (with the split {dq_ms:.3f}), dK/dV "
+              f"{dkv_ms:.3f} ms", flush=True)
         del q, k, v, g, out, lse, grads, out_p, lse_p, refs, lse_pad, delta_pad
+        del parts
         torch.cuda.empty_cache()
 
 
@@ -908,7 +947,7 @@ def f32_kernel_rows(results: dict, counts: dict) -> list:
     name = F32_FOLDED_CASE[0]
     folded = results[(name, "folded", F32_FOLDED_CASE[3])]
     rows.append({"name": "flash_folded_f32", "route": "cuda",
-                 "source": F32_SOURCE,
+                 "source": F32_D64_SOURCE,
                  "replaces": "marigold_tpu/ops/flash_attention.py:522",
                  "launches": sum(n for key, n in counts.items()
                                  if key.startswith("folded")),
@@ -2736,11 +2775,10 @@ def _f32_gate(what: str, before: dict, want: dict) -> dict:
 
 def _f32_flash_want(ckpt: str, mode: str = "shifted") -> dict:
     """fp32 flash launches of one E=1 request at F32_HW, by variant, and
-    the operand split's: one before each 512-wide forward."""
+    the operand split's: one before each forward, of either head width."""
     want = {f"{mode}_d{d}": n for d, n in expected_flash(
         pipe_spec(ckpt, "depth"), F32_HW, F32_STEPS, res=max(F32_HW)).items()}
-    if want.get(f"{mode}_d512"):
-        want["tf32_split"] = want[f"{mode}_d512"]
+    want["tf32_split"] = sum(want.values())
     return want
 
 
@@ -2888,7 +2926,7 @@ def full_precision_phase(root: str, depth_dir: str) -> dict:
     before = f32_launches()
     out = fa.flash_attention_folded(q, k, v)
     torch.cuda.synchronize()
-    _f32_gate("fp32 folded path", before, {f"folded_d{d}": 1})
+    _f32_gate("fp32 folded path", before, {f"folded_d{d}": 1, "tf32_split": 1})
     if not bool(torch.isfinite(out).all()):
         _fail("fp32 folded path: non-finite output")
     del q, k, v, out
@@ -3158,7 +3196,7 @@ def expected_train_launches(core, hw: tuple, micro_steps: int,
     two VAE encodes (rgb, target) under no_grad run the serving kernel of
     the mid attention (one head). The bf16 and the fp32 counters take the
     same keys; with `f32` the fp32 counter's "tf32_split" too, one before
-    each 512-wide forward and each dK/dV launch."""
+    each forward (the VAE's and every lse launch) and one per backward."""
     from marigold_tpu_torch.ops import flash_attention as fa
     from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
 
@@ -3176,9 +3214,9 @@ def expected_train_launches(core, hw: tuple, micro_steps: int,
             want[f"{key}_d{d}"] = (want.get(f"{key}_d{d}", 0)
                                    + runs * n * micro_steps)
     if f32:
-        want["tf32_split"] = (want.get("shifted_d512", 0)
-                              + sum(n for key, n in want.items()
-                                    if key.startswith("bwd_dkv")))
+        want["tf32_split"] = sum(n for key, n in want.items()
+                                 if key.startswith(("shifted", "lse",
+                                                    "bwd_dq")))
     return want
 
 

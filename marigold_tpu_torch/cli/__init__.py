@@ -14,11 +14,12 @@ eval to `get_lpips(device=...)`, train to its trainer:
 "cuda" by default, which raises without a card; the CPU only when asked.
 
 `--full_precision` (`run`, `serve`) runs the pipeline in fp32 through the
-fp32 kernels (`csrc/flash_fwd_f32.cu`, `csrc/conv3x3_f32_sm90.cu`, ...) and, by
-`set_full_precision`, turns TF32 off for every other fp32 product: cuBLAS
-matmuls (`torch.backends.cuda.matmul.allow_tf32`, off by default) and cuDNN
-convolutions (`torch.backends.cudnn.allow_tf32`, on by default), so that no
-fp32 product on the card keeps only TF32's ~10 mantissa bits.
+fp32 kernels (`csrc/flash_fwd_d64_f32_sm90.cu`, `csrc/conv3x3_f32_sm90.cu`,
+...) and, by `set_full_precision`, turns TF32 off for every other fp32
+product: cuBLAS matmuls (`torch.backends.cuda.matmul.allow_tf32`, off by
+default) and cuDNN convolutions (`torch.backends.cudnn.allow_tf32`, on by
+default), so that no fp32 product on the card keeps only TF32's ~10
+mantissa bits.
 """
 
 from __future__ import annotations

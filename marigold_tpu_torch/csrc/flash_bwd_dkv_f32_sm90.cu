@@ -5,25 +5,26 @@
 //
 // Replaces the fp32 instantiation of the TPU package's
 // marigold_tpu/ops/flash_attention.py:_flash_bwd_dkv_kernel (pallas_call at
-// :832, in _flash_dt_bwd_pallas). It took the place of flash_bwd_f32.cu's
-// CUDA-core FFMA dK/dV kernel (one 64 x 64 tile in flight, 102.5 KB of
-// shared memory, 3.698 ms at [2, 4800, 320] h = 5, PERF.md); the fp32 dQ
-// kernel stays there.
+// :832, in _flash_dt_bwd_pallas). It took the place of a CUDA-core FFMA
+// dK/dV kernel (one 64 x 64 tile in flight, 102.5 KB of shared memory,
+// 3.698 ms at [2, 4800, 320] h = 5, PERF.md); its partner, the fp32 dQ, is
+// flash_bwd_dq_f32_sm90.cu, which also writes the padded lse and delta rows
+// read here.
 //
-// Math per (batch, head), as the FFMA kernel and the TPU kernel compute it:
+// Math per (batch, head), as the TPU kernel computes it:
 //   S = Q K^T * scale;  P = exp(S - lse_row);  dP = dO V^T;
 //   dS = P o (dP - delta_row),  delta = rowsum(dO o O) (from the caller);
 //   dK = dS^T Q * scale;  dV = P^T dO,
 // P and dS fp32, every product 3xTF32 (lo.hi + hi.lo + hi.hi in the fp32
 // accumulator, ~2^-21 per product). lse and delta are the caller's
-// [B*H, ld_stat] rows padded to a multiple of 64
-// (ops/flash_attention.py:bwd_stats): lse = 1e30 in a padded row makes
-// P = 0 there, so padded query rows add nothing. Key rows past nk are
-// computed on TMA's zero fill and not stored.
+// [B*H, ld_stat] rows padded to a multiple of 64 (written by the dQ
+// kernel, as ops/flash_attention.py:bwd_stats pads them): lse = 1e30 in a
+// padded row makes P = 0 there, so padded query rows add nothing. Key
+// rows past nk are computed on TMA's zero fill and not stored.
 //
-// Operands (ops/flash_attention.py:flash_attention_bwd_dkv, one
-// tf32_split.cu launch before this one), each product's B operand K-major
-// as tf32 requires:
+// Operands (ops/flash_attention.py:flash_attention_bwd_dkv: pairs of the
+// backward's one tf32_split.cu launch, which the dQ kernel reads too), each
+// product's B operand K-major as tf32 requires:
 //   S^T  = K Q^T:   A = K (resident),  B = Q    [B, nq, ld] hi/lo
 //   dP^T = V dO^T:  A = V (resident),  B = dO   [B, nq, ld] hi/lo
 //   dV  += P^T dO:  A = P^T (registers), B = dO^T [B, ld, NQP] hi/lo
@@ -79,9 +80,9 @@ constexpr int THREADS = 128 * (1 + CONSUMERS);
 constexpr int SUBS = 4;           // substages per 64 query rows
 constexpr int STAGES = 3;         // ring slots
 constexpr int STAT_PAD = 64;      // ld_stat's multiple
-constexpr int RES_BOX = BM * 128;          // {32 fp32, 128 rows}: 16 KB
+constexpr int RES_BOX = ATT_RES_BOX;       // {32 fp32, 128 rows}: 16 KB
 constexpr int RES_BYTES = 2 * RES_BOX;     // one [128, 64] fp32 tile
-constexpr int BOX_BYTES = BN * 128;        // {32 fp32, 64 rows}: 8 KB
+constexpr int BOX_BYTES = ATT_BOX;         // {32 fp32, 64 rows}: 8 KB
 constexpr int SLOT_BYTES = 4 * BOX_BYTES;  // hi (2 boxes), lo (2 boxes)
 
 // Shared memory: K_hi, K_lo, V_hi, V_lo, the ring, then the barriers
@@ -102,52 +103,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// x (+)= A B^T over the head's 64 columns, 3xTF32: A this consumer's 64
-// rows of a resident tile (hi at `ah`, lo at `al`, each two 16 KB boxes of
-// 32 columns), B a slot's [64, 64] tile (hi boxes, then lo boxes, 8 KB
-// each). One commit group.
-__device__ __forceinline__ void issue_nt(float (&x)[32], uint32_t ah,
-                                         uint32_t al, uint32_t slot) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const uint32_t ra = (kk / 4) * RES_BOX + 32 * (kk % 4);
-    const uint32_t rb = (kk / 4) * BOX_BYTES + 32 * (kk % 4);
-    const uint32_t a_hi = kdesc(ah + ra), a_lo = kdesc(al + ra);
-    const uint32_t b_hi = kdesc(slot + rb);
-    const uint32_t b_lo = kdesc(slot + 2 * BOX_BYTES + rb);
-    wgmma_m64n64k8_tf32_ss(x, a_lo, b_hi, kk > 0);
-    wgmma_m64n64k8_tf32_ss(x, a_hi, b_lo, 1);
-    wgmma_m64n64k8_tf32_ss(x, a_hi, b_hi, 1);
-  }
-  wgmma_commit();
-}
-
-// acc = A B over 64 query rows, 3xTF32: A the hi fragments (bit patterns
-// in `hi`) and lo fragments of an accumulator (acc_to_tf32x2), B a slot's
-// transposed [64 d, 64 queries] tile. One commit group. The caller pins
-// acc, hi and lo after its wait (fence_regs); pinning them here as well
-// made ptxas serialise the wgmmas for want of registers (C7511).
-__device__ __forceinline__ void issue_nn(float (&acc)[32], float (&hi)[32],
-                                         uint32_t (&lo)[32], uint32_t slot) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BN / 8; ++kk) {
-    const uint32_t rb = (kk / 4) * BOX_BYTES + 32 * (kk % 4);
-    const uint32_t b_hi = kdesc(slot + rb);
-    const uint32_t b_lo = kdesc(slot + 2 * BOX_BYTES + rb);
-    const uint32_t h0 = __float_as_uint(hi[4 * kk]);
-    const uint32_t h1 = __float_as_uint(hi[4 * kk + 1]);
-    const uint32_t h2 = __float_as_uint(hi[4 * kk + 2]);
-    const uint32_t h3 = __float_as_uint(hi[4 * kk + 3]);
-    wgmma_m64n64k8_tf32_rs(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
-                           lo[4 * kk + 3], b_hi, kk > 0);
-    wgmma_m64n64k8_tf32_rs(acc, h0, h1, h2, h3, b_lo, 1);
-    wgmma_m64n64k8_tf32_rs(acc, h0, h1, h2, h3, b_hi, 1);
-  }
-  wgmma_commit();
 }
 
 // rows r0 and r0 + 8 (those < nk) of acc * mul into one head of a
@@ -287,9 +242,9 @@ flash_bwd_dkv_f32_kernel(
   for (int it = 0; it < n_tiles; ++it) {
     const int n = it * SUBS;
     wait_full(n);
-    issue_nt(s, kh, kl, slot_of(n));        // S^T = K Q^T
+    wgmma_att_nt(s, kh, kl, slot_of(n));        // S^T = K Q^T
     wait_full(n + 1);
-    issue_nt(dp, vh, vl, slot_of(n + 1));   // dP^T = V dO^T
+    wgmma_att_nt(dp, vh, vl, slot_of(n + 1));   // dP^T = V dO^T
     // P^T = exp2(s * scale * log2e - lse * log2e), lse per column (query
     // row), padded rows 1e30
     wgmma_wait<1>();
@@ -326,7 +281,7 @@ flash_bwd_dkv_f32_kernel(
     // tensor cores' own accumulation truncates: tf32x3.cuh)
     acc_to_tf32x2<0>(s, lo);
     wait_full(n + 2);
-    issue_nn(part, s, lo, slot_of(n + 2));
+    wgmma_att_nn(part, s, lo, slot_of(n + 2));
     wgmma_wait<0>();
     fence_regs(part);
     fence_regs(s);
@@ -336,7 +291,7 @@ flash_bwd_dkv_f32_kernel(
     for (int i = 0; i < 32; ++i) dvacc[i] += part[i];
     acc_to_tf32x2<0>(dp, lo);
     wait_full(n + 3);
-    issue_nn(part, dp, lo, slot_of(n + 3));
+    wgmma_att_nn(part, dp, lo, slot_of(n + 3));
     wgmma_wait<0>();
     fence_regs(part);
     fence_regs(dp);

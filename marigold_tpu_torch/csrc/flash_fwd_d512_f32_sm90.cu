@@ -10,9 +10,9 @@
 //     :429), the VAE mid attention of every fp32 encode and decode;
 //   * _flash_kernel_dt (exact online softmax; :460) at d = 512, which the
 //     parity pin selects and the folded [BH, N, 512] entry (:522) runs.
-// It took the place of the CUDA-core FFMA D = 512 tile of flash_fwd_f32.cu
-// (32 x 32 tiles, 198 KB of shared memory; 13.8-14.1 ms at [1, 9216, 512],
-// PERF.md), which now serves D = 64 only.
+// It took the place of a CUDA-core FFMA D = 512 tile (32 x 32 tiles, 198
+// KB of shared memory; 13.8-14.1 ms at [1, 9216, 512], PERF.md). The
+// 64-wide fp32 forward is flash_fwd_d64_f32_sm90.cu.
 //
 // Math per (batch, head, query row r), as the plain version
 // (ops/flash_attention.py:_plain_forward) computes it in fp32:

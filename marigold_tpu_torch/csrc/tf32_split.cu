@@ -1,14 +1,15 @@
-// The operand split of the 3xTF32 kernels (tf32x3.cuh): each fp32 input of
-// flash_fwd_d512_f32_sm90.cu and flash_bwd_dkv_f32_sm90.cu becomes two
-// tf32 copies in device memory, hi = cvt.rna.tf32(x) and
+// The operand split of the 3xTF32 attention kernels (tf32x3.cuh): each fp32
+// input of flash_fwd_d64_f32_sm90.cu, flash_fwd_d512_f32_sm90.cu,
+// flash_bwd_dq_f32_sm90.cu and flash_bwd_dkv_f32_sm90.cu becomes two tf32
+// copies in device memory, hi = cvt.rna.tf32(x) and
 // lo = cvt.rna.tf32(x - hi), either in the input's own [B, N, C] layout or
 // transposed to [B, C, NP] for an operand whose reduction index is N (wgmma
 // reads tf32 operands K-major only, and TMA cannot transpose).
 //
 // Replaces no TPU kernel of its own: it is the first launch of the 3xTF32
-// path of marigold_tpu/ops/flash_attention.py's kernels at :429 and :460
-// (the d = 512 forward, and the folded entry at :522 with D = 512) and
-// :832 (dK/dV), whose MXU takes fp32 storage as it is.
+// path of marigold_tpu/ops/flash_attention.py's kernels at :396, :429, :460,
+// :522 and :638 (the forwards) and :800 and :832 (the backward), whose MXU
+// takes fp32 storage as it is.
 //
 // A transposed copy holds NP = N rounded up to 8 columns, input rows past
 // N read as zeros, and permutes each group of 8 columns: stored column
@@ -16,10 +17,10 @@
 // 1, 3, 5, 7, the order in which an accumulator's registers form a tf32 A
 // fragment (tf32x3.cuh).
 //
-// One launch splits up to MAX_JOBS tensors of one [B, *, C] family (the
-// forward's q, k and v^T; the backward's q, dO, k, v, q^T and dO^T), each
-// a job of its own row count: blockIdx.z is the job, blockIdx.y the batch
-// row, blockIdx.x a 32 x 32 tile. A plain job reads and writes each row of
+// One launch splits up to MAX_JOBS tensors of one [B, *, C] family (a
+// forward's q, k and v^T; the backward's q, dO, k, v, q^T, dO^T and k^T),
+// each a job of its own row count: blockIdx.z is the job, blockIdx.y the
+// batch row, blockIdx.x a 32 x 32 tile. A plain job reads and writes each row of
 // the tile as one 128-byte warp access; a transposed job goes through a
 // [32][33] shared tile (conflict-free both ways) and writes rows of the
 // transposed copy.
@@ -33,7 +34,7 @@
 
 namespace {
 
-constexpr int MAX_JOBS = 6;
+constexpr int MAX_JOBS = 8;
 constexpr int TILE = 32;
 constexpr int THREADS = 256;  // 32 x 8: each thread 4 rows of a tile
 
@@ -102,7 +103,7 @@ tf32_split_kernel(const __grid_constant__ Jobs jobs, int C, int tiles_c) {
 
 extern "C" {
 
-// Splits n_jobs (1..6) fp32 tensors src[i], each [B, rows[i], C] and
+// Splits n_jobs (1..MAX_JOBS = 8) fp32 tensors src[i], each [B, rows[i], C] and
 // contiguous, into hi[i] and lo[i]: [B, rows[i], C] if transposed[i] is 0,
 // else [B, C, round_up(rows[i], 8)] in the permuted column order. C is a
 // multiple of 32. Returns cudaSuccess (0), cudaErrorInvalidValue for bad

@@ -1,9 +1,10 @@
 // 3xTF32 building blocks for the fp32 wgmma kernels
-// (flash_fwd_d512_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu,
-// conv3x3_f32_sm90.cu, winograd_f32_sm90.cu) and the operand split the
-// first two read (tf32_split.cu): the split of an fp32 value into two TF32
-// parts, the tf32 wgmma wrappers, the accumulator-to-A-fragment packing and
-// the fp32 tensor-map encode.
+// (flash_fwd_d64_f32_sm90.cu, flash_fwd_d512_f32_sm90.cu,
+// flash_bwd_dq_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu, conv3x3_f32_sm90.cu,
+// winograd_f32_sm90.cu) and the operand split the attention kernels read
+// (tf32_split.cu): the split of an fp32 value into two TF32 parts, the tf32
+// wgmma wrappers, the accumulator-to-A-fragment packing, the 64-wide
+// attention kernels' tile products and the fp32 tensor-map encode.
 //
 // 3xTF32. wgmma takes fp32 storage only as tf32 (the top 19 bits of each
 // 32-bit word: 10 mantissa bits). One tf32 product keeps ~2^-11 of each
@@ -196,6 +197,63 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(db), "r"(accumulate),
         "r"(KDESC_HI));
+}
+
+// The tiles of the 64-wide attention kernels (flash_fwd_d64_f32_sm90.cu,
+// flash_bwd_dq_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu). A resident [128, 64]
+// fp32 tile is two TMA boxes of {32 columns, 128 rows}, ATT_RES_BOX bytes
+// each, a consumer's 64 rows 8 KB into each; a ring slot is four boxes of
+// {32 columns, 64 rows}, ATT_BOX bytes each: hi columns 0-31 and 32-63,
+// then lo columns 0-31 and 32-63.
+constexpr int ATT_RES_BOX = 128 * 128;  // 16 KB
+constexpr int ATT_BOX = 64 * 128;       // 8 KB
+
+// x (+)= A B^T over 64 columns, 3xTF32: A a consumer's 64 rows of a
+// resident tile (hi at `ah`, lo at `al`), B a slot's [64, 64] tile. One
+// commit group; the first k8 step overwrites x.
+__device__ __forceinline__ void wgmma_att_nt(float (&x)[32], uint32_t ah,
+                                             uint32_t al, uint32_t slot) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t ra = (kk / 4) * ATT_RES_BOX + 32 * (kk % 4);
+    const uint32_t rb = (kk / 4) * ATT_BOX + 32 * (kk % 4);
+    const uint32_t a_hi = kdesc(ah + ra), a_lo = kdesc(al + ra);
+    const uint32_t b_hi = kdesc(slot + rb);
+    const uint32_t b_lo = kdesc(slot + 2 * ATT_BOX + rb);
+    wgmma_m64n64k8_tf32_ss(x, a_lo, b_hi, kk > 0);
+    wgmma_m64n64k8_tf32_ss(x, a_hi, b_lo, 1);
+    wgmma_m64n64k8_tf32_ss(x, a_hi, b_hi, 1);
+  }
+  wgmma_commit();
+}
+
+// acc = A B over 64 reduction rows, 3xTF32: A the hi fragments (bit
+// patterns in `hi`) and lo fragments of an accumulator (acc_to_tf32x2), B a
+// slot's transposed [64 columns, 64 reduction rows] tile in the permuted
+// order. One commit group. The caller pins acc, hi and lo after its wait
+// (fence_regs); pinning them here as well made ptxas serialise the wgmmas
+// for want of registers (C7511).
+__device__ __forceinline__ void wgmma_att_nn(float (&acc)[32],
+                                             float (&hi)[32],
+                                             uint32_t (&lo)[32],
+                                             uint32_t slot) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t rb = (kk / 4) * ATT_BOX + 32 * (kk % 4);
+    const uint32_t b_hi = kdesc(slot + rb);
+    const uint32_t b_lo = kdesc(slot + 2 * ATT_BOX + rb);
+    const uint32_t h0 = __float_as_uint(hi[4 * kk]);
+    const uint32_t h1 = __float_as_uint(hi[4 * kk + 1]);
+    const uint32_t h2 = __float_as_uint(hi[4 * kk + 2]);
+    const uint32_t h3 = __float_as_uint(hi[4 * kk + 3]);
+    wgmma_m64n64k8_tf32_rs(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                           lo[4 * kk + 3], b_hi, kk > 0);
+    wgmma_m64n64k8_tf32_rs(acc, h0, h1, h2, h3, b_lo, 1);
+    wgmma_m64n64k8_tf32_rs(acc, h0, h1, h2, h3, b_hi, 1);
+  }
+  wgmma_commit();
 }
 
 // A map of an fp32 tensor of `rank` dimensions (innermost first, the

@@ -2,10 +2,11 @@
 (`csrc/flash_fwd_sm90.cu` for every 64-wide bf16 forward,
 `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one, `csrc/flash_attention.cu`
 for their C entry points, `csrc/flash_bwd_sm90.cu` for the dQ and dK/dV
-backward; in fp32 `csrc/flash_fwd_f32.cu` for the 64-wide forwards,
-`csrc/flash_fwd_d512_f32_sm90.cu` for the 512-wide one, `csrc/flash_bwd_f32.cu`
-for dQ, `csrc/flash_bwd_dkv_f32_sm90.cu` for dK/dV and `csrc/tf32_split.cu`
-for the operand split of the last two) and their plain PyTorch versions.
+backward; in fp32 `csrc/flash_fwd_d64_f32_sm90.cu` for the 64-wide
+forwards, `csrc/flash_fwd_d512_f32_sm90.cu` for the 512-wide one,
+`csrc/flash_bwd_dq_f32_sm90.cu` for dQ, `csrc/flash_bwd_dkv_f32_sm90.cu` for
+dK/dV and `csrc/tf32_split.cu` for the operand split they all read) and
+their plain PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
@@ -40,14 +41,14 @@ fp32 storage takes every kernel to an fp32-accurate design, as the Pallas
 kernels take fp32 storage: the serving forwards in both softmax modes and
 the folded entry (`--full_precision`), the training forward with the
 logsumexp and the dQ and dK/dV backward (fine-tuning on fp32 weights,
-`compute_dtype` fp32), P and dS in fp32. The 64-wide forwards and dQ run
-on the CUDA cores (FFMA, `csrc/flash_fwd_f32.cu`, `csrc/flash_bwd_f32.cu`);
-the 512-wide forward and dK/dV run 3xTF32 products on the tensor cores
-(`csrc/flash_fwd_d512_f32_sm90.cu`, `csrc/flash_bwd_dkv_f32_sm90.cu`): each
-operand x is split into tf32 parts hi + lo by one launch of
-`csrc/tf32_split.cu` before the kernel (`split_tf32`; the plain
+`compute_dtype` fp32), P and dS in fp32. Every fp32 kernel runs 3xTF32
+products on the tensor cores: each operand x is split into tf32 parts
+hi + lo by one launch of `csrc/tf32_split.cu` (`split_tf32`; the plain
 emulation is `split_tf32_plain`, `transpose_tf32_plain`,
-`matmul_tf32x3_plain`). Their launches count in `launches_f32`.
+`matmul_tf32x3_plain`) before each forward, and once per backward for both
+backward kernels (`split_bwd_f32`); the dQ kernel also computes delta and
+writes the padded statistics the dK/dV kernel reads. Their launches count
+in `launches_f32`.
 
 On the H100 the bf16 kernels are bound by tensor-core throughput (about N/2
 FLOP per byte at the UNet shapes); the notes in the .cu files say what each
@@ -93,8 +94,8 @@ LSE_PAD = 1e30
 
 SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_fwd_d512_sm90.cu")
 BWD_SOURCES = ("flash_bwd_sm90.cu",)
-F32_SOURCES = ("flash_fwd_f32.cu", "flash_fwd_d512_f32_sm90.cu")
-F32_BWD_SOURCES = ("flash_bwd_f32.cu", "flash_bwd_dkv_f32_sm90.cu")
+F32_SOURCES = ("flash_fwd_d64_f32_sm90.cu", "flash_fwd_d512_f32_sm90.cu")
+F32_BWD_SOURCES = ("flash_bwd_dq_f32_sm90.cu", "flash_bwd_dkv_f32_sm90.cu")
 SPLIT_SOURCES = ("tf32_split.cu",)
 # The transposed tf32 copies permute each group of 8 columns so that an
 # m64nN accumulator's registers are a tf32 A fragment (csrc/tf32x3.cuh):
@@ -274,7 +275,7 @@ def split_tf32(rows: list, cols: list = ()) -> list:
     """The 3xTF32 kernels' operands: [(hi, lo)] of each fp32 [B, N, C]
     tensor in `rows` (in its own layout), then of each in `cols` transposed
     (`transpose_tf32_plain`'s layout), all with one B and C. On CUDA
-    tensors this is one launch of `csrc/tf32_split.cu` (at most 6 tensors,
+    tensors this is one launch of `csrc/tf32_split.cu` (at most 8 tensors,
     C a multiple of 32), counted as "tf32_split" in `launches_f32`; on CPU
     tensors it runs the plain versions."""
     xs = [*rows, *cols]
@@ -336,60 +337,45 @@ def _library() -> ctypes.CDLL:
 
 def _f32_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_f32", F32_SOURCES)
-    fn = lib.mt_flash_fwd_f32
-    if not fn.argtypes:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mt_cuda_error_string.restype = ctypes.c_char_p
-    _bind(lib, "mt_flash_fwd_lse_f32", 5, 8)
+    _bind(lib, "mt_flash_fwd_d64_f32", 8, 7)
     _bind(lib, "mt_flash_fwd_d512_f32", 8, 7)
+    _bind(lib, "mt_flash_fwd_lse_f32", 8, 6)
     return lib
 
 
 def _f32_bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_bwd_f32", F32_BWD_SOURCES)
-    _bind(lib, "mt_flash_bwd_dq_f32", 7, 8)
+    _bind(lib, "mt_flash_bwd_dq_f32", 16, 7)
     _bind(lib, "mt_flash_bwd_dkv_f32", 16, 7)
     return lib
 
 
-def _entry(dtype: torch.dtype, kernel: str):
-    """(library, C function, counter) of a kernel, "fwd" (the serving
-    forwards), "fwd_lse", "bwd_dq" or "bwd_dkv", for the storage dtype: the
-    bf16 Hopper kernels count in `launches`, the fp32 ones in
-    `launches_f32`. The two C functions of a kernel take the same
-    arguments."""
-    forward = kernel.startswith("fwd")
-    if dtype == torch.bfloat16:
-        lib = _library() if forward else _bwd_library()
-        return lib, getattr(lib, f"mt_flash_attention_{kernel}"), launches
-    lib = _f32_library() if forward else _f32_bwd_library()
-    return lib, getattr(lib, f"mt_flash_{kernel}_f32"), launches_f32
+def _split_fwd_f32(q, k, v) -> list:
+    """An fp32 forward's operands after their split: q and k hi and lo in
+    their layout, then v's transposed hi and lo."""
+    return [t for pair in split_tf32([q, k], [v]) for t in pair]
 
 
 def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
                     ld: int, online: bool, variant: str) -> None:
-    """One serving forward on q's stream: the bf16 Hopper kernels or the
-    fp32 ones, by q's dtype (at d = 512 in fp32 the operand split, then the
-    3xTF32 kernel), counted as `variant` in `launches` or `launches_f32`."""
-    lib, fn, counter = _entry(q.dtype, "fwd")
+    """One serving forward on q's stream: the bf16 Hopper kernels or, in
+    fp32, the operand split and then the 3xTF32 kernel of the head width,
+    counted as `variant` in `launches` or `launches_f32`."""
     nq, nk, scale = q.shape[1], k.shape[1], 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream().cuda_stream
     shift_ptr = shift.data_ptr() if shift is not None else None
-    if q.dtype == torch.float32 and d == 512:
-        (q_hi, q_lo), (k_hi, k_lo), (vt_hi, vt_lo) = split_tf32([q, k], [v])
+    if q.dtype == torch.float32:
+        lib, counter = _f32_library(), launches_f32
+        fn = lib.mt_flash_fwd_d512_f32 if d == 512 else lib.mt_flash_fwd_d64_f32
+        operands = _split_fwd_f32(q, k, v)
         with torch.cuda.device(q.device):
-            err = lib.mt_flash_fwd_d512_f32(
-                q_hi.data_ptr(), q_lo.data_ptr(), k_hi.data_ptr(),
-                k_lo.data_ptr(), vt_hi.data_ptr(), vt_lo.data_ptr(), shift_ptr,
-                out.data_ptr(), b, heads, nq, nk, ld, ld, int(online), scale,
-                stream)
+            err = fn(*(t.data_ptr() for t in operands), shift_ptr,
+                     out.data_ptr(), b, heads, nq, nk, ld, ld, int(online),
+                     scale, stream)
     else:
+        lib, counter = _library(), launches
         with torch.cuda.device(q.device):
-            err = fn(
+            err = lib.mt_flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), shift_ptr,
                 out.data_ptr(), b, heads, nq, nk, d, ld, ld, ld, scale,
                 int(online), stream,
@@ -483,9 +469,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(Q K^T / sqrt(d)) V per head. q: [B, Nq, C], k/v: [B, Nk, C]
     -> [B, Nq, C]. On a CUDA tensor this launches the Hopper kernel (bf16,
-    or fp32: `csrc/flash_fwd_f32.cu` at head dim 64, the split and
-    `csrc/flash_fwd_d512_f32_sm90.cu` at 512; head dim 64 or 512; contiguous
-    inputs; no autograd) or raises; on a CPU tensor it runs
+    or fp32: the split, then `csrc/flash_fwd_d64_f32_sm90.cu` at head dim 64
+    or `csrc/flash_fwd_d512_f32_sm90.cu` at 512; head dim 64 or 512;
+    contiguous inputs; no autograd) or raises; on a CPU tensor it runs
     `flash_attention_plain`."""
     _check_inputs(q, k, v, num_heads, softmax)
     if q.device.type == "cpu":
@@ -531,8 +517,8 @@ def flash_attention_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (out [B, Nq, C], lse [B*H, Nq] fp32), exact
     online softmax. On a CUDA tensor this launches the Hopper kernel (bf16,
-    or fp32 on `csrc/flash_fwd_f32.cu`; head dim 64) or raises; on a CPU
-    tensor it runs `flash_attention_lse_plain`."""
+    or fp32: the split, then `csrc/flash_fwd_d64_f32_sm90.cu`; head dim 64)
+    or raises; on a CPU tensor it runs `flash_attention_lse_plain`."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, num_heads)
@@ -543,13 +529,20 @@ def flash_attention_lse(
     check_tma({"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty((b * num_heads, nq), device=q.device, dtype=torch.float32)
-    lib, fn, counter = _entry(q.dtype, "fwd_lse")
-    with torch.cuda.device(q.device):
-        err = fn(
+    if q.dtype == torch.float32:
+        lib, counter = _f32_library(), launches_f32
+        operands = _split_fwd_f32(q, k, v)
+        fn, args = lib.mt_flash_fwd_lse_f32, (
+            *(t.data_ptr() for t in operands), out.data_ptr(),
+            lse.data_ptr(), b, num_heads, nq, nk, c, c)
+    else:
+        lib, counter = _library(), launches
+        fn, args = lib.mt_flash_attention_fwd_lse, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, num_heads, nq, nk, d, c, c, c,
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
-        )
+            lse.data_ptr(), b, num_heads, nq, nk, d, c, c, c)
+    with torch.cuda.device(q.device):
+        err = fn(*args, 1.0 / math.sqrt(d),
+                 torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, f"flash attention lse ({q.dtype})")
     counter.add(f"lse_d{d}")
     return out, lse
@@ -589,10 +582,12 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients (dq, dk, dv) from the training forward's out and
     lse. On a CUDA tensor this launches the dQ kernel and the dK/dV kernel
-    (bf16, or fp32: dQ on `csrc/flash_bwd_f32.cu`, the split and dK/dV on
-    `csrc/flash_bwd_dkv_f32_sm90.cu`; head dim 64; q, k, v and dout as TMA
-    takes them, `check_tma`) or raises; on a CPU tensor it runs
-    `flash_attention_bwd_plain` (which recomputes the softmax itself)."""
+    (bf16 after `bwd_stats`; fp32 after one split, `split_bwd_f32`: dQ on
+    `csrc/flash_bwd_dq_f32_sm90.cu`, which also writes the padded
+    statistics, dK/dV on `csrc/flash_bwd_dkv_f32_sm90.cu`; head dim 64; q,
+    k, v and dout as TMA takes them, `check_tma`) or raises; on a CPU tensor
+    it runs `flash_attention_bwd_plain` (which recomputes the softmax
+    itself)."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, num_heads)
@@ -605,49 +600,103 @@ def flash_attention_bwd(
             not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 [{b * num_heads}, {nq}]")
     check_tma({"q": q, "k": k, "v": v, "dout": dout})
-    _check_cuda({"q": q, "k": k, "v": v, "dout": dout}, d, TRAIN_HEAD_DIMS,
-                b * num_heads)
-    lse_p, delta_p = bwd_stats(out, lse, dout, num_heads)
-    return (flash_attention_bwd_dq(q, k, v, dout, lse_p, delta_p, num_heads),
-            *flash_attention_bwd_dkv(q, k, v, dout, lse_p, delta_p, num_heads))
+    _check_cuda({"q": q, "k": k, "v": v, "dout": dout, "out": out}, d,
+                TRAIN_HEAD_DIMS, b * num_heads)
+    if q.dtype == torch.float32:
+        parts = split_bwd_f32(q, k, v, dout)
+        dq, lse_p, delta_p = flash_attention_bwd_dq_f32(
+            q, k, v, out, lse, dout, num_heads, parts)
+    else:
+        parts = None
+        lse_p, delta_p = bwd_stats(out, lse, dout, num_heads)
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse_p, delta_p, num_heads)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, dout, lse_p, delta_p,
+                                         num_heads, parts))
+
+
+def split_bwd_f32(q, k, v, dout) -> list:
+    """The fp32 backward's one operand split, read by both kernels: the
+    (hi, lo) pairs of q, dout, k and v in their layout, then of q, dout and
+    k transposed (`split_tf32`, one launch of seven jobs)."""
+    return split_tf32([q, dout, k, v], [q, dout, k])
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
                            ) -> torch.Tensor:
-    """dQ [B, Nq, C] by the dQ kernel of q's dtype: lse and delta are the
+    """bf16 dQ [B, Nq, C] by `csrc/flash_bwd_sm90.cu`: lse and delta are the
     padded [B*H, round_up(Nq, STAT_PAD)] fp32 rows of `bwd_stats`.
-    Unchecked: `flash_attention_bwd` checks the arguments before it calls
-    this."""
+    Unchecked but for the dtype: `flash_attention_bwd` checks the arguments
+    before it calls this (fp32 takes `flash_attention_bwd_dq_f32`)."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd_dq takes bf16, got {q.dtype}")
     b, nq, c = q.shape
     d = c // num_heads
     dq = torch.empty_like(q)
-    lib, fn, counter = _entry(q.dtype, "bwd_dq")
+    lib = _bwd_library()
     with torch.cuda.device(q.device):
-        err = fn(
+        err = lib.mt_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
             1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
-    counter.add(f"bwd_dq_d{d}")
+    launches.add(f"bwd_dq_d{d}")
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int
+def flash_attention_bwd_dq_f32(q, k, v, out, lse, dout, num_heads: int,
+                               parts: Optional[list] = None
+                               ) -> tuple[torch.Tensor, ...]:
+    """fp32 (dQ [B, Nq, C], lse_p, delta_p) by
+    `csrc/flash_bwd_dq_f32_sm90.cu` on `split_bwd_f32`'s pairs (`parts`, or
+    one split launch here when None): the kernel computes delta =
+    rowsum(dO * O) itself and writes `bwd_stats`' padded lse and delta rows
+    ([B*H, round_up(Nq, STAT_PAD)] fp32), which the dK/dV kernel reads.
+    `lse` is the training forward's [B*H, Nq]. Unchecked:
+    `flash_attention_bwd` checks the arguments before it calls this."""
+    b, nq, c = q.shape
+    d = c // num_heads
+    if parts is None:
+        parts = split_bwd_f32(q, k, v, dout)
+    ld_stat = -(-nq // STAT_PAD) * STAT_PAD
+    dq = torch.empty_like(q)
+    lse_p, delta_p = (lse.new_empty((b * num_heads, ld_stat)) for _ in range(2))
+    lib = _f32_bwd_library()
+    operands = [t for i in (0, 1, 2, 3, 6) for t in parts[i]]  # q dO k v k^T
+    with torch.cuda.device(q.device):
+        err = lib.mt_flash_bwd_dq_f32(
+            *(t.data_ptr() for t in operands), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), lse_p.data_ptr(),
+            delta_p.data_ptr(), b, num_heads, nq, k.shape[1], d, c, ld_stat,
+            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
+    launches_f32.add(f"bwd_dq_d{d}")
+    return dq, lse_p, delta_p
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int,
+                            parts: Optional[list] = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) [B, Nk, C] by the dK/dV kernel of q's dtype, arguments as
-    for `flash_attention_bwd_dq`. In fp32 the operand split runs first (q,
-    dout, k and v; q and dout also transposed), then the 3xTF32 kernel."""
+    """(dK, dV) [B, Nk, C] by the dK/dV kernel of q's dtype: lse and delta
+    the padded rows (`bwd_stats`, or in fp32 the dQ kernel's). In fp32 it
+    reads `split_bwd_f32`'s pairs (`parts`, or one split launch here when
+    None). Unchecked: `flash_attention_bwd` checks the arguments before it
+    calls this."""
     b, nq, c = q.shape
     d = c // num_heads
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, fn, counter = _entry(q.dtype, "bwd_dkv")
     if q.dtype == torch.float32:
-        operands = [t for pair in split_tf32([q, dout, k, v], [q, dout])
-                    for t in pair]
+        if parts is None:
+            parts = split_bwd_f32(q, k, v, dout)
+        lib, counter = _f32_bwd_library(), launches_f32
+        fn = lib.mt_flash_bwd_dkv_f32
+        operands = [t for pair in parts[:6] for t in pair]  # q dO k v q^T dO^T
         strides = (c,)
     else:
+        lib, counter = _bwd_library(), launches
+        fn = lib.mt_flash_attention_bwd_dkv
         operands, strides = [q, k, v, dout], (c, c)
     with torch.cuda.device(q.device):
         err = fn(

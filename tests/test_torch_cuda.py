@@ -6,9 +6,11 @@ csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles, every
 and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
 with 128-row output blocks and 64-row stages)
 and the 3x3 conv kernels (nine-tap, Winograd), and the fp32 kernels of
-`--full_precision` and fp32 training (csrc/flash_fwd_f32.cu,
-csrc/flash_bwd_f32.cu; the 3xTF32 ones csrc/flash_fwd_d512_f32_sm90.cu and
-csrc/flash_bwd_dkv_f32_sm90.cu with their operand split,
+`--full_precision` and fp32 training, all 3xTF32 (the forwards
+csrc/flash_fwd_d64_f32_sm90.cu, with 128-row query blocks and 64-key
+tiles, and csrc/flash_fwd_d512_f32_sm90.cu, the backward
+csrc/flash_bwd_dq_f32_sm90.cu, with 128-row query blocks, and
+csrc/flash_bwd_dkv_f32_sm90.cu, with their operand split
 csrc/tf32_split.cu, and the convs csrc/conv3x3_f32_sm90.cu and
 csrc/winograd_f32_sm90.cu), against
 their plain PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
@@ -406,9 +408,9 @@ def test_run_cli_on_the_card(cuda, tmp_path):
                         "--full_precision"]) == 0
     delta = {k: n - before.get(k, 0) for k, n in fa.launches_f32.items()
              if n != before.get(k, 0)}
-    # each fp32 d=512 forward runs after one operand split (tf32_split)
+    # each fp32 forward, of either head width, runs after one operand split
     assert delta == {"shifted_d64": 2 * 3 * steps, "shifted_d512": 2 * 2,
-                     "tf32_split": 2 * 2}
+                     "tf32_split": 2 * 3 * steps + 2 * 2}
     assert not torch.backends.cudnn.allow_tf32
     for i in range(2):
         depth = np.load(tmp_path / "fp32" / "depth_npy" / f"img{i}_pred.npy")
@@ -608,21 +610,30 @@ def _f32_close(out, ref):
     assert (out - ref).abs().max().item() <= tol
 
 
+def _f32_launched(before: dict) -> dict:
+    return {key: n - before.get(key, 0) for key, n in fa.launches_f32.items()
+            if n != before.get(key, 0)}
+
+
 @pytest.mark.parametrize("softmax", ["shifted", "online"])
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
-    (2, 1300, 1300, 320, 5),   # d=64, B > 1, ragged against the 64-row tiles
-    (1, 77, 130, 64, 1),       # d=64, fewer rows than one tile, nq != nk
+    (2, 1300, 1300, 320, 5),   # d=64, B > 1, ragged against the 128-row blocks
+    (1, 77, 130, 64, 1),       # d=64, fewer rows than one block, nq != nk
+    (1, 127, 129, 128, 2),     # d=64: a row short of a block, a key past two tiles
+    (2, 129, 128, 64, 1),      # d=64: a row past a block, two whole key tiles
     (3, 1100, 700, 512, 1),    # d=512: nq > nk, ragged against 64 and 8, B = 3
     (1, 33, 1300, 512, 1),     # d=512: fewer rows than one 64-row tile
 ])
 def test_f32_kernel_matches_plain(cuda, b, nq, nk, c, heads, softmax):
+    """Each fp32 forward: one operand split, then the 3xTF32 kernel of its
+    head width (csrc/flash_fwd_d64_f32_sm90.cu, csrc/flash_fwd_d512_f32_sm90.cu)."""
     q = torch.randn((b, nq, c), generator=cuda, device="cuda")
     k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
             for _ in range(2))
     key = f"{softmax}_d{c // heads}"
-    before, bf16 = fa.launches_f32[key], sum(fa.launches.values())
+    before, bf16 = dict(fa.launches_f32), sum(fa.launches.values())
     out = fa.flash_attention(q, k, v, heads, softmax)
-    assert fa.launches_f32[key] == before + 1
+    assert _f32_launched(before) == {key: 1, "tf32_split": 1}
     assert sum(fa.launches.values()) == bf16
     _f32_close(out, fa.flash_attention_plain(q, k, v, heads, softmax))
 
@@ -648,13 +659,18 @@ def test_f32_d512_forward_on_tf32x3(cuda, b, nq, nk, softmax):
 
 @pytest.mark.parametrize("b,nq,nk", [(2, 1000, 1300), (1, 77, 130)])
 def test_tf32_split_matches_plain(cuda, b, nq, nk):
-    """csrc/tf32_split.cu against its plain version, bit for bit: rows in
-    their own layout and transposed ones, N ragged against 8 and 32."""
-    q = torch.randn((b, nq, 320), generator=cuda, device="cuda") * 10
-    k = torch.randn((b, nk, 320), generator=cuda, device="cuda") * 1e-3
-    got = fa.split_tf32([q, k], [q, k])
-    want = ([fa.split_tf32_plain(x) for x in (q, k)]
-            + [fa.split_tf32_plain(fa.transpose_tf32_plain(x)) for x in (q, k)])
+    """csrc/tf32_split.cu against its plain version, bit for bit, at the
+    fp32 backward's seven jobs (split_bwd_f32): rows in their own layout
+    and transposed ones, N ragged against 8 and 32."""
+    q, g = (torch.randn((b, nq, 320), generator=cuda, device="cuda") * 10
+            for _ in range(2))
+    k, v = (torch.randn((b, nk, 320), generator=cuda, device="cuda") * 1e-3
+            for _ in range(2))
+    got = fa.split_bwd_f32(q, k, v, g)
+    want = ([fa.split_tf32_plain(x) for x in (q, g, k, v)]
+            + [fa.split_tf32_plain(fa.transpose_tf32_plain(x))
+               for x in (q, g, k)])
+    assert len(got) == 7
     torch.cuda.synchronize()
     for pair, ref in zip(got, want):
         assert all(torch.equal(x, y) for x, y in zip(pair, ref))
@@ -673,9 +689,7 @@ def test_f32_dkv_on_tf32x3_ragged(cuda):
     lse_p, delta_p = fa.bwd_stats(out, lse, g, heads)
     before = dict(fa.launches_f32)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse_p, delta_p, heads)
-    got = {key: n - before.get(key, 0) for key, n in fa.launches_f32.items()
-           if n != before.get(key, 0)}
-    assert got == {"bwd_dkv_d64": 1, "tf32_split": 1}
+    assert _f32_launched(before) == {"bwd_dkv_d64": 1, "tf32_split": 1}
     _, dk_ref, dv_ref = fa.flash_attention_bwd_plain(q, k, v, g, heads)
     _f32_close(dk, dk_ref)
     _f32_close(dv, dv_ref)
@@ -687,33 +701,39 @@ def test_f32_dkv_on_tf32x3_ragged(cuda):
 @pytest.mark.parametrize("bh,n,d", [(5, 1030, 64), (3, 700, 512)])
 def test_f32_folded_flash_matches_plain(cuda, bh, n, d):
     q, k, v = _qkv(cuda, bh, n, d, torch.float32)
-    before = fa.launches_f32[f"folded_d{d}"]
+    before = dict(fa.launches_f32)
     out = fa.flash_attention_folded(q, k, v)
-    assert fa.launches_f32[f"folded_d{d}"] == before + 1
+    assert _f32_launched(before) == {f"folded_d{d}": 1, "tf32_split": 1}
     _f32_close(out, fa.flash_attention_plain(q, k, v, 1, "online"))
 
 
+# one split before the lse forward, one for the whole backward
+F32_TRAIN_LAUNCHES = {"lse_d64": 1, "bwd_dq_d64": 1, "bwd_dkv_d64": 1,
+                      "tf32_split": 2}
+
+
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
-    (1, 128, 128, 64, 1),     # two whole 64-row tiles
-    (1, 65, 127, 128, 2),     # a row past a tile, a key short of two
+    (1, 128, 128, 64, 1),     # one whole 128-row block, two key tiles
+    (1, 65, 127, 128, 2),     # a row past a 64-row stage, a key short of two
+    (1, 127, 129, 128, 2),    # a row short of a block, a key past two tiles
+    (2, 129, 128, 64, 1),     # a row past a block
     (2, 1300, 1100, 320, 5),  # ragged, B > 1, nq > nk
 ])
 def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
-    """The fp32 lse forward (csrc/flash_fwd_f32.cu) and the dQ and dK/dV
-    kernels (csrc/flash_bwd_f32.cu) against their plain versions, fp32
-    launches counted and no bf16 kernel launched, two backward calls
-    bit-identical; then FlashAttentionFunction on fp32 leaves, through the
-    same three kernels."""
+    """The fp32 lse forward (csrc/flash_fwd_d64_f32_sm90.cu) and the dQ and
+    dK/dV kernels (csrc/flash_bwd_dq_f32_sm90.cu,
+    csrc/flash_bwd_dkv_f32_sm90.cu) against their plain versions, fp32
+    launches counted (each with its operand splits) and no bf16 kernel
+    launched, two backward calls bit-identical; then FlashAttentionFunction
+    on fp32 leaves, through the same three kernels."""
     q, g = (torch.randn((b, nq, c), generator=cuda, device="cuda")
             for _ in range(2))
     k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
             for _ in range(2))
-    keys = ("lse_d64", "bwd_dq_d64", "bwd_dkv_d64")
     before, bf16 = dict(fa.launches_f32), sum(fa.launches.values())
     out, lse = fa.flash_attention_lse(q, k, v, heads)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
-    for key in keys:
-        assert fa.launches_f32[key] == before.get(key, 0) + 1
+    assert _f32_launched(before) == F32_TRAIN_LAUNCHES
     out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
     refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
     assert lse.dtype == torch.float32 and lse.shape == (b * heads, nq)
@@ -728,12 +748,38 @@ def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     before = dict(fa.launches_f32)
     out_f = fa.FlashAttentionFunction.apply(*leaves, heads, "shifted")
     out_f.backward(g)
-    for key in keys:
-        assert fa.launches_f32[key] == before.get(key, 0) + 1
+    assert _f32_launched(before) == F32_TRAIN_LAUNCHES
     assert sum(fa.launches.values()) == bf16
     _f32_close(out_f.detach(), out_p)
     for leaf, ref in zip(leaves, refs):
         _f32_close(leaf.grad, ref)
+
+
+@pytest.mark.parametrize("b,nq,nk,c,heads", [
+    (1, 64, 100, 64, 1),      # a whole 64-row stage: no padding
+    (2, 129, 128, 128, 2),    # 63 padded rows, past the first 128-row block
+    (1, 1300, 1100, 320, 5),  # the last block's rows run past the padding
+])
+def test_f32_dq_writes_the_padded_statistics(cuda, b, nq, nk, c, heads):
+    """The fp32 dQ kernel's delta and padded lse and delta rows, which the
+    dK/dV kernel reads, against bwd_stats: lse bit for bit (LSE_PAD past
+    nq), delta at the fp32 tolerance (0 past nq); dQ against the plain
+    backward."""
+    q, g = (torch.randn((b, nq, c), generator=cuda, device="cuda")
+            for _ in range(2))
+    k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
+            for _ in range(2))
+    out, lse = fa.flash_attention_lse(q, k, v, heads)
+    before = dict(fa.launches_f32)
+    dq, lse_p, delta_p = fa.flash_attention_bwd_dq_f32(q, k, v, out, lse, g,
+                                                       heads)
+    assert _f32_launched(before) == {"bwd_dq_d64": 1, "tf32_split": 1}
+    lse_ref, delta_ref = fa.bwd_stats(out, lse, g, heads)
+    assert lse_p.shape == lse_ref.shape == (b * heads, -(-nq // 64) * 64)
+    assert torch.equal(lse_p, lse_ref)
+    _f32_close(delta_p, delta_ref)
+    assert bool((delta_p[:, nq:] == 0).all())
+    _f32_close(dq, fa.flash_attention_bwd_plain(q, k, v, g, heads)[0])
 
 
 def _conv_inputs_f32(gen, b, c, h, w, k):

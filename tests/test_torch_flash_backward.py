@@ -49,12 +49,16 @@ def _t(x):
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
     (2, 300, 300, 128, 2),  # several heads, ragged against the 128 blocks
     (1, 200, 300, 64, 1),   # nq != nk
-    # the fp32 kernels' 64-row tiles (csrc/flash_fwd_f32.cu,
-    # csrc/flash_bwd_f32.cu): one whole tile, a row past it, a row short of
-    # two, two heads of 64
+    # the fp32 kernels' tiles (csrc/flash_fwd_d64_f32_sm90.cu,
+    # csrc/flash_bwd_dq_f32_sm90.cu: 128-row query blocks, 64-key tiles;
+    # the dK/dV kernel's 64-row stages): one whole tile, a row past it, a
+    # row short of two, then a row short of a block with a key past two
+    # tiles and a row past a block, two heads of 64
     (1, 64, 64, 128, 2),
     (1, 65, 127, 128, 2),
     (1, 127, 65, 128, 2),
+    (1, 127, 129, 128, 2),
+    (1, 129, 128, 128, 2),
 ])
 def test_lse_plain_matches_tpu_kernel(rng, b, nq, nk, c, heads):
     q, k, v = _rand(rng, b, nq, c), _rand(rng, b, nk, c), _rand(rng, b, nk, c)
@@ -69,12 +73,16 @@ def test_lse_plain_matches_tpu_kernel(rng, b, nq, nk, c, heads):
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
     (2, 384, 384, 128, 2),
     (1, 200, 300, 64, 1),
-    # the fp32 kernels' 64-row tiles (csrc/flash_fwd_f32.cu,
-    # csrc/flash_bwd_f32.cu): one whole tile, a row past it, a row short of
-    # two, two heads of 64
+    # the fp32 kernels' tiles (csrc/flash_fwd_d64_f32_sm90.cu,
+    # csrc/flash_bwd_dq_f32_sm90.cu: 128-row query blocks, 64-key tiles;
+    # the dK/dV kernel's 64-row stages): one whole tile, a row past it, a
+    # row short of two, then a row short of a block with a key past two
+    # tiles and a row past a block, two heads of 64
     (1, 64, 64, 128, 2),
     (1, 65, 127, 128, 2),
     (1, 127, 65, 128, 2),
+    (1, 127, 129, 128, 2),
+    (1, 129, 128, 128, 2),
 ])
 def test_bwd_plain_matches_tpu_kernels(rng, b, nq, nk, c, heads):
     q, g = _rand(rng, b, nq, c), _rand(rng, b, nq, c)

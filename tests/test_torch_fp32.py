@@ -1,7 +1,7 @@
 """The fp32 path of the port (`--full_precision`) against the JAX package on
 the CPU.
 
-The fp32 kernels (`csrc/flash_fwd_f32.cu`, `csrc/conv3x3_f32_sm90.cu`,
+The fp32 kernels (`csrc/flash_fwd_d64_f32_sm90.cu`, `csrc/conv3x3_f32_sm90.cu`,
 `csrc/winograd_f32_sm90.cu` and the others) run only on the card, where
 `chip_smoke.py` and `tests/test_torch_cuda.py` hold them to their plain
 versions; here the plain versions, which a CPU tensor runs, are

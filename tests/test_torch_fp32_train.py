@@ -1,8 +1,9 @@
 """fp32 fine-tuning through the training attention route: the port's
 MarigoldDepthTrainer on a tiny fp32 pipeline with every attention on the
 lse forward and the dQ, dK/dV backward (FlashAttentionFunction; on the CPU
-their plain versions, on the card the kernels of csrc/flash_fwd_f32.cu and
-csrc/flash_bwd_f32.cu), one effective iteration of 2 micro-steps in each
+their plain versions, on the card the kernels of
+csrc/flash_fwd_d64_f32_sm90.cu, csrc/flash_bwd_dq_f32_sm90.cu and
+csrc/flash_bwd_dkv_f32_sm90.cu), one effective iteration of 2 micro-steps in each
 remat mode, against the JAX package's MarigoldDepthTrainer in fp32 with
 its flash dispatch forced on, the Pallas lse forward and backward kernels
 in interpret mode (as tests/test_flash_attention.py forces them).

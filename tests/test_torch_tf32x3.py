@@ -1,17 +1,22 @@
 """The 3xTF32 arithmetic of the port's fp32 tensor-core kernels on the CPU.
 
-`csrc/flash_fwd_d512_f32_sm90.cu` (the 512-wide fp32 forward) and
-`csrc/flash_bwd_dkv_f32_sm90.cu` (fp32 dK/dV) split each fp32 operand into
-two tf32 parts, hi + lo, by `csrc/tf32_split.cu` or in registers, and sum
-lo.hi + hi.lo + hi.hi on the tensor cores. They run only on the card
+The fp32 flash kernels (`csrc/flash_fwd_d64_f32_sm90.cu` and
+`csrc/flash_fwd_d512_f32_sm90.cu`, the forwards; `csrc/flash_bwd_dq_f32_sm90.cu`
+and `csrc/flash_bwd_dkv_f32_sm90.cu`, the backward) split each fp32 operand
+into two tf32 parts, hi + lo, by `csrc/tf32_split.cu` or in registers, and
+sum lo.hi + hi.lo + hi.hi on the tensor cores. They run only on the card
 (`chip_smoke.py`, `tests/test_torch_cuda.py`); here the plain emulation in
 `ops/flash_attention.py` is held to its definition: the split's
 reconstruction, the 3xTF32 product against float64 at the fp32 gate that
 `chip_smoke.py` holds the kernels to (and one tf32 product missing it),
 the split's transposed layout and the A-fragment permutation it encodes,
-and an emulated forward and dK/dV against the TPU kernels (Pallas interpret
-mode) and the port's plain backward.
+and emulated forwards, dQ (with its delta and padded statistics) and dK/dV
+against the TPU kernels (Pallas interpret mode) and the port's plain
+versions; the 64-wide emulations walk the keys in the sources' tiles.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +28,10 @@ from marigold_tpu_torch.ops import flash_attention as fa
 
 # chip_smoke.py's fp32 gate: max|err| <= F32_TOL_REL * max|ref| + F32_TOL_ABS
 F32_TOL_REL, F32_TOL_ABS = 1e-4, 1e-6
+CSRC = Path(fa.__file__).resolve().parents[1] / "csrc"
+# The 64-wide kernels' key tile: one fresh tile product per KEY_TILE keys
+KEY_TILE = 64
+LOG2E = np.float32(np.log2(np.e))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,3 +197,144 @@ def test_emulated_dkv_matches_the_plain_backward():
                                                      g[None], 1)
     for got, ref in ((dk, dk_ref[0]), (dv, dv_ref[0])):
         assert _gate((got - ref).abs().max().item(), ref)
+
+
+def _fold(x):  # one head's [N, D] -> the TPU kernels' [BH, D, N]
+    return jnp.asarray(x.numpy().T[None])
+
+
+def _emulated_d64_forward(q, k, v, softmax):
+    """One 64-wide head as csrc/flash_fwd_d64_f32_sm90.cu computes it in
+    fp32: per KEY_TILE keys S as 3xTF32, the softmax in base 2 (online: the
+    running max, O and l rescaled; shifted: the row shift and the clamp in
+    base-2 units), the tile's P V as 3xTF32 into a fresh product added into
+    O. Returns (out, lse in natural-log units)."""
+    nq, d = q.shape
+    scale_log2 = np.float32(1.0 / np.sqrt(d)) * LOG2E
+    m = torch.full((nq, 1), -1e30)
+    ref = fa.row_shift(q[None], k[None], 1)[0][:, None] * LOG2E
+    l, o = torch.zeros(nq, 1), torch.zeros(nq, d)
+    for k0 in range(0, k.shape[0], KEY_TILE):
+        s = fa.matmul_tf32x3_plain(q, k[k0:k0 + KEY_TILE].T)
+        if softmax == "online":
+            ref = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+            alpha = torch.exp2(m - ref)
+            m, l, o = ref, l * alpha, o * alpha
+        x = s * scale_log2 - ref
+        if softmax == "shifted":
+            x = torch.clamp(x, max=fa.EXP_CLAMP * LOG2E)
+        p = torch.exp2(x)
+        l = l + p.sum(-1, keepdim=True)
+        o = o + fa.matmul_tf32x3_plain(p, v[k0:k0 + KEY_TILE])
+    l = l.clamp(min=1e-30)
+    return o / l, (np.log(2.0) * (m + torch.log2(l)))[:, 0]
+
+
+@pytest.mark.parametrize("softmax", ["shifted", "online"])
+@pytest.mark.parametrize("nq,nk", [(150, 131), (64, 200), (129, 127)])
+def test_emulated_d64_forward_matches_the_tpu_kernel(softmax, nq, nk):
+    q, k, v = _randn(20, nq, 64), _randn(21, nk, 64), _randn(22, nk, 64)
+    got, _ = _emulated_d64_forward(q, k, v, softmax)
+    ref = np.asarray(jfa._flash_dt_impl(
+        _fold(q), _fold(k), _fold(v), block_q=128, block_k=128, interpret=True,
+        softmax=softmax))[0].T
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= F32_TOL_REL * np.abs(ref).max() + F32_TOL_ABS
+
+
+@pytest.mark.parametrize("nq,nk", [(150, 131), (129, 200)])
+def test_emulated_d64_lse_forward_matches_the_tpu_kernel(nq, nk):
+    """The training forward, out and lse (natural-log units, written by the
+    kernel as ln(2) (m_2 + log2(l)))."""
+    q, k, v = _randn(23, nq, 64), _randn(24, nk, 64), _randn(25, nk, 64)
+    out, lse = _emulated_d64_forward(q, k, v, "online")
+    out_j, lse_j = jfa._flash_dt_impl_lse(_fold(q), _fold(k), _fold(v), 128,
+                                          128, True)
+    for got, ref in ((out.numpy(), np.asarray(out_j)[0].T),
+                     (lse.numpy(), np.asarray(lse_j)[0])):
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= (F32_TOL_REL * np.abs(ref).max()
+                                           + F32_TOL_ABS)
+
+
+def _emulated_dq(q, k, v, out, lse, g):
+    """One 64-wide head as csrc/flash_bwd_dq_f32_sm90.cu computes it in
+    fp32: delta = rowsum(dO * O), the padded lse and delta rows
+    ([round_up(nq, STAT_PAD)], LSE_PAD and 0 past nq), then per KEY_TILE
+    keys S and dP as 3xTF32, P = exp2(S scale log2(e) - lse log2(e)),
+    dS = P (dP - delta), dS K as 3xTF32 into a fresh product added into dQ;
+    dQ * scale at the end. Returns (dq, lse_p, delta_p)."""
+    nq, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    delta = (out * g).sum(-1)
+    n_pad = -(-nq // fa.STAT_PAD) * fa.STAT_PAD
+    lse_p = torch.full((n_pad,), fa.LSE_PAD)
+    lse_p[:nq] = lse
+    delta_p = torch.zeros(n_pad)
+    delta_p[:nq] = delta
+    acc = torch.zeros(nq, d)
+    for k0 in range(0, k.shape[0], KEY_TILE):
+        kt, vt = k[k0:k0 + KEY_TILE], v[k0:k0 + KEY_TILE]
+        s = fa.matmul_tf32x3_plain(q, kt.T)
+        p = torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[:, None])
+        ds = p * (fa.matmul_tf32x3_plain(g, vt.T) - delta[:, None])
+        acc = acc + fa.matmul_tf32x3_plain(ds, kt)
+    return acc * scale, lse_p, delta_p
+
+
+@pytest.mark.parametrize("nq,nk", [(150, 131), (129, 127), (64, 128)])
+def test_emulated_dq_matches_the_tpu_kernel(nq, nk):
+    """dQ against the Pallas dQ kernel (interpret mode) on the JAX
+    forward's out and lse, and against the port's plain backward; the
+    padded rows against bwd_stats."""
+    q, g = _randn(26, nq, 64), _randn(27, nq, 64)
+    k, v = _randn(28, nk, 64), _randn(29, nk, 64)
+    out_j, lse_j = jfa._flash_dt_impl_lse(_fold(q), _fold(k), _fold(v), 128,
+                                          128, True)
+    dq_j, _, _ = jfa._flash_dt_bwd_pallas(
+        _fold(q), _fold(k), _fold(v), out_j, lse_j, _fold(g), block_q=128,
+        block_k=128, interpret=True)
+    out = torch.from_numpy(np.asarray(out_j)[0].T.copy())
+    lse = torch.from_numpy(np.asarray(lse_j)[0].copy())
+    dq, lse_p, delta_p = _emulated_dq(q, k, v, out, lse, g)
+    dq_plain = fa.flash_attention_bwd_plain(q[None], k[None], v[None],
+                                            g[None], 1)[0][0]
+    for ref in (np.asarray(dq_j)[0].T, dq_plain.numpy()):
+        assert np.abs(dq.numpy() - ref).max() <= (
+            F32_TOL_REL * np.abs(ref).max() + F32_TOL_ABS)
+    lse_ref, delta_ref = fa.bwd_stats(out[None], lse[None], g[None], 1)
+    assert torch.equal(lse_p, lse_ref[0])
+    assert _gate((delta_p - delta_ref[0]).abs().max().item(), delta_ref[0])
+    assert bool((delta_p[nq:] == 0).all())
+
+
+@pytest.mark.parametrize("source", ["flash_fwd_d64_f32_sm90.cu",
+                                    "flash_bwd_dq_f32_sm90.cu"])
+def test_emulations_walk_the_keys_as_the_sources(source):
+    """The emulations' key tile is the sources' BK; both kernels take 128
+    query rows per block (two consumers of 64), and the dQ kernel pads the
+    statistics to STAT_PAD."""
+    text = (CSRC / source).read_text()
+    assert int(re.search(r"constexpr int BK = (\d+);", text).group(1)) == KEY_TILE
+    assert "constexpr int BQ = 128;" in text
+    assert "constexpr int CONSUMERS = 2;" in text
+    if "dq" in source:
+        pad = int(re.search(r"constexpr int STAT_PAD = (\d+);", text).group(1))
+        assert pad == fa.STAT_PAD
+
+
+def test_split_takes_the_backward_s_seven_jobs():
+    """The fp32 backward's one split (split_bwd_f32): q, dO, k, v in their
+    layout, then q, dO, k transposed, within the kernel's MAX_JOBS; on CPU
+    tensors the plain versions."""
+    text = (CSRC / "tf32_split.cu").read_text()
+    max_jobs = int(re.search(r"constexpr int MAX_JOBS = (\d+);", text).group(1))
+    q, g = _randn(30, 2, 21, 64), _randn(31, 2, 21, 64)
+    k, v = _randn(32, 2, 13, 64), _randn(33, 2, 13, 64)
+    parts = fa.split_bwd_f32(q, k, v, g)
+    assert len(parts) == 7 <= max_jobs
+    want = ([fa.split_tf32_plain(x) for x in (q, g, k, v)]
+            + [fa.split_tf32_plain(fa.transpose_tf32_plain(x))
+               for x in (q, g, k)])
+    for got, ref in zip(parts, want):
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
