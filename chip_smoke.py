@@ -46,6 +46,14 @@ Phases, none of which catches its own failure:
      LCM depth (the depth UNet with an LCMScheduler config: 1 step E=10, 4
      steps E=1 with fresh noise); maps checked for shape, range and
      determinism, flash launches exact per head width;
+  7b. serving across ranks (parallel/mesh.py): two gloo ranks share the
+     card (NCCL refuses two ranks on one device); gloo's collectives on
+     CUDA tensors checked; depth E=10 768 px 4 steps with the members over
+     the ranks against the single process (bit for bit at its per-call
+     batch), depth E=1 1536 px 1 step spatial=True (the H rows over the
+     ranks) in bf16 and in fp32 against the single process, flash launches
+     exact per rank and by shape, peak memory per rank; the flash kernels
+     also run at the shard shapes in phase 3 (SHARD_CASES);
   8. the command-line entry points on those checkpoints: validate_ckpt as
      a subprocess (and on a unet/ header with one wrong shape), run (depth
      E=10 with the Spectral PNGs, normals E=1), serve --once (six 768^2
@@ -98,11 +106,22 @@ device is present.
 runs phases 1 and 2 and the fp32 kernels of phase 3, then stops: the short
 first call after a change to an fp32 kernel (run it under `timeout -s
 KILL`, since a wrong mbarrier parity hangs).
+
+    python3 chip_smoke.py --parallel
+
+runs phases 1 and 2, the shard shapes of phase 3 and phase 7b on a freshly
+written checkpoint: the short call after a change to the parallel code.
+
+    python3 chip_smoke.py --nccl
+
+runs phases 1 and 2 and phase 7b with one rank per card over NCCL, on a
+machine with several cards (E=12 in (a), three members per rank on four).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -321,6 +340,16 @@ KERNEL_CASES = [
     ("iid_vae_mid_b8", 8, 6400, 512, 1),
 ]
 
+# (name, B, Nq, Nk, C, heads): spatial mode's shard shapes at 1536 px on two
+# ranks (parallel_phase): one rank's level-0 query rows against the gathered
+# keys, and the VAE mid attention likewise. Their plain version runs
+# PLAIN_Q_CHUNK query rows at a time ([1, 5, 4608, 36864] fp32 logits).
+SHARD_CASES = [
+    ("spatial_l0", 1, 18432, 36864, 320, 5),
+    ("spatial_vae_mid", 1, 18432, 36864, 512, 1),
+]
+PLAIN_Q_CHUNK = 4608
+
 # Kernel rows of the JSON line: TPU pallas_call sites replaced, the source,
 # and the case whose times stand for the kernel (its main-path shape).
 SM90_SOURCE = "marigold_tpu_torch/csrc/flash_fwd_sm90.cu"
@@ -347,26 +376,34 @@ DEPTH_TOL = 5e-2
 REQUEST_RUNS = 4
 
 
-def check_kernels() -> dict:
+def check_kernels(cases=None) -> dict:
+    """The bf16 serving forwards against their plain version at every case
+    of `cases`, (name, B, Nq, Nk, C, heads); KERNEL_CASES (Nq = Nk) and
+    SHARD_CASES when None."""
     import torch
 
     from marigold_tpu_torch.ops import flash_attention as fa
 
+    if cases is None:
+        cases = ([(name, b, n, n, c, h) for name, b, n, c, h in KERNEL_CASES]
+                 + SHARD_CASES)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, b, n, c, heads in KERNEL_CASES:
-        def rand():
-            return torch.randn((b, n, c), generator=gen, device="cuda")
-        q, k, v = rand(), rand(), rand()
+    for name, b, n, nk, c, heads in cases:
+        def rand(rows):
+            return torch.randn((b, rows, c), generator=gen, device="cuda")
+        q, k, v = rand(n), rand(nk), rand(nk)
         if name == "spiky_k":
             k[0, 137] *= 200.0
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        q_chunk = n if n == nk else PLAIN_Q_CHUNK  # rows are independent
         for mode in fa.SOFTMAX_MODES:
             def plain():
-                return torch.cat([fa.flash_attention_plain(
-                    q[i:i + 1], k[i:i + 1], v[i:i + 1], heads, mode)
+                return torch.cat([torch.cat([fa.flash_attention_plain(
+                    q[i:i + 1, s:s + q_chunk], k[i:i + 1], v[i:i + 1], heads,
+                    mode) for s in range(0, n, q_chunk)], 1)
                     for i in range(b)])
 
             ref = plain()
@@ -385,13 +422,14 @@ def check_kernels() -> dict:
             shift_ms = (_time_ms(lambda: fa.row_shift(q, k, heads), 20)
                         if mode == "shifted" else None)
             d = c // heads
-            flops = 4.0 * b * heads * n * n * d
+            flops = 4.0 * b * heads * n * nk * d
             lib_ms = sdpa_ms(q, k, v, heads)
             # the shifted mode also reads its [B*H, N] fp32 shift
-            b_ms, b_by = attention_bound(b, heads, n, n, d, 4, 2, 2, extra=(
+            b_ms, b_by = attention_bound(b, heads, n, nk, d, 4, 2, 2, extra=(
                 4 * b * heads * n if mode == "shifted" else 0))
+            shape = f"[{b},{n},{c}]" + (f" x [{b},{nk},{c}]" if nk != n else "")
             print(
-                f"kernel {name:15s} {mode:7s} [{b},{n},{c}] h={heads} d={d}: "
+                f"kernel {name:15s} {mode:7s} {shape} h={heads} d={d}: "
                 f"max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} "
                 f"max|ref| {ref_max:.3e} tol {tol:.3e} | kernel {ms:.3f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
@@ -1013,8 +1051,9 @@ def main(argv: list) -> None:
 
     import torch
 
-    if argv not in ([], ["--f32-kernels"]):
-        _fail(f"usage: python3 chip_smoke.py [--f32-kernels], got {argv}")
+    if argv not in ([], ["--f32-kernels"], ["--parallel"], ["--nccl"]):
+        _fail("usage: python3 chip_smoke.py [--f32-kernels | --parallel | "
+              f"--nccl], got {argv}")
     t0 = time.perf_counter()
 
     def done(what: str) -> None:  # every phase shares the run's time limit
@@ -1023,9 +1062,27 @@ def main(argv: list) -> None:
 
     smi = check_card()
     build_kernels()
-    if argv:
+    if argv == ["--f32-kernels"]:
         check_f32_kernels()
         done("the fp32 kernel checks")
+        print(smi, flush=True)
+        return
+    if argv == ["--parallel"]:
+        check_kernels(SHARD_CASES)
+        with tempfile.TemporaryDirectory() as root:
+            write_checkpoint(root, 0)
+            parallel_phase(root)
+        done("the shard-shape kernel checks and the parallel phase")
+        print(smi, flush=True)
+        return
+    if argv == ["--nccl"]:
+        n = torch.cuda.device_count()
+        if n < 2:
+            _fail(f"--nccl needs several cards, found {n}")
+        with tempfile.TemporaryDirectory() as root:
+            write_checkpoint(root, 0)
+            parallel_phase(root, n, "cuda", "nccl", NCCL_A)
+        done(f"the parallel phase on {n} cards over NCCL")
         print(smi, flush=True)
         return
     results = check_kernels()
@@ -1047,6 +1104,8 @@ def main(argv: list) -> None:
         done("the load phase")
         serve_counts.update(serve_modalities(root, depth_dir))
         done("the modalities")
+        parallel_phase(depth_dir)
+        done("the parallel phase")
         serve_counts.update(cli_phase(root, depth_dir))
         done("the CLI phase")
         f32_counts = full_precision_phase(root, depth_dir)
@@ -1215,14 +1274,15 @@ def expected_flash_launches(pipe, hw: tuple, steps: int,
                               ensemble_size).values())
 
 
-def flash_by_width(before: dict) -> dict:
-    """{head width: serving flash launches} since the counts `before`."""
+def flash_by_width(before: dict, counter=None) -> dict:
+    """{head width: serving flash launches} of `counter` (the bf16
+    `fa.launches` when None) since the counts `before`."""
     import re
 
     from marigold_tpu_torch.ops import flash_attention as fa
 
     out = collections.Counter()
-    for key, n in fa.launches.items():
+    for key, n in (fa.launches if counter is None else counter).items():
         m = re.fullmatch(r"(shifted|online)_d(\d+)", key)
         if m and n > before.get(key, 0):
             out[int(m.group(2))] += n - before.get(key, 0)
@@ -2227,6 +2287,264 @@ def serve_lcm(root: str, depth_dir: str) -> None:
         print(f"LCM {steps}-step E={e}: {len(draws) // runs} fresh noise "
               f"draws per request ({chunks} chunk(s) x {steps - 1})", flush=True)
     free(pipe)
+
+
+# Phase 7b: serving across ranks. The card's machine has one GPU and NCCL
+# refuses two ranks on one device ("Duplicate GPU detected"), so the two
+# ranks share the card over gloo, which takes CUDA tensors (staging them
+# through host memory): every kernel still runs on the card, and the times
+# of two ranks on one card are no speed-up. (a) E-sharded: depth E=10 at
+# 768 px, 4 steps, five members per rank, against the single process with
+# the same per-call batch (batch_size=5); (b) spatial: depth E=1 at 1536 px,
+# 1 step, each rank 96 of the 192 latent rows (level 0: 18 432 query tokens
+# against 36 864 gathered keys), against the single process at 1536 px;
+# (c) the same spatial request in fp32 (TF32 off, the 3xTF32 flash kernels).
+PARALLEL_RANKS = 2
+PARALLEL_A = (10, 768, 4)  # members, px, steps
+PARALLEL_B = (1, 1536, 1)
+# (b) against the single process: the ranks' halo convs run cuDNN on other
+# shapes (H padding 0 on halo rows against padding 1), so their bf16
+# outputs round differently, carried through the step and the decoder as in
+# a conv-mode swap (CONV_MEMBER_TOL); measured on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W): max 5.27e-2, mean 2.40e-3 (PERF.md). (max, mean)
+# of |diff|. (c) in fp32 shows the sharded arithmetic itself: F32_DEPTH_TOL.
+SPATIAL_TOL = CONV_MEMBER_TOL["pallas"]
+# `--nccl`: the phase with one rank per card over NCCL (a 4-card machine):
+# 12 members, so that 3 per rank divide for the bit-for-bit check
+NCCL_A = (12, 768, 4)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuBLAS and cuDNN (fp32 products in fp32), then the
+    flags as they were."""
+    import torch
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def _parallel_request(pipe, image, spec, **kw):
+    e, px, steps = spec
+    return pipe(image, denoising_steps=steps, ensemble_size=e, seed=0,
+                processing_res=px, color_map=None, **kw)
+
+
+def parallel_expected(pipe, spec, rows: int, chunks: int) -> dict:
+    """{head width: flash launches} of one request in one rank: the UNet's
+    self-attentions at the rank's latent block (`rows` of the latent's H;
+    flash takes >= FLASH_MIN_SEQ query tokens) per step per member chunk,
+    and the VAE mid attention in the encode and each decode call."""
+    from marigold_tpu_torch.ops.attention import FLASH_MIN_SEQ
+
+    _, px, steps = spec
+    ds = pipe.core.vae_cfg.downscale_factor
+    out = collections.Counter()
+    for n, d in flash_self_attentions(pipe.core.unet_cfg, rows, px // ds):
+        out[d] += n * steps * chunks
+    if rows * (px // ds) >= FLASH_MIN_SEQ:
+        out[pipe.core.vae_cfg.block_out_channels[-1]] += 1 + chunks
+    return {d: n for d, n in out.items() if n}
+
+
+def parallel_rank(mesh, depth_dir: str, image_a, image_b, spec_a: tuple,
+                  spec_b: tuple) -> dict:
+    """One rank of parallel_phase: the collectives on CUDA tensors, then
+    requests (a) twice and (b) once, with the flash launches by width and by
+    shape, the peak memory of (b) and host times."""
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.set_device(mesh.device)
+    out = {}
+    x = torch.arange(4.0, device=mesh.device) + 10 * mesh.rank
+    gathered = mesh.all_gather(x[None], 0)
+    summed = mesh.all_reduce(x)
+    y = x.clone()
+    mesh.broadcast(y)
+    out["collectives"] = {
+        "devices": sorted({str(t.device) for t in (gathered, summed, y)}),
+        "all_gather": gathered.cpu().numpy(),
+        "all_reduce": summed.cpu().numpy(),
+        "broadcast": y.cpu().numpy()}
+    pipe = MarigoldDepthPipeline.from_pretrained(
+        depth_dir, dtype=torch.bfloat16, variant="fp16", mesh=mesh)
+    shapes = collections.Counter()
+    flash = fa.flash_attention
+
+    def spy(q, k, v, heads, softmax="shifted"):
+        shapes[(softmax, q.shape[0], q.shape[1], k.shape[1], q.shape[2])] += 1
+        return flash(q, k, v, heads, softmax)
+
+    fa.flash_attention = spy
+    ds = pipe.core.vae_cfg.downscale_factor
+    e, px, _ = spec_a
+    per = -(-e // mesh.size)
+    chunks = -(-per // pipe._chunk(e, px, px, 0, mesh.size))
+    want = parallel_expected(pipe, spec_a, px // ds, chunks)
+    out["a_want"] = {d: 2 * n for d, n in want.items()}  # two requests
+    fa.launches.clear()
+    out["a_ms"] = []
+    for _ in range(2):
+        res, ms = _timed(lambda: _parallel_request(pipe, image_a, spec_a))
+        out["a_ms"].append(ms)
+    out["a_launches"] = flash_by_width({})
+    out["a"] = (res.depth_np, res.uncertainty)
+    _, px, _ = spec_b
+    out["b_want"] = parallel_expected(pipe, spec_b, px // ds // mesh.size, 1)
+    fa.launches.clear()
+    shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out["b_held"] = torch.cuda.memory_allocated()
+    res, out["b_ms"] = _timed(lambda: _parallel_request(
+        pipe, image_b, spec_b, spatial=True))
+    out["b_peak"] = torch.cuda.max_memory_allocated()
+    out["b_launches"] = flash_by_width({})
+    out["b_by_variant"] = dict(fa.launches)
+    out["b_shapes"] = dict(shapes)
+    out["b"] = (res.depth_np, res.uncertainty)
+    fa.flash_attention = flash
+    pipe.core = None
+    torch.cuda.empty_cache()
+    with tf32_off():
+        pipe = MarigoldDepthPipeline.from_pretrained(
+            depth_dir, dtype=torch.float32, variant="fp16", mesh=mesh)
+        fa.launches_f32.clear()
+        res, out["c_ms"] = _timed(lambda: _parallel_request(
+            pipe, image_b, spec_b, spatial=True))
+    out["c_want"] = out["b_want"]
+    out["c_launches"] = flash_by_width({}, fa.launches_f32)
+    out["c_splits"] = fa.launches_f32["tf32_split"]
+    out["c"] = (res.depth_np, res.uncertainty)
+    return out
+
+
+def parallel_phase(depth_dir: str, n_ranks: int = PARALLEL_RANKS,
+                   device: str = "cuda:0", backend: str = "gloo",
+                   spec_a: tuple = PARALLEL_A) -> None:
+    """Phase 7b (see above): n_ranks ranks on `device` (all on cuda:0 over
+    gloo; "cuda" puts rank r on cuda:r, over NCCL with backend="nccl"),
+    the single-process references on cuda:0. Fails on a collective that
+    gives a wrong result or leaves the rank's card, a map off the single
+    process's beyond its tolerance, or a rank's flash launches off the
+    expected count. spec_a's members must divide the ranks for the
+    bit-for-bit check."""
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.parallel.mesh import run_on_ranks
+
+    rng = np.random.default_rng(5)
+    image_a = rng.integers(0, 256, (spec_a[1],) * 2 + (3,), dtype=np.uint8)
+    image_b = rng.integers(0, 256, (PARALLEL_B[1],) * 2 + (3,), dtype=np.uint8)
+    pipe = MarigoldDepthPipeline.from_pretrained(
+        depth_dir, dtype=torch.bfloat16, device="cuda", variant="fp16")
+    per = -(-spec_a[0] // n_ranks)
+    ref_a, ms_a = _timed(lambda: _parallel_request(pipe, image_a, spec_a,
+                                                   batch_size=per))
+    ref_a, ms_a = _timed(lambda: _parallel_request(pipe, image_a, spec_a,
+                                                   batch_size=per))
+    torch.cuda.reset_peak_memory_stats()
+    held_b = torch.cuda.memory_allocated()
+    ref_b, ms_b = _timed(lambda: _parallel_request(pipe, image_b, PARALLEL_B))
+    peak_b = torch.cuda.max_memory_allocated()
+    free(pipe)
+    with tf32_off():
+        pipe = MarigoldDepthPipeline.from_pretrained(
+            depth_dir, dtype=torch.float32, device="cuda", variant="fp16")
+        ref_c, ms_c = _timed(lambda: _parallel_request(pipe, image_b,
+                                                       PARALLEL_B))
+    free(pipe)
+    t0 = time.perf_counter()
+    ranks = run_on_ranks(parallel_rank, n_ranks,
+                         (depth_dir, image_a, image_b, spec_a, PARALLEL_B),
+                         device=device, backend=backend, timeout_s=900)
+    wall = time.perf_counter() - t0
+    x = np.arange(4.0)
+    for r, out in enumerate(ranks):
+        g = out["collectives"]
+        card = device if device != "cuda" else f"cuda:{r}"
+        if g["devices"] != [card] or \
+                not np.array_equal(g["all_gather"],
+                                   np.stack([x + 10 * i for i in range(n_ranks)])) or \
+                not np.array_equal(g["all_reduce"],
+                                   n_ranks * x + 10 * sum(range(n_ranks))) or \
+                not np.array_equal(g["broadcast"], x):
+            _fail(f"rank {r}: {backend} collectives on CUDA tensors gave {g}")
+    print(f"parallel: {backend} all_gather, all_reduce and broadcast on the "
+          f"ranks' CUDA tensors ({device}) in {n_ranks} ranks: right (torch "
+          f"{torch.__version__})", flush=True)
+    e, px, steps = spec_a
+    spatial = f"E={PARALLEL_B[0]} {PARALLEL_B[1]}px {PARALLEL_B[2]} step"
+    rows = PARALLEL_B[1] // n_ranks  # pixel rows per rank
+    seams = np.zeros(PARALLEL_B[1], bool)  # within 32 rows of a seam
+    for i in range(1, n_ranks):
+        seams[i * rows - 32:i * rows + 32] = True
+    for what, ref, key, hw, (tol_max, tol_mean) in (
+            (f"E-sharded depth E={e} {px}px {steps} steps", ref_a, "a",
+             (px, px), (0.0, 0.0)),
+            (f"spatial depth {spatial}", ref_b, "b", (PARALLEL_B[1],) * 2,
+             SPATIAL_TOL),
+            (f"spatial depth fp32 {spatial}", ref_c, "c", (PARALLEL_B[1],) * 2,
+             (F32_DEPTH_TOL, F32_DEPTH_TOL))):
+        for r, out in enumerate(ranks):
+            depth, unc = out[key]
+            check_map(depth, hw, f"rank {r} {what}")
+            d = np.abs(depth - ref.depth_np)
+            band = d[seams] if key != "a" else d
+            msg = (f"depth max {d.max():.3e} mean {d.mean():.3e} (within 32 "
+                   f"rows of the ranks' seams: max {band.max():.3e} mean "
+                   f"{band.mean():.3e})")
+            d_max, d_mean = d.max(), d.mean()
+            if unc is not None or ref.uncertainty is not None:
+                if unc is None or ref.uncertainty is None:
+                    _fail(f"rank {r} {what}: uncertainty {unc is None}")
+                du = np.abs(unc - ref.uncertainty)
+                msg += f", uncertainty max {du.max():.3e} mean {du.mean():.3e}"
+                d_max, d_mean = max(d_max, du.max()), max(d_mean, du.mean())
+            same = (np.array_equal(depth, ranks[0][key][0])
+                    and (unc is None or np.array_equal(unc, ranks[0][key][1])))
+            print(f"parallel {what}, rank {r} against the single process: "
+                  f"{msg} (tol max {tol_max}, mean {tol_mean}); the same map "
+                  f"as rank 0: {same}; flash launches by head width "
+                  f"{out[key + '_launches']} (want {out[key + '_want']})",
+                  flush=True)
+            if not (d_max <= tol_max and d_mean <= tol_mean) or not same:
+                _fail(f"rank {r} {what}: off the single process or rank 0")
+            if out[key + "_launches"] != out[key + "_want"]:
+                _fail(f"rank {r} {what}: flash launches "
+                      f"{out[key + '_launches']} != {out[key + '_want']}")
+        if key == "c" and any(o["c_splits"] != sum(o["c_want"].values())
+                              for o in ranks):
+            _fail(f"{what}: tf32_split launches "
+                  f"{[o['c_splits'] for o in ranks]}, want one per flash call")
+    for r, out in enumerate(ranks):
+        shared = "ranks sharing one card, no speed-up" if device != "cuda" \
+            else "one card per rank"
+        print(f"parallel rank {r} ({shared}): "
+              f"E-sharded request {', '.join(f'{t:.1f}' for t in out['a_ms'])} "
+              f"ms (single process, batch_size={per}: {ms_a:.1f} ms); spatial "
+              f"request {out['b_ms']:.1f} ms (single process {ms_b:.1f} ms); "
+              f"spatial peak memory {out['b_peak'] / 2**30:.2f} GiB, "
+              f"{out['b_held'] / 2**30:.2f} of it held before the request "
+              f"(single process {peak_b / 2**30:.2f}, {held_b / 2**30:.2f}); "
+              f"spatial launches by variant "
+              f"{out['b_by_variant']}; by (softmax, B, Nq, Nk, C): "
+              f"{out['b_shapes']}; fp32 spatial request {out['c_ms']:.1f} ms "
+              f"(single process {ms_c:.1f} ms)", flush=True)
+    print(f"parallel phase: {n_ranks} ranks spawned, loaded and run in "
+          f"{wall:.1f} s", flush=True)
 
 
 # Phase 8: the command-line entry points on the full-width checkpoints

@@ -32,7 +32,9 @@ from marigold_tpu_torch.pipelines.normals import (
     MarigoldNormalsPipeline,
 )
 
+# back-compat aliases, as in marigold_tpu/__init__.py
 MarigoldPipeline = MarigoldDepthPipeline
+MarigoldPipelineOutput = MarigoldDepthOutput
 
 __all__ = [
     "MarigoldDepthPipeline",
@@ -42,4 +44,5 @@ __all__ = [
     "MarigoldIIDPipeline",
     "MarigoldIIDOutput",
     "MarigoldPipeline",
+    "MarigoldPipelineOutput",
 ]

@@ -27,6 +27,12 @@ through `ops.conv.KernelConvFunction`, whose backward is the plain conv
 gradient. Without grad, on the card, the kernel takes its rearranged weight
 from `Conv2d.prepared_weight`, a cache that follows every change of the
 weight. Tests switch the mode by setting `_CONV_IMPL`.
+
+Spatial parallelism: `Conv2d.forward`, `group_norm` and `GroupNorm` take
+`spatial`, a `parallel.mesh.Mesh`, when the tensor is one rank's block of an
+image's H rows (the JAX package's `spatial_axis`): 3x3 convs exchange halo
+rows and always run F.conv2d, GroupNorm all-reduces its fp32 sums. With
+`spatial=None` they are the unsharded ops above, unchanged.
 """
 
 from __future__ import annotations
@@ -102,7 +108,11 @@ class Conv2d(nn.Conv2d):
                     cached = self.__dict__["_prepared"] = (key, prep)
         return cached[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        """spatial: a `parallel.mesh.Mesh` when x [B, C, H/n, W] is this
+        rank's block of rows of the image (`spatial_forward`)."""
+        if spatial is not None:
+            return self.spatial_forward(x, spatial)
         weight = self._parameters["weight"]
         impl = None
         if self.groups == 1 and tuple(self.dilation) == (1, 1):
@@ -120,17 +130,44 @@ class Conv2d(nn.Conv2d):
             return fn(x, weight, bias)
         return fn(x, weight, bias, prepared=self.prepared_weight(impl))
 
+    def spatial_forward(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """The conv of x's rows of an image sharded along H over `mesh`
+        (`marigold_tpu/models/layers.py:conv2d` with spatial_axis): a 3x3
+        kernel takes one halo row from each neighbour (zeros at the image's
+        edges, the unsharded conv's zero padding) and convolves with no H
+        padding; at stride 2 only the top halo, so that each shard's windows
+        start on the global grid (the local H is even). Always F.conv2d
+        (cuDNN on the card), as the JAX package sends sharded convs to XLA."""
+        weight = self._parameters["weight"]
+        padding = self.padding
+        if weight.shape[2] == 3:
+            prev, nxt = mesh.halo_rows(x)
+            x = torch.cat([prev, x, nxt] if self.stride[0] == 1 else [prev, x], 2)
+            padding = (0, self.padding[1])
+        return F.conv2d(x, weight, self.bias, self.stride, padding,
+                        self.dilation, self.groups)
+
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int, eps: float, act: Optional[str] = None
-               ) -> torch.Tensor:
+               num_groups: int, eps: float, act: Optional[str] = None,
+               spatial=None) -> torch.Tensor:
     """GroupNorm over channel groups of x [B, C, ...] with fp32 statistics
     and affine, optional fused SiLU, output in x's dtype
-    (`marigold_tpu/models/layers.py:group_norm`)."""
+    (`marigold_tpu/models/layers.py:group_norm`). spatial: the mesh over
+    which x's H rows are sharded; the per-group fp32 sums of x and x^2 are
+    then all-reduced over it, so every rank normalizes with the image's
+    statistics."""
     b, c = x.shape[:2]
     xf = x.float()
-    var, mean = torch.var_mean(xf.reshape(b, num_groups, -1), dim=-1,
-                               unbiased=False)
+    if spatial is None:
+        var, mean = torch.var_mean(xf.reshape(b, num_groups, -1), dim=-1,
+                                   unbiased=False)
+    else:
+        xg = xf.reshape(b, num_groups, -1)
+        sums = spatial.all_reduce(torch.stack([xg.sum(-1), xg.square().sum(-1)]))
+        count = xg.shape[-1] * spatial.size
+        mean = sums[0] / count
+        var = (sums[1] / count - mean.square()).clamp_min(0.0)
     inv = torch.rsqrt(var + eps).repeat_interleave(c // num_groups, dim=1)
     scale = inv * weight.float()
     shift = bias.float() - mean.repeat_interleave(c // num_groups, dim=1) * scale
@@ -153,8 +190,10 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, act)
+    def forward(self, x: torch.Tensor, act: Optional[str] = None,
+                spatial=None) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
+                          act, spatial)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -12,6 +12,12 @@ remat modes make each region its own activation checkpoint
 (`train/train_step.py:remat_runner`), so the backward recomputes and holds
 one region's activations at a time. The skip connections cross regions as
 the down blocks' saved outputs.
+
+`spatial` (a `parallel.mesh.Mesh`, None by default) runs the forward on one
+rank's block of the latent's H rows, as the JAX package's `spatial_axis`:
+it reaches the resnets' convs and GroupNorms, the transformers' GroupNorm
+and self-attention, the samplers and the output convs; cross-attention,
+GEGLU and the time embedding are token-local.
 """
 
 from __future__ import annotations
@@ -121,11 +127,12 @@ class ResnetBlock(nn.Module):
         self.conv2 = Conv2d(c_out, c_out, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(c_in, c_out, 1) if c_in != c_out else None
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.norm1(x, act="silu"))
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                spatial=None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x, act="silu", spatial=spatial), spatial)
         t = self.time_emb_proj(F.silu(temb.float()).to(temb.dtype))
         h = h + t[:, :, None, None].to(h.dtype)
-        h = self.conv2(self.norm2(h, act="silu"))
+        h = self.conv2(self.norm2(h, act="silu", spatial=spatial), spatial)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -145,11 +152,14 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(context_dim, dim, bias=bias)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
-    def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                spatial=None) -> torch.Tensor:
+        """spatial: the mesh over which x's tokens are sharded (self-attention
+        only; cross-attention is token-local)."""
         ctx = x if context is None else context.to(x.dtype)
         out = dispatch_attention(
-            self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads)
+            self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads,
+            spatial=spatial)
         return self.to_out[0](out)
 
 
@@ -175,8 +185,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor,
+                spatial=None) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x), spatial=spatial)
         x = x + self.attn2(self.norm2(x), ctx)
         return x + self.ff(self.norm3(x))
 
@@ -193,10 +204,12 @@ class Transformer2DModel(nn.Module):
             [BasicTransformerBlock(dim, heads, cross_dim)])
         self.proj_out = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor,
+                spatial=None) -> torch.Tensor:
         b, c, h, w = x.shape
-        t = self.proj_in(self.norm(x).reshape(b, c, h * w).transpose(1, 2))
-        t = self.proj_out(self.transformer_blocks[0](t, ctx))
+        t = self.norm(x, spatial=spatial).reshape(b, c, h * w).transpose(1, 2)
+        t = self.proj_out(self.transformer_blocks[0](self.proj_in(t), ctx,
+                                                     spatial))
         return x + t.transpose(1, 2).reshape(b, c, h, w)
 
 
@@ -302,11 +315,17 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: Union[int, torch.Tensor],
                 encoder_hidden_states: torch.Tensor,
-                block_runner: Optional[Callable] = None) -> torch.Tensor:
+                block_runner: Optional[Callable] = None,
+                spatial=None) -> torch.Tensor:
         """sample: [B, in_ch, H, W]; timesteps: int, [] or [B];
         encoder_hidden_states: [1 or B, L, cross_dim] -> [B, out_ch, H, W].
         block_runner(fn, *args) -> fn(*args) runs each down, mid and up
-        block (the training step's remat regions); None calls it."""
+        block (the training step's remat regions); None calls it.
+        spatial: a `parallel.mesh.Mesh` when sample is this rank's block of
+        H rows (`marigold_tpu/models/unet.py:apply` with spatial_axis):
+        3x3 convs exchange halo rows, GroupNorm all-reduces its sums,
+        self-attention gathers K/V; the global H must divide by
+        2^(levels-1) x ranks (`parallel/spatial.py`)."""
         run = block_runner or (lambda fn, *args: fn(*args))
         bsz = sample.shape[0]
         if isinstance(timesteps, torch.Tensor):
@@ -322,62 +341,63 @@ class UNet2DConditionModel(nn.Module):
         if ctx.shape[0] == 1 and bsz > 1:
             ctx = ctx.expand(bsz, *ctx.shape[1:])
 
-        h = self.conv_in(sample)
+        h = self.conv_in(sample, spatial)
         skips = [h]
         for blk in self.down_blocks:
-            outs = run(_down_block, blk, h, temb, ctx)
+            outs = run(_down_block, blk, h, temb, ctx, spatial)
             skips.extend(outs)
             h = outs[-1]
-        h = run(_mid_block, self.mid_block, h, temb, ctx)
+        h = run(_mid_block, self.mid_block, h, temb, ctx, spatial)
         for blk in self.up_blocks:
             n = len(blk.resnets)
             block_skips = skips[-n:]
             del skips[-n:]
             # the next block's first skip sets the upsampled size
             out_hw = tuple(skips[-1].shape[2:]) if skips else None
-            h = run(_up_block, blk, h, temb, ctx, out_hw, *block_skips)
+            h = run(_up_block, blk, h, temb, ctx, spatial, out_hw, *block_skips)
 
-        h = self.conv_norm_out(h, act="silu")
-        return self.conv_out(h)
+        h = self.conv_norm_out(h, act="silu", spatial=spatial)
+        return self.conv_out(h, spatial)
 
 
 def _down_block(blk: _Block, h: torch.Tensor, temb: torch.Tensor,
-                ctx: torch.Tensor) -> tuple:
+                ctx: torch.Tensor, spatial=None) -> tuple:
     """One down block -> its outputs, each a skip connection (the last is
     the next block's input)."""
     outs = []
     for j, res in enumerate(blk.resnets):
-        h = res(h, temb)
+        h = res(h, temb, spatial)
         if blk.attentions is not None:
-            h = blk.attentions[j](h, ctx)
+            h = blk.attentions[j](h, ctx, spatial)
         outs.append(h)
     if hasattr(blk, "downsamplers"):
-        h = blk.downsamplers[0].conv(h)
+        h = blk.downsamplers[0].conv(h, spatial)
         outs.append(h)
     return tuple(outs)
 
 
 def _mid_block(mid: _Block, h: torch.Tensor, temb: torch.Tensor,
-               ctx: torch.Tensor) -> torch.Tensor:
-    h = mid.resnets[0](h, temb)
-    h = mid.attentions[0](h, ctx)
-    return mid.resnets[1](h, temb)
+               ctx: torch.Tensor, spatial=None) -> torch.Tensor:
+    h = mid.resnets[0](h, temb, spatial)
+    h = mid.attentions[0](h, ctx, spatial)
+    return mid.resnets[1](h, temb, spatial)
 
 
 def _up_block(blk: _Block, h: torch.Tensor, temb: torch.Tensor,
-              ctx: torch.Tensor, out_hw: Optional[tuple],
+              ctx: torch.Tensor, spatial, out_hw: Optional[tuple],
               *skips: torch.Tensor) -> torch.Tensor:
     """One up block on its skips (in the down path's order, consumed from
     the last); `out_hw` is the size after the upsampler."""
     skips = list(skips)
     for j, res in enumerate(blk.resnets):
-        h = res(torch.cat([h, skips.pop()], dim=1), temb)
+        h = res(torch.cat([h, skips.pop()], dim=1), temb, spatial)
         if blk.attentions is not None:
-            h = blk.attentions[j](h, ctx)
+            h = blk.attentions[j](h, ctx, spatial)
     if hasattr(blk, "upsamplers"):
         h = upsample_nearest_2x(h)
         # odd sizes: stride-2 downsampling rounds up (11 -> 6), so 2x
-        # overshoots (12); crop to the next skip's size
+        # overshoots (12); crop to the next skip's size (sharded, every
+        # level's local H is even and the crop is W's alone)
         h = h[:, :, :out_hw[0], :out_hw[1]]
-        h = blk.upsamplers[0].conv(h)
+        h = blk.upsamplers[0].conv(h, spatial)
     return h

@@ -4,7 +4,10 @@ Counterpart of `marigold_tpu/models/vae.py`: posterior-mean encode (the
 pipelines never sample) scaled by 0.18215, and decode. Encoder downsampling
 is diffusers' asymmetric (0, 1) pad + stride-2 VALID conv; the mid block's
 single 512-wide attention head goes through `ops/attention.py`, which takes
-the flash kernel at >= 1024 tokens on CUDA.
+the flash kernel at >= 1024 tokens on CUDA. `encode`/`decode` take
+`spatial`, the mesh over which the image's H rows are sharded (the JAX
+package's `spatial_axis`): the (0, 1) pad of a sharded downsample is the
+next rank's first row, and the mid attention gathers K/V.
 """
 
 from __future__ import annotations
@@ -75,9 +78,9 @@ class ResnetBlock(nn.Module):
         self.conv2 = Conv2d(c_out, c_out, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(c_in, c_out, 1) if c_in != c_out else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.norm1(x, act="silu"))
-        h = self.conv2(self.norm2(h, act="silu"))
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x, act="silu", spatial=spatial), spatial)
+        h = self.conv2(self.norm2(h, act="silu", spatial=spatial), spatial)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -90,11 +93,12 @@ class AttentionBlock(Attention):
         super().__init__(c, heads=1, bias=True)
         self.group_norm = GroupNorm(groups, c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
         b, c, h, w = x.shape
-        t = self.group_norm(x).reshape(b, c, h * w).transpose(1, 2)
+        t = self.group_norm(x, spatial=spatial).reshape(b, c, h * w).transpose(1, 2)
         o = dispatch_attention(
-            self.to_q(t), self.to_k(t), self.to_v(t), num_heads=1)
+            self.to_q(t), self.to_k(t), self.to_v(t), num_heads=1,
+            spatial=spatial)
         return x + self.to_out[0](o).transpose(1, 2).reshape(b, c, h, w)
 
 
@@ -105,10 +109,10 @@ class MidBlock(nn.Module):
             [ResnetBlock(c, c, groups), ResnetBlock(c, c, groups)])
         self.attentions = nn.ModuleList([AttentionBlock(c, groups)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.resnets[0](x)
-        x = self.attentions[0](x)
-        return self.resnets[1](x)
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        x = self.resnets[0](x, spatial)
+        x = self.attentions[0](x, spatial)
+        return self.resnets[1](x, spatial)
 
 
 class _Sampler(nn.Module):
@@ -141,16 +145,24 @@ class Encoder(nn.Module):
         self.conv_norm_out = GroupNorm(g, b[-1])
         self.conv_out = Conv2d(b[-1], 2 * cfg.latent_channels, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv_in(x)
+    def forward(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
+        h = self.conv_in(x, spatial)
         for blk in self.down_blocks:
             for res in blk.resnets:
-                h = res(h)
+                h = res(h, spatial)
             if hasattr(blk, "downsamplers"):
-                # diffusers Downsample2D in the VAE: (0, 1) pad, VALID stride 2
-                h = blk.downsamplers[0].conv(F.pad(h, (0, 1, 0, 1)))
-        h = self.mid_block(h)
-        return self.conv_out(self.conv_norm_out(h, act="silu"))
+                # diffusers Downsample2D in the VAE: (0, 1) pad, VALID stride
+                # 2; sharded along H, the bottom pad row is the next shard's
+                # first row (zeros at the last shard)
+                if spatial is None:
+                    h = F.pad(h, (0, 1, 0, 1))
+                else:
+                    h = F.pad(torch.cat([h, spatial.halo_rows(h)[1]], 2),
+                              (0, 1, 0, 0))
+                h = blk.downsamplers[0].conv(h)
+        h = self.mid_block(h, spatial)
+        return self.conv_out(self.conv_norm_out(h, act="silu", spatial=spatial),
+                             spatial)
 
 
 class Decoder(nn.Module):
@@ -172,14 +184,15 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNorm(g, rev[-1])
         self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid_block(self.conv_in(z))
+    def forward(self, z: torch.Tensor, spatial=None) -> torch.Tensor:
+        h = self.mid_block(self.conv_in(z, spatial), spatial)
         for blk in self.up_blocks:
             for res in blk.resnets:
-                h = res(h)
+                h = res(h, spatial)
             if hasattr(blk, "upsamplers"):
-                h = blk.upsamplers[0].conv(upsample_nearest_2x(h))
-        return self.conv_out(self.conv_norm_out(h, act="silu"))
+                h = blk.upsamplers[0].conv(upsample_nearest_2x(h), spatial)
+        return self.conv_out(self.conv_norm_out(h, act="silu", spatial=spatial),
+                             spatial)
 
 
 class AutoencoderKL(nn.Module):
@@ -192,20 +205,23 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = nn.Conv2d(lat, lat, 1)
 
-    def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """x: [B, 3, H, W] in [-1, 1] -> (mean, logvar), each [B, 4, H/8, W/8]."""
-        moments = self.quant_conv(self.encoder(x))
+    def encode(self, x: torch.Tensor, spatial=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, 3, H, W] in [-1, 1] -> (mean, logvar), each [B, 4, H/8, W/8].
+        spatial: the mesh when x is this rank's block of H rows (as in the
+        UNet's forward); the output is then the latent's block."""
+        moments = self.quant_conv(self.encoder(x, spatial))
         mean, logvar = moments.chunk(2, dim=1)
         return mean, logvar
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, spatial=None) -> torch.Tensor:
         """z: [B, 4, h, w] (already divided by the scaling factor) ->
-        [B, 3, 8h, 8w]."""
-        return self.decoder(self.post_quant_conv(z))
+        [B, 3, 8h, 8w]; spatial as in encode."""
+        return self.decoder(self.post_quant_conv(z), spatial)
 
-    def encode_mean_scaled(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_mean_scaled(self, x: torch.Tensor, spatial=None) -> torch.Tensor:
         """RGB -> posterior mean * scaling_factor."""
-        return self.encode(x)[0] * self.cfg.scaling_factor
+        return self.encode(x, spatial)[0] * self.cfg.scaling_factor
 
-    def decode_scaled(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decode(z / self.cfg.scaling_factor)
+    def decode_scaled(self, z: torch.Tensor, spatial=None) -> torch.Tensor:
+        return self.decode(z / self.cfg.scaling_factor, spatial)

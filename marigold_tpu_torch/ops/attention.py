@@ -76,10 +76,17 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def dispatch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       num_heads: int, mask: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       num_heads: int, mask: Optional[torch.Tensor] = None,
+                       spatial=None) -> torch.Tensor:
     """Dispatching attention used by the UNet transformer blocks and the
-    VAE mid block."""
+    VAE mid block. spatial: the mesh over which the token axis is sharded
+    (an image's H rows, H outermost, so each rank's tokens are one block
+    in rank order); K and V are then gathered once, into one contiguous
+    tensor each, and this rank's queries attend to all of them
+    (`marigold_tpu/ops/attention.py:92-94`)."""
+    if spatial is not None:
+        kv = spatial.all_gather(torch.stack([k, v]), dim=2)
+        k, v = kv[0], kv[1]
     if mask is None and use_flash(q, k.shape[1]):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (

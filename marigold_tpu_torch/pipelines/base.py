@@ -49,6 +49,7 @@ from marigold_tpu_torch.core.scheduler import (
     check_trailing_zero_snr,
 )
 from marigold_tpu_torch.models import weights as W
+from marigold_tpu_torch.parallel.mesh import pad_to_multiple, replicate
 from marigold_tpu_torch.pipelines import image_util
 from marigold_tpu_torch.pipelines.batchsize import find_batch_size
 from marigold_tpu_torch.pipelines.ensemble import (
@@ -103,7 +104,9 @@ def _pil_image_class():
 
 
 class DiffusionCore:
-    """UNet + VAE + text encoder + schedule on one device."""
+    """UNet + VAE + text encoder + schedule on one device; `mesh` (a
+    `parallel.mesh.Mesh`, None for one device) when the pipeline serves
+    across ranks, each holding the same replicated weights."""
 
     def __init__(self, unet, vae, text_encoder, schedule: DiffusionSchedule,
                  dtype: torch.dtype, device):
@@ -116,6 +119,7 @@ class DiffusionCore:
         self.dtype = dtype
         self.device = torch.device(device)
         self.lcm: Optional[LCMSchedule] = None  # legacy v1-0 LCM checkpoints
+        self.mesh = None
         self._empty_text_embed = None
 
     @property
@@ -130,9 +134,10 @@ class DiffusionCore:
         return self._empty_text_embed
 
     @torch.inference_mode()
-    def encode_rgb(self, rgb: torch.Tensor) -> torch.Tensor:
-        """[B, 3, H, W] in [-1, 1] -> [B, 4, H/8, W/8] scaled latent."""
-        return self.vae.encode_mean_scaled(rgb.to(self.dtype))
+    def encode_rgb(self, rgb: torch.Tensor, spatial=None) -> torch.Tensor:
+        """[B, 3, H, W] in [-1, 1] -> [B, 4, H/8, W/8] scaled latent
+        (spatial: the mesh when rgb is this rank's block of H rows)."""
+        return self.vae.encode_mean_scaled(rgb.to(self.dtype), spatial)
 
     def step_noise(self, shape: tuple, generator: Optional[torch.Generator]
                    ) -> torch.Tensor:
@@ -147,10 +152,17 @@ class DiffusionCore:
     @torch.inference_mode()
     def denoise(self, rgb_latent: torch.Tensor, noise: torch.Tensor,
                 num_steps: int, text_embed: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                spatial=None, noise_rows: Optional[tuple] = None
+                ) -> torch.Tensor:
         """Trailing DDIM (or, with `lcm` set, LCM sampling) from `noise`
         [Eb, 4n, h, w], conditioned on rgb_latent [1 or Eb, 4, h, w] ->
-        target latents [Eb, 4n, h, w]. `generator` feeds LCM's fresh noise."""
+        target latents [Eb, 4n, h, w]. `generator` feeds LCM's fresh noise.
+        noise_rows (offset, total): each fresh draw is `total` rows, of
+        which these Eb rows are those from `offset`, so that ranks drawing
+        one stream re-noise their members with distinct rows of one draw
+        (the JAX package's chunk-distinct fresh noise). spatial: the mesh
+        when the latents are this rank's block of H rows."""
         if text_embed is None:
             text_embed = self.empty_text_embed
         sampler = self.lcm or self.schedule
@@ -159,35 +171,41 @@ class DiffusionCore:
         rgb = rgb_latent.to(self.dtype).expand(noise.shape[0], -1, -1, -1)
         target = noise.to(self.dtype)
         for i, (t, pt) in enumerate(zip(ts, prev_ts)):
-            out = self.unet(torch.cat([rgb, target], dim=1), int(t), text_embed)
+            out = self.unet(torch.cat([rgb, target], dim=1), int(t), text_embed,
+                            spatial=spatial)
             if self.lcm is None:
                 target = self.schedule.ddim_step(out, int(t), int(pt), target)
             else:
                 last = i == len(ts) - 1
-                fresh = None if last else self.step_noise(tuple(target.shape),
-                                                          generator)
+                shape = tuple(target.shape)
+                if noise_rows is not None:
+                    shape = (noise_rows[1],) + shape[1:]
+                fresh = None if last else self.step_noise(shape, generator)
+                if fresh is not None and noise_rows is not None:
+                    fresh = fresh[noise_rows[0]:noise_rows[0] + target.shape[0]]
                 target, _ = self.lcm.step(out, int(t), int(pt), target, fresh,
                                           last)
         return target
 
     @torch.inference_mode()
     def decode(self, latent: torch.Tensor, mode: str = "depth",
-               n_targets: int = 1) -> torch.Tensor:
+               n_targets: int = 1, spatial=None) -> torch.Tensor:
         """Latents [B, 4n, h, w] -> maps, fp32: depth [B, 1, H, W] in [0, 1]
         (the mean of the three decoded channels); normals [B, 3, H, W],
         clipped to [-1, 1] and renormalized; IID [B, 3n, H, W] in [0, 1],
-        each 4-channel group decoded by its own VAE call."""
+        each 4-channel group decoded by its own VAE call. spatial: the mesh
+        when the latents are this rank's block of H rows."""
         if mode == "depth":
-            img = self.vae.decode_scaled(latent)
+            img = self.vae.decode_scaled(latent, spatial)
             depth = img.float().mean(dim=1, keepdim=True).clamp(-1.0, 1.0)
             return (depth + 1.0) / 2.0
         if mode == "normals":
-            n = self.vae.decode_scaled(latent).float().clamp(-1.0, 1.0)
+            n = self.vae.decode_scaled(latent, spatial).float().clamp(-1.0, 1.0)
             return _unit_normals(n, dim=1)
         if mode == "iid":
             lc = self.vae_cfg.latent_channels
             return torch.cat([
-                (self.vae.decode_scaled(latent[:, i * lc:(i + 1) * lc])
+                (self.vae.decode_scaled(latent[:, i * lc:(i + 1) * lc], spatial)
                  .float().clamp(-1.0, 1.0) + 1.0) / 2.0
                 for i in range(n_targets)], dim=1)
         raise ValueError(f"unknown mode: {mode}")
@@ -310,11 +328,26 @@ class BasePipeline:
 
     @classmethod
     def from_pretrained(cls, ckpt_dir: str, dtype=torch.bfloat16, device=None,
-                        variant: Optional[str] = None):
+                        variant: Optional[str] = None, mesh=None):
         """device: "cuda" (the default), "cpu" or a torch.device. Without a
         CUDA device the caller must ask for the CPU: there is no silent
-        fallback, and a CUDA device asked for without one raises."""
+        fallback, and a CUDA device asked for without one raises.
+        mesh: a `parallel.mesh.Mesh` (`get_mesh()`, in every rank) to serve
+        across ranks: the weights load on the rank's device (the mesh's
+        unless `device` names it) and rank 0's are broadcast to every rank;
+        __call__ then shards the ensemble members over the ranks, or with
+        spatial=True the image's H rows."""
+        if mesh is not None:
+            device = mesh.device if device is None else torch.device(device)
+            if device != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
         core, pipe_cfg = load_pipeline_components(ckpt_dir, dtype, device, variant)
+        if mesh is not None:
+            core.mesh = mesh
+            for module in (core.unet, core.vae, core.text_encoder):
+                if module is not None:
+                    replicate(mesh, module)
         return cls(core, pipe_cfg)
 
     def _noise_generator(self, seed: Union[None, int, torch.Generator]
@@ -365,15 +398,17 @@ class BasePipeline:
         return ensemble_iid(members, output_uncertainty=True,
                             reduction=kw.get("reduction", "median"))
 
-    def _chunk(self, total: int, hp: int, wp: int, batch_size: int) -> int:
-        """Rows per denoise call: batch_size, or from the device's memory
-        when 0."""
+    def _chunk(self, total: int, hp: int, wp: int, batch_size: int,
+               n_devices: int = 1) -> int:
+        """Rows per denoise call on each of n_devices ranks: batch_size, or
+        from the device's memory when 0."""
+        per_device = -(-total // n_devices)
         if batch_size <= 0:
             batch_size = find_batch_size(
                 ensemble_size=total, input_res=max(hp, wp),
                 dtype_bytes=torch.finfo(self.core.dtype).bits // 8,
-                device=self.core.device)
-        return min(batch_size, total)
+                n_devices=n_devices, device=self.core.device)
+        return min(batch_size, per_device)
 
     def _infer_fused(self, rgb_norm: np.ndarray, denoising_steps: int,
                      ensemble_size: int, batch_size: int = 0, seed=None,
@@ -390,31 +425,54 @@ class BasePipeline:
         mode, cropped; normals and IID per pixel, cropped). The result is
         cropped and resized on the host to out_hw, normals renormalized
         after the resize. Returns (pred [h, w, C] float32, uncertainty
-        [h, w, C'] or None)."""
-        if spatial:
-            raise NotImplementedError(
-                "spatial=True (the image's H axis over a mesh) is not ported; "
-                "see ROADMAP queue 1, \"Spatial parallelism\"")
+        [h, w, C'] or None).
+
+        With a mesh (`from_pretrained(..., mesh=)`) every rank returns the
+        same result. The E members, padded to a multiple of the mesh size
+        with copies of the first, shard over the ranks: every rank draws
+        the same global noise, denoises and decodes its own members, and
+        one all_gather precedes the ensemble. spatial=True instead shards
+        the image's H rows over the ranks, the >1k-px mode where one
+        trajectory outgrows a card (`parallel/spatial.py`): H is edge-padded
+        to vae_ds x 2^(levels-1) x ranks, which the mask keeps out of the
+        ensemble; each rank encodes, denoises and decodes its rows of all E
+        members from its rows of the global noise, and the maps are
+        gathered along H before the ensemble."""
         core = self.core
+        mesh = core.mesh
+        if spatial:
+            if mesh is None:
+                raise ValueError(
+                    "spatial=True needs a pipeline built with a mesh "
+                    "(from_pretrained(..., mesh=get_mesh()))")
+            if core.lcm is not None:
+                raise ValueError("spatial inference does not support LCM")
         ds = core.vae_cfg.downscale_factor
         with self._phase("host pre"):
             x, h0, w0 = pad_to_multiple_of(
                 rgb_norm[None], max(64, ds) if shape_bucketing else ds)
+            if spatial:
+                # every UNet level's shard-local H must stay even
+                # (`parallel/spatial.py:check_spatial_divisibility`)
+                need_h = ds * (1 << (len(core.unet_cfg.block_out_channels) - 1)
+                               ) * mesh.size
+                ph = -x.shape[1] % need_h
+                if ph:
+                    x = np.pad(x, [(0, 0), (0, ph), (0, 0), (0, 0)], mode="edge")
             hp, wp = x.shape[1:3]
+            if spatial:
+                x = x[:, mesh.rows(hp)]
             rgb = torch.from_numpy(np.ascontiguousarray(x)).to(core.device)
         with self._phase("encode"):
-            rgb_lat = core.encode_rgb(rgb.permute(0, 3, 1, 2).contiguous())
+            rgb_lat = core.encode_rgb(rgb.permute(0, 3, 1, 2).contiguous(),
+                                      mesh if spatial else None)
         gen = self._noise_generator(seed)
-        noise = self._noise(ensemble_size, *rgb_lat.shape[2:], gen)
-        chunk = self._chunk(ensemble_size, hp, wp, batch_size)
-        preds = []
-        for s in range(0, ensemble_size, chunk):  # core.infer, phase by phase
-            with self._phase("denoise"):
-                lat = core.denoise(rgb_lat, noise[s:s + chunk], denoising_steps,
-                                   generator=gen)
-            with self._phase("decode"):
-                preds.append(core.decode(lat, self.mode, self.n_targets))
-        preds = torch.cat(preds)
+        if spatial:
+            preds = self._spatial_members(rgb_lat, hp, wp, ensemble_size,
+                                          denoising_steps, gen)
+        else:
+            preds = self._members(rgb_lat, hp, wp, ensemble_size,
+                                  denoising_steps, batch_size, gen)
         unc = None
         with self._phase("ensemble"):
             if ensemble_size == 1:
@@ -441,6 +499,53 @@ class BasePipeline:
                     maps[0] = maps[0] / np.clip(norm, 1e-6, None)
             maps = [m.astype(np.float32) for m in maps]
         return maps[0], (maps[1] if unc is not None else None)
+
+    def _members(self, rgb_lat: torch.Tensor, hp: int, wp: int,
+                 ensemble_size: int, denoising_steps: int, batch_size: int,
+                 gen: torch.Generator) -> torch.Tensor:
+        """The decoded members [E, C, hp, wp] of one image's latent, in
+        chunks of `batch_size`; with a mesh each rank runs its block of the
+        padded members and the blocks are gathered."""
+        core, mesh = self.core, self.core.mesh
+        noise = self._noise(ensemble_size, *rgb_lat.shape[2:], gen)
+        rows, n_devices = None, 1
+        if mesh is not None:
+            # pad E with copies of the members (with few members on many
+            # ranks the pad can exceed E, so tile rather than slice)
+            n_devices = mesh.size
+            e_pad = pad_to_multiple(ensemble_size, n_devices)
+            noise = noise.repeat(-(-e_pad // ensemble_size), 1, 1, 1)[:e_pad]
+            rows = mesh.rows(e_pad)
+            noise = noise[rows]
+        chunk = self._chunk(ensemble_size, hp, wp, batch_size, n_devices)
+        preds = []
+        for s in range(0, noise.shape[0], chunk):  # core.infer, phase by phase
+            with self._phase("denoise"):
+                lat = core.denoise(
+                    rgb_lat, noise[s:s + chunk], denoising_steps, generator=gen,
+                    noise_rows=None if rows is None else (rows.start + s, e_pad))
+            with self._phase("decode"):
+                preds.append(core.decode(lat, self.mode, self.n_targets))
+        preds = torch.cat(preds)
+        if mesh is not None:
+            preds = mesh.all_gather(preds, 0)[:ensemble_size]
+        return preds
+
+    def _spatial_members(self, rgb_lat: torch.Tensor, hp: int, wp: int,
+                         ensemble_size: int, denoising_steps: int,
+                         gen: torch.Generator) -> torch.Tensor:
+        """The decoded members [E, C, hp, wp] from this rank's block of the
+        latent's rows, all E in one batch, gathered along H."""
+        core, mesh = self.core, self.core.mesh
+        ds = core.vae_cfg.downscale_factor
+        noise = self._noise(ensemble_size, hp // ds, wp // ds, gen)
+        noise = noise[:, :, mesh.rows(hp // ds)]
+        with self._phase("denoise"):
+            lat = core.denoise(rgb_lat, noise, denoising_steps, generator=gen,
+                               spatial=mesh)
+        with self._phase("decode"):
+            local = core.decode(lat, self.mode, self.n_targets, spatial=mesh)
+        return mesh.all_gather(local, dim=2)
 
     def _phase(self, name: str):
         """`phase_timer.phase(name)`, or a no-op without a timer."""

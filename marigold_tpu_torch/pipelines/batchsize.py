@@ -38,12 +38,16 @@ def device_memory_bytes(device=None) -> int:
 
 
 def find_batch_size(ensemble_size: int, input_res: int, dtype_bytes: int = 2,
+                    n_devices: int = 1, model_bytes: int = _MODEL_BYTES,
                     device=None) -> int:
-    """Largest batch that fits, clamped to the ensemble size."""
-    budget = max(device_memory_bytes(device) - _MODEL_BYTES - 1024**3, 1024**3)
+    """Largest per-device batch that fits next to `model_bytes` of weights,
+    clamped to the members each of `n_devices` devices holds (the ensemble
+    split over a mesh) and balanced into two chunks."""
+    budget = max(device_memory_bytes(device) - model_bytes - 1024**3, 1024**3)
     latent_pixels = (max(input_res, 64) / 8) ** 2
     per_sample = _ACT_BYTES_PER_LATENT_PIXEL_BF16 * latent_pixels * (dtype_bytes / 2)
-    bs = min(max(int(budget / per_sample), 1), ensemble_size)
-    if ensemble_size > bs > ensemble_size / 2:  # two balanced chunks
-        bs = math.ceil(ensemble_size / 2)
+    per_device = math.ceil(ensemble_size / max(n_devices, 1))
+    bs = min(max(int(budget / per_sample), 1), per_device)
+    if per_device > bs > per_device / 2:  # two balanced chunks
+        bs = math.ceil(per_device / 2)
     return max(bs, 1)

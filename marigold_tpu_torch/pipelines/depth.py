@@ -78,8 +78,10 @@ class MarigoldDepthPipeline(BasePipeline):
         `pipelines/ensemble.py:ensemble_depth`). The keywords are the JAX
         package's: `show_progress_bar` is accepted and, as there, has no
         effect; `shape_bucketing=True` pads the image to a 64-px grid instead
-        of the VAE's 8 px; `spatial=True` (the H axis sharded over a mesh)
-        raises NotImplementedError."""
+        of the VAE's 8 px. A pipeline built with a mesh
+        (`from_pretrained(..., mesh=get_mesh())`, in every rank) shards the
+        members over the ranks, or with `spatial=True` the image's H rows
+        (`BasePipeline._infer_fused`)."""
         self._warn_lcm()
         pred, unc = self._single_infer(
             input_image, denoising_steps, ensemble_size, processing_res,

@@ -219,8 +219,9 @@ def apply_lut(lut: np.ndarray, x: np.ndarray) -> np.ndarray:
 
 
 def colorize_depth_maps(depth_map, min_depth: float = 0.0, max_depth: float = 1.0,
-                        cmap: str = "Spectral") -> np.ndarray:
-    """Depth [H, W] (or [B, H, W]) -> colored [B, 3, H, W] in [0, 1].
+                        cmap: str = "Spectral", valid_mask=None) -> np.ndarray:
+    """Depth [H, W] (or [B, H, W]) -> colored [B, 3, H, W] in [0, 1], black
+    where `valid_mask` ([H, W] or [B, H, W], when given) is False.
     "Spectral" uses the port's own table; any other colour map needs
     matplotlib, imported here (ImportError without it)."""
     depth = np.asarray(depth_map, np.float32)
@@ -235,6 +236,11 @@ def colorize_depth_maps(depth_map, min_depth: float = 0.0, max_depth: float = 1.
         import matplotlib
 
         colored = matplotlib.colormaps[cmap](d, bytes=False)[..., 0:3]
+    if valid_mask is not None:
+        valid_mask = np.asarray(valid_mask, bool)
+        if valid_mask.ndim == 2:
+            valid_mask = valid_mask[None]
+        colored[~valid_mask.reshape((-1,) + valid_mask.shape[-2:])] = 0
     return np.moveaxis(colored, -1, 1)
 
 

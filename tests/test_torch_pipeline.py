@@ -280,14 +280,15 @@ def test_call_shape_bucketing_matches_jax_on_shared_noise(
 def test_call_takes_the_jax_keywords(pipes):
     """show_progress_bar is accepted and changes nothing (the JAX __call__
     takes it and passes it nowhere); spatial=False is accepted and
-    spatial=True, the mesh-sharded mode, is not ported and raises."""
+    spatial=True, the mesh-sharded mode, raises without a mesh, as the JAX
+    __call__ does."""
     _, tpipe = pipes
     img = _image(11, 30, 44)
     kw = dict(denoising_steps=1, seed=2, color_map=None)
     a = tpipe(img, show_progress_bar=False, spatial=False, **kw)
     b = tpipe(img, show_progress_bar=True, **kw)
     np.testing.assert_array_equal(a.depth_np, b.depth_np)
-    with pytest.raises(NotImplementedError, match="Spatial parallelism"):
+    with pytest.raises(ValueError, match="needs a pipeline built with a mesh"):
         tpipe(img, spatial=True, **kw)
 
 
