@@ -70,6 +70,21 @@ Phases, none of which catches its own failure:
      ms per micro-step and peak memory, a profile of one micro-step, and
      one micro-step's loss and every gradient against every attention on
      the plain path;
+  10b. fine-tuning across ranks (train/ over parallel/mesh.py): two gloo
+     ranks share the card, each with the full-width depth trainer, one
+     iteration of 2 micro-steps at the global micro-batch [2, 3, 480, 640],
+     one row per rank, the rows' valid counts unequal: gloo's
+     reduce_scatter on CUDA tensors checked; against rank 0 alone on the
+     global batch (the loss and the reduced gradient within phase 10's
+     plain-path tolerances), the ranks' parameters bit for bit, ZeRO-1's
+     parameters and gathered state bit for bit against the replicated run,
+     its blocks half of every split leaf, its checkpoint reloaded in this
+     process; ms per micro-step, the reduction's ms and peak memory per
+     rank in each mode, flash launches exact per rank; then cli/train.py
+     --data_parallel --shard_optimizer in both ranks on phase 11's depth
+     overlay (one row per rank, one micro-step per iteration, Adafactor),
+     one iteration with validation on rank 0, then --resume_run for a
+     second, launches exact per rank;
   11. the training entry point, cli/train.py, on the four shipped recipes
      (depth, normals, IID appearance, IID lighting) at full SD2 width, each
      through an overlay config (split lists, max_iter, periods; for normals
@@ -109,13 +124,16 @@ KILL`, since a wrong mbarrier parity hangs).
 
     python3 chip_smoke.py --parallel
 
-runs phases 1 and 2, the shard shapes of phase 3 and phase 7b on a freshly
-written checkpoint: the short call after a change to the parallel code.
+runs phases 1 and 2, the shard shapes of phase 3, phase 7b on a freshly
+written checkpoint and phase 10b on a freshly written SD2 checkpoint: the
+short call after a change to the parallel code.
 
     python3 chip_smoke.py --nccl
 
-runs phases 1 and 2 and phase 7b with one rank per card over NCCL, on a
-machine with several cards (E=12 in (a), three members per rank on four).
+runs phases 1 and 2 and phases 7b and 10b with one rank per card over NCCL,
+on a machine with several cards (E=12 in (a), three members per rank on
+four; in 10b one row per card, the global micro-batch as many rows as
+cards).
 """
 
 from __future__ import annotations
@@ -1072,7 +1090,10 @@ def main(argv: list) -> None:
         with tempfile.TemporaryDirectory() as root:
             write_checkpoint(root, 0)
             parallel_phase(root)
-        done("the shard-shape kernel checks and the parallel phase")
+            done("the shard-shape kernel checks and the parallel phase")
+            write_checkpoint(os.path.join(root, "stable-diffusion-2"), 0, sd2=True)
+            train_parallel_phase(root)
+        done("the fine-tuning phase across ranks")
         print(smi, flush=True)
         return
     if argv == ["--nccl"]:
@@ -1082,7 +1103,10 @@ def main(argv: list) -> None:
         with tempfile.TemporaryDirectory() as root:
             write_checkpoint(root, 0)
             parallel_phase(root, n, "cuda", "nccl", NCCL_A)
-        done(f"the parallel phase on {n} cards over NCCL")
+            done(f"the parallel phase on {n} cards over NCCL")
+            write_checkpoint(os.path.join(root, "stable-diffusion-2"), 0, sd2=True)
+            train_parallel_phase(root, n, "cuda", "nccl")
+        done(f"the fine-tuning phase across ranks on {n} cards over NCCL")
         print(smi, flush=True)
         return
     results = check_kernels()
@@ -1121,9 +1145,12 @@ def main(argv: list) -> None:
         f32_counts = collections.Counter(f32_counts)
         f32_counts.update(f32_train_phase(sd2))
         done("the fp32 fine-tuning phase")
+        ranks_counts = train_parallel_phase(base_ckpt)
+        done("the fine-tuning phase across ranks")
         cli_train_counts = train_cli_phase(base_ckpt)
-    train_counts.update(cli_train_counts)
-    serve_counts.update(cli_train_counts)  # the serving kernels it ran
+    for counts in (cli_train_counts, ranks_counts):
+        train_counts.update(counts)
+        serve_counts.update(counts)  # the serving kernels they ran
     rows = (kernel_rows(results, serve_counts)
             + train_kernel_rows(train_results, train_counts)
             + [folded_kernel_row(folded_results, folded_counts)]
@@ -3538,10 +3565,10 @@ def expected_train_launches(core, hw: tuple, micro_steps: int,
     return want
 
 
-def _train_batches(seed: int, n: int) -> list:
-    """Synthetic batches in the trainer's layout (NHWC numpy): smooth
-    depth in [-1, 1], noise RGB, an invalid block in the first sample and
-    5% invalid pixels in the second."""
+def _train_batches(seed: int, n: int, rows: int = TRAIN_BATCH) -> list:
+    """Synthetic batches of `rows` in the trainer's layout (NHWC numpy):
+    smooth depth in [-1, 1], noise RGB, an invalid block in the first
+    sample and 5% invalid pixels in the others."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -3551,12 +3578,12 @@ def _train_batches(seed: int, n: int) -> list:
     for _ in range(n):
         depth = np.stack([np.sin(xx / rng.uniform(40, 120) + rng.uniform(0, 6))
                           * np.cos(yy / rng.uniform(40, 120))
-                          for _ in range(TRAIN_BATCH)])[..., None]
-        valid = np.ones((TRAIN_BATCH, h, w, 1), bool)
+                          for _ in range(rows)])[..., None]
+        valid = np.ones((rows, h, w, 1), bool)
         valid[0, 100:220, 200:360] = False
-        valid[1] = rng.uniform(size=(h, w, 1)) > 0.05
+        valid[1:] = rng.uniform(size=(rows - 1, h, w, 1)) > 0.05
         out.append({
-            "rgb_norm": rng.uniform(-1, 1, (TRAIN_BATCH, h, w, 3)).astype(np.float32),
+            "rgb_norm": rng.uniform(-1, 1, (rows, h, w, 3)).astype(np.float32),
             "depth_raw_norm": depth.astype(np.float32),
             "valid_mask_raw": valid,
         })
@@ -3983,6 +4010,424 @@ def f32_train_phase(root: str) -> dict:
     return counts
 
 
+# Phase 10b: fine-tuning across ranks (train/train_step.py and
+# train/trainer.py over parallel/mesh.py). Two gloo ranks share the card
+# (NCCL refuses two ranks on one device; `--nccl` puts one rank on each card
+# over NCCL), each holding the full-width depth trainer of phase 10 on the
+# SD2 checkpoint: one effective iteration of TRAIN_ACCUM micro-steps at the
+# global micro-batch [n_ranks, 3, 480, 640], one row per rank, with valid
+# masks whose counts differ between the rows. Rank 0 first runs the same
+# iteration alone (no mesh, the global batch) as the single process; then
+# both ranks run it replicated and under ZeRO-1. Then cli/train.py
+# --data_parallel --shard_optimizer in each rank (the CLI finds the group the
+# ranks were spawned with) on the depth overlay of phase 11 with the batch
+# and effective batch cut to one row per rank and Adafactor for Adam: one
+# iteration with validation on rank 0, then --resume_run for a second
+# without. An Adam checkpoint is 9.7 GiB and its ZeRO-1 gather over gloo
+# takes as long as ~4 micro-steps here: the CLI's four saves hold the UNet
+# and Adafactor's factored moments (3.5 GiB, nothing to gather), and Adam's
+# gathered checkpoint is the trainer part's. Every run dir goes as soon as
+# it is checked, since the machine's disk keeps the blocks a call ever
+# wrote (45 GiB).
+TRAIN_PAR_RANKS = 2
+TRAIN_PAR_SEED = 4
+
+
+def _bits_sum(t) -> int:
+    """An exact checksum of a 4-byte tensor's bits: the int64 sum of its
+    32-bit words."""
+    import torch
+
+    return int(t.detach().contiguous().view(torch.int32).to(torch.int64).sum())
+
+
+def _state_sums(state) -> dict:
+    return {g: {n: _bits_sum(t) for n, t in getattr(state, g).items()}
+            for g in ("params", "mu", "nu")}
+
+
+def _on_cpu(tensors: dict) -> dict:
+    return {n: t.detach().cpu() for n, t in tensors.items()}
+
+
+def _rel_l2(got: dict, ref: dict, device) -> tuple:
+    """(relative L2 distance of the whole tree, worst leaf's, its name),
+    leaf by leaf on the card in fp64."""
+    import torch
+
+    num = den = 0.0
+    worst = (0.0, None)
+    for n, r in ref.items():
+        r = r.to(device, torch.float64)
+        d = float(((got[n].to(device, torch.float64) - r) ** 2).sum())
+        e = float((r ** 2).sum())
+        num, den = num + d, den + e
+        if e > 0 and (d / e) ** 0.5 > worst[0]:
+            worst = ((d / e) ** 0.5, n)
+    return (num / den) ** 0.5, worst[0], worst[1]
+
+
+def _max_diff(got: dict, ref: dict) -> tuple:
+    """(max |got - ref| over every tensor, the names of the unequal ones),
+    leaf by leaf on got's device."""
+    import torch
+
+    worst, unequal = 0.0, []
+    for n, r in ref.items():
+        g, r = got[n].detach(), r.to(got[n].device)
+        if not torch.equal(g, r):
+            unequal.append(n)
+            worst = max(worst, (g.float() - r.float()).abs().max().item())
+    return worst, unequal
+
+
+def train_parallel_rank(mesh, root: str, batches: list, cli: dict) -> dict:
+    """One rank of train_parallel_phase: reduce_scatter on the rank's CUDA
+    tensors, the single process (rank 0), the replicated and the ZeRO-1
+    iteration, the ZeRO-1 checkpoint, then the CLI. -> its measures and
+    failures."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.config import Config
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.train import train_step as ts
+    from marigold_tpu_torch.train.checkpoints import load_train_state
+    from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
+
+    torch.cuda.set_device(mesh.device)
+    failures: list = []
+    out = {"failures": failures}
+    x = torch.arange(2.0 * mesh.size, device=mesh.device) + 10 * mesh.rank
+    got = mesh.reduce_scatter(x, 0)
+    want = (torch.arange(2.0 * mesh.size) * mesh.size
+            + 10 * sum(range(mesh.size)))[mesh.rows(2 * mesh.size)]
+    out["reduce_scatter"] = (str(got.device), got.cpu().tolist(), want.tolist())
+    if got.device != mesh.device or not torch.equal(got.cpu(), want):
+        failures.append(f"reduce_scatter on CUDA tensors: {out['reduce_scatter']}")
+
+    reduce_ms: list = []
+    reduce = ts.reduce_gradients
+
+    def timed_reduce(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reduced = reduce(*args)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        return reduced
+
+    ts.reduce_gradients = timed_reduce  # the micro-step looks it up per call
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def iteration(what: str, on_mesh: bool, shard: bool, keep_acc: bool):
+        """trainer.train() for one effective iteration: -> (trainer, record)
+        with each micro-step's ms and loss, the accumulator after the first
+        (on the host, or its shapes), launches, peak memory."""
+        pipe = MarigoldDepthPipeline.from_pretrained(
+            root, dtype=torch.bfloat16, device=str(mesh.device), variant="fp16")
+        cfg = train_config(1)
+        cfg["optimizer"] = Config(name="Adam", shard_states=shard)
+        d = os.path.join(cli["tmp"], f"{what}_{mesh.rank}")
+        trainer = MarigoldDepthTrainer(
+            cfg, pipe, batches, os.path.join(d, "ckpt"), os.path.join(d, "eval"),
+            os.path.join(d, "vis"), accumulation_steps=TRAIN_ACCUM,
+            mesh=mesh if on_mesh else None)
+        rec = {"ms": [], "loss": [], "acc": None}
+        step = trainer.train_step
+
+        def micro(state, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, *a, **k)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["loss"].append(float(m["loss"]))
+            if rec["acc"] is None:
+                rec["acc"] = (_on_cpu(state.acc) if keep_acc else
+                              {n: tuple(a.shape) for n, a in state.acc.items()})
+            return m
+
+        trainer.train_step = micro
+        free()
+        reduce_ms.clear()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches.clear()  # this run of the training path starts here
+        trainer.train()
+        torch.cuda.synchronize()
+        rec["launches"] = dict(fa.launches)  # ... and ends here
+        rec["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["want"] = expected_train_launches(trainer.core, TRAIN_HW, TRAIN_ACCUM)
+        rec["reduce_ms"] = list(reduce_ms)
+        print(f"rank {mesh.rank} {what}: ms per micro-step "
+              f"{', '.join(f'{x:.1f}' for x in rec['ms'])}; the reduction's ms "
+              f"{', '.join(f'{x:.1f}' for x in reduce_ms)}; peak {rec['peak']:.2f} "
+              f"GiB; losses {rec['loss']}; flash launches {rec['launches']}",
+              flush=True)
+        if rec["launches"] != rec["want"]:
+            failures.append(f"{what}: flash launches {rec['launches']} != {rec['want']}")
+        if trainer.state.count != 1 or not all(np.isfinite(rec["loss"])):
+            failures.append(f"{what}: updates {trainer.state.count}, losses {rec['loss']}")
+        rec["dir"] = d
+        return trainer, rec
+
+    lr = train_config(1).lr
+    single = None
+    if mesh.rank == 0:
+        trainer, single = iteration("single", False, False, True)
+        single["params"] = _on_cpu(trainer.state.params)
+        shutil.rmtree(single["dir"])
+        del trainer
+        free()
+    mesh.barrier()
+    trainer, rep = iteration("replicated", True, False, mesh.rank == 0)
+    rep_params = _on_cpu(trainer.state.params)
+    sums = _state_sums(trainer.state)
+    table = mesh.all_gather(torch.tensor(list(sums["params"].values()),
+                                         device=mesh.device)[None], 0)
+    out["ranks_equal"] = bool((table == table[0]).all())
+    if not out["ranks_equal"]:
+        failures.append("replicated: the ranks' parameters differ after the apply")
+    if mesh.rank == 0:
+        out["sums"] = sums
+        rel, worst, leaf = _rel_l2(rep["acc"], single["acc"], mesh.device)
+        rel_loss = abs(rep["loss"][0] - single["loss"][0]) / abs(single["loss"][0])
+        moved, _ = _max_diff(trainer.state.params, single["params"])
+        out["vs_single"] = {"loss": (rep["loss"], single["loss"]), "rel_loss": rel_loss,
+                            "rel_grad": rel, "worst_leaf": (worst, leaf),
+                            "max_param_diff": moved, "lr": lr}
+        if not rel_loss <= TRAIN_LOSS_TOL:
+            failures.append(f"loss off the single process: rel {rel_loss}")
+        if not rel <= TRAIN_GRAD_TOL:
+            failures.append(f"reduced gradient off the single process: rel L2 {rel}")
+        rep["acc"] = None
+        out["single"] = {k: single[k] for k in ("ms", "loss", "peak", "launches")}
+        del single
+    out["replicated"] = {k: v for k, v in rep.items() if k != "acc"}
+    shutil.rmtree(rep["dir"], ignore_errors=True)
+    del trainer
+    free()
+
+    trainer, zero = iteration("zero1", True, True, False)
+    opt, st = trainer.optimizer, trainer.state
+    halves = []
+    for n, axis in opt.axes.items():
+        shape = list(rep_params[n].shape)
+        if axis is not None:
+            shape[axis] //= mesh.size
+            halves.append(n)
+        for g, t in (("mu", st.mu[n]), ("nu", st.nu[n]), ("acc", zero["acc"][n])):
+            if list(t.shape if g != "acc" else t) != shape:
+                failures.append(f"ZeRO-1 {g}.{n}: {tuple(t.shape if g != 'acc' else t)}, "
+                                f"want {tuple(shape)}")
+    exact = mesh.size == 2  # a sum of two terms has one order
+    worst, unequal = _max_diff(st.params, rep_params)
+    # one gather: the checkpoint's, held to the replicated state in memory
+    gathered, export = {}, opt.export
+    opt.export = lambda state: gathered.setdefault("state", export(state))
+    t = time.perf_counter()
+    trainer.save_checkpoint("latest", save_train_state=True)  # rank 0 writes
+    save_s = time.perf_counter() - t
+    opt.export = export
+    state_unequal = [f"{g}.{n}" for g in ("mu", "nu")
+                     for n, t in gathered["state"][g].items()
+                     if _bits_sum(t.to(mesh.device)) != sums[g][n]]
+    del gathered
+    out["zero1"] = {**{k: v for k, v in zero.items() if k != "acc"},
+                    "split": len(halves), "leaves": len(opt.axes),
+                    "held": sum(t.numel() for t in st.mu.values()),
+                    "whole": sum(p.numel() for p in rep_params.values()),
+                    "max_param_diff": worst, "unequal": len(unequal),
+                    "state_unequal": len(state_unequal), "save_s": save_s}
+    if exact and (unequal or state_unequal):
+        failures.append(f"ZeRO-1 differs from the replicated run: {unequal[:4]}, "
+                        f"{state_unequal[:4]}")
+    if not exact and worst > 2 * lr:  # a flipped first Adam step moves 2 lr
+        failures.append(f"ZeRO-1 parameters {worst} off the replicated run's")
+    if mesh.rank == 0:  # the checkpoint reloaded in this one process
+        t = time.perf_counter()
+        _, params, _, saved, opt_state = load_train_state(
+            os.path.join(trainer.out_dir_ckpt, "latest"))
+        reloaded = {"params": {n: _bits_sum(t.to(mesh.device)) for n, t in params.items()},
+                    **{g: {n: _bits_sum(opt_state[g][n].to(mesh.device)) for n in params}
+                       for g in ("mu", "nu")}}
+        out["reload"] = {"s": time.perf_counter() - t, "same": reloaded == sums,
+                         "process_count": saved["process_count"]}
+        if (exact and reloaded != sums) or saved["process_count"] != mesh.size:
+            failures.append(f"the ZeRO-1 checkpoint is not the replicated state: "
+                            f"{out['reload']}")
+        del params, opt_state
+        shutil.rmtree(zero["dir"])
+    del trainer, st, opt, rep_params
+    free()
+    ts.reduce_gradients = reduce
+
+    # the training CLI in this rank, then --resume_run
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    runs = {}
+    for what, argv in (("cli", cli["argv"]), ("resume", None)):
+        if argv is None:
+            if mesh.rank == 0:  # one more iteration, without validation
+                _check_run_dir(cli["run_dir"], [1], (8, 4), failures, "depth_dp")
+                for d in ("best", "iter_000001"):
+                    shutil.rmtree(os.path.join(cli["run_dir"], "checkpoint", d))
+                cfg_file = os.path.join(cli["run_dir"], "config.yaml")
+                with open(cfg_file) as f:
+                    cfg = yaml.safe_load(f)
+                cfg["max_iter"] += 1
+                cfg["trainer"]["validation_period"] = 0
+                with open(cfg_file, "w") as f:
+                    yaml.safe_dump(cfg, f)
+            mesh.barrier()
+            argv = ["--resume_run", os.path.join(cli["run_dir"], "checkpoint", "latest"),
+                    *cli["common"]]
+        trainer, counts, times, hws = _cli_train_run(
+            argv, failures, f"rank {mesh.rank} cli.train --data_parallel "
+            f"--shard_optimizer ({what})", validates=mesh.rank == 0)
+        if trainer.mesh is None or trainer.optimizer.mesh is None:
+            failures.append(f"{what}: the CLI trained without the mesh or ZeRO-1")
+        if mesh.rank == 0:
+            _check_metrics(trainer, failures, f"rank 0 {what}")
+        runs[what] = {"counts": counts, "micro_ms": times["micro"],
+                      "validate_ms": times["validate"],
+                      "losses": [e["loss"] for e in trainer.metrics_log if "loss" in e],
+                      "iter": trainer.effective_iter, "updates": trainer.state.count}
+        del trainer
+        free()
+    if mesh.rank == 0:
+        _check_run_dir(cli["run_dir"], [2], (8, 4), failures, "depth_dp resumed")
+        if not os.path.exists(os.path.join(cli["run_dir"], ".run_marker")):
+            failures.append("no run marker from rank 0")
+        shutil.rmtree(cli["run_dir"])
+    out["cli"] = runs
+    return out
+
+
+def train_parallel_phase(base_ckpt: str, n_ranks: int = TRAIN_PAR_RANKS,
+                         device: str = "cuda:0", backend: str = "gloo") -> dict:
+    """Phase 10b (see above) on the SD2 checkpoint base_ckpt/
+    stable-diffusion-2. Returns the flash launches of the ranks' runs
+    through the main path (replicated, ZeRO-1 and the CLI), summed."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from marigold_tpu_torch.parallel.mesh import run_on_ranks
+
+    t_phase = time.perf_counter()
+    _free()  # the parent holds no model while the ranks run
+    failures: list = []
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(base_ckpt, "stable-diffusion-2")
+    batches = _train_batches(TRAIN_PAR_SEED, TRAIN_ACCUM, rows=n_ranks)
+    recipe = CLI_TRAIN_RECIPES[0]
+    base_data = os.path.join(tmp.name, "data")
+    lists_dir = os.path.join(tmp.name, "splits")
+    os.makedirs(lists_dir)
+    lists = build_train_data(base_data, lists_dir, [recipe], seed=1)
+    # one micro-step of one row per rank per iteration
+    cfg_path = write_overlay(os.path.join(tmp.name, "configs"), "depth_dp", recipe[1],
+                             lists, n_ranks)
+    with open(cfg_path) as f:
+        overlay = yaml.safe_load(f)
+    overlay["max_iter"] = 1
+    overlay["trainer"].update(save_period=0, validation_period=1,
+                              visualization_period=0)
+    overlay["dataloader"]["max_train_batch_size"] = n_ranks
+    overlay["optimizer"] = {"name": "Adafactor"}
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(overlay, f)
+    print(f"  depth_dp overlay: max_iter 1, trainer.save_period 0, "
+          f"validation_period 1, visualization_period 0, "
+          f"dataloader.max_train_batch_size {n_ranks}, optimizer.name Adafactor",
+          flush=True)
+    out_dir = os.path.join(tmp.name, "runs")
+    common = ["--base_ckpt_dir", base_ckpt, "--base_data_dir", base_data,
+              "--output_dir", out_dir, "--no_wandb", "--device", "cuda",
+              "--data_parallel", "--shard_optimizer"]
+    cli = {"tmp": tmp.name, "common": common,
+           "argv": ["--config", cfg_path] + common,
+           "run_dir": os.path.join(out_dir, os.path.splitext(
+               os.path.basename(recipe[1]))[0])}
+    t0 = time.perf_counter()
+    ranks = run_on_ranks(train_parallel_rank, n_ranks, (root, batches, cli),
+                         device=device, backend=backend, timeout_s=900)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        failures += [f"rank {r}: {f}" for f in out["failures"]]
+    print(f"training across ranks: {backend} reduce_scatter on the ranks' CUDA "
+          f"tensors: {[o['reduce_scatter'] for o in ranks]} (torch "
+          f"{torch.__version__})", flush=True)
+    r0 = ranks[0]
+    shared = "ranks sharing one card" if device != "cuda" else "one card per rank"
+    micro = f"[{n_ranks}, 3, {TRAIN_HW[0]}, {TRAIN_HW[1]}]"
+    print(f"single process, one iteration of {TRAIN_ACCUM} micro-steps {micro}: "
+          f"ms per micro-step {', '.join(f'{m:.1f}' for m in r0['single']['ms'])}; "
+          f"peak {r0['single']['peak']:.2f} GiB; losses {r0['single']['loss']}; "
+          f"flash launches {r0['single']['launches']}", flush=True)
+    for mode in ("replicated", "zero1"):
+        for r, out in enumerate(ranks):
+            m = out[mode]
+            print(f"{mode}, rank {r} ({shared}): ms per micro-step "
+                  f"{', '.join(f'{x:.1f}' for x in m['ms'])}; the reduction's ms "
+                  f"per micro-step {', '.join(f'{x:.1f}' for x in m['reduce_ms'])}; "
+                  f"peak {m['peak']:.2f} GiB; losses {m['loss']}; flash launches "
+                  f"{m['launches']} (want {m['want']})", flush=True)
+    v = r0["vs_single"]
+    print(f"replicated against the single process: loss rel {v['rel_loss']:.2e} "
+          f"(tol {TRAIN_LOSS_TOL}), the reduced gradient after the first "
+          f"micro-step rel L2 {v['rel_grad']:.2e} (tol {TRAIN_GRAD_TOL}; worst "
+          f"leaf {v['worst_leaf'][0]:.2e} at {v['worst_leaf'][1]}), parameters "
+          f"after the apply max |diff| {v['max_param_diff']:.3e} (lr "
+          f"{v['lr']:.1e}); the ranks' parameters bit for bit: "
+          f"{[o['ranks_equal'] for o in ranks]}", flush=True)
+    z = r0["zero1"]
+    print(f"ZeRO-1: {z['split']} of {z['leaves']} leaves split, each rank holds "
+          f"{z['held'] / z['whole']:.4f} of mu and nu; parameters against the "
+          f"replicated run: {z['unequal']} tensors unequal, max |diff| "
+          f"{z['max_param_diff']:.3e}; mu and nu gathered for the checkpoint "
+          f"against the replicated run's (bit sums): {z['state_unequal']} "
+          f"unequal; gather "
+          f"and save {z['save_s']:.1f} s; the checkpoint reloaded in rank 0 alone "
+          f"in {r0['reload']['s']:.1f} s: params, mu and nu the replicated run's "
+          f"bit for bit: {r0['reload']['same']}, process_count "
+          f"{r0['reload']['process_count']}", flush=True)
+    for what in ("cli", "resume"):
+        runs = [o["cli"][what] for o in ranks]
+        for r, run in enumerate(runs):
+            print(f"cli.train --data_parallel --shard_optimizer ({what}), rank {r}: "
+                  f"iteration {run['iter']}, updates {run['updates']}, losses "
+                  f"{run['losses']}, ms per micro-step "
+                  f"{', '.join(f'{x:.1f}' for x in run['micro_ms'])}, validation "
+                  f"ms {run['validate_ms']}", flush=True)
+        if any(run["losses"] != runs[0]["losses"] for run in runs) or \
+                runs[0]["iter"] != (1 if what == "cli" else 2):
+            failures.append(f"{what}: losses {[run['losses'] for run in runs]}, "
+                            f"iteration {runs[0]['iter']}")
+    counts = collections.Counter()
+    for out in ranks:
+        for mode in ("replicated", "zero1"):
+            counts.update(out[mode]["launches"])
+        for what in ("cli", "resume"):
+            counts.update(out["cli"][what]["counts"])
+    tmp.cleanup()
+    print(f"fine-tuning across ranks: {n_ranks} ranks spawned and run in "
+          f"{wall:.1f} s; phase {time.perf_counter() - t_phase:.1f} s; flash "
+          f"launches of the ranks' main-path runs {dict(counts)}", flush=True)
+    if failures:
+        _fail(f"fine-tuning across ranks: {failures}")
+    return dict(counts)
+
+
 # The training entry point, phase 11: `python -m marigold_tpu_torch.cli.train`
 # (its setup and run, in this process so that the launch counters can be
 # read) on the four shipped recipes, each through a small overlay config
@@ -4001,7 +4446,9 @@ CLI_TRAIN_RECIPES = [
     ("iid_lighting", "config/train_marigold_iid_lighting.yaml", 4, (16, 12)),
 ]
 CLI_TRAIN_ITERS = 2
-CLI_TRAIN_SAMPLES = {"train": 8, "val": 4, "vis": 4}
+# 2 validation and visualization samples per dataset (4 until PR 17; the
+# whole run is held to the time limit)
+CLI_TRAIN_SAMPLES = {"train": 8, "val": 2, "vis": 2}
 # hypersim depth train: 12 samples, so that with vkitti's 8 an epoch is 10
 # batches of 2 and the resume lands mid-epoch (32 micro-steps in 2 iterations)
 CLI_TRAIN_HYPERSIM_DEPTH = 12
@@ -4264,11 +4711,12 @@ def train_stream_hw(trainer, seed: int, n: int, skip: int = 0) -> list:
     return out[:n]
 
 
-def expected_cli_train(trainer, hws: list, val_passes: int) -> dict:
+def expected_cli_train(trainer, hws: list, val_passes: int,
+                       vis_passes: int) -> dict:
     """Exact flash launches of a CLI run: per micro-step at its input size,
     the UNet self-attentions' lse forward, dQ and dK/dV kernels and the VAE
     encodes of the RGB and of each 3-channel target group under no_grad
-    (the serving d=512 kernel); per validation/visualization pass, each
+    (the serving d=512 kernel); per validation and visualization pass, each
     sample's request (expected_flash) in the shifted mode."""
     core = trainer.core
     encodes = 1 + (len(trainer.model.target_names) if trainer.modality == "iid"
@@ -4279,14 +4727,15 @@ def expected_cli_train(trainer, hws: list, val_passes: int) -> dict:
             # expected_train_launches counts the depth trainer's 2 encodes
             want[key] += n // 2 * encodes if key.startswith("shifted") else n
     v = trainer.cfg.validation
-    loaders = list(trainer.val_loaders) + list(trainer.vis_loaders)
-    for loader in loaders:
+    loaders = ([(lo, val_passes) for lo in trainer.val_loaders]
+               + [(lo, vis_passes) for lo in trainer.vis_loaders])
+    for loader, passes in loaders:
         for i in range(len(loader.dataset)):
             hw = _sample_hw(loader.dataset, i)
             res = int(v.processing_res) or max(hw)
             for d, n in expected_flash(trainer.model, hw, int(v.denoising_steps),
                                        res=res).items():
-                want[f"shifted_d{d}"] += n * val_passes
+                want[f"shifted_d{d}"] += n * passes
     return {k: int(n) for k, n in want.items() if n}
 
 
@@ -4321,9 +4770,12 @@ def _instrument(trainer) -> dict:
     return times
 
 
-def _cli_train_run(argv: list, failures: list, what: str, skip: int = 0):
+def _cli_train_run(argv: list, failures: list, what: str, skip: int = 0,
+                   validates: bool = True):
     """setup + run of cli/train.py (its main), the flash counts set to 0
-    just before and read just after. -> (trainer, counts, times, want)."""
+    just before and read just after; validates: this process runs the
+    validation passes (rank 0 alone across ranks). -> (trainer, counts,
+    times, want)."""
     import logging
 
     import torch
@@ -4342,9 +4794,13 @@ def _cli_train_run(argv: list, failures: list, what: str, skip: int = 0):
         n_micro = (int(trainer.cfg.max_iter) - start_iter) * trainer.accumulation_steps
         hws = train_stream_hw(trainer, int(trainer.cfg.dataloader.seed), n_micro,
                               skip=trainer.n_batch_in_epoch)
-        val_passes = sum(1 for it in range(start_iter + 1, int(trainer.cfg.max_iter) + 1)
-                         if trainer.val_period and it % trainer.val_period == 0)
-        want = expected_cli_train(trainer, hws, val_passes)
+        def passes(period):
+            return validates * sum(
+                1 for it in range(start_iter + 1, int(trainer.cfg.max_iter) + 1)
+                if period and it % period == 0)
+
+        want = expected_cli_train(trainer, hws, passes(trainer.val_period),
+                                  passes(trainer.vis_period))
         fa.launches.clear()  # this run of the training CLI starts here
         t0 = time.perf_counter()
         rc = cli_train.run(trainer, t_end)

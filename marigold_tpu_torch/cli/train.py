@@ -5,18 +5,34 @@ script/{depth,normals,iid}/train.py): config, resume and output dirs,
 logger and TensorBoard init, the mixed train dataset with its sampler and
 loader, the val and vis loaders, the base-checkpoint load, the trainer
 dispatch, the --exit_after time budget and resume from a run dir, on one
-GPU (`--device cuda`, the default, which raises without a card) or on the
-CPU when asked (`--device cpu`).
+GPU (`--device cuda`, the default, which raises without a card), across
+GPUs, or on the CPU when asked (`--device cpu`, gloo ranks across
+processes).
 
 Example:
   python -m marigold_tpu_torch.cli.train \\
       --config config/train_marigold_depth.yaml \\
       --base_ckpt_dir ckpt/ --base_data_dir data/ --output_dir output/run1
 
-The JAX CLI's multi-device flags: `--data_parallel` and
-`--shard_optimizer` warn and train on one device when one GPU is visible;
-with more than one, or with `--multihost`, they raise NotImplementedError
-(ROADMAP queue 1, "Multi-GPU").
+Across GPUs, the JAX CLI's flags with their meaning, one rank (process) per
+GPU (`train/trainer.py`):
+  --data_parallel: under torchrun (`torchrun --nproc_per_node N -m
+    marigold_tpu_torch.cli.train --data_parallel ...`), or in a process
+    group already made, the CLI joins it; with several GPUs visible and no
+    group, it spawns one rank per GPU itself over NCCL. Every rank reads the
+    whole seeded loader stream and keeps its rows of each batch, so the
+    batch and the effective batch are the config's. With one GPU it warns
+    and trains on it.
+  --multihost --data_parallel: the group from MARIGOLD_TPU_COORDINATOR
+    (host:port), MARIGOLD_TPU_NUM_PROCESSES and MARIGOLD_TPU_PROCESS_ID, or
+    from torchrun's variables; each rank takes every N-th batch of the
+    shared stream and the global batch is their concatenation, N times the
+    config's batch (and effective batch).
+  --shard_optimizer: ZeRO-1 with either (Adam's moments and the
+    accumulator split over the ranks); without a mesh it warns.
+Rank 0 creates the run dir and writes a marker with its run token, which
+the other ranks wait for; it alone logs to the run dir, TensorBoard and
+wandb. A rank that fails fails the run.
 """
 
 from __future__ import annotations
@@ -26,12 +42,39 @@ import logging
 import os
 import random
 import shutil
+import sys
+import time
 from datetime import datetime, timedelta
 
 from marigold_tpu_torch.cli import add_device_argument
 
-ROADMAP_MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
 SNAPSHOT_SUFFIXES = (".py", ".cu", ".cuh")
+_RUN_MARKER = ".run_marker"
+
+
+def _wait_for_dir(path: str, token: str, timeout_s: float = 120.0) -> None:
+    """Block until rank 0 has created `path` for this run: a directory left
+    by an earlier run is not enough (the other ranks would train into it
+    while rank 0 fails with FileExistsError), so rank 0 writes the
+    broadcast run token into a marker file and this waits for a matching
+    one."""
+    marker = os.path.join(path, _RUN_MARKER)
+    deadline = time.monotonic() + timeout_s
+    while True:
+        if os.path.isfile(marker):
+            try:
+                with open(marker) as f:
+                    if f.read().strip() == token:
+                        return
+            except OSError:
+                pass
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"run dir {path} was not created by rank 0 (marker with token "
+                f"{token!r}) within {timeout_s:.0f}s; if the dir exists from "
+                "an earlier run, rank 0 has failed with FileExistsError: "
+                "remove it or use --add_datetime_prefix")
+        time.sleep(0.5)
 
 
 def build_parser():
@@ -56,45 +99,85 @@ def build_parser():
                         help="prefix the run dir name with the start "
                              "datetime (reference --add_datetime_prefix)")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="data parallelism over the visible GPUs: with "
-                             "one GPU, trains on it (with a warning); with "
-                             "more, not ported yet")
+                        help="one rank per GPU, each on its rows of every "
+                             "batch, gradients summed over the ranks: joins "
+                             "torchrun's (or an existing) process group, else "
+                             "spawns one rank per visible GPU; the effective "
+                             "batch is the config's. Requires "
+                             "max_train_batch_size % n_ranks == 0.")
     parser.add_argument("--shard_optimizer", action="store_true",
-                        help="ZeRO-1 with --data_parallel: not ported yet; "
-                             "without a multi-GPU mesh it has no effect")
+                        help="ZeRO-1 with --data_parallel: Adam's m and v and "
+                             "the accumulation buffer split over the ranks "
+                             "(the same parameters as the replicated update)")
     parser.add_argument("--do_not_copy_data", action="store_true",
                         help="(Slurm) do not copy data to local scratch")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training: not ported yet")
+                        help="with --data_parallel: ranks on several hosts, "
+                             "from MARIGOLD_TPU_COORDINATOR/NUM_PROCESSES/"
+                             "PROCESS_ID or torchrun's variables; each rank "
+                             "takes every N-th batch of the shared stream")
     add_device_argument(parser, help="device the trainer runs on (default "
                                      "cuda; cpu runs the kernels' plain "
                                      "versions)")
     return parser
 
 
-def _check_devices(args) -> None:
-    """The multi-device flags on one device: warn, as the JAX CLI does with
-    one chip; on several GPUs, or multi-host, raise."""
+def _check_device(args) -> None:
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a GPU and "
                            "torch.cuda.is_available() is False; pass "
                            "--device cpu to train on the CPU")
-    if args.multihost:
-        raise NotImplementedError(
-            f"--multihost is not ported yet: {ROADMAP_MULTI_GPU}")
-    n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
-    if args.data_parallel:
-        if n_dev > 1:
-            raise NotImplementedError(
-                f"--data_parallel over {n_dev} GPUs is not ported yet: "
-                f"{ROADMAP_MULTI_GPU}")
-        logging.warning("--data_parallel requested but only one device "
-                        "is available; training single-device")
-    if args.shard_optimizer:
+
+
+def _ranks_to_spawn(args) -> int:
+    """The ranks `main` spawns itself: one per visible GPU under
+    --data_parallel on one host when several are visible, no process group
+    exists and no launcher names a cluster; else 0."""
+    import torch
+    import torch.distributed as dist
+
+    from marigold_tpu_torch.parallel.mesh import cluster_named
+
+    if not args.data_parallel or args.multihost or args.device != "cuda" or \
+            dist.is_initialized() or cluster_named():
+        return 0
+    n = torch.cuda.device_count()
+    return n if n > 1 else 0
+
+
+def _join(args):
+    """This rank's mesh under --data_parallel: the process group that exists,
+    or one initialised from the launch variables; None for one process
+    (with the JAX CLI's warnings)."""
+    import torch.distributed as dist
+
+    from marigold_tpu_torch.parallel.mesh import get_mesh, init_distributed
+
+    mesh = None
+    if args.data_parallel or args.multihost:
+        device = "cpu" if args.device == "cpu" else None
+        init_distributed(device=device)
+        if args.multihost and not dist.is_initialized():
+            raise ValueError(
+                "coordinator_address should be defined: --multihost needs "
+                "MARIGOLD_TPU_COORDINATOR, MARIGOLD_TPU_NUM_PROCESSES and "
+                "MARIGOLD_TPU_PROCESS_ID, or torchrun's variables")
+        if args.multihost and not args.data_parallel:
+            raise ValueError("--multihost trains with --data_parallel: without "
+                             "it every rank would train a model of its own")
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            mesh = get_mesh(device=device)
+            logging.info(f"data-parallel training over {mesh.size} ranks, "
+                         f"rank {mesh.rank} on {mesh.device}")
+        else:
+            logging.warning("--data_parallel requested but only one device "
+                            "is available; training single-device")
+    if args.shard_optimizer and mesh is None:
         logging.warning("--shard_optimizer has no effect without a "
                         ">1-device --data_parallel mesh")
+    return mesh
 
 
 def _write_code_snapshot(out_dir_run: str) -> None:
@@ -117,9 +200,10 @@ def _write_code_snapshot(out_dir_run: str) -> None:
 
 
 def setup(argv=None):
-    """Everything of `main` up to the training loop: -> (trainer, t_end)."""
+    """Everything of `main` up to the training loop, in this process (one
+    rank of the group when one exists): -> (trainer, t_end)."""
     args = build_parser().parse_args(argv)
-    _check_devices(args)
+    _check_device(args)
 
     import torch
 
@@ -154,6 +238,18 @@ def setup(argv=None):
     base_data_dir = args.base_data_dir or os.environ.get("BASE_DATA_DIR")
     base_ckpt_dir = args.base_ckpt_dir or os.environ.get("BASE_CKPT_DIR")
 
+    # before any file or wandb side effect, so that rank 0 alone makes them
+    mesh = _join(args)
+    is_main = mesh is None or mesh.rank == 0
+    device = args.device if mesh is None else str(mesh.device)
+    if mesh is not None and mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    # every rank's run token is rank 0's: it prefixes the run dir under
+    # --add_datetime_prefix and marks the dir as this run's
+    run_token = t_start.strftime("%y_%m_%d-%H_%M_%S")
+    if mesh is not None:
+        run_token = mesh.broadcast_object(run_token)
+
     resume_run = args.resume_run
     if resume_run is not None:
         out_dir_run = os.path.dirname(os.path.dirname(resume_run))
@@ -162,11 +258,17 @@ def setup(argv=None):
         cfg = recursive_load_config(args.config)
         run_name = os.path.splitext(os.path.basename(args.config))[0]
         if args.add_datetime_prefix:
-            run_name = f"{t_start.strftime('%y_%m_%d-%H_%M_%S')}-{run_name}"
+            run_name = f"{run_token}-{run_name}"
         out_dir_run = os.path.join(args.output_dir or "output", run_name)
-        # exist_ok=False like the reference (train.py:163): a rerun of the
-        # same config must not write into the previous run's directory
-        os.makedirs(out_dir_run, exist_ok=False)
+        if is_main:
+            # exist_ok=False like the reference (train.py:163): a rerun of
+            # the same config must not write into the previous run's dir
+            os.makedirs(out_dir_run, exist_ok=False)
+            if mesh is not None:
+                with open(os.path.join(out_dir_run, _RUN_MARKER), "w") as f:
+                    f.write(run_token)
+        else:
+            _wait_for_dir(out_dir_run, run_token)
 
     out_dir_ckpt = os.path.join(out_dir_run, "checkpoint")
     out_dir_tb = os.path.join(out_dir_run, "tensorboard")
@@ -175,9 +277,12 @@ def setup(argv=None):
     for d in (out_dir_ckpt, out_dir_tb, out_dir_eval, out_dir_vis):
         os.makedirs(d, exist_ok=True)
 
-    config_logging(cfg.get("logging", {}), out_dir=out_dir_run)
+    # the other ranks log to the console only
+    config_logging(cfg.get("logging", {}),
+                   out_dir=out_dir_run if is_main else None)
     logging.info(f"config: {args.config}; output: {out_dir_run}")
-    tb_logger.set_dir(out_dir_tb)
+    if is_main:
+        tb_logger.set_dir(out_dir_tb)
 
     # wandb wrapping tensorboard, with run-ID persistence across resume
     # (reference train.py:185-210; noop without the package)
@@ -189,14 +294,14 @@ def setup(argv=None):
         prev_id = load_wandb_job_id(out_dir_run)
         if prev_id is not None:
             wandb_kwargs.update(id=prev_id, resume="must")
-    wandb_run = init_wandb(enable=not args.no_wandb, **wandb_kwargs)
-    if not args.no_wandb:
+    wandb_run = init_wandb(enable=is_main and not args.no_wandb, **wandb_kwargs)
+    if is_main and not args.no_wandb:
         # only a real run id may be persisted: a disabled-mode run's id
         # would poison a later resume="must"
         save_wandb_job_id(wandb_run, out_dir_run)
     log_slurm_job_id()
 
-    if resume_run is None:
+    if resume_run is None and is_main:
         import yaml
 
         with open(os.path.join(out_dir_run, "config.yaml"), "w") as f:
@@ -242,11 +347,18 @@ def setup(argv=None):
         train_datasets, batch_size=max_bs, shuffle=True,
         prob=list(cfg.dataset.train.get("prob_ls") or []) or None,
         generator=random.Random(loader_seed))
+    # --multihost: the ranks share the seeded stream and each takes its
+    # stride; else every rank reads the whole stream and keeps its rows
+    n_shard, i_shard = ((mesh.size, mesh.rank) if args.multihost and mesh
+                        else (1, 0))
+    if n_shard > 1:
+        logging.info(f"data sharding: rank {i_shard}/{n_shard} takes every "
+                     f"{n_shard}-th batch")
     train_loader = DataLoader(
         ConcatDataset(train_datasets), batch_sampler=sampler,
         num_workers=int(cfg.dataloader.get("num_workers", 0)),
         # the per-batch augmentation seeds derive from it (loader.py)
-        seed=loader_seed)
+        seed=loader_seed, shard_count=n_shard, shard_index=i_shard)
 
     def _mk_eval_loaders(split):
         return [DataLoader(get_dataset(c, base_data_dir=base_data_dir,
@@ -264,8 +376,9 @@ def setup(argv=None):
         "MarigoldIIDPipeline": MarigoldIIDPipeline,
     }[cfg.pipeline.name]
     ckpt_path = os.path.join(base_ckpt_dir or "", cfg.model.pretrained_path)
+    # without the mesh: rank 0 validates alone, a whole request per image
     pipe = pipe_cls.from_pretrained(ckpt_path, dtype=torch.bfloat16,
-                                    device=args.device)
+                                    device=device)
     # pipeline kwargs from the training config override the base checkpoint
     pipe.pipe_cfg.update(dict(cfg.pipeline.get("kwargs") or {}))
     pipe.default_denoising_steps = pipe.pipe_cfg.get("default_denoising_steps")
@@ -276,11 +389,16 @@ def setup(argv=None):
         pipe.target_names = pipe.target_properties["target_names"]
         pipe.n_targets = len(pipe.target_names)
 
+    if args.shard_optimizer and mesh is not None:
+        # a plain dict: Config.__getattr__ wraps nested dicts in a fresh
+        # object, so an attribute write would not persist into cfg
+        cfg["optimizer"] = dict(cfg.get("optimizer") or {}, shard_states=True)
+
     trainer = get_trainer_cls(cfg.trainer.name)(
         cfg=cfg, model=pipe, train_dataloader=train_loader,
         out_dir_ckpt=out_dir_ckpt, out_dir_eval=out_dir_eval,
         out_dir_vis=out_dir_vis, accumulation_steps=accumulation_steps,
-        val_dataloaders=val_loaders, vis_dataloaders=vis_loaders)
+        val_dataloaders=val_loaders, vis_dataloaders=vis_loaders, mesh=mesh)
     if resume_run is not None:
         trainer.load_checkpoint(resume_run, load_trainer_state=True)
 
@@ -299,7 +417,22 @@ def run(trainer, t_end=None) -> int:
     return 0
 
 
+def _spawned_rank(mesh, argv: list) -> int:
+    """One rank that `main` spawned: the group exists, so setup joins it."""
+    return run(*setup(argv))
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    _check_device(args)
+    n = _ranks_to_spawn(args)
+    if n:
+        from marigold_tpu_torch.parallel.mesh import run_on_ranks
+
+        logging.info(f"--data_parallel: spawning one rank per GPU, {n} over NCCL")
+        return max(run_on_ranks(_spawned_rank, n, (argv,), device="cuda",
+                                backend="nccl", timeout_s=None))
     return run(*setup(argv))
 
 

@@ -9,6 +9,11 @@ device. The models take it as their `spatial` argument and call its three
 collectives, all_gather, all_reduce and broadcast, which NCCL and gloo both
 take; gloo also takes CUDA tensors (it stages them through host memory
 itself), which lets several ranks share one card where NCCL refuses to.
+Data-parallel training adds reduce_scatter (ZeRO-1's gradient into each
+rank's block), and two host-side calls on a gloo group of their own with a
+long explicit timeout: `barrier`, the counterpart of the JAX trainer's
+coordination-service barrier, and `broadcast_object` (rank 0's run token and
+its `--exit_after` decision).
 
 Launch: `torchrun --nproc_per_node N script.py` (MASTER_ADDR, MASTER_PORT,
 RANK, WORLD_SIZE, LOCAL_RANK) or the JAX package's MARIGOLD_TPU_COORDINATOR
@@ -29,12 +34,17 @@ import queue as queue_lib
 import tempfile
 import time
 import traceback
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
 
 AXIS = "data"
+# the host group's deadline: long enough for rank 0's validation pass while
+# the other ranks wait (the JAX trainer's _coord_barrier waits 2 h)
+HOST_TIMEOUT_S = 7200.0
+# torch 2.13 names reduce_scatter_tensor reduce_scatter_single
+_reduce_scatter = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -47,6 +57,8 @@ class Mesh:
     size: int
     device: torch.device
     axis_names: tuple = (AXIS,)
+    # the gloo group of barrier and broadcast_object, made at their first call
+    _host: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -73,6 +85,41 @@ class Mesh:
         """Overwrite x in place with rank 0's."""
         if self.size > 1:
             dist.broadcast(x, src=0)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block (`rows`) along `dim` of the sum of every rank's
+        x (a new contiguous tensor); x.shape[dim] must divide the mesh."""
+        rows = self.rows(x.shape[dim])
+        if self.size == 1:
+            return x.clone(memory_format=torch.contiguous_format)
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((rows.stop - rows.start,) + x.shape[1:])
+        _reduce_scatter(out, x)
+        return out.movedim(0, dim).contiguous()
+
+    def _host_group(self):
+        if "group" not in self._host:  # every rank makes it at the same call
+            self._host["group"] = dist.new_group(
+                backend="gloo", timeout=datetime.timedelta(seconds=HOST_TIMEOUT_S))
+        return self._host["group"]
+
+    def barrier(self, timeout_s: float = HOST_TIMEOUT_S) -> None:
+        """Wait until every rank has reached this call, for up to timeout_s
+        (raising past it, naming the ranks that did not arrive). On the host
+        group, so that one rank's long pass (rank 0's validation) cannot
+        trip the deadline of the next collective on the others."""
+        if self.size > 1:
+            dist.monitored_barrier(
+                group=self._host_group(),
+                timeout=datetime.timedelta(seconds=timeout_s))
+
+    def broadcast_object(self, obj: Any) -> Any:
+        """Rank 0's obj (a small picklable host object) on every rank."""
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self._host_group())
+        return box[0]
 
     def halo_rows(self, x: torch.Tensor) -> tuple:
         """For x [B, C, Hl, W] sharded along H in rank order: (the previous
@@ -136,6 +183,17 @@ def get_mesh(n_devices: Optional[int] = None, axis_name: str = AXIS,
     if device.type == "cpu" and dist.get_backend() == "nccl":
         raise ValueError("an NCCL process group cannot serve a CPU rank")
     return Mesh(rank, world, device)
+
+
+# the variables through which a launcher names the cluster
+_LAUNCH_VARIABLES = ("MARIGOLD_TPU_COORDINATOR", "MARIGOLD_TPU_NUM_PROCESSES",
+                     "MASTER_ADDR", "WORLD_SIZE")
+
+
+def cluster_named() -> bool:
+    """Whether a launcher's variables name a cluster, from which
+    init_distributed() would make the process group."""
+    return any(k in os.environ for k in _LAUNCH_VARIABLES)
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -240,16 +298,19 @@ def global_batch_from_local(mesh: Mesh, local_batch, axis_name: str = AXIS):
 
 
 def _rank_main(fn, rank: int, n: int, store_path: str, device: str,
-               backend: str, timeout_s: float, args: tuple, results) -> None:
+               backend: str, timeout_s: Optional[float], args: tuple,
+               results) -> None:
     """One spawned rank: a group through the FileStore, fn(mesh, *args) and
     its result (or its traceback) onto the queue."""
     torch.set_num_threads(1)
     if device == "cuda":  # one card per rank
         device = f"cuda:{rank}"
+    timeout = ({} if timeout_s is None
+               else {"timeout": datetime.timedelta(seconds=timeout_s)})
     try:
         dist.init_process_group(
             backend, store=dist.FileStore(store_path, n), rank=rank,
-            world_size=n, timeout=datetime.timedelta(seconds=timeout_s))
+            world_size=n, **timeout)
         try:
             out = fn(get_mesh(n, device=device), *args)
         finally:
@@ -263,7 +324,7 @@ def _rank_main(fn, rank: int, n: int, store_path: str, device: str,
 
 def run_on_ranks(fn: Callable, n: int, args: tuple = (), device: str = "cpu",
                  backend: str = "gloo", store_dir: Optional[str] = None,
-                 timeout_s: float = 600.0) -> list:
+                 timeout_s: Optional[float] = 600.0) -> list:
     """fn(mesh, *args) on n spawned ranks of one process group; returns the
     ranks' results in rank order. device: "cpu", one card that every rank
     shares ("cuda:0", over gloo: NCCL refuses two ranks on one device) or
@@ -272,20 +333,26 @@ def run_on_ranks(fn: Callable, n: int, args: tuple = (), device: str = "cpu",
     module-level function) and the module holding fn is imported in each
     rank. The ranks meet through a FileStore in `store_dir` (a new
     temporary directory when None), so no port is taken. Raises with a
-    rank's traceback when one fails, and TimeoutError past timeout_s; no
-    rank outlives the call."""
+    rank's traceback when one fails, and TimeoutError past timeout_s (also
+    the group's collective timeout; None: no deadline and the backend's
+    default collective timeout, for a training run); no rank outlives the
+    call."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
         store_path = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_main, daemon=True,
+        # not daemonic: a rank may start processes of its own (the
+        # training loader's workers); the finally below ends every rank
+        procs = [ctx.Process(target=_rank_main, daemon=False,
                              args=(fn, r, n, store_path, device, backend,
                                    timeout_s, args, results))
                  for r in range(n)]
         for p in procs:
             p.start()
         out, errors, failed = {}, [], set()
-        deadline, grace = time.monotonic() + timeout_s, None
+        deadline = time.monotonic() + (float("inf") if timeout_s is None
+                                       else timeout_s)
+        grace = None
         try:
             # after a first failure, the other ranks' reports for a few
             # seconds: the rank that failed first is not always the one

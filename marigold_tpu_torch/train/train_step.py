@@ -51,8 +51,22 @@ accumulator, `apply_step` applies the mean at each k-th micro-step, so
 (e.g. bf16) keeps the running sum in that dtype, as the JAX
 `gradient_accumulation` does. Between windows the accumulator is freed.
 
-Not ported (ROADMAP queue 1, "Multi-GPU"): ZeRO-sharded optimizer state;
-asking for it raises NotImplementedError.
+Data parallel over a `parallel.mesh.Mesh` of several ranks (the JAX step
+sharded over its `data` mesh, where XLA inserts the psum): each rank runs
+its rows of the global batch and draws the timesteps and noise of the whole
+global batch from the micro-step's generator (seeded alike on every rank),
+keeping its own rows, as the JAX step draws them from one key; the masked
+loss divides by the global batch's mask count (all-reduced before the
+backward), so each rank's loss is its share of the global loss and the
+gradients are summed over the ranks, in their own dtype, in flat buckets of
+BUCKET_BYTES (one collective each). ZeRO-1 (`shard_states`): Adam's mu and
+nu and the window accumulator are split along the axis
+`zero1_state_shardings` picks for each parameter; each micro-step's
+gradient is reduce-scattered into the rank's block of the accumulator, each
+rank updates its block of the masters and the ranks all-gather them.
+Adafactor's factored second moments need whole rows and columns: under
+ZeRO-1 only its accumulator is split, and each apply gathers the window's
+whole gradient and runs the replicated update on every rank.
 """
 
 from __future__ import annotations
@@ -73,14 +87,13 @@ from torch.utils.checkpoint import (
 from marigold_tpu_torch.core.scheduler import DiffusionSchedule
 # imported for its dispatcher op, which SAVE_HEAVY_OPS names
 from marigold_tpu_torch.ops import flash_attention  # noqa: F401
+from marigold_tpu_torch.parallel.mesh import AXIS, Mesh
 from marigold_tpu_torch.train.loss import get_loss
 from marigold_tpu_torch.train.multi_res_noise import multi_res_noise_like
 
-ROADMAP_MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {ROADMAP_MULTI_GPU}")
+# the size of one collective's flat buffer when gradients, parameters or
+# optimizer state cross the ranks (about 700 UNet tensors)
+BUCKET_BYTES = 1 << 27
 
 
 def as_dtype(name) -> Optional[torch.dtype]:
@@ -166,6 +179,7 @@ def make_loss_and_grad(
     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
     remat="none",
     grad_dtype=None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """-> loss_and_grad(params, text_embed, batch, generator=None,
     timesteps=None, noise=None) -> (loss, grads).
@@ -178,12 +192,17 @@ def make_loss_and_grad(
     (IID targets). timesteps [B] and noise (the latent-shaped fp32 noise)
     are drawn from `generator` unless given, so a test can pass the JAX
     package's draws. Returns the fp32 loss (0-d) and name -> gradient,
-    fp32 or `grad_dtype`."""
+    fp32 or `grad_dtype`. With a mesh of several ranks (module docstring)
+    the batch is this rank's rows of the global batch, the draws made here
+    are the global batch's (given timesteps and noise are this rank's
+    rows), and the loss and gradients are this rank's share of the global
+    batch's: their sums over the ranks are the global ones."""
     loss_inner = get_loss(loss_name)
     ds = vae.cfg.downscale_factor
     grad_dtype = as_dtype(grad_dtype)
     run_region = remat_runner(remat)
     blockwise = remat not in (False, None, "none")
+    sharded = mesh is not None and mesh.size > 1
 
     def encode(x: torch.Tensor) -> torch.Tensor:
         dtype = next(vae.parameters()).dtype
@@ -200,13 +219,20 @@ def make_loss_and_grad(
             gt_latent = torch.cat(
                 [encode(gt[:, 3 * i:3 * i + 3]) for i in range(max(gt.shape[1] // 3, 1))],
                 dim=1).float()
+        n_all = bsz * mesh.size if sharded else bsz  # the global batch
+        rows = mesh.rows(n_all) if sharded else slice(None)
+        t_all = None
         if timesteps is None:
-            timesteps = torch.randint(0, schedule.num_train_timesteps, (bsz,),
-                                      generator=generator, device=device)
+            t_all = torch.randint(0, schedule.num_train_timesteps, (n_all,),
+                                  generator=generator, device=device)
+            timesteps = t_all[rows]
         timesteps = timesteps.to(device)
         if noise is None:
-            noise = _draw_noise(gt_latent, timesteps, schedule,
-                                multi_res_noise_cfg, generator)
+            if t_all is None:  # the annealed strengths of every row
+                t_all = mesh.all_gather(timesteps) if sharded else timesteps
+            noise = _draw_noise(gt_latent.new_empty((n_all,) + gt_latent.shape[1:]),
+                                t_all, schedule, multi_res_noise_cfg,
+                                generator)[rows]
         noise = noise.to(device=device, dtype=torch.float32)
         noisy = schedule.add_noise(gt_latent, noise, timesteps)
         target = schedule.training_target(gt_latent, noise, timesteps)
@@ -228,8 +254,14 @@ def make_loss_and_grad(
                 unet, cast, (x, timesteps, text_embed), kwargs).float()
             if mask is not None:
                 diff = loss_inner(pred, target, reduction="none")
-                n = mask.sum().clamp(min=1)
-                loss = torch.where(mask, diff, torch.zeros_like(diff)).sum() / n
+                n = mask.sum()
+                if sharded:  # the global batch's count, as the JAX step's
+                    n = mesh.all_reduce(n)
+                loss = torch.where(mask, diff, torch.zeros_like(diff)).sum() / \
+                    n.clamp(min=1)
+            elif sharded:  # the local sum over the global element count
+                loss = loss_inner(pred, target, reduction="none").sum() / (
+                    pred.numel() * mesh.size)
             else:
                 loss = loss_inner(pred, target, reduction="mean")
             # grad_dtype: the gradients of the cast parameters, stored in
@@ -260,6 +292,126 @@ def _draw_noise(gt_latent, timesteps, schedule, multi_res_noise_cfg, generator):
 
 
 # ---------------------------------------------------------------------- #
+# ZeRO-1 layout and the collectives of the step
+
+
+# The axis order of the JAX package's layout of the port's 4-D (HWIO for
+# OIHW) and 2-D ([in, out] for [out, in]) parameters
+# (`models/weights.py:from_jax_tree`)
+_JAX_AXIS_ORDER = {4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def zero1_state_shardings(mesh: Mesh, params: dict, axis_name: str = AXIS) -> dict:
+    """ZeRO-1's layout, the rule of `marigold_tpu/train/train_step.py:
+    zero1_state_shardings`: name -> the axis of that parameter's optimizer
+    state (Adam's mu and nu, the window accumulator) along which each rank
+    keeps 1/n of it, or None where it stays whole. The axis is the largest
+    one whose size n divides (and is >= n); between axes of equal size, the
+    one the JAX layout stores first, so that both packages split the same
+    axis of a tensor (the UNet has no embedding table, whose 2-D layout
+    both share)."""
+    n = mesh.shape[axis_name]
+    out = {}
+    for name, p in params.items():
+        shape = tuple(p.shape)
+        best = None
+        for ax in _JAX_AXIS_ORDER.get(len(shape), range(len(shape))):
+            if shape[ax] % n == 0 and shape[ax] >= n and (
+                    best is None or shape[ax] > shape[best]):
+                best = ax
+        out[name] = best
+    return out
+
+
+def _block_shape(shape, axis: int, n: int) -> torch.Size:
+    shape = list(shape)
+    shape[axis] //= n
+    return torch.Size(shape)
+
+
+def _blocks(t: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """t's n blocks along axis, each flattened in its own layout:
+    [n, t.numel() // n]."""
+    return t.unflatten(axis, (n, -1)).movedim(axis, 0).reshape(n, -1)
+
+
+def _from_blocks(rows: torch.Tensor, axis: int, shape) -> torch.Tensor:
+    """The inverse of _blocks: [n, numel // n] -> the tensor of `shape`."""
+    n = rows.shape[0]
+    block = _block_shape(shape, axis, n)
+    return rows.reshape(n, *block).movedim(0, axis).reshape(shape)
+
+
+def _buckets(names: list, tensors: dict) -> list:
+    """names in order, cut into runs of at most BUCKET_BYTES (a larger
+    tensor is a run of its own)."""
+    out, run, size = [], [], 0
+    for n in names:
+        b = tensors[n].numel() * tensors[n].element_size()
+        if run and size + b > BUCKET_BYTES:
+            out.append(run)
+            run, size = [], 0
+        run.append(n)
+        size += b
+    return out + [run] if run else out
+
+
+def _unpack(flat: torch.Tensor, names: list, shapes: dict) -> dict:
+    out, o = {}, 0
+    for n in names:
+        k = shapes[n].numel()
+        out[n] = flat[o:o + k].view(shapes[n])
+        o += k
+    return out
+
+
+def reduce_gradients(mesh: Mesh, grads: dict, axes: dict) -> dict:
+    """The sum over the ranks of each gradient, in its own dtype (as the JAX
+    psum): whole where axes gives None (all-reduce), else this rank's block
+    along that axis (reduce-scatter, ZeRO-1). One collective per flat
+    bucket; `grads` is emptied as it is packed."""
+    names = list(grads)
+    shapes = {n: g.shape for n, g in grads.items()}
+    whole = [n for n in names if axes.get(n) is None]
+    split = [n for n in names if axes.get(n) is not None]
+    out = {}
+    for run in _buckets(whole, grads):
+        flat = mesh.all_reduce(torch.cat([grads.pop(n).reshape(-1) for n in run]))
+        out.update(_unpack(flat, run, shapes))
+    for run in _buckets(split, grads):
+        rows = torch.cat([_blocks(grads.pop(n), axes[n], mesh.size) for n in run], 1)
+        out.update(_unpack(mesh.reduce_scatter(rows, 0)[0], run, {
+            n: _block_shape(shapes[n], axes[n], mesh.size) for n in run}))
+    return {n: out[n] for n in names}
+
+
+@torch.no_grad()
+def broadcast_params(mesh: Mesh, params: dict) -> dict:
+    """params with rank 0's values on every rank, in place: one broadcast
+    per flat bucket."""
+    shapes = {n: p.shape for n, p in params.items()}
+    for run in _buckets(list(params), params):
+        flat = torch.cat([params[n].detach().reshape(-1) for n in run])
+        mesh.broadcast(flat)
+        for n, t in _unpack(flat, run, shapes).items():
+            params[n].copy_(t)
+    return params
+
+
+def _gathered(mesh: Mesh, blocks: dict, axes: dict, shapes: dict):
+    """(name, the whole tensor): every rank's block of each tensor in
+    `blocks`, joined along axes[name]; one all_gather per flat bucket (every
+    rank iterates to the end)."""
+    for run in _buckets(list(blocks), blocks):
+        rows = mesh.all_gather(torch.cat([blocks[n].reshape(-1) for n in run])[None], 0)
+        o = 0
+        for n in run:
+            k = blocks[n].numel()
+            yield n, _from_blocks(rows[:, o:o + k], axes[n], shapes[n])
+            o += k
+
+
+# ---------------------------------------------------------------------- #
 # optimizer state
 
 
@@ -271,7 +423,8 @@ class TrainState:
     updates applied, mini_step the micro-steps of the current window; acc
     is the window's gradient sum (None between windows). Adam keeps mu and
     nu; Adafactor keeps v_row and v_col for factored tensors and v for the
-    others."""
+    others. Under ZeRO-1 acc (and Adam's mu and nu) hold this rank's block
+    of each tensor the optimizer's `axes` split."""
 
     params: dict
     mu: dict = dataclasses.field(default_factory=dict)
@@ -288,18 +441,29 @@ class TrainState:
 class _AccumulatingOptimizer:
     """k-step accumulation (optax.MultiSteps' mean, the JAX
     `gradient_accumulation` running sum in `accum_dtype`) in front of one
-    update rule. Updates run in place under no_grad."""
+    update rule. Updates run in place under no_grad.
+
+    With `shard_states` on a mesh of several ranks, ZeRO-1 (module
+    docstring): `axes` (set by init and restore) is the
+    zero1_state_shardings layout of the parameters; without such a mesh
+    shard_states is ignored, as in the JAX trainer."""
 
     groups: tuple = ()  # the TrainState fields of the update rule
+    split_groups: tuple = ()  # those ZeRO-1 splits (besides acc)
 
     def __init__(self, lr: float, lr_schedule_fn: Optional[Callable] = None,
-                 accumulation_steps: int = 1, accum_dtype=None):
+                 accumulation_steps: int = 1, accum_dtype=None,
+                 mesh: Optional[Mesh] = None, shard_states: bool = False):
         self.lr = float(lr)
         self.lr_schedule_fn = lr_schedule_fn
         self.k = int(accumulation_steps)
         # as in the JAX make_optimizer, a narrower accumulator only exists
         # behind accumulation
         self.accum_dtype = as_dtype(accum_dtype) if self.k > 1 else None
+        self.mesh = mesh if shard_states and mesh is not None and mesh.size > 1 \
+            else None
+        self.axes: dict = {}
+        self.shapes: dict = {}
 
     def learning_rate(self, count: int) -> float:
         """lr at the update that follows `count` applied updates."""
@@ -307,19 +471,51 @@ class _AccumulatingOptimizer:
             return self.lr
         return float(np.float32(self.lr) * np.float32(self.lr_schedule_fn(count)))
 
+    def _layout(self, params: dict) -> None:
+        self.shapes = {n: p.shape for n, p in params.items()}
+        self.axes = (zero1_state_shardings(self.mesh, params)
+                     if self.mesh is not None else {})
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of t (a view) where ZeRO-1 splits `name`, else
+        t."""
+        axis = self.axes.get(name)
+        if axis is None:
+            return t
+        per = t.shape[axis] // self.mesh.size
+        return t.narrow(axis, self.mesh.rank * per, per)
+
     def init(self, params: dict) -> TrainState:
+        """A fresh state; under ZeRO-1 built block by block (the whole state
+        never exists on one rank)."""
+        self._layout(params)
+        return self._init(params)
+
+    def _init(self, params: dict) -> TrainState:
         raise NotImplementedError
 
     def export(self, state: TrainState) -> dict:
-        """The optimizer state as train/checkpoints.py stores it."""
-        return {**{g: getattr(state, g) for g in self.groups},
-                "acc": state.acc, "count": state.count,
-                "mini_step": state.mini_step}
+        """The optimizer state as train/checkpoints.py stores it: whole
+        tensors, gathered (to the host) under ZeRO-1, which makes it a
+        collective of every rank."""
+        out = {**{g: getattr(state, g) for g in self.groups},
+               "acc": state.acc, "count": state.count,
+               "mini_step": state.mini_step}
+        if self.mesh is None:
+            return out
+        for g in self.split_groups + (("acc",) if state.acc is not None else ()):
+            whole = {n: t for n, t in out[g].items() if self.axes[n] is None}
+            split = {n: t for n, t in out[g].items() if self.axes[n] is not None}
+            whole.update((n, t.cpu()) for n, t in
+                         _gathered(self.mesh, split, self.axes, self.shapes))
+            out[g] = {n: whole[n] for n in out[g]}
+        return out
 
     def restore(self, params: dict, opt_state: Optional[dict],
                 device) -> TrainState:
         """A TrainState from checkpointed masters and optimizer state (a
-        fresh state when opt_state is None)."""
+        fresh state when opt_state is None), re-split under ZeRO-1 whatever
+        the rank count that wrote it."""
         if opt_state is None:
             return self.init(params)
         groups = {g: opt_state.get(g) or {} for g in self.groups}
@@ -327,17 +523,23 @@ class _AccumulatingOptimizer:
             raise ValueError("the checkpoint's optimizer state does not cover the "
                              "parameters: it was written by another optimizer "
                              f"than {type(self).__name__}")
-        on = lambda group: {n: t.to(device) for n, t in group.items()}  # noqa: E731
+        self._layout(params)
+
+        def on(group: dict, split: bool) -> dict:
+            return {n: (self.local(n, t) if split else t).to(device, copy=True)
+                    for n, t in group.items()}
+
         return TrainState(
             params=params, count=opt_state["count"],
             mini_step=opt_state["mini_step"],
-            acc=None if opt_state["acc"] is None else on(opt_state["acc"]),
-            **{g: on(t) for g, t in groups.items()})
+            acc=None if opt_state["acc"] is None else on(opt_state["acc"], True),
+            **{g: on(t, g in self.split_groups) for g, t in groups.items()})
 
     @torch.no_grad()
     def accumulate(self, state: TrainState, grads: dict) -> None:
-        """Adds one micro-step's gradients to the window's sum (in
-        accum_dtype: each gradient rounded to it, then the sum rounded, as
+        """Adds one micro-step's gradients (reduced over the ranks: under
+        ZeRO-1 the rank's blocks) to the window's sum (in accum_dtype: each
+        gradient rounded to it, then the sum rounded, as
         `a + g.astype(a.dtype)` in the JAX package)."""
         dtype = self.accum_dtype or torch.float32
         if state.acc is None:
@@ -351,16 +553,28 @@ class _AccumulatingOptimizer:
     @torch.no_grad()
     def apply(self, state: TrainState) -> None:
         """One update with the mean of the window's gradients (fp32); frees
-        the accumulator."""
+        the accumulator. Under ZeRO-1 a collective of every rank."""
         if state.acc is None:
             raise RuntimeError("apply without accumulated gradients")
         scalars = self._scalars(state.count)
+        acc, state.acc = state.acc, None
+        if self.mesh is not None and not self.split_groups:
+            # the update rule needs whole tensors: the window's whole sum
+            split = {n: acc.pop(n) for n in list(acc) if self.axes[n] is not None}
+            acc.update(_gathered(self.mesh, split, self.axes, self.shapes))
+        blocks = {}
         for n, p in state.params.items():
-            g = state.acc.pop(n).float()
+            g = acc.pop(n).float()
             if self.k > 1:
                 g.div_(self.k)
+            if self.mesh is not None and self.split_groups and \
+                    self.axes[n] is not None:
+                # this rank's block of the update (mu, nu hold their blocks)
+                p = blocks[n] = self.local(n, p).clone(
+                    memory_format=torch.contiguous_format)
             self._update(state, n, p, g, *scalars)
-        state.acc = None
+        for n, whole in _gathered(self.mesh, blocks, self.axes, self.shapes):
+            state.params[n].copy_(whole)
         state.count += 1
         state.mini_step = 0
 
@@ -377,13 +591,13 @@ class Adam(_AccumulatingOptimizer):
     """optax.adam's semantics and defaults."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
-    groups = ("mu", "nu")
+    groups = split_groups = ("mu", "nu")
 
-    def init(self, params: dict) -> TrainState:
+    def _init(self, params: dict) -> TrainState:
         return TrainState(
             params=params,
-            mu={n: torch.zeros_like(p) for n, p in params.items()},
-            nu={n: torch.zeros_like(p) for n, p in params.items()},
+            mu={n: torch.zeros_like(self.local(n, p)) for n, p in params.items()},
+            nu={n: torch.zeros_like(self.local(n, p)) for n, p in params.items()},
         )
 
     def _scalars(self, count):
@@ -415,7 +629,7 @@ class Adafactor(_AccumulatingOptimizer):
 
     decay_rate, eps, min_dim_size_to_factor, clipping_threshold = (
         0.8, 1e-30, 128, 1.0)
-    groups = ("v_row", "v_col", "v")
+    groups = ("v_row", "v_col", "v")  # whole on every rank under ZeRO-1
 
     def factored_dims(self, shape) -> Optional[tuple[int, int]]:
         """(d1, d0) of optax's `_factored_dims`, or None."""
@@ -426,7 +640,7 @@ class Adafactor(_AccumulatingOptimizer):
             return None
         return int(order[-2]), int(order[-1])
 
-    def init(self, params: dict) -> TrainState:
+    def _init(self, params: dict) -> TrainState:
         state = TrainState(params=params)
         for n, p in params.items():
             dims = self.factored_dims(tuple(p.shape))
@@ -469,38 +683,63 @@ _OPTIMIZERS = {"adam": Adam, "adafactor": Adafactor}
 
 def make_optimizer(lr: float, lr_schedule_fn: Optional[Callable] = None,
                    accumulation_steps: int = 1, name: str = "adam",
-                   accum_dtype=None) -> _AccumulatingOptimizer:
+                   accum_dtype=None, mesh: Optional[Mesh] = None,
+                   shard_states: bool = False) -> _AccumulatingOptimizer:
     """Adam (the reference's optimizer) or Adafactor, with the schedule and
-    k-step accumulation, the running sum in accum_dtype (fp32 when None)."""
+    k-step accumulation, the running sum in accum_dtype (fp32 when None);
+    shard_states: ZeRO-1 over `mesh` (ignored without a mesh of several
+    ranks)."""
     cls = _OPTIMIZERS.get(name.lower())
     if cls is None:
         raise ValueError(f"unknown optimizer: {name}")
-    return cls(lr, lr_schedule_fn, accumulation_steps, accum_dtype)
+    return cls(lr, lr_schedule_fn, accumulation_steps, accum_dtype, mesh,
+               shard_states)
 
 
-def global_norm(grads: dict) -> torch.Tensor:
+def global_norm(grads: dict, mesh: Optional[Mesh] = None,
+                axes: Optional[dict] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, fp32 (optax's
-    global_norm of the upcast gradients)."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads.values()]))
+    global_norm of the upcast gradients). Where `axes` splits a gradient
+    (ZeRO-1's blocks), the blocks' squares are summed over the mesh."""
+    norms = {n: torch.linalg.vector_norm(g.float()) for n, g in grads.items()}
+    split = [norms.pop(n) for n in list(norms) if (axes or {}).get(n) is not None]
+    if not split:
+        return torch.linalg.vector_norm(torch.stack(list(norms.values())))
+    sq = mesh.all_reduce(torch.stack(split).square().sum())
+    if norms:
+        sq = sq + torch.stack(list(norms.values())).square().sum()
+    return sq.sqrt()
 
 
 def make_train_step(unet, vae, schedule: DiffusionSchedule,
-                    optimizer: _AccumulatingOptimizer, **loss_kwargs):
+                    optimizer: _AccumulatingOptimizer,
+                    mesh: Optional[Mesh] = None, **loss_kwargs):
     """-> (micro_step, apply_step).
 
     micro_step(state, text_embed, batch, generator=None, timesteps=None,
     noise=None) -> {"loss", "grad_norm"} (0-d fp32 device tensors) computes
     one micro-batch's loss and gradients and adds them to the accumulator;
     apply_step(state) applies the update with their mean. The caller runs
-    apply_step after every `optimizer.k`-th micro_step."""
-    loss_and_grad = make_loss_and_grad(unet, vae, schedule, **loss_kwargs)
+    apply_step after every `optimizer.k`-th micro_step. With a mesh of
+    several ranks, every rank calls both at once on its rows of the global
+    batch; the gradients are reduced over the ranks (into the optimizer's
+    ZeRO-1 blocks where it splits them) before they are accumulated, and
+    the loss and grad_norm are the global batch's."""
+    if optimizer.mesh is not None and optimizer.mesh is not mesh:
+        raise ValueError("the optimizer's ZeRO-1 mesh is not the step's mesh")
+    loss_and_grad = make_loss_and_grad(unet, vae, schedule, mesh=mesh,
+                                       **loss_kwargs)
+    sharded = mesh is not None and mesh.size > 1
 
     def micro_step(state: TrainState, text_embed, batch, generator=None,
                    timesteps=None, noise=None) -> dict:
         loss, grads = loss_and_grad(state.params, text_embed, batch,
                                     generator, timesteps, noise)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+        if sharded:
+            grads = reduce_gradients(mesh, grads, optimizer.axes)
+            loss = mesh.all_reduce(loss)
+        metrics = {"loss": loss,
+                   "grad_norm": global_norm(grads, mesh, optimizer.axes)}
         optimizer.accumulate(state, grads)
         return metrics
 

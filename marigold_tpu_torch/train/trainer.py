@@ -1,12 +1,12 @@
-"""Fine-tuning trainers on one GPU: depth, normals and IID.
+"""Fine-tuning trainers: depth, normals and IID, on one GPU or across ranks.
 
 Counterpart of `marigold_tpu/train/trainer.py` (`MarigoldTrainerBase`, the
-depth, normals and IID trainers, `get_trainer_cls`) without a mesh or
-multiple hosts: conv surgery of the loaded SD2 UNet (conv_in to 8 channels
-for depth and normals; conv_in to 4 * (n + 1) and conv_out to 4 * n for
-IID's n targets), fp32 master parameters with Adam or Adafactor and k-step
-gradient accumulation (train_step.py), per-micro-step seeded randomness
-from a pre-generated global seed sequence (deterministic resume), the
+depth, normals and IID trainers, `get_trainer_cls`): conv surgery of the
+loaded SD2 UNet (conv_in to 8 channels for depth and normals; conv_in to
+4 * (n + 1) and conv_out to 4 * n for IID's n targets), fp32 master
+parameters with Adam or Adafactor and k-step gradient accumulation
+(train_step.py), per-micro-step seeded randomness from a pre-generated
+global seed sequence (deterministic resume), the
 effective-iteration callbacks (backup checkpoint / validation / latest
 checkpoint / visualization), best-checkpoint gating on the first
 validation set's main metric, a time budget, and save/resume.
@@ -22,8 +22,15 @@ the port's own Spectral colours). The JAX trainer's scalars go to
 `utils/logging_util.py:tb_logger`, to the `logging` module and to
 `metrics_log`.
 
-Not ported (ROADMAP queue 1, "Multi-GPU"): mesh, ZeRO and multi-host
-training.
+Across ranks (`mesh`, a `parallel.mesh.Mesh` of several ranks, every rank
+running the trainer at once): data parallel as `train_step.py` sets out,
+with ZeRO-1 under `optimizer.shard_states`. A loader that strides the
+stream over the ranks (`shard_count` > 1, multi-host) yields each rank's
+part of the global batch, which is their concatenation in rank order; any
+other loader yields the global batch, of which each rank keeps its rows.
+Rank 0 alone validates, visualizes and writes checkpoints; the others wait
+at the mesh's barrier after each of its passes, and every rank joins a save
+that gathers ZeRO-1 state. Rank 0's clock decides `t_end` for all.
 """
 
 from __future__ import annotations
@@ -49,9 +56,9 @@ from marigold_tpu_torch.train.checkpoints import (
 from marigold_tpu_torch.train.lr_schedule import iter_exponential
 from marigold_tpu_torch.train.train_step import (
     TrainState,
+    broadcast_params,
     make_optimizer,
     make_train_step,
-    not_ported,
 )
 from marigold_tpu_torch.utils.logging_util import tb_logger
 from marigold_tpu_torch.utils.seeding import (
@@ -82,11 +89,18 @@ class MarigoldTrainerBase:
         accumulation_steps: int,
         val_dataloaders: Optional[List] = None,
         vis_dataloaders: Optional[List] = None,
+        mesh=None,
     ):
         self.cfg = cfg
         self.model = model
         self.core = model.core
         self.device = self.core.device
+        # a mesh of one rank is no mesh
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and self.mesh.device != self.device:
+            raise ValueError(f"the model is on {self.device}, the mesh's rank "
+                             f"on {self.mesh.device}")
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.train_loader = train_dataloader
         self.out_dir_ckpt = out_dir_ckpt
         self.out_dir_eval = out_dir_eval
@@ -98,8 +112,6 @@ class MarigoldTrainerBase:
         self._apply_surgery()
 
         opt_cfg = cfg.get("optimizer") or {}
-        if opt_cfg.get("shard_states"):
-            raise not_ported("ZeRO-sharded optimizer state (shard_states)")
         lrs = cfg.lr_scheduler.kwargs
         self.lr_schedule_fn = iter_exponential(
             int(lrs.total_iter), float(lrs.final_ratio), int(lrs.warmup_steps))
@@ -111,8 +123,10 @@ class MarigoldTrainerBase:
             name=opt_cfg.get("name", "adam"),
             # e.g. "bfloat16": the running sum in that dtype (opt-in)
             accum_dtype=opt_cfg.get("accum_dtype"),
+            # ZeRO-1 over the mesh (ignored without one, as in JAX)
+            mesh=self.mesh, shard_states=bool(opt_cfg.get("shard_states")),
         )
-        self.state = self.optimizer.init(self._master_params())
+        self.state = self.optimizer.init(self._replicated(self._master_params()))
         # the conditioning, out of inference mode so autograd may save it
         self.text_embed = self.core.empty_text_embed.clone()
         self._build_train_step()
@@ -151,6 +165,43 @@ class MarigoldTrainerBase:
         return {n: p.detach().float().clone().requires_grad_()
                 for n, p in self.core.unet.named_parameters()}
 
+    def _replicated(self, params: dict) -> dict:
+        """params with rank 0's values on every rank (in place)."""
+        return params if self.mesh is None else broadcast_params(self.mesh, params)
+
+    def _barrier(self) -> None:
+        """After a pass of rank 0 alone: the others wait here, on the
+        mesh's long host deadline, before their next collective."""
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _time_is_up(self, t_end: Optional[datetime]) -> bool:
+        """Rank 0's reading of its clock, on every rank (the JAX trainer
+        lets each process read its own, so one may enter the save's gather
+        while another enters the next micro-step's reduction)."""
+        if t_end is None:
+            return False
+        up = datetime.now() >= t_end
+        return self.mesh.broadcast_object(up) if self.mesh is not None else up
+
+    def _local_batch(self, batch: dict) -> dict:
+        """This rank's part of the global batch (module docstring)."""
+        if self.mesh is None:
+            return batch
+        n_proc = int(getattr(self.train_loader, "shard_count", 1))
+        if n_proc not in (1, self.mesh.size):
+            raise ValueError(f"the loader strides over {n_proc} ranks, the "
+                             f"mesh has {self.mesh.size}")
+        lead = len(next(iter(batch.values()))) * n_proc
+        if lead % self.mesh.size:
+            raise ValueError(
+                f"global batch ({lead}) must be a multiple of the mesh size "
+                f"({self.mesh.size}) for data-parallel training")
+        if n_proc > 1:
+            return batch
+        rows = self.mesh.rows(lead)
+        return {k: v[rows] for k, v in batch.items()}
+
     def _set_unet(self, cfg, state_dict) -> None:
         """Rebuild the pipeline's UNet module (compute dtype, frozen) for
         `cfg` from `state_dict`."""
@@ -179,7 +230,7 @@ class MarigoldTrainerBase:
         called at init and after load_checkpoint."""
         self.train_step, self.apply_step = make_train_step(
             self.core.unet, self.core.vae, self.core.schedule, self.optimizer,
-            **self._step_kwargs())
+            mesh=self.mesh, **self._step_kwargs())
 
     def _assemble_batch(self, batch) -> dict:
         """-> {rgb_norm [B,3,H,W], gt_norm [B,3k,H,W], valid_mask?} on the
@@ -205,7 +256,9 @@ class MarigoldTrainerBase:
         logger.info("Start training")
         if self.in_evaluation:
             logger.info("Resumed during validation: re-running validation.")
-            self.validate()
+            if self.is_main:
+                self.validate()
+            self._barrier()
             self.in_evaluation = False
             self.save_checkpoint("latest", save_train_state=True)
 
@@ -218,7 +271,7 @@ class MarigoldTrainerBase:
                 loader.skip_first_batches(self.n_batch_in_epoch)
 
             for batch in loader:
-                batch_dev = self._assemble_batch(batch)
+                batch_dev = self._assemble_batch(self._local_batch(batch))
                 step_metrics = self.train_step(
                     self.state, self.text_embed, batch_dev,
                     self._step_generator())
@@ -259,7 +312,7 @@ class MarigoldTrainerBase:
                                              save_train_state=False)
                         logger.info("Training ended.")
                         return
-                    if t_end is not None and datetime.now() >= t_end:
+                    if self._time_is_up(t_end):
                         self.save_checkpoint("latest", save_train_state=True)
                         logger.info("Time is up, training paused.")
                         return
@@ -286,7 +339,11 @@ class MarigoldTrainerBase:
             self.in_evaluation = True
             self.save_checkpoint("latest", save_train_state=True)
             _is_latest_saved = True
-            self.validate()
+            # rank 0 alone validates; its "best" save inside gathers
+            # nothing, and the saves around it stay every rank's
+            if self.is_main:
+                self.validate()
+            self._barrier()
             self.in_evaluation = False
             self.save_checkpoint("latest", save_train_state=True)
 
@@ -295,7 +352,13 @@ class MarigoldTrainerBase:
             self.save_checkpoint("latest", save_train_state=True)
 
         if self.vis_period > 0 and 0 == self.effective_iter % self.vis_period:
-            self.visualize()
+            if self.is_main:
+                self.visualize()
+            self._barrier()
+
+    @property
+    def n_ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
 
     def _get_backup_ckpt_name(self):
         return f"iter_{self.effective_iter:06d}"
@@ -354,9 +417,14 @@ class MarigoldTrainerBase:
     # checkpointing
 
     def save_checkpoint(self, ckpt_name: str, save_train_state: bool = True):
+        """Rank 0 writes; with the optimizer state under ZeRO-1, every rank
+        calls it (the state is gathered), in the one-rank file format."""
+        st: TrainState = self.state
+        opt_state = self.optimizer.export(st) if save_train_state else None
+        if not self.is_main:
+            return
         ckpt_dir = os.path.join(self.out_dir_ckpt, ckpt_name)
         logger.info(f"Saving checkpoint to {ckpt_dir}")
-        st: TrainState = self.state
         trainer_state = {
             "effective_iter": self.effective_iter,
             "epoch": self.epoch,
@@ -365,9 +433,10 @@ class MarigoldTrainerBase:
             "in_evaluation": self.in_evaluation,
             "global_seed_sequence": self.global_seed_sequence,
             "step": st.step,
-            "process_count": 1,
+            # n_batch_in_epoch counts the batches of this rank count's
+            # loader stream: a mid-epoch resume needs the same count
+            "process_count": self.n_ranks,
         }
-        opt_state = self.optimizer.export(st) if save_train_state else None
         save_train_ckpt(ckpt_dir, self.core.unet_cfg, st.params,
                         self.core.schedule, trainer_state, opt_state)
 
@@ -375,10 +444,18 @@ class MarigoldTrainerBase:
         logger.info(f"Loading checkpoint from {ckpt_dir}")
         unet_cfg, params, schedule, trainer_state, opt_state = load_train_state(
             ckpt_dir, load_opt_state=load_trainer_state)
+        saved_n = int(trainer_state.get("process_count", 1))
+        if load_trainer_state and saved_n != self.n_ranks and \
+                int(trainer_state["n_batch_in_epoch"]) > 0:
+            raise ValueError(
+                f"checkpoint was saved mid-epoch by {saved_n} process(es) but "
+                f"this run has {self.n_ranks}; resume with the same process "
+                "count, or restart from an epoch boundary")
         if unet_cfg != self.core.unet_cfg:
             self._set_unet(unet_cfg, params)
         # the checkpoint's scheduler config is authoritative on resume
         self.core.schedule = schedule
+        # every rank reads the file rank 0 wrote: the masters agree
         masters = {n: t.to(self.device).requires_grad_() for n, t in params.items()}
         self.state = self.optimizer.restore(masters, opt_state, self.device)
         self.state.step = int(trainer_state.get("step", 0))

@@ -292,18 +292,34 @@ def test_resume_reproduces_the_uninterrupted_run(env, optimizer):
 
 def test_device_and_multi_device_flags(env, monkeypatch):
     """cuda (the default) without a card raises before anything is
-    written; several GPUs and multi-host raise NotImplementedError naming
-    the ROADMAP item."""
+    written; --multihost with no cluster named raises the JAX CLI's error;
+    --data_parallel with two GPUs visible and no process group spawns one
+    rank per GPU over NCCL, each running the same command line."""
+    from marigold_tpu_torch.parallel import mesh as M
+
     base, splits = env
     argv = _argv(base, _config("depth", splits["depth"]), "flags")
     argv = argv[:argv.index("--device")] + argv[argv.index("--device") + 2:]
+    for k in ("MARIGOLD_TPU_COORDINATOR", "MARIGOLD_TPU_NUM_PROCESSES",
+              "MARIGOLD_TPU_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT",
+              "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_train.main(argv)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(ValueError, match="coordinator_address should be defined"):
         cli_train.main(argv + ["--device", "cpu", "--multihost"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        cli_train.main(argv + ["--data_parallel"])
+    spawned = []
+
+    def run_on_ranks(fn, n, args=(), **kw):
+        spawned.append((fn, n, args, kw))
+        return [0] * n
+
+    monkeypatch.setattr(M, "run_on_ranks", run_on_ranks)
+    assert cli_train.main(argv + ["--data_parallel"]) == 0
+    (fn, n, args, kw), = spawned
+    assert (fn, n, args) == (cli_train._spawned_rank, 2, (argv + ["--data_parallel"],))
+    assert (kw["device"], kw["backend"], kw["timeout_s"]) == ("cuda", "nccl", None)
     assert not (base / "runs" / "flags").exists()

@@ -225,10 +225,22 @@ def test_saved_unet_loads_in_the_jax_package(sd2_ckpt, tmp_path, modality,
     ("shard_states", {"optimizer": Config(name="Adam", shard_states=True)}),
 ])
 def test_unported_options_raise(sd2_ckpt, tmp_path, what, cfg):
-    pipe = MarigoldDepthPipeline.from_pretrained(sd2_ckpt, dtype=torch.float32,
-                                                 device="cpu")
-    full = _cfg()
-    full.update(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Multi-GPU'"):
-        MarigoldDepthTrainer(full, pipe, [], str(tmp_path), str(tmp_path),
-                             str(tmp_path), accumulation_steps=2)
+    """The option that raised until ZeRO-1 was ported: without a mesh it is
+    ignored (as in the JAX trainer), so the trainer trains as the
+    replicated state does, bit for bit."""
+    params = []
+    for name, over in (("with", cfg), ("without", {})):
+        pipe = MarigoldDepthPipeline.from_pretrained(sd2_ckpt, dtype=torch.float32,
+                                                     device="cpu")
+        full = _cfg(max_iter=1, validation_period=0)
+        full.update(over)
+        out = tmp_path / name
+        trainer = MarigoldDepthTrainer(
+            full, pipe, _train_batches(), str(out / "ckpt"), str(out / "eval"),
+            str(out / "vis"), accumulation_steps=2)
+        assert trainer.optimizer.mesh is None and not trainer.optimizer.axes
+        trainer.train()
+        assert trainer.state.count == 1
+        params.append(trainer.state.params)
+    for n, p in params[0].items():
+        assert torch.equal(p, params[1][n]), n
