@@ -1,25 +1,28 @@
-// Flash-attention forward for 64-wide heads in fp32 storage
-// (`--full_precision` serving, fp32 fine-tuning's training forward, the
-// folded entry), designed for Hopper (sm_90a): 3xTF32 products on wgmma
-// (tf32x3.cuh), TMA loads into an mbarrier ring, a producer warp and two
-// consumer warpgroups that each own 64 query rows.
+// Flash-attention forward in fp32 storage (`--full_precision` serving,
+// fp32 fine-tuning's training forward, the folded entry) for heads 40, 64,
+// 80 and 160 wide (a template on the head width D; the file kept its name
+// from the 64-wide kernel it began as), designed for Hopper (sm_90a):
+// 3xTF32 products on wgmma (tf32x3.cuh), TMA loads into an mbarrier ring, a
+// producer warp and two consumer warpgroups that each own 64 query rows.
 //
-// Replaces the fp32 d = 64 instantiations of the TPU package's
-// marigold_tpu/ops/flash_attention.py kernels:
+// Replaces the fp32 instantiations at those widths (SD2's 64-wide heads;
+// the 40-, 80- and 160-wide heads of an SD1.x-class UNet) of the TPU
+// package's marigold_tpu/ops/flash_attention.py kernels:
 //   * _flash_kernel_dt_shifted (shifted softmax; pallas_call at :396), every
 //     UNet self-attention of an fp32 request;
 //   * _flash_kernel_dt (exact online softmax; :460), the parity pin;
 //   * _flash_kernel through flash_attention (the folded [BH, N, D] entry;
 //     :522), run online with one head per batch row;
-//   * _flash_kernel_dt_lse (the training forward; :638): online, and it
-//     writes the row logsumexp the backward reads.
-// It took the place of a CUDA-core FFMA design (64 x 64 tiles, one in
-// flight; 4.058 ms shifted and 3.772 ms online at [1, 9216, 320] h = 5,
-// PERF.md). The 512-wide fp32 forward is flash_fwd_d512_f32_sm90.cu.
+//   * _flash_kernel_dt_lse (the training forward; :638; D = 64 only, the
+//     width the backward kernels take): online, and it writes the row
+//     logsumexp the backward reads.
+// At D = 64 it took the place of a CUDA-core FFMA design (64 x 64 tiles,
+// one in flight; 4.058 ms shifted and 3.772 ms online at [1, 9216, 320]
+// h = 5, PERF.md). The 512-wide fp32 forward is flash_fwd_d512_f32_sm90.cu.
 //
 // Math per (batch, head, query row r), as the plain version
 // (ops/flash_attention.py:_plain_forward) computes it in fp32:
-//   s_j = (q_r . k_j) / 8;
+//   s_j = (q_r . k_j) / sqrt(D);
 //   shifted: p_j = exp(min(s_j - shift_r, 75)), shift_r from the caller;
 //   online:  running max m, p_j = exp(s_j - m), O and l rescaled by
 //            exp(m_old - m_new) when the max grows;
@@ -27,7 +30,7 @@
 //   lse (training): lse_r = m + log(max(sum_j p_j, 1e-30)), [B*H, nq] fp32.
 // Both products are 3xTF32 (lo.hi + hi.lo + hi.hi in the fp32
 // accumulator, ~2^-21 per product); l sums the fp32 p_j. Every exponential
-// is exp2 on logits scaled by log2(e)/8, with the shift, the clamp
+// is exp2 on logits scaled by log2(e)/sqrt(D), with the shift, the clamp
 // (75 log2(e)) and the running max in the same base-2 units, so the lse is
 // written as ln(2) (m_2 + log2(l)). Key columns j >= nk get s_j = -1e30
 // (p_j = 0, against zeros of v^T); query rows r >= nq are computed on TMA's
@@ -38,63 +41,84 @@
 // their [B, N, ld] layout, v as hi and lo copies of v^T, [B, ld, NKP] (NKP
 // = nk rounded up to 8, the keys past nk zeros, keys permuted in groups of
 // 8 so that P's accumulator registers are its A fragments: tf32x3.cuh).
-// Every copy has a 3-D TMA map with a {32, rows, 1} box and the 128-byte
-// swizzle.
+// Every copy has a 4-D TMA map whose dimensions name the head: q and k
+// {D, H, N, B} with a {32, 1, rows, 1} box (32 fp32 lanes: one 128-byte
+// swizzle row), v^T {NKP, D, H, B} with a {32 keys, 64 rows, 1, 1} box. A
+// box's lanes or rows past D lie outside the map and read as zeros, never
+// the next head's; the head stride (4 D bytes) is a multiple of 16 for D a
+// multiple of 4.
 //
 // The design, per CTA of 128 query rows of one (b, h):
-//   * Q hi and lo resident (each [128, 64] fp32 as two 16 KB boxes: 64 KB);
-//     consumer c owns query rows [64c, 64c + 64);
-//   * per 64-key tile two substages go through a ring of 4 slots of 32 KB,
-//     each consumed by both consumers (every consumer thread arrives on its
-//     empty barrier, no branch among wgmmas in flight): K (hi and lo, the B
-//     operand of S = Q K^T) and V^T (hi and lo, the B operand of P V);
-//   * a consumer issues S as one commit group of 24 wgmma m64n64k8 with both
-//     operands in shared memory, waits, masks the ragged key tile, runs the
-//     softmax in registers (online: the row max over the quad of lanes that
-//     share a row, O and l rescaled), splits P into hi and lo A fragments
-//     and issues P V^T (24 wgmma with A from registers) into a fresh
-//     accumulator, waits and adds it into O with fp32 adds (the tensor
-//     cores' own accumulation truncates: over 9216 keys in one accumulator
-//     ~7e-5 of the output's scale, tf32x3.cuh). S, O, the tile product and
-//     P's lo fragments: 128 registers of the consumers' 240;
+//   * Q hi and lo resident, each QB = ceil(D / 32) boxes of {32, 128 rows}
+//     (16 KB each); consumer c owns query rows [64c, 64c + 64);
+//   * per 64-key tile KS = ceil(D / 64) K substages (hi and lo of two
+//     32-lane boxes, the last one where D ends inside it) and NV =
+//     ceil(D / 64) V^T substages (hi and lo of 64 rows of v^T, 32 keys per
+//     box) go through a ring of 32 KB slots, each consumed by both
+//     consumers (every consumer thread arrives on its empty barrier, no
+//     branch among wgmmas in flight);
+//   * S = Q K^T contracts over D / 8 k8 steps, three wgmma m64n64k8 each,
+//     both operands in shared memory, one commit group per K substage
+//     (started when its slot is full, waited and released); the consumer
+//     masks the ragged key tile, runs the softmax in registers (online: the
+//     row max over the quad of lanes that share a row, O and l rescaled),
+//     splits P into hi and lo A fragments and, per V^T substage, runs
+//     P V^T (24 wgmma with A from registers, 64 output columns, those past
+//     D zeros) into a fresh accumulator, waits and adds it into that
+//     substage's part of O with fp32 adds (the tensor cores' own
+//     accumulation truncates: over 9216 keys in one accumulator ~7e-5 of
+//     the output's scale, tf32x3.cuh). Registers: S, the tile product, P's
+//     lo fragments (32 each) and O (32 per V^T substage): 128 at D <= 64,
+//     160 at D = 80, 192 at D = 160, of the consumers' 240;
 //   * the epilogue reduces l over the quad, divides and stores fp32 straight
-//     from registers (two floats per thread per 8 columns), rows past nq
-//     skipped, and with the lse one float per row.
-// Shared memory: 64 KB resident + 4 x 32 KB ring + 9 barriers = 192 KB +
-// 72 B, of the 227 KB a block may use.
+//     from registers (two floats per thread per 8 columns, the columns past
+//     D skipped), rows past nq skipped, and with the lse one float per row.
+// Shared memory: Q hi and lo (32 KB per box pair) + a ring of STAGES x 32 KB
+// + barriers: at D = 40 and 64, 64 KB + 4 slots = 192 KB; at D = 80, 96 KB
+// + 4 slots = 224 KB; at D = 160, 160 KB + 2 slots = 224 KB (the producer
+// keeps one substage ahead there).
 //
-// What bounds it on the H100: per head 4 N^2 64 FLOPs, x3 for the tf32
-// passes: at [1, 9216, 320] h = 5 0.326 TFLOP, 0.659 ms at 495 TFLOP/s.
-// Each CTA reads 64 KB of ring per 64-key tile from L2 (at that shape 360
-// CTAs x 144 tiles, 3.4 GB per call, ~0.5 ms at ~7 TB/s), and each
-// consumer runs ~8 exp2/FMA per tensor k8 step. A consumer does not
-// overlap one tile's softmax with the next tile's S (the two consumers,
-// each on its own rows, fill each other's gaps); at [1, 9216, 320] h = 5
-// the 360 CTAs make 2.7 waves on 132 SMs.
+// What bounds it on the H100: per head 4 N^2 D FLOPs, x3 for the tf32
+// passes, with P V padded to 64-column products (at D = 40 64 columns, at
+// D = 80 128, at D = 160 192). At [1, 9216, 320] h = 5 (D = 64) 0.326
+// TFLOP, 0.659 ms at 495 TFLOP/s. Each CTA reads 32 KB of ring per
+// substage from L2 (at that shape 360 CTAs x 144 tiles x 2 substages, 3.4
+// GB per call, ~0.5 ms at ~7 TB/s), and each consumer runs ~8 exp2/FMA per
+// tensor k8 step. A consumer does not overlap one tile's softmax with the
+// next tile's S (the two consumers, each on its own rows, fill each
+// other's gaps).
 
 #include "tf32x3.cuh"
 
 namespace {
 
-constexpr int D = 64;             // head width
 constexpr int BQ = 128;           // query rows per CTA (2 x 64)
 constexpr int BK = 64;            // keys per tile
 constexpr int CONSUMERS = 2;      // consumer warpgroups
 constexpr int THREADS = 128 * (1 + CONSUMERS);
-constexpr int SUBS = 2;           // ring substages per key tile: K, V^T
-constexpr int STAGES = 4;         // ring slots
-constexpr int RES_BYTES = 2 * ATT_RES_BOX;  // one [128, 64] fp32 tile
 constexpr int SLOT_BYTES = 4 * ATT_BOX;     // hi (2 boxes), lo (2 boxes)
+constexpr int RES_BOX = ATT_RES_BOX;        // {32 fp32, 128 rows}: 16 KB
 
-// Shared memory: Q_hi, Q_lo, the ring, then the barriers (full[4],
-// empty[4], resident); every box 1024-byte aligned.
-constexpr int SM_QH = 0;
-constexpr int SM_QL = RES_BYTES;
-constexpr int SM_RING = 2 * RES_BYTES;
-constexpr int SM_BAR = SM_RING + STAGES * SLOT_BYTES;
-constexpr int SM_BYTES = SM_BAR + 8 * (2 * STAGES + 1);
-constexpr int SMEM_REQUEST = SM_BYTES + 1024;  // room to align the base
-static_assert(SMEM_REQUEST <= 232448, "fits the 227 KB a block can use");
+// The shapes of the instantiation at head width D.
+template <int D>
+struct Shape {
+  static_assert(D % 8 == 0 && D <= 160, "D a multiple of 8, at most 160");
+  static constexpr int QB = (D + 31) / 32;    // 32-lane boxes of a q/k row
+  static constexpr int KS = (D + 63) / 64;    // K substages per key tile
+  static constexpr int NV = (D + 63) / 64;    // V^T substages: 64 columns
+  static constexpr int SUBS = KS + NV;
+  static constexpr int STAGES = D > 128 ? 2 : 4;  // ring slots
+  static constexpr int RES_BYTES = QB * RES_BOX;  // one part of the Q tile
+  // Shared memory: Q_hi, Q_lo, the ring, then the barriers (full[STAGES],
+  // empty[STAGES], resident); every box 1024-byte aligned.
+  static constexpr int SM_QH = 0;
+  static constexpr int SM_QL = RES_BYTES;
+  static constexpr int SM_RING = 2 * RES_BYTES;
+  static constexpr int SM_BAR = SM_RING + STAGES * SLOT_BYTES;
+  static constexpr int SM_BYTES = SM_BAR + 8 * (2 * STAGES + 1);
+  static constexpr int SMEM_REQUEST = SM_BYTES + 1024;  // room to align
+  static_assert(SMEM_REQUEST <= 232448, "fits the 227 KB a block can use");
+};
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
@@ -121,20 +145,25 @@ __device__ __forceinline__ float quad_sum(float x) {
 // lane l): d[4j + e] is row 16w + l/4, column 8j + 2(l%4) + e, and
 // d[4j + 2 + e] the same columns of row 16w + l/4 + 8 (e in {0, 1}). Here
 // rows are query rows and columns keys (S, P) or head columns (O).
-template <bool ONLINE, bool LSE>
+template <int D, bool ONLINE, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
-                         const __grid_constant__ CUtensorMap tm_ql,
-                         const __grid_constant__ CUtensorMap tm_kh,
-                         const __grid_constant__ CUtensorMap tm_kl,
-                         const __grid_constant__ CUtensorMap tm_vh,
-                         const __grid_constant__ CUtensorMap tm_vl,
-                         const float* __restrict__ shift,
-                         float* __restrict__ out, float* __restrict__ lse,
-                         int H, int nq, int nk, int ldo, float scale_log2) {
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
+                     const __grid_constant__ CUtensorMap tm_ql,
+                     const __grid_constant__ CUtensorMap tm_kh,
+                     const __grid_constant__ CUtensorMap tm_kl,
+                     const __grid_constant__ CUtensorMap tm_vh,
+                     const __grid_constant__ CUtensorMap tm_vl,
+                     const float* __restrict__ shift,
+                     float* __restrict__ out, float* __restrict__ lse,
+                     int H, int nq, int nk, int ldo, float scale_log2) {
+  using S_ = Shape<D>;
+  constexpr int STAGES = S_::STAGES;
+  constexpr int KS = S_::KS;
+  constexpr int NV = S_::NV;
+  constexpr int SUBS = S_::SUBS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t full0 = base + SM_BAR;
+  const uint32_t full0 = base + S_::SM_BAR;
   const uint32_t empty0 = full0 + 8 * STAGES;
   const uint32_t res = empty0 + 8 * STAGES;
   const int bh = blockIdx.y;
@@ -157,39 +186,43 @@ flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      // the resident Q tile, hi and lo, two boxes each
-      mbar_expect_tx(res, 2 * RES_BYTES);
+      // the resident Q tile, hi and lo, QB boxes each
+      mbar_expect_tx(res, 2 * S_::RES_BYTES);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        tma_load(base + SM_QH + half * ATT_RES_BOX, &tm_qh,
-                 h * D + 32 * half, q0, b, res);
-        tma_load(base + SM_QL + half * ATT_RES_BOX, &tm_ql,
-                 h * D + 32 * half, q0, b, res);
+      for (int i = 0; i < S_::QB; ++i) {
+        tma_load_4d(base + S_::SM_QH + i * RES_BOX, &tm_qh, 32 * i, h, q0, b,
+                    res);
+        tma_load_4d(base + S_::SM_QL + i * RES_BOX, &tm_ql, 32 * i, h, q0, b,
+                    res);
       }
-      // per 64 keys: K (row-major), V^T (transposed)
-      const CUtensorMap* sub_maps[SUBS][2] = {{&tm_kh, &tm_kl},
-                                              {&tm_vh, &tm_vl}};
+      // per 64 keys: KS substages of K (row-major), NV of V^T (transposed)
+      const CUtensorMap* k_maps[2] = {&tm_kh, &tm_kl};
+      const CUtensorMap* v_maps[2] = {&tm_vh, &tm_vl};
       int n = 0;
       for (int j = 0; j < n_tiles; ++j) {
 #pragma unroll
         for (int sub = 0; sub < SUBS; ++sub, ++n) {
           const int slot = n % STAGES;
           const uint32_t full = full0 + 8 * slot;
-          const uint32_t dst = base + SM_RING + slot * SLOT_BYTES;
+          const uint32_t dst = base + S_::SM_RING + slot * SLOT_BYTES;
           if (n >= STAGES) mbar_wait(empty0 + 8 * slot, (n / STAGES - 1) & 1);
-          mbar_expect_tx(full, SLOT_BYTES);
+          if (sub < KS) {  // [B, nk, ld]: 64 keys, 32 d lanes per box
+            const int boxes = S_::QB - 2 * sub < 2 ? 1 : 2;
+            mbar_expect_tx(full, 2 * boxes * ATT_BOX);
 #pragma unroll
-          for (int part = 0; part < 2; ++part) {    // hi, lo
+            for (int part = 0; part < 2; ++part)    // hi, lo
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {  // 32 columns each
-              const uint32_t box = dst + (2 * part + half) * ATT_BOX;
-              if (sub == 0)  // [B, nk, ld]: 64 keys, 32 of the d
-                tma_load(box, sub_maps[sub][part], h * D + 32 * half, j * BK,
-                         b, full);
-              else  // [B, ld, NKP]: the head's 64 d rows, 32 keys
-                tma_load(box, sub_maps[sub][part], j * BK + 32 * half, h * D,
-                         b, full);
-            }
+              for (int half = 0; half < boxes; ++half)
+                tma_load_4d(dst + (2 * part + half) * ATT_BOX, k_maps[part],
+                            32 * (2 * sub + half), h, j * BK, b, full);
+          } else {  // [B, ld, NKP]: 64 d rows of the head, 32 keys per box
+            mbar_expect_tx(full, SLOT_BYTES);
+#pragma unroll
+            for (int part = 0; part < 2; ++part)
+#pragma unroll
+              for (int half = 0; half < 2; ++half)
+                tma_load_4d(dst + (2 * part + half) * ATT_BOX, v_maps[part],
+                            j * BK + 32 * half, 64 * (sub - KS), h, b, full);
           }
         }
       }
@@ -205,7 +238,7 @@ flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   const int r0 = (t / 32) * 16 + lane / 4;  // this thread's rows r0, r0 + 8
   const int col = 2 * (lane % 4);           // its column pair in each 8
   const uint32_t rows = c * 64 * 128;       // its rows inside each box
-  const uint32_t qh = base + SM_QH + rows, ql = base + SM_QL + rows;
+  const uint32_t qh = base + S_::SM_QH + rows, ql = base + S_::SM_QL + rows;
   const int row0 = q0 + 64 * c + r0;        // global query rows
   const int row1 = row0 + 8;
 
@@ -216,13 +249,18 @@ flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   }
   float m0 = kNegInf, m1 = kNegInf;  // running max (online), base 2
   float l0 = 0.f, l1 = 0.f;          // this thread's part of its row sums
-  float s[32], o[32], part[32];
+  float s[32], part[32];
+  float o[NV][32];                   // output columns [64v, 64v + 64)
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = o[i] = part[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = part[i] = 0.f;
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[v][i] = 0.f;
   uint32_t lo[32];
 
   auto slot_of = [&](int n) {
-    return base + SM_RING + (n % STAGES) * SLOT_BYTES;
+    return base + S_::SM_RING + (n % STAGES) * SLOT_BYTES;
   };
   auto wait_full = [&](int n) {
     mbar_wait(full0 + 8 * (n % STAGES), (n / STAGES) & 1);
@@ -232,11 +270,32 @@ flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   mbar_wait(res, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int n = j * SUBS;
-    wait_full(n);
-    wgmma_att_nt(s, qh, ql, slot_of(n));  // S = Q K^T
-    wgmma_wait<0>();
-    fence_regs(s);
-    release(n);
+    // S = Q K^T, 3xTF32 over the D / 8 k8 steps, one commit group per K
+    // substage; the first step overwrites S.
+#pragma unroll
+    for (int sub = 0; sub < KS; ++sub) {
+      wait_full(n + sub);
+      const uint32_t slot = slot_of(n + sub);
+      wgmma_fence();
+#pragma unroll
+      for (int gg = 0; gg < 8; ++gg) {  // the substage's 64 d lanes
+        const int g = 8 * sub + gg;
+        if (g >= D / 8) break;
+        const int i = g / 4;  // the 32-lane box of Q, and of K in the slot
+        const uint32_t ra = i * RES_BOX + 32 * (g % 4);
+        const uint32_t rb = (i % 2) * ATT_BOX + 32 * (g % 4);
+        const uint32_t a_hi = kdesc(qh + ra), a_lo = kdesc(ql + ra);
+        const uint32_t b_hi = kdesc(slot + rb);
+        const uint32_t b_lo = kdesc(slot + 2 * ATT_BOX + rb);
+        wgmma_m64n64k8_tf32_ss(s, a_lo, b_hi, g > 0);
+        wgmma_m64n64k8_tf32_ss(s, a_hi, b_lo, 1);
+        wgmma_m64n64k8_tf32_ss(s, a_hi, b_hi, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(n + sub);
+    }
 
     const int k0 = j * BK;
     if (k0 + BK > nk) {  // the ragged edge: mask keys >= nk
@@ -267,11 +326,14 @@ flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
       l0 *= a0;
       l1 *= a1;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        o[4 * i] *= a0;
-        o[4 * i + 1] *= a0;
-        o[4 * i + 2] *= a1;
-        o[4 * i + 3] *= a1;
+      for (int v = 0; v < NV; ++v) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[v][4 * i] *= a0;
+          o[v][4 * i + 1] *= a0;
+          o[v][4 * i + 2] *= a1;
+          o[v][4 * i + 3] *= a1;
+        }
       }
     } else {
       ref0 = sh0;
@@ -293,18 +355,22 @@ flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
         l1 += s[4 * jj + 2 + e];
       }
     }
-    // O += P V^T: P's hi and lo fragments, the tile's product into a fresh
-    // accumulator, added into O with fp32 adds (tf32x3.cuh)
+    // O += P V^T per 64 output columns: P's hi and lo fragments, each
+    // substage's product into a fresh accumulator, added into its part of
+    // O with fp32 adds (tf32x3.cuh)
     acc_to_tf32x2<0>(s, lo);
-    wait_full(n + 1);
-    wgmma_att_nn(part, s, lo, slot_of(n + 1));
-    wgmma_wait<0>();
-    fence_regs(part);
-    fence_regs(s);
-    fence_regs(lo);
-    release(n + 1);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] += part[i];
+    for (int v = 0; v < NV; ++v) {
+      wait_full(n + KS + v);
+      wgmma_att_nn(part, s, lo, slot_of(n + KS + v));
+      wgmma_wait<0>();
+      fence_regs(part);
+      fence_regs(s);
+      fence_regs(lo);
+      release(n + KS + v);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[v][i] += part[i];
+    }
   }
 
   const float sum0 = fmaxf(quad_sum(l0), 1e-30f);
@@ -314,105 +380,161 @@ flash_fwd_d64_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   if (row0 < nq) {
     float* dst = ob + (size_t)row0 * ldo;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<float2*>(dst + 8 * i) =
-          make_float2(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (64 * v + 8 * i < D)
+          *reinterpret_cast<float2*>(dst + 64 * v + 8 * i) =
+              make_float2(o[v][4 * i] * inv0, o[v][4 * i + 1] * inv0);
     if (LSE && col == 0)
       lse[(size_t)bh * nq + row0] = kLn2 * (m0 + log2f(sum0));
   }
   if (row1 < nq) {
     float* dst = ob + (size_t)row1 * ldo;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<float2*>(dst + 8 * i) =
-          make_float2(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (64 * v + 8 * i < D)
+          *reinterpret_cast<float2*>(dst + 64 * v + 8 * i) =
+              make_float2(o[v][4 * i + 2] * inv1, o[v][4 * i + 3] * inv1);
     if (LSE && col == 0)
       lse[(size_t)bh * nq + row1] = kLn2 * (m1 + log2f(sum1));
   }
 }
 
+// A map of the heads of a [B, N, ld] fp32 tensor: {D, H, N, B} (head h at
+// channels [Dh, Dh + D)), a {32, 1, rows, 1} box.
+bool encode_heads(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
+                  int H, int N, int D, int ld, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)ld * 4,
+                                 (cuuint64_t)N * ld * 4};
+  const cuuint32_t box[4] = {TF32_ROW, 1, (cuuint32_t)rows, 1};
+  return encode_f32_sw128(fn, map, ptr, 4, dims, strides, box);
+}
+
+// A map of the heads of a transposed [B, ld, NKP] copy: {NKP, D, H, B}, a
+// {32 keys, 64 rows, 1, 1} box (rows past D read as zeros).
+bool encode_heads_t(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
+                    int B, int H, int nkp, int D, int ld) {
+  const cuuint64_t dims[4] = {(cuuint64_t)nkp, (cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)nkp * 4,
+                                 (cuuint64_t)D * nkp * 4,
+                                 (cuuint64_t)ld * nkp * 4};
+  const cuuint32_t box[4] = {TF32_ROW, 64, 1, 1};
+  return encode_f32_sw128(fn, map, ptr, 4, dims, strides, box);
+}
+
 // The TMA maps of one call: q_hi, q_lo, k_hi, k_lo ([B, N, ld]) and
 // vt_hi, vt_lo ([B, ld, round_up(nk, 8)]). False if the encode refuses one.
 bool encode_maps(CUtensorMap (&maps)[6], const void* const (&ptrs)[6], int B,
-                 int nq, int nk, int ld) {
+                 int H, int nq, int nk, int D, int ld) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const int nkp = (nk + 7) / 8 * 8;
-  return encode_f32_rows(fn, &maps[0], ptrs[0], B, nq, ld, BQ) &&
-         encode_f32_rows(fn, &maps[1], ptrs[1], B, nq, ld, BQ) &&
-         encode_f32_rows(fn, &maps[2], ptrs[2], B, nk, ld, BK) &&
-         encode_f32_rows(fn, &maps[3], ptrs[3], B, nk, ld, BK) &&
-         encode_f32_rows(fn, &maps[4], ptrs[4], B, ld, nkp, D) &&
-         encode_f32_rows(fn, &maps[5], ptrs[5], B, ld, nkp, D);
+  return encode_heads(fn, &maps[0], ptrs[0], B, H, nq, D, ld, BQ) &&
+         encode_heads(fn, &maps[1], ptrs[1], B, H, nq, D, ld, BQ) &&
+         encode_heads(fn, &maps[2], ptrs[2], B, H, nk, D, ld, BK) &&
+         encode_heads(fn, &maps[3], ptrs[3], B, H, nk, D, ld, BK) &&
+         encode_heads_t(fn, &maps[4], ptrs[4], B, H, nkp, D, ld) &&
+         encode_heads_t(fn, &maps[5], ptrs[5], B, H, nkp, D, ld);
 }
 
-template <bool ONLINE, bool LSE>
+template <int D, bool ONLINE, bool LSE>
 cudaError_t launch(const CUtensorMap (&maps)[6], const float* shift,
                    float* out, float* lse, int B, int H, int nq, int nk,
                    int ldo, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_d64_f32_kernel<ONLINE, LSE>;
+  auto kernel = flash_fwd_f32_kernel<D, ONLINE, LSE>;
+  constexpr int smem = Shape<D>::SMEM_REQUEST;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_REQUEST);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(nq, BQ), B * H);
-  kernel<<<grid, THREADS, SMEM_REQUEST, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], shift, out, lse,
       H, nq, nk, ldo, scale * kLog2e);
   return cudaGetLastError();
 }
 
-bool bad_args(int B, int H, int nq, int nk, int ld, int ldo) {
+template <int D>
+cudaError_t launch_mode(const CUtensorMap (&maps)[6], const float* shift,
+                        float* out, int B, int H, int nq, int nk, int ldo,
+                        int online, float scale, cudaStream_t stream) {
+  if (online)
+    return launch<D, true, false>(maps, shift, out, nullptr, B, H, nq, nk,
+                                  ldo, scale, stream);
+  return launch<D, false, false>(maps, shift, out, nullptr, B, H, nq, nk,
+                                 ldo, scale, stream);
+}
+
+bool bad_args(int B, int H, int nq, int nk, int D, int ld, int ldo) {
   return B < 1 || H < 1 || B * H > 65535 || nq < 1 || nk < 1 ||
-         ld != D * H || ldo % 2;
+         ld != D * H || ldo % 2 || ldo < D * H;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The fp32 64-wide serving forward on split operands (tf32_split.cu):
-// q_hi/q_lo [B, nq, ld], k_hi/k_lo [B, nk, ld], vt_hi/vt_lo [B, ld,
-// round_up(nk, 8)] fp32, all 16-byte aligned, ld = 64 H; o [B, nq, ldo]
-// fp32 with ldo a multiple of 2; `shift` [B*H, nq] fp32 in shifted mode
-// (online = 0). The arguments of flash_fwd_d512_f32_sm90.cu's
-// mt_flash_fwd_d512_f32. Returns cudaSuccess (0) or the error of the
-// checks, the map encoding, the attribute call or the launch.
-int mt_flash_fwd_d64_f32(const void* q_hi, const void* q_lo, const void* k_hi,
-                         const void* k_lo, const void* vt_hi,
-                         const void* vt_lo, const void* shift, void* o, int B,
-                         int H, int nq, int nk, int ld, int ldo, int online,
-                         float scale, void* stream) {
-  if (bad_args(B, H, nq, nk, ld, ldo) || (!online && shift == nullptr))
+// The fp32 serving forward at head width D (40, 64, 80 or 160) on split
+// operands (tf32_split.cu): q_hi/q_lo [B, nq, ld], k_hi/k_lo [B, nk, ld],
+// vt_hi/vt_lo [B, ld, round_up(nk, 8)] fp32, all 16-byte aligned, ld = D H;
+// o [B, nq, ldo] fp32 with ldo a multiple of 2; `shift` [B*H, nq] fp32 in
+// shifted mode (online = 0). Returns cudaSuccess (0) or the error of the
+// checks, the map encoding, the attribute call or the launch; any other D
+// returns cudaErrorInvalidValue.
+int mt_flash_fwd_f32(const void* q_hi, const void* q_lo, const void* k_hi,
+                     const void* k_lo, const void* vt_hi, const void* vt_lo,
+                     const void* shift, void* o, int B, int H, int nq, int nk,
+                     int D, int ld, int ldo, int online, float scale,
+                     void* stream) {
+  if (bad_args(B, H, nq, nk, D, ld, ldo) || (!online && shift == nullptr))
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[6];
-  if (!encode_maps(maps, {q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo}, B, nq, nk,
-                   ld))
+  if (!encode_maps(maps, {q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo}, B, H, nq, nk,
+                   D, ld))
     return (int)cudaErrorInvalidValue;
   const float* sh = static_cast<const float*>(shift);
   float* of = static_cast<float*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return online ? (int)launch<true, false>(maps, sh, of, nullptr, B, H, nq,
-                                           nk, ldo, scale, st)
-                : (int)launch<false, false>(maps, sh, of, nullptr, B, H, nq,
-                                            nk, ldo, scale, st);
+  switch (D) {
+    case 40:
+      return (int)launch_mode<40>(maps, sh, of, B, H, nq, nk, ldo, online,
+                                  scale, st);
+    case 64:
+      return (int)launch_mode<64>(maps, sh, of, B, H, nq, nk, ldo, online,
+                                  scale, st);
+    case 80:
+      return (int)launch_mode<80>(maps, sh, of, B, H, nq, nk, ldo, online,
+                                  scale, st);
+    case 160:
+      return (int)launch_mode<160>(maps, sh, of, B, H, nq, nk, ldo, online,
+                                   scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The training forward: online, and lse [B*H, nq] fp32 in natural-log
-// units. Other arguments as mt_flash_fwd_d64_f32's.
+// The training forward at D = 64: online, and lse [B*H, nq] fp32 in
+// natural-log units. Other arguments as mt_flash_fwd_f32's.
 int mt_flash_fwd_lse_f32(const void* q_hi, const void* q_lo, const void* k_hi,
                          const void* k_lo, const void* vt_hi,
                          const void* vt_lo, void* o, void* lse, int B, int H,
                          int nq, int nk, int ld, int ldo, float scale,
                          void* stream) {
-  if (bad_args(B, H, nq, nk, ld, ldo) || lse == nullptr)
+  if (bad_args(B, H, nq, nk, 64, ld, ldo) || lse == nullptr)
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[6];
-  if (!encode_maps(maps, {q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo}, B, nq, nk,
-                   ld))
+  if (!encode_maps(maps, {q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo}, B, H, nq, nk,
+                   64, ld))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<true, true>(maps, nullptr, static_cast<float*>(o),
-                                 static_cast<float*>(lse), B, H, nq, nk, ldo,
-                                 scale, static_cast<cudaStream_t>(stream));
+  return (int)launch<64, true, true>(maps, nullptr, static_cast<float*>(o),
+                                     static_cast<float*>(lse), B, H, nq, nk,
+                                     ldo, scale,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 const char* mt_cuda_error_string(int err) {

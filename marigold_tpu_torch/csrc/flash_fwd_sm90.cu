@@ -1,13 +1,17 @@
-// Flash-attention forward for 64-wide heads, designed for Hopper (sm_90a):
-// wgmma tensor-core products, TMA loads into a ring of shared-memory stages
-// tracked by mbarriers, a producer warp and two consumer warpgroups, and the
-// logits, probabilities and output accumulator held in registers.
+// Flash-attention forward for heads 40, 64, 80 and 160 wide (a template on
+// the head width D), designed for Hopper (sm_90a): wgmma tensor-core
+// products, TMA loads into a ring of shared-memory stages tracked by
+// mbarriers, a producer warp and two consumer warpgroups, and the logits,
+// probabilities and output accumulator held in registers.
 //
-// Replaces the 64-wide instantiations of the TPU package's
+// Replaces the instantiations at those widths (SD2's 64-wide heads; the
+// 40-, 80- and 160-wide heads of an SD1.x-class UNet, 320, 640 and 1280
+// channels over 8 heads) of the TPU package's
 // marigold_tpu/ops/flash_attention.py kernels:
 //   * _flash_kernel_dt_shifted  (shifted softmax; pallas_call at :396)
 //   * _flash_kernel_dt          (exact online softmax; :460)
-//   * _flash_kernel_dt_lse      (online softmax + row logsumexp; :638)
+//   * _flash_kernel_dt_lse      (online softmax + row logsumexp; :638; D = 64
+//     only, the width the backward kernels take)
 //   * _flash_kernel             (the folded [BH, N, D] entry; :522), which the
 //     wrapper runs as the online variant with one head per batch row.
 // The 512-wide VAE head has its own kernel, flash_fwd_d512_sm90.cu.
@@ -24,12 +28,24 @@
 // s_j = -1e30; query rows r >= nq are computed on TMA's zero fill and not
 // stored.
 //
-// Layout: q/k/v/o are [B, N, ld] bf16, head h at channels [64h, 64h + 64).
-// Each tensor has a 3-D TMA map {ld, N, B} with a {64, rows, 1} box at
-// channel coordinate 64h and 128-byte swizzle: one 64-wide bf16 row is
-// exactly 128 bytes. Because N is a dimension of the map, TMA zero-fills
-// rows past nq or nk inside each batch instead of reading the next batch,
-// and the output store drops rows past nq. No padding copy.
+// Layout: q/k/v/o are [B, N, ld] bf16, head h at channels [Dh, Dh + D) (ld
+// may exceed H D: the projected self-attention reads q, k and v in place
+// in one [B, N, 3C] product). Each tensor has a 4-D TMA map {D, H, N, B}
+// whose innermost dimension is the head itself (head stride D, row stride
+// ld), with a {64, 1, rows, 1} box and the 128-byte swizzle: one 64-wide
+// bf16 row is one 128-byte swizzle atom. A head wider than 64 takes
+// ATOMS = ceil(D / 64) boxes side by side, each its own [rows, 128 B]
+// block of shared memory. The box's lanes past D are outside the map's
+// innermost dimension, so TMA fills them with zeros on a load (never the
+// next head's lanes) and drops them on a store; rows past nq or nk are
+// outside N, zero-filled inside each batch and dropped by the store. No
+// padding copy. The map needs a head stride of a multiple of 16 bytes (D a
+// multiple of 8), as ops/flash_attention.py:check_tma checks.
+//
+// Padded widths: QK^T contracts over KSTEPS = ceil(D / 16) k16 steps (48
+// lanes at D = 40, the 8 past D zero in both operands); P V runs one
+// m64n64 product per atom (64, 128 or 192 output columns), the columns
+// past D zeros of V, computed and never stored.
 //
 // What bounds it on the H100: ~4*N*N*64 FLOPs over ~4*N*64*2 bytes per
 // head, about N/2 FLOP per byte (4608 at N = 9216), far above the card's
@@ -54,29 +70,49 @@
 //     current PV;
 //   * setmaxnreg moves registers from the producer warpgroup (24) to the
 //     consumers (240): one block per SM, 384 threads.
+// Registers per consumer thread: S (BK/2), P (BK/4) and O (32 per atom).
+// At D = 160 O takes 96, so that width runs 64-key tiles (BK = 64: S 32,
+// P 16); the others 128-key tiles. Shared memory: Q (BQ x 128 B per atom)
+// and two K/V stages (2 x BK x 128 B per atom each): 80 KB at D = 40 and
+// 64, 160 KB at D = 80, 144 KB at D = 160.
+//
+// At D = 40 the exponentials bind rather than the tensor cores: one exp2
+// per logit against 4 D = 160 FLOPs of products per logit, and the card's
+// special-function units (16 exp2 per SM per clock) finish fewer
+// exponentials per second than its tensor cores finish those FLOPs.
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int D = 64;             // head width
 constexpr int BQ = 128;           // query rows per block (2 x 64)
-constexpr int BK = 128;           // keys per K/V tile
 constexpr int KV_STAGES = 2;      // K/V tiles in flight
 constexpr int CONSUMERS = 2;      // consumer warpgroups
 constexpr int THREADS = 128 * (1 + CONSUMERS);
-constexpr int ROW_BYTES = D * 2;  // 128: one swizzle row
-constexpr int Q_BYTES = BQ * ROW_BYTES;
-constexpr int KV_BYTES = BK * ROW_BYTES;
+constexpr int ROW_BYTES = 128;    // one 64-lane bf16 swizzle atom row
 
-// Shared memory: Q (reused to stage the output), then K and V per stage,
-// then the barriers; every tile 1024-byte aligned (the 128B swizzle atom).
-constexpr int SM_Q = 0;
-constexpr int SM_K = Q_BYTES;
-constexpr int SM_V = SM_K + KV_STAGES * KV_BYTES;
-constexpr int SM_BAR = SM_V + KV_STAGES * KV_BYTES;
-constexpr int SM_BYTES = SM_BAR + 8 * (2 * KV_STAGES + 1);
-constexpr int SMEM_REQUEST = SM_BYTES + 1024;  // room to align the base
+// The shapes of the instantiation at head width D.
+template <int D>
+struct Shape {
+  static_assert(D % 8 == 0 && D <= 192, "D a multiple of 8, at most 3 atoms");
+  static constexpr int ATOMS = (D + 63) / 64;   // 64-lane boxes per row
+  static constexpr int KSTEPS = (D + 15) / 16;  // k16 steps of Q K^T
+  static constexpr int BK = D > 128 ? 64 : 128; // keys per K/V tile
+  static constexpr int Q_ATOM = BQ * ROW_BYTES;  // one atom of the Q tile
+  static constexpr int KV_ATOM = BK * ROW_BYTES;
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM;
+  static constexpr int KV_BYTES = ATOMS * KV_ATOM;
+  // Shared memory: Q (reused to stage the output), then K and V per
+  // stage, then the barriers; every tile 1024-byte aligned (the 128B
+  // swizzle atom).
+  static constexpr int SM_Q = 0;
+  static constexpr int SM_K = Q_BYTES;
+  static constexpr int SM_V = SM_K + KV_STAGES * KV_BYTES;
+  static constexpr int SM_BAR = SM_V + KV_STAGES * KV_BYTES;
+  static constexpr int SM_BYTES = SM_BAR + 8 * (2 * KV_STAGES + 1);
+  static constexpr int SMEM_REQUEST = SM_BYTES + 1024;  // room to align
+  static_assert(SMEM_REQUEST <= 232448, "fits the 227 KB a block can use");
+};
 
 constexpr float kNegInf = -1e30f;                 // the TPU kernels' NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
@@ -104,7 +140,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // d[4j + 2 + e] the same columns of row 16w + l/4 + 8 (e in {0, 1}). The A
 // fragment of a k16 step kk takes columns 16kk..16kk+15 in the same rows, so
 // the bf16 pair (d[2i], d[2i+1]) is A register i: P needs no shuffle.
-template <bool ONLINE, bool LSE>
+template <int D, bool ONLINE, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -114,9 +150,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       float* __restrict__ lse, int H, int nq, int nk,
                       float scale_log2) {
   static_assert(ONLINE || !LSE, "the logsumexp needs the running max");
+  using S_ = Shape<D>;
+  constexpr int ATOMS = S_::ATOMS;
+  constexpr int BK = S_::BK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar_full = base + SM_BAR;                 // [KV_STAGES]
+  const uint32_t bar_full = base + S_::SM_BAR;             // [KV_STAGES]
   const uint32_t bar_empty = bar_full + 8 * KV_STAGES;     // [KV_STAGES]
   const uint32_t bar_q = bar_empty + 8 * KV_STAGES;
 
@@ -138,26 +177,35 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // Producer warpgroup: one thread issues every TMA load.
+    // Producer warpgroup: one thread starts every TMA load, one box per
+    // 64-lane atom of the head.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, Q_BYTES);
-      tma_load(base + SM_Q, &tm_q, h * D, q0, b, bar_q);
+      mbar_expect_tx(bar_q, S_::Q_BYTES);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(base + S_::SM_Q + a * S_::Q_ATOM, &tm_q, 64 * a, h, q0, b,
+                    bar_q);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % KV_STAGES;
         if (it >= KV_STAGES)
           mbar_wait(bar_empty + 8 * st, ((it / KV_STAGES) - 1) & 1);
-        mbar_expect_tx(bar_full + 8 * st, 2 * KV_BYTES);
-        tma_load(base + SM_K + st * KV_BYTES, &tm_k, h * D, it * BK, b,
-                 bar_full + 8 * st);
-        tma_load(base + SM_V + st * KV_BYTES, &tm_v, h * D, it * BK, b,
-                 bar_full + 8 * st);
+        mbar_expect_tx(bar_full + 8 * st, 2 * S_::KV_BYTES);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          const uint32_t off = st * S_::KV_BYTES + a * S_::KV_ATOM;
+          tma_load_4d(base + S_::SM_K + off, &tm_k, 64 * a, h, it * BK, b,
+                      bar_full + 8 * st);
+          tma_load_4d(base + S_::SM_V + off, &tm_v, 64 * a, h, it * BK, b,
+                      bar_full + 8 * st);
+        }
       }
     }
     return;
   }
 
-  // Consumer warpgroup c owns query rows [64c, 64c + 64) of the block.
+  // Consumer warpgroup c owns query rows [64c, 64c + 64) of the block: the
+  // same rows of each atom of the Q tile.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int c = wg - 1;
   const int t = threadIdx.x % 128;
@@ -166,7 +214,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int col = 2 * (lane % 4);           // its column pair in each 8
   const int row0 = q0 + 64 * c + r0;        // global query rows
   const int row1 = row0 + 8;
-  const uint32_t q_tile = base + SM_Q + c * 64 * ROW_BYTES;
+  const uint32_t q_tile = base + S_::SM_Q + c * 64 * ROW_BYTES;
 
   float sh0 = 0.f, sh1 = 0.f;  // shifted mode: the row shift, base 2
   if (!ONLINE) {
@@ -175,21 +223,25 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   float m0 = kNegInf, m1 = kNegInf;  // running max (online), base 2
   float l0 = 0.f, l1 = 0.f;          // this thread's part of the row sums
-  float o[32];
+  float o[ATOMS][32];                // output columns [64a, 64a + 64)
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float s[64];
+  for (int a = 0; a < ATOMS; ++a)
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.f;
-  uint32_t p[32];
+    for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
+  float s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  uint32_t p[BK / 4];
 
   auto issue_qk = [&](int st) {
-    const uint32_t k_tile = base + SM_K + st * KV_BYTES;
+    const uint32_t k_tile = base + S_::SM_K + st * S_::KV_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n128k16_ss(s, kmajor_desc(q_tile + 32 * kk),
-                          kmajor_desc(k_tile + 32 * kk), kk);
+    for (int kk = 0; kk < S_::KSTEPS; ++kk) {
+      const uint32_t off = 32 * (kk % 4);
+      wgmma_ss<BK>(s, kmajor_desc(q_tile + (kk / 4) * S_::Q_ATOM + off),
+                   kmajor_desc(k_tile + (kk / 4) * S_::KV_ATOM + off), kk);
+    }
     wgmma_commit();
   };
 
@@ -230,11 +282,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       l0 *= a0;
       l1 *= a1;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= a0;
-        o[4 * j + 1] *= a0;
-        o[4 * j + 2] *= a1;
-        o[4 * j + 3] *= a1;
+      for (int a = 0; a < ATOMS; ++a) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[a][4 * j] *= a0;
+          o[a][4 * j + 1] *= a0;
+          o[a][4 * j + 2] *= a1;
+          o[a][4 * j + 3] *= a1;
+        }
       }
     } else {
       ref0 = sh0;
@@ -257,17 +312,23 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    for (int i = 0; i < BK / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 
-    // O += P V on this stage's V, then (while it runs) the next QK^T.
-    const uint32_t v_tile = base + SM_V + st * KV_BYTES;
-    fence_regs(o);
+    // O += P V on this stage's V, one product per atom of output columns,
+    // then (while they run) the next QK^T.
+    const uint32_t v_tile = base + S_::SM_V + st * S_::KV_BYTES;
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a) fence_regs(o[a]);
     fence_regs(p);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                         p[4 * kk + 3], mnmajor_desc(v_tile + 2048 * kk));
+    for (int a = 0; a < ATOMS; ++a) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n64k16_rs(o[a], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3],
+                           mnmajor_desc(v_tile + a * S_::KV_ATOM + 2048 * kk));
+    }
     wgmma_commit();
     if (it + 1 < n_tiles) {
       const int nst = (it + 1) % KV_STAGES;
@@ -280,7 +341,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (t == 0) mbar_arrive(bar_empty + 8 * st);  // release K/V stage st
     wgmma_wait<0>();
     fence_regs(s);
-    fence_regs(o);
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a) fence_regs(o[a]);
     fence_regs(p);
   }
 
@@ -293,84 +355,119 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (row1 < nq) lse[(size_t)bh * nq + row1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
   }
 
-  // Stage the bf16 output in this warpgroup's Q rows (its last QK^T has
-  // completed), in the swizzled layout the O map expects, then one TMA
-  // store; rows past nq are dropped by the store.
+  // Stage the bf16 output in this warpgroup's Q rows of each atom (its last
+  // QK^T has completed), in the swizzled layout the O map expects, then one
+  // TMA store per atom; lanes past D and rows past nq are dropped by the
+  // store.
   unsigned char* q_gen = smem_raw + (q_tile - smem_u32(smem_raw));
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const uint32_t chunk = static_cast<uint32_t>(j ^ (r0 & 7)) << 4;
-    const uint32_t off = chunk + 2 * col;
-    *reinterpret_cast<uint32_t*>(q_gen + r0 * ROW_BYTES + off) =
-        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(q_gen + (r0 + 8) * ROW_BYTES + off) =
-        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  for (int a = 0; a < ATOMS; ++a) {
+    unsigned char* atom = q_gen + a * S_::Q_ATOM;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t chunk = static_cast<uint32_t>(j ^ (r0 & 7)) << 4;
+      const uint32_t off = chunk + 2 * col;
+      *reinterpret_cast<uint32_t*>(atom + r0 * ROW_BYTES + off) =
+          pack_bf16(o[a][4 * j] * inv0, o[a][4 * j + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(atom + (r0 + 8) * ROW_BYTES + off) =
+          pack_bf16(o[a][4 * j + 2] * inv1, o[a][4 * j + 3] * inv1);
+    }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-  if (t == 0 && q0 + 64 * c < nq) tma_store(&tm_o, q_tile, h * D, q0 + 64 * c, b);
+  if (t == 0 && q0 + 64 * c < nq) {
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+      tma_store_4d(&tm_o, q_tile + a * S_::Q_ATOM, 64 * a, h, q0 + 64 * c, b);
+  }
 }
 
-// A map of a [B, N, ld] bf16 tensor with a {64, rows, 1} box.
-bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int N,
-            int ld, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)N * ld * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A map of the heads of a [B, N, ld] bf16 tensor: {D, H, N, B} (head h at
+// channels [Dh, Dh + D)), a {64, 1, rows, 1} box. Lanes of a box past D and
+// rows past N read as zeros and are not stored.
+bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int H,
+            int N, int D, int ld, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)ld * 2,
+                                 (cuuint64_t)N * ld * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_bf16_sw128(fn, map, ptr, 4, dims, strides, box);
 }
 
-template <bool ONLINE, bool LSE>
+template <int D, bool ONLINE, bool LSE>
 cudaError_t launch(const CUtensorMap* maps, const float* shift, float* lse,
                    int B, int H, int nq, int nk, float scale,
                    cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<ONLINE, LSE>;
+  auto kernel = flash_fwd_sm90_kernel<D, ONLINE, LSE>;
+  constexpr int smem = Shape<D>::SMEM_REQUEST;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_REQUEST);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, THREADS, SMEM_REQUEST, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], shift, lse, H, nq, nk,
       scale * kLog2e);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mode(const CUtensorMap* maps, const float* shift,
+                        float* lse, int B, int H, int nq, int nk, float scale,
+                        int online, cudaStream_t stream) {
+  if (online)
+    return launch<D, true, false>(maps, shift, lse, B, H, nq, nk, scale,
+                                  stream);
+  return launch<D, false, false>(maps, shift, lse, B, H, nq, nk, scale,
+                                 stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The 64-wide forward, called by mt_flash_attention_fwd and
-// mt_flash_attention_fwd_lse (flash_attention.cu) for D == 64. q and o are
-// [B, nq, ldq/ldo], k and v [B, nk, ldkv] bf16, 16-byte aligned, with row
-// strides a multiple of 8 elements (TMA's 16-byte rule); `shift` is
-// [B*H, nq] fp32 in shifted mode, `lse` [B*H, nq] fp32 or null. Returns
-// cudaSuccess or the error of the map encoding, the attribute call or the
-// launch.
+// The forward at head width D (40, 64, 80 or 160), called by
+// mt_flash_attention_fwd and mt_flash_attention_fwd_lse (flash_attention.cu).
+// q and o are [B, nq, ldq/ldo], k and v [B, nk, ldkv] bf16, 16-byte
+// aligned, with row strides a multiple of 8 elements (TMA's 16-byte rule);
+// `shift` is [B*H, nq] fp32 in shifted mode, `lse` [B*H, nq] fp32 or null
+// (D = 64 only). Returns cudaSuccess or the error of the checks, the map
+// encoding, the attribute call or the launch.
 int mt_flash_fwd_sm90(const void* q, const void* k, const void* v,
                       const void* shift, void* o, void* lse, int B, int H,
-                      int nq, int nk, int ldq, int ldkv, int ldo, float scale,
-                      int online, void* stream) {
+                      int nq, int nk, int D, int ldq, int ldkv, int ldo,
+                      float scale, int online, void* stream) {
   if (B < 1 || H < 1 || nq < 1 || nk < 1 || ldq % 8 || ldkv % 8 || ldo % 8 ||
-      (!online && shift == nullptr) || (lse != nullptr && !online))
+      ldq < D * H || ldkv < D * H || ldo < D * H ||
+      (!online && shift == nullptr) ||
+      (lse != nullptr && (!online || D != 64)))
     return (int)cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const int bk = D > 128 ? 64 : 128;  // Shape<D>::BK
   CUtensorMap maps[4];
-  if (!encode(fn, &maps[0], q, B, nq, ldq, BQ) ||
-      !encode(fn, &maps[1], k, B, nk, ldkv, BK) ||
-      !encode(fn, &maps[2], v, B, nk, ldkv, BK) ||
-      !encode(fn, &maps[3], o, B, nq, ldo, 64))
+  if (!encode(fn, &maps[0], q, B, H, nq, D, ldq, BQ) ||
+      !encode(fn, &maps[1], k, B, H, nk, D, ldkv, bk) ||
+      !encode(fn, &maps[2], v, B, H, nk, D, ldkv, bk) ||
+      !encode(fn, &maps[3], o, B, H, nq, D, ldo, 64))
     return (int)cudaErrorInvalidValue;
   const float* sh = static_cast<const float*>(shift);
   float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ls != nullptr) return launch<true, true>(maps, sh, ls, B, H, nq, nk, scale, st);
-  return online ? launch<true, false>(maps, sh, ls, B, H, nq, nk, scale, st)
-                : launch<false, false>(maps, sh, ls, B, H, nq, nk, scale, st);
+  switch (D) {
+    case 40:
+      return launch_mode<40>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+    case 64:
+      if (ls != nullptr)
+        return launch<64, true, true>(maps, sh, ls, B, H, nq, nk, scale, st);
+      return launch_mode<64>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+    case 80:
+      return launch_mode<80>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+    case 160:
+      return launch_mode<160>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (flash_fwd_sm90.cu, flash_fwd_d512_sm90.cu, flash_bwd_sm90.cu, conv3x3.cu,
-// winograd.cu): mbarriers, TMA loads and stores, shared-memory matrix
+// winograd.cu and, through tf32x3.cuh, the fp32 ones): mbarriers, TMA
+// loads and stores, shared-memory matrix
 // descriptors with the 128-byte swizzle, the wgmma issue/fence/commit/wait
 // wrappers, and cuTensorMapEncodeTiled taken from the driver through the
 // runtime's entry-point query (no -lcuda).
@@ -95,6 +96,18 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
       "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group"
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");

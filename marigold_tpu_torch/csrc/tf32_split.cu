@@ -20,8 +20,9 @@
 // One launch splits up to MAX_JOBS tensors of one [B, *, C] family (a
 // forward's q, k and v^T; the backward's q, dO, k, v, q^T, dO^T and k^T),
 // each a job of its own row count: blockIdx.z is the job, blockIdx.y the
-// batch row, blockIdx.x a 32 x 32 tile. A plain job reads and writes each row of
-// the tile as one 128-byte warp access; a transposed job goes through a
+// batch row, blockIdx.x a 32 x 32 tile (the last one along C masked where C
+// is not a multiple of 32). A plain job reads and writes each row of the
+// tile as one 128-byte warp access; a transposed job goes through a
 // [32][33] shared tile (conflict-free both ways) and writes rows of the
 // transposed copy.
 //
@@ -66,6 +67,7 @@ tf32_split_kernel(const __grid_constant__ Jobs jobs, int C, int tiles_c) {
   const size_t in0 = (size_t)b * job.rows * C;
   uint32_t hi, lo;
   if (!job.transposed) {
+    if (c0 + tx >= C) return;  // the ragged last tile of columns
 #pragma unroll
     for (int i = 0; i < TILE / 8; ++i) {
       const int n = n0 + ty + 8 * i;
@@ -81,8 +83,9 @@ tf32_split_kernel(const __grid_constant__ Jobs jobs, int C, int tiles_c) {
 #pragma unroll
   for (int i = 0; i < TILE / 8; ++i) {
     const int n = n0 + ty + 8 * i;
-    tile[ty + 8 * i][tx] =
-        n < job.rows ? job.src[in0 + (size_t)n * C + c0 + tx] : 0.f;
+    tile[ty + 8 * i][tx] = n < job.rows && c0 + tx < C
+                               ? job.src[in0 + (size_t)n * C + c0 + tx]
+                               : 0.f;
   }
   __syncthreads();
   // output column n0 + tx holds input row n0 + 8 (tx / 8) + TF32_PERM[tx % 8]
@@ -92,6 +95,7 @@ tf32_split_kernel(const __grid_constant__ Jobs jobs, int C, int tiles_c) {
 #pragma unroll
   for (int i = 0; i < TILE / 8; ++i) {
     const int cc = ty + 8 * i;
+    if (c0 + cc >= C) break;
     const size_t at = ((size_t)b * C + c0 + cc) * np + n0 + tx;
     tf32_split(tile[src_row][cc], hi, lo);
     job.hi[at] = __uint_as_float(hi);
@@ -106,13 +110,14 @@ extern "C" {
 // Splits n_jobs (1..MAX_JOBS = 8) fp32 tensors src[i], each [B, rows[i], C] and
 // contiguous, into hi[i] and lo[i]: [B, rows[i], C] if transposed[i] is 0,
 // else [B, C, round_up(rows[i], 8)] in the permuted column order. C is a
-// multiple of 32. Returns cudaSuccess (0), cudaErrorInvalidValue for bad
-// arguments, or the launch's error.
+// multiple of 4 (the narrow heads' folded tensors, C = 40 or 80, end in a
+// part-filled tile of columns). Returns cudaSuccess (0),
+// cudaErrorInvalidValue for bad arguments, or the launch's error.
 int mt_tf32_split(const void* const* src, void* const* hi, void* const* lo,
                   const int* rows, const int* transposed, int n_jobs, int B,
                   int C, void* stream) {
-  if (n_jobs < 1 || n_jobs > MAX_JOBS || B < 1 || B > 65535 || C < TILE ||
-      C % TILE)
+  if (n_jobs < 1 || n_jobs > MAX_JOBS || B < 1 || B > 65535 || C < 4 ||
+      C % 4)
     return (int)cudaErrorInvalidValue;
   Jobs jobs = {};
   int max_np = 0;
@@ -124,7 +129,7 @@ int mt_tf32_split(const void* const* src, void* const* hi, void* const* lo,
     const int np = transposed[i] ? (rows[i] + 7) / 8 * 8 : rows[i];
     max_np = np > max_np ? np : max_np;
   }
-  const int tiles_c = C / TILE;
+  const int tiles_c = cdiv(C, TILE);
   const dim3 grid(tiles_c * cdiv(max_np, TILE), B, n_jobs);
   tf32_split_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       jobs, C, tiles_c);

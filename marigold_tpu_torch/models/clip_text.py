@@ -5,7 +5,8 @@ Counterpart of `marigold_tpu/models/clip_text.py`. Marigold conditions on
 the embedding of the empty prompt only, which tokenizes (do_not_pad) to
 [BOS, EOS]; `encode_empty_prompt` embeds those two ids, so no tokenizer is
 needed. SD2's tower is OpenCLIP ViT-H's text model: hidden 1024, 23 layers,
-16 heads, GELU, causal mask.
+16 heads, GELU, causal mask; SD1.x's is CLIP ViT-L/14's: hidden 768, 12
+layers, 12 heads, quick_gelu.
 """
 
 from __future__ import annotations
@@ -61,19 +62,32 @@ class CLIPAttention(nn.Module):
         return self.out_proj(y)
 
 
+def _act(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The MLP's activation in fp32, cast back (`marigold_tpu/models/
+    clip_text.py:_act`): "gelu" is the exact GELU (SD2's OpenCLIP tower),
+    "quick_gelu" x * sigmoid(1.702 x) (CLIP ViT-L/14, SD1.x); any other
+    name raises ValueError when the tower runs, as in the JAX package."""
+    xf = x.float()
+    if name == "gelu":
+        y = F.gelu(xf, approximate="none")
+    elif name == "quick_gelu":
+        y = xf * torch.sigmoid(1.702 * xf)
+    else:
+        raise ValueError(f"unknown act: {name}")
+    return y.to(x.dtype)
+
+
 class CLIPMLP(nn.Module):
-    """fc1 -> exact GELU in fp32 -> fc2 (SD2's OpenCLIP text tower)."""
+    """fc1 -> the activation in fp32 (`_act`) -> fc2."""
 
     def __init__(self, h: int, inner: int, act: str):
         super().__init__()
-        if act != "gelu":
-            raise NotImplementedError(f"CLIP hidden_act {act!r} is not ported")
+        self.act = act
         self.fc1 = nn.Linear(h, inner)
         self.fc2 = nn.Linear(inner, h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.gelu(self.fc1(x).float(), approximate="none")
-        return self.fc2(y.to(x.dtype))
+        return self.fc2(_act(self.fc1(x), self.act))
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -8,7 +8,10 @@ the diffusers names and torch layout, so `state_dict()` shapes are what a
 checkpoint on the hub carries and no layout conversion is needed. It is
 compared against the safetensors HEADERS (`weights.read_safetensors_header`;
 no tensor data is read), so a broken or mislabeled checkpoint is diagnosed
-in milliseconds.
+in milliseconds. The transformers' proj_in/proj_out are built [C, C]
+whatever the config says, as the JAX package's init builds them, so both
+packages report an SD1.x-class checkpoint's 1x1-conv [C, C, 1, 1]
+projections as mismatched although both load them.
 
 Entry points:
   expected_component_manifest(kind, cfg) -> {torch_name: shape}

@@ -1,10 +1,17 @@
-"""SD2-class conditional UNet (diffusers UNet2DConditionModel role), NCHW.
+"""SD2- and SD1.x-class conditional UNet (diffusers UNet2DConditionModel
+role), NCHW.
 
 Counterpart of `marigold_tpu/models/unet.py`. Module and parameter names are
 the diffusers names, so a diffusers `unet/` state dict loads as it is.
-Self-attention goes through `ops/attention.py` (the Hopper flash kernel at
->= 1024 tokens on CUDA), cross-attention over the length-2 empty-prompt
-embedding through the plain attention.
+Self-attention goes through `ops/attention.py:self_attention_projected`
+(the Hopper flash kernel at >= 1024 tokens on CUDA; with
+MARIGOLD_TPU_PROJECTED_ATTN=1 its Q, K and V from one product), cross-
+attention over the length-2 empty-prompt embedding through the plain
+attention. The transformers' proj_in/proj_out (`Projection`) are linears in
+SD2 and 1x1 convs in SD1.x-class checkpoints (diffusers'
+`use_linear_projection` False): either weight loads, and the one given is
+applied as a linear over channels, as the JAX package's `_proj` decides by
+the weight's rank.
 
 The forward runs as regions, each down block, the mid block and each up
 block, through an optional `block_runner(fn, *args)`: the training step's
@@ -37,7 +44,10 @@ from marigold_tpu_torch.models.layers import (
     timestep_embedding,
     upsample_nearest_2x,
 )
-from marigold_tpu_torch.ops.attention import dispatch_attention
+from marigold_tpu_torch.ops.attention import (
+    dispatch_attention,
+    self_attention_projected,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +148,9 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
+_QKV = ("to_q", "to_k", "to_v")
+
+
 class Attention(nn.Module):
     """diffusers Attention: to_q/to_k/to_v, to_out.0. Self-attention when
     no context is given."""
@@ -152,15 +165,40 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(context_dim, dim, bias=bias)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
+    def __getattr__(self, name: str):
+        # `attn.to_q` fetched from outside is the way to a write through
+        # `attn.to_q.weight.data`, which does not bump the weight's
+        # `_version`: drop the stacked weight (as `layers.Conv2d` drops its
+        # prepared weight). The module itself reads `_modules`.
+        if name in _QKV:
+            self.__dict__.pop("_qkv", None)
+        return super().__getattr__(name)
+
+    def qkv_weight(self) -> torch.Tensor:
+        """[3C, C]: to_q's, to_k's and to_v's weights stacked, the weight of
+        the projected self-attention's one product, built once and reused
+        until one of them changes (keyed on each weight's `data_ptr()`,
+        `_version`, dtype and device: a load, an in-place update and a
+        conversion change it; a fetch of to_q/to_k/to_v drops it)."""
+        ws = [self._modules[n]._parameters["weight"] for n in _QKV]
+        key = tuple((w.data_ptr(), w._version, w.dtype, w.device) for w in ws)
+        cached = self.__dict__.get("_qkv")
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                cached = self.__dict__["_qkv"] = (key, torch.cat(ws))
+        return cached[1]
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 spatial=None) -> torch.Tensor:
         """spatial: the mesh over which x's tokens are sharded (self-attention
         only; cross-attention is token-local)."""
-        ctx = x if context is None else context.to(x.dtype)
-        out = dispatch_attention(
-            self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads,
-            spatial=spatial)
-        return self.to_out[0](out)
+        if context is None:
+            return self_attention_projected(x, self, self.heads, spatial)
+        ctx = context.to(x.dtype)
+        mods = self._modules
+        out = dispatch_attention(mods["to_q"](x), mods["to_k"](ctx),
+                                 mods["to_v"](ctx), self.heads)
+        return mods["to_out"][0](out)
 
 
 class FeedForward(nn.Module):
@@ -192,17 +230,45 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
+class Projection(nn.Linear):
+    """A transformer's proj_in/proj_out: a linear over channels on the token
+    layout whatever the stored weight, [C, C] (diffusers'
+    `use_linear_projection`, SD2) or a 1x1 conv's [C, C, 1, 1] (SD1.x-class
+    checkpoints), as the JAX package's `_proj` (`marigold_tpu/models/
+    unet.py:286`) decides by the weight's rank and not by the config flag;
+    for a 1x1 kernel the conv before the token reshape and the linear after
+    it commute. Built [C, C] (so the manifest's expected shapes are the JAX
+    package's); a state dict's weight of the other rank replaces the
+    parameter's shape on load, so that a loaded checkpoint saves back as it
+    was."""
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        w = state_dict.get(prefix + "weight")
+        p = self._parameters["weight"]
+        if w is not None and w.ndim != p.ndim and \
+                w.shape[:2] == p.shape[:2] and w[0].numel() == p[0].numel():
+            self.weight = nn.Parameter(
+                torch.empty(w.shape, dtype=p.dtype, device=p.device),
+                requires_grad=p.requires_grad)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        return F.linear(x, w.flatten(1) if w.ndim == 4 else w, self.bias)
+
+
 class Transformer2DModel(nn.Module):
-    """diffusers Transformer2DModel with one BasicTransformerBlock and linear
-    projections (SD2)."""
+    """diffusers Transformer2DModel with one BasicTransformerBlock; proj_in
+    and proj_out linear (SD2) or 1x1 convs (SD1.x-class), see
+    `Projection`."""
 
     def __init__(self, dim: int, heads: int, cross_dim: int, groups: int):
         super().__init__()
         self.norm = GroupNorm(groups, dim, eps=1e-6)
-        self.proj_in = nn.Linear(dim, dim)
+        self.proj_in = Projection(dim, dim)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(dim, heads, cross_dim)])
-        self.proj_out = nn.Linear(dim, dim)
+        self.proj_out = Projection(dim, dim)
 
     def forward(self, x: torch.Tensor, ctx: torch.Tensor,
                 spatial=None) -> torch.Tensor:
@@ -258,9 +324,6 @@ def _up_skip_channels(b: list, up_idx: int, layers_per_block: int) -> list:
 class UNet2DConditionModel(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if not cfg.use_linear_projection:
-            raise NotImplementedError(
-                "1x1-conv proj_in/proj_out (SD1.x-class UNets) is not ported")
         self.cfg = cfg
         b = list(cfg.block_out_channels)
         g, eps, temb = cfg.norm_num_groups, cfg.norm_eps, cfg.time_embed_dim

@@ -16,7 +16,10 @@ package: an 8-byte little-endian header length, a JSON header of
 
 `from_jax_tree` carries the JAX package's parameter trees across (HWIO ->
 OIHW, [in, out] -> [out, in]; embeddings as they are), the inverse of the
-JAX package's `torch_to_tree`.
+JAX package's `torch_to_tree`. Layouts follow each tensor's rank, so an
+SD1.x-class UNet's 1x1-conv proj_in/proj_out ([1, 1, C, C] in a JAX tree,
+[C, C, 1, 1] on disk) pass through both load paths, `from_jax_tree` and
+the writer as they are (`models/unet.py:Projection` takes either rank).
 
 The component loaders (`load_unet`, `load_vae`, `load_text_encoder`) load
 onto the CUDA device unless given another, and raise without one, as the

@@ -13,9 +13,11 @@ row logsumexp, backward kernels), as the JAX package differentiates through
 its `flash_attention_dt` custom VJP; under `no_grad`/`inference_mode` the
 serving kernel runs as before.
 
-The TPU package's opt-in `self_attention_projected` (projections emitted
-in the kernel's transposed layout, off by default) is not ported: the port
-has no transposed layout, so it is linear + attention.
+`self_attention_projected` is the TPU package's opt-in projected
+self-attention (MARIGOLD_TPU_PROJECTED_ATTN=1, off by default): there its
+projections are emitted in the kernel's transposed layout; here Q, K and V
+come from one product with the stacked [3C, C] weight and the bf16 kernel
+reads them in place at row stride 3C (`flash_attention_packed`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from marigold_tpu_torch.ops import flash_attention as fa
 
@@ -95,3 +98,42 @@ def dispatch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                    _FLASH_SOFTMAX)
         return fa.flash_attention(q, k, v, num_heads, softmax=_FLASH_SOFTMAX)
     return xla_attention(q, k, v, num_heads, mask)
+
+
+# Opt-in, read at import as in the JAX package
+# (`marigold_tpu/ops/attention.py:139`), off by default.
+_PROJECTED_ATTN = os.environ.get("MARIGOLD_TPU_PROJECTED_ATTN", "0") == "1"
+
+
+def self_attention_projected(y: torch.Tensor, attn, num_heads: int,
+                             spatial=None) -> torch.Tensor:
+    """Self-attention including its four projections, the counterpart of
+    `marigold_tpu/ops/attention.py:self_attention_projected`. y: [B, N, C];
+    attn: the block's attention module (`models/unet.py:Attention`: to_q,
+    to_k, to_v, to_out.0 and the stacked `qkv_weight()`).
+
+    With MARIGOLD_TPU_PROJECTED_ATTN=1, where the flash kernel runs, Q, K
+    and V come from one product y @ [W_q; W_k; W_v]^T, [B, N, 3C], which
+    the kernel reads in place at row stride 3C (`fa.flash_attention_packed`:
+    no per-head copies), then to_out. The same math as linear + attention +
+    linear, which it runs instead wherever the port's dispatch would not
+    launch the flash kernel (a CPU tensor, fewer than FLASH_MIN_SEQ tokens,
+    `spatial`), where to_q/to_k/to_v carry a bias (as the JAX package
+    falls back), and where the kernel needs contiguous operands: fp32 (the
+    3xTF32 kernels read contiguous split copies) and autograd
+    (`FlashAttentionFunction` saves its inputs for the backward kernels)."""
+    mods = attn._modules
+    qkv_mods = [mods[n] for n in ("to_q", "to_k", "to_v")]
+    grad = torch.is_grad_enabled() and (y.requires_grad or any(
+        m.weight.requires_grad for m in qkv_mods))
+    use_projected = (
+        _PROJECTED_ATTN and spatial is None and use_flash(y, y.shape[1])
+        and (y.device.type == "cpu" or y.dtype in fa.PACKED_DTYPES)
+        and not grad and all(m.bias is None for m in qkv_mods))
+    if use_projected:
+        qkv = F.linear(y, attn.qkv_weight())
+        out = fa.flash_attention_packed(qkv, num_heads, _FLASH_SOFTMAX)
+    else:
+        q, k, v = (m(y) for m in qkv_mods)
+        out = dispatch_attention(q, k, v, num_heads, spatial=spatial)
+    return mods["to_out"][0](out)

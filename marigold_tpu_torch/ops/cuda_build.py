@@ -35,9 +35,12 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when reused), "log": build.log path}
 BUILD_INFO: dict[str, dict] = {}
-# one build at a time: serving threads may reach a library's first use
-# together, and their object files would share the process id in their names
-_BUILD_LOCK = threading.Lock()
+# one build of a library at a time: serving threads may reach its first use
+# together, and their object files would share the process id in their
+# names; different libraries build in directories of their own, at once
+_BUILD_LOCKS: dict[str, threading.Lock] = collections.defaultdict(
+    threading.Lock)
+_LOCKS_LOCK = threading.Lock()
 
 
 class LaunchCounter(collections.Counter):
@@ -88,7 +91,9 @@ def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     """Compile (if needed) and load `lib<name>.so` from `csrc/<sources>`."""
     if name in _LIBS:
         return _LIBS[name]
-    with _BUILD_LOCK:
+    with _LOCKS_LOCK:
+        lock = _BUILD_LOCKS[name]
+    with lock:
         if name not in _LIBS:
             _build_and_load(name, sources)
     return _LIBS[name]

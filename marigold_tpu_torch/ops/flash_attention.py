@@ -1,16 +1,18 @@
 """Flash attention for long self-attention: hand-written Hopper kernels
-(`csrc/flash_fwd_sm90.cu` for every 64-wide bf16 forward,
-`csrc/flash_fwd_d512_sm90.cu` for the 512-wide one, `csrc/flash_attention.cu`
-for their C entry points, `csrc/flash_bwd_sm90.cu` for the dQ and dK/dV
-backward; in fp32 `csrc/flash_fwd_d64_f32_sm90.cu` for the 64-wide
-forwards, `csrc/flash_fwd_d512_f32_sm90.cu` for the 512-wide one,
+(`csrc/flash_fwd_sm90.cu` for every bf16 forward at head widths 40, 64, 80
+and 160, `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one,
+`csrc/flash_attention.cu` for their C entry points, `csrc/flash_bwd_sm90.cu`
+for the dQ and dK/dV backward; in fp32 `csrc/flash_fwd_d64_f32_sm90.cu` for
+the forwards at 40, 64, 80 and 160, `csrc/flash_fwd_d512_f32_sm90.cu` for
+the 512-wide one,
 `csrc/flash_bwd_dq_f32_sm90.cu` for dQ, `csrc/flash_bwd_dkv_f32_sm90.cu` for
 dK/dV and `csrc/tf32_split.cu` for the operand split they all read) and
 their plain PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
-    `_flash_kernel_dt_shifted` (64-wide UNet heads),
+    `_flash_kernel_dt_shifted` (the UNet heads: 64 wide in SD2, 40, 80 and
+    160 wide in an SD1.x-class UNet),
     `_flash_kernel_dt_shifted_kblocked` (the 512-wide VAE mid head) and
     `_flash_kernel_dt` (exact online softmax, the parity pin);
   * training, the `flash_attention_dt` custom VJP: `_flash_dt_impl_lse`
@@ -34,8 +36,12 @@ Under autograd (`FlashAttentionFunction`, which `ops/attention.py` calls
 when an input requires grad) the forward is the exact online softmax with
 the logsumexp whatever the serving mode, and the backward recomputes P from
 it, as the TPU package's `_flash_dt_fwd`/`_flash_dt_bwd` do. The kernels
-for that take 64-wide heads; other widths (the 512-wide VAE head) take the
-serving forward and the plain backward `flash_attention_bwd_plain`.
+for that take 64-wide heads; the 512-wide VAE head (which the TPU
+package's `_use_pallas_bwd` also keeps off its kernels) takes the serving
+forward and the plain backward `flash_attention_bwd_plain`; the widths 40,
+80 and 160 (`SERVING_ONLY_HEAD_DIMS`), whose TPU backward runs Pallas
+kernels, raise on a CUDA tensor until their training kernels exist
+(ROADMAP queue 2).
 
 fp32 storage takes every kernel to an fp32-accurate design, as the Pallas
 kernels take fp32 storage: the serving forwards in both softmax modes and
@@ -55,16 +61,20 @@ FLOP per byte at the UNet shapes); the notes in the .cu files say what each
 design does about it and, for the 512-wide forward, what was measured to
 bind it. Every kernel reads q/k/v (the backward also dO) and writes its
 outputs through TMA tensor maps, whose preconditions `check_tma` holds: a
-16-byte aligned base, a row stride that is a multiple of 16 bytes and at
-least one row (the fp32 kernels' float4 loads need the same). A tensor that
-breaks them raises; it is never copied into shape.
+16-byte aligned base, a row stride and a head stride (the serving forwards'
+maps are {D, H, N, B}: a box past a narrow head's D reads zeros, never the
+next head) that are multiples of 16 bytes and at least one row (the fp32
+kernels' float4 loads need the same). A tensor that breaks them raises; it
+is never copied into shape. `flash_attention_packed` reads q, k and v in
+place in one [B, N, 3C] projection (row stride 3C), for
+`ops/attention.py:self_attention_projected`.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it runs the
 plain version only for a tensor on the CPU. The raw kernel wrappers are not
 differentiable and raise when called with grad enabled on an input that
 requires grad. `launches` counts kernel launches by variant
-("shifted_d64", "shifted_d512", "online_d64", "online_d512", "lse_d64",
-"bwd_dq_d64", "bwd_dkv_d64", "folded_d64", "folded_d512") for bf16, and
+("shifted_d<D>", "online_d<D>" and "folded_d<D>" for each D in HEAD_DIMS,
+"lse_d64", "bwd_dq_d64", "bwd_dkv_d64") for bf16, and
 `launches_f32` those of the fp32 kernels by the same names, and the
 operand split as "tf32_split".
 """
@@ -83,8 +93,18 @@ SHIFT_MARGIN = 40.0  # marigold_tpu/ops/flash_attention.py:_SHIFT_MARGIN
 SHIFT_SAMPLE_TARGET = 128  # ~128 sampled K columns per row
 EXP_CLAMP = 75.0
 SOFTMAX_MODES = ("shifted", "online")
-HEAD_DIMS = (64, 512)  # instantiated in the CUDA sources
+HEAD_DIMS = (40, 64, 80, 160, 512)  # the serving forwards' instantiations
 TRAIN_HEAD_DIMS = (64,)  # the lse forward and the backward kernels
+# widths whose TPU backward runs Pallas kernels (`_use_pallas_bwd`) and
+# whose training kernels the port does not have yet: autograd on a CUDA
+# tensor raises there rather than run the plain backward
+SERVING_ONLY_HEAD_DIMS = (40, 80, 160)
+TRAIN_WIDTHS_ITEM = ("the lse forward, dQ and dK/dV at head widths 40, 80 "
+                     "and 160 are ROADMAP queue 2 (SD1.x-class fine-tuning)")
+# the dtypes whose kernels read q, k and v in place at any row stride
+# (`flash_attention_packed`); the fp32 route splits them into contiguous
+# tf32 copies first
+PACKED_DTYPES = (torch.bfloat16,)
 BWD_CHUNK = 1024  # query rows per chunk of the plain backward
 # The backward kernels read lse and delta as [B*H, Nq] rows padded to a
 # multiple of STAT_PAD, lse with LSE_PAD (marigold_tpu/ops/flash_attention.py:
@@ -276,7 +296,7 @@ def split_tf32(rows: list, cols: list = ()) -> list:
     tensor in `rows` (in its own layout), then of each in `cols` transposed
     (`transpose_tf32_plain`'s layout), all with one B and C. On CUDA
     tensors this is one launch of `csrc/tf32_split.cu` (at most 8 tensors,
-    C a multiple of 32), counted as "tf32_split" in `launches_f32`; on CPU
+    C a multiple of 4), counted as "tf32_split" in `launches_f32`; on CPU
     tensors it runs the plain versions."""
     xs = [*rows, *cols]
     if xs[0].device.type == "cpu":
@@ -337,7 +357,7 @@ def _library() -> ctypes.CDLL:
 
 def _f32_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_f32", F32_SOURCES)
-    _bind(lib, "mt_flash_fwd_d64_f32", 8, 7)
+    _bind(lib, "mt_flash_fwd_f32", 8, 8)
     _bind(lib, "mt_flash_fwd_d512_f32", 8, 7)
     _bind(lib, "mt_flash_fwd_lse_f32", 8, 6)
     return lib
@@ -357,28 +377,34 @@ def _split_fwd_f32(q, k, v) -> list:
 
 
 def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
-                    ld: int, online: bool, variant: str) -> None:
-    """One serving forward on q's stream: the bf16 Hopper kernels or, in
-    fp32, the operand split and then the 3xTF32 kernel of the head width,
+                    online: bool, variant: str) -> None:
+    """One serving forward on q's stream: the bf16 Hopper kernels (q, k, v
+    and out read at their own row strides) or, in fp32, the operand split
+    of contiguous q, k, v and then the 3xTF32 kernel of the head width,
     counted as `variant` in `launches` or `launches_f32`."""
     nq, nk, scale = q.shape[1], k.shape[1], 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream().cuda_stream
     shift_ptr = shift.data_ptr() if shift is not None else None
     if q.dtype == torch.float32:
         lib, counter = _f32_library(), launches_f32
-        fn = lib.mt_flash_fwd_d512_f32 if d == 512 else lib.mt_flash_fwd_d64_f32
-        operands = _split_fwd_f32(q, k, v)
+        operands = [t.data_ptr() for t in _split_fwd_f32(q, k, v)]
+        ld = q.shape[2]
         with torch.cuda.device(q.device):
-            err = fn(*(t.data_ptr() for t in operands), shift_ptr,
-                     out.data_ptr(), b, heads, nq, nk, ld, ld, int(online),
-                     scale, stream)
+            if d == 512:
+                err = lib.mt_flash_fwd_d512_f32(
+                    *operands, shift_ptr, out.data_ptr(), b, heads, nq, nk,
+                    ld, ld, int(online), scale, stream)
+            else:
+                err = lib.mt_flash_fwd_f32(
+                    *operands, shift_ptr, out.data_ptr(), b, heads, nq, nk, d,
+                    ld, ld, int(online), scale, stream)
     else:
         lib, counter = _library(), launches
         with torch.cuda.device(q.device):
             err = lib.mt_flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), shift_ptr,
-                out.data_ptr(), b, heads, nq, nk, d, ld, ld, ld, scale,
-                int(online), stream,
+                out.data_ptr(), b, heads, nq, nk, d, q.stride(1), k.stride(1),
+                out.stride(1), scale, int(online), stream,
             )
     _raise_on(lib, err, f"flash attention ({q.dtype})")
     counter.add(variant)
@@ -420,10 +446,12 @@ def _check_inputs(q, k, v, num_heads, softmax="online"):
 
 
 def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
-                b_h: int) -> None:
+                b_h: int, strided: bool = False) -> None:
     """What the CUDA kernels take: bf16 or fp32 (KERNEL_DTYPES; fp16 and
-    others raise ValueError), contiguous, 16-byte aligned, a head width they
-    are instantiated for, no autograd."""
+    others raise ValueError), contiguous (`strided`: [B, N, C] views of
+    rows with any row stride, channels contiguous, as the bf16 forwards read
+    them), 16-byte aligned, a head width they are instantiated for, no
+    autograd."""
     q = next(iter(tensors.values()))
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
@@ -431,9 +459,16 @@ def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
         raise ValueError(
             f"flash attention on CUDA takes {KERNEL_DTYPES}, got {q.dtype}")
     if head_dim not in head_dims:
-        raise ValueError(f"head dim {head_dim} not in the kernel's {head_dims}")
+        raise ValueError(
+            f"head dim {head_dim} not in the kernel's {head_dims}; other "
+            "head widths are a ROADMAP item (queue 2)")
     for name, t in tensors.items():
-        if not t.is_contiguous():
+        if strided:
+            if t.stride(2) != 1 or t.stride(0) != t.shape[1] * t.stride(1):
+                raise ValueError(
+                    f"{name} must be [B, N, C] rows with contiguous channels, "
+                    f"got strides {t.stride()}")
+        elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -447,11 +482,13 @@ def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
         raise ValueError(f"B*H={b_h} exceeds the grid's y limit")
 
 
-def check_tma(tensors: dict) -> None:
+def check_tma(tensors: dict, head_dim: Optional[int] = None) -> None:
     """What the TMA maps of the kernels (`csrc/flash_fwd_sm90.cu`,
-    `csrc/flash_fwd_d512_sm90.cu`, `csrc/flash_bwd_sm90.cu`) take of each
-    [B, N, C] tensor: at least one row, a 16-byte aligned base and a row
-    stride that is a multiple of 16 bytes. Raises ValueError."""
+    `csrc/flash_fwd_d512_sm90.cu`, `csrc/flash_bwd_sm90.cu`, the fp32
+    sources) take of each [B, N, C] tensor: at least one row, a 16-byte
+    aligned base, a row stride that is a multiple of 16 bytes and, for the
+    serving forwards' maps {D, H, N, B} (`head_dim` D), a head stride of D
+    elements that is one too. Raises ValueError."""
     for name, t in tensors.items():
         if t.shape[0] < 1 or t.shape[1] < 1:
             raise ValueError(f"{name} {tuple(t.shape)} has no rows")
@@ -461,6 +498,10 @@ def check_tma(tensors: dict) -> None:
             raise ValueError(
                 f"{name}'s row stride of {t.stride(1) * t.element_size()} "
                 "bytes is not a multiple of 16, which TMA needs")
+        if head_dim is not None and head_dim * t.element_size() % 16:
+            raise ValueError(
+                f"{name}'s head stride of {head_dim * t.element_size()} bytes "
+                "is not a multiple of 16, which TMA needs")
 
 
 def flash_attention(
@@ -469,23 +510,52 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(Q K^T / sqrt(d)) V per head. q: [B, Nq, C], k/v: [B, Nk, C]
     -> [B, Nq, C]. On a CUDA tensor this launches the Hopper kernel (bf16,
-    or fp32: the split, then `csrc/flash_fwd_d64_f32_sm90.cu` at head dim 64
-    or `csrc/flash_fwd_d512_f32_sm90.cu` at 512; head dim 64 or 512;
-    contiguous inputs; no autograd) or raises; on a CPU tensor it runs
-    `flash_attention_plain`."""
+    or fp32: the split, then `csrc/flash_fwd_d64_f32_sm90.cu` at head dims
+    40, 64, 80 and 160 or `csrc/flash_fwd_d512_f32_sm90.cu` at 512; a head
+    dim in HEAD_DIMS; contiguous inputs; no autograd) or raises; on a CPU
+    tensor it runs `flash_attention_plain`."""
+    return _serving_forward(q, k, v, num_heads, softmax)
+
+
+def _serving_forward(q, k, v, num_heads: int, softmax: str,
+                     strided: bool = False) -> torch.Tensor:
+    """`flash_attention`'s body; `strided` takes [B, N, C] views of rows
+    with any row stride (`flash_attention_packed`'s q, k and v)."""
     _check_inputs(q, k, v, num_heads, softmax)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, num_heads, softmax)
-    b, _, c = q.shape
+    b, n, c = q.shape
     d = c // num_heads
-    _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, b * num_heads)
-    check_tma({"q": q, "k": k, "v": v})
-
+    _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, b * num_heads,
+                strided)
+    check_tma({"q": q, "k": k, "v": v}, d)
     shift = row_shift(q, k, num_heads) if softmax == "shifted" else None
-    out = torch.empty_like(q)
-    _launch_forward(q, k, v, shift, out, b, num_heads, d, c,
+    out = q.new_empty((b, n, c))
+    _launch_forward(q, k, v, shift, out, b, num_heads, d,
                     softmax == "online", f"{softmax}_d{d}")
     return out
+
+
+def flash_attention_packed(qkv: torch.Tensor, num_heads: int,
+                           softmax: str = "shifted") -> torch.Tensor:
+    """Self-attention on one [B, N, 3C] projection whose channels are q, k
+    and v side by side (`ops/attention.py:self_attention_projected`'s
+    product with the stacked [3C, C] weight) -> [B, N, C]. On a CUDA tensor
+    the bf16 kernel reads q, k and v in place at row stride 3C (the head
+    maps take any row stride: no split copies), counted as `flash_attention`
+    counts it; fp32 (whose split needs contiguous operands) raises, as do
+    autograd and the other checks of `flash_attention`. On a CPU tensor it
+    runs `flash_attention_plain` on the three views."""
+    b, n, c3 = qkv.shape
+    if c3 % 3:
+        raise ValueError(f"qkv's {c3} channels are not three equal parts")
+    c = c3 // 3
+    if qkv.is_cuda and qkv.dtype not in PACKED_DTYPES:
+        raise ValueError(f"flash_attention_packed takes {PACKED_DTYPES} on "
+                         f"CUDA, got {qkv.dtype}: the fp32 kernels read "
+                         "contiguous split copies")
+    return _serving_forward(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                            num_heads, softmax, strided=True)
 
 
 def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
@@ -494,9 +564,10 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
     k/v [BH, Nk, D] -> [BH, Nq, D]; the TPU package's first
     `flash_attention` (`marigold_tpu/ops/flash_attention.py:471`). On a CUDA
     tensor this launches the online kernel with BH batches of one D-wide
-    head (bf16 or fp32, D 64 or 512; no padding of D or N: the kernel masks
-    ragged N) or raises; on a CPU tensor it runs the plain online forward
-    with one head."""
+    head (bf16 or fp32, D in HEAD_DIMS; no padding of N: the kernel masks
+    ragged N, and TMA zero-fills the lanes of a narrow head's boxes) or
+    raises; on a CPU tensor it runs the plain online forward with one
+    head."""
     _check_inputs(q, k, v, 1)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, 1, "online")
@@ -506,9 +577,9 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
             f"the folded flash kernel takes D in {HEAD_DIMS}, got {d}; other "
             "head widths are a ROADMAP item (queue 2)")
     _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, bh)
-    check_tma({"q": q, "k": k, "v": v})
+    check_tma({"q": q, "k": k, "v": v}, d)
     out = torch.empty_like(q)
-    _launch_forward(q, k, v, None, out, bh, 1, d, d, True, f"folded_d{d}")
+    _launch_forward(q, k, v, None, out, bh, 1, d, True, f"folded_d{d}")
     return out
 
 
@@ -734,15 +805,23 @@ class FlashAttentionFunction(torch.autograd.Function):
     For 64-wide heads the forward is the exact online softmax with the row
     logsumexp (`flash_attention_lse_op`), whatever the serving `softmax` mode,
     and the backward runs the dQ and dK/dV kernels (`flash_attention_bwd`).
-    Other widths (the 512-wide VAE head, whose rows the TPU package's
-    `_use_pallas_bwd` also rejects) run the serving forward in `softmax`
-    mode and the plain chunked backward."""
+    The 512-wide VAE head, whose rows the TPU package's `_use_pallas_bwd`
+    also rejects, runs the serving forward in `softmax` mode and the plain
+    chunked backward. On a CUDA tensor the widths of SERVING_ONLY_HEAD_DIMS
+    raise NotImplementedError: the TPU package trains them on its kernels,
+    and the port's are not written yet (it never runs the plain backward in
+    their place)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, softmax: str = "shifted"):
         _check_inputs(q, k, v, num_heads, softmax)
+        d = q.shape[2] // num_heads
+        if q.device.type == "cuda" and d in SERVING_ONLY_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash attention under autograd at head dim {d}: "
+                f"{TRAIN_WIDTHS_ITEM}")
         ctx.num_heads = num_heads
-        ctx.kernel_bwd = q.shape[2] // num_heads in TRAIN_HEAD_DIMS
+        ctx.kernel_bwd = d in TRAIN_HEAD_DIMS
         if ctx.kernel_bwd:
             out, lse = flash_attention_lse_op(q, k, v, num_heads)
             ctx.save_for_backward(q, k, v, out, lse)

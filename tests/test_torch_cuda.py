@@ -1,7 +1,9 @@
 """Card-only tests of the port: the Hopper flash kernels (serving forward,
 training forward with the logsumexp, dQ and dK/dV backward, the folded
-entry; every 64-wide forward is the wgmma/TMA kernel of
-csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key tiles, every
+entry; every forward at head widths 40, 64, 80 and 160 is the wgmma/TMA
+kernel of csrc/flash_fwd_sm90.cu, with 128-row query blocks and 128-key
+tiles (64-key at 160), the SD1.x widths also in fp32, the packed
+projected self-attention; every
 512-wide one that of csrc/flash_fwd_d512_sm90.cu, with 64-row query tiles
 and 64-key tiles, and the backward pair that of csrc/flash_bwd_sm90.cu,
 with 128-row output blocks and 64-row stages)
@@ -942,3 +944,95 @@ def test_unet_grads_through_dispatch_reach_to_q_and_match_plain(cuda, monkeypatc
         # distance per parameter
         err = (g_flash[n] - ref).norm().item()
         assert err <= 5e-2 * ref.norm().item() + 1e-6, n
+
+
+# ---- the SD1.x head widths (40, 80, 160): the same kernels' instantiations
+
+
+def _tol(ref, dtype):
+    m = ref.float().abs().max().item()
+    return 1e-2 * m + 1e-3 if dtype == torch.bfloat16 else 1e-4 * m + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("softmax", ["shifted", "online"])
+@pytest.mark.parametrize("b,nq,nk,c", [
+    (1, 1100, 1300, 320),   # d=40: nq < nk, ragged against the tiles
+    (2, 77, 130, 320),      # d=40: fewer query rows than one tile
+    (2, 2304, 1700, 640),   # d=80: nq > nk
+    (1, 1025, 1025, 1280),  # d=160: one key past the 64-key tiles
+    (3, 300, 200, 1280),    # d=160: B = 3
+])
+def test_sd1_widths_match_plain(cuda, b, nq, nk, c, softmax, dtype):
+    heads = 8
+    q = torch.randn((b, nq, c), generator=cuda, device="cuda").to(dtype)
+    k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda").to(dtype)
+            for _ in range(2))
+    counter = fa.launches if dtype == torch.bfloat16 else fa.launches_f32
+    key = f"{softmax}_d{c // heads}"
+    before = counter[key]
+    out = fa.flash_attention(q, k, v, heads, softmax)
+    assert counter[key] == before + 1
+    ref = fa.flash_attention_plain(q, k, v, heads, softmax)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,n,d", [(3, 1030, 40), (2, 77, 80), (2, 600, 160)])
+def test_sd1_folded_matches_plain(cuda, bh, n, d, dtype):
+    q, k, v = _qkv(cuda, bh, n, d, dtype)
+    out = fa.flash_attention_folded(q, k, v)
+    ref = fa.flash_attention_plain(q, k, v, 1, "online")
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+
+
+@pytest.mark.parametrize("c", [320, 640, 1280])
+def test_packed_reads_qkv_in_place(cuda, c):
+    """flash_attention_packed on one [B, N, 3C] product gives the contiguous
+    call's bits; fp32 (contiguous split copies) raises."""
+    qkv = torch.randn((2, 1100, 3 * c), generator=cuda,
+                      device="cuda").to(torch.bfloat16)
+    for mode in fa.SOFTMAX_MODES:
+        parts = [qkv[..., i * c:(i + 1) * c].contiguous() for i in range(3)]
+        assert torch.equal(fa.flash_attention_packed(qkv, 8, mode),
+                           fa.flash_attention(*parts, 8, mode))
+    with pytest.raises(ValueError, match="contiguous split"):
+        fa.flash_attention_packed(qkv.float(), 8)
+
+
+def test_projected_self_attention_on_the_card(cuda, monkeypatch):
+    from marigold_tpu_torch.models.unet import Attention
+
+    attn = Attention(320, 8).to(device="cuda", dtype=torch.bfloat16)
+    y = torch.randn((1, 1100, 320), generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        ref = TA.self_attention_projected(y, attn, 8)
+        monkeypatch.setattr(TA, "_PROJECTED_ATTN", True)
+        before = fa.launches["shifted_d40"]
+        got = TA.self_attention_projected(y, attn, 8)
+        assert fa.launches["shifted_d40"] == before + 1
+        got_f32 = TA.self_attention_projected(y.float(), attn.float(), 8)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= _tol(ref, y.dtype)
+    assert got_f32.dtype == torch.float32  # the linear path
+
+
+def test_sd1_widths_raise_under_autograd_and_unknown_widths(cuda):
+    """Autograd at 40, 80 and 160 needs training kernels the port does not
+    have yet: it raises, naming the ROADMAP item, and runs nothing; a width
+    without an instantiation raises, naming its queue."""
+    before = (dict(fa.launches), dict(fa.launches_f32))
+    for d in fa.SERVING_ONLY_HEAD_DIMS:
+        q, k, v = (t.requires_grad_() for t in _qkv(cuda, 1, 1100, 8 * d))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fa.FlashAttentionFunction.apply(q, k, v, 8, "shifted")
+    assert (dict(fa.launches), dict(fa.launches_f32)) == before
+    q, k, v = _qkv(cuda, 1, 1100, 8 * 48)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fa.flash_attention(q, k, v, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention_folded(*_qkv(cuda, 1, 100, 48))
