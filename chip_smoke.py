@@ -7,8 +7,8 @@ Phases, none of which catches its own failure:
   2. build every kernel library from marigold_tpu_torch/csrc, one nvcc per
      source, all started together (ptxas registers, spills and warnings
      printed, and the HGMMA count of each kernel's SASS in the flash and
-     conv libraries where the toolkit has cuobjdump; a 3xTF32 kernel with
-     spills or without HGMMA fails);
+     conv libraries where the toolkit has cuobjdump; a 3xTF32 kernel or a
+     bf16 backward kernel with spills or without HGMMA fails);
   3. each kernel against its plain PyTorch version at the main path's shapes
      (flash forward in both softmax modes, also at the E=10 rows' level-0
      shape, the folded flash entry, the nine-tap and Winograd 3x3 convs, the
@@ -30,7 +30,12 @@ Phases, none of which catches its own failure:
      (nq != nk among them) and the folded entry at the three widths,
      against their plain versions, with the kernel's, the plain version's,
      SDPA's and row_shift's times and the largest of three floors (tensor
-     work, bytes, exponentials at PEAK_EXP_OPS);
+     work, bytes, exponentials at PEAK_EXP_OPS); then the training kernels
+     at those widths (the lse forward, dQ and dK/dV, bf16 and fp32) at
+     SD1_TRAIN_CASES, the fine-tuning shapes and a ragged case per width,
+     against their plain versions, two backward calls held to the same
+     bits, with their times, SDPA's forward and whole backward and the
+     three floors (one exponential per logit in each kernel);
   4. a full-SD2-width checkpoint with random weights from a seed, written in
      diffusers layout and loaded through MarigoldDepthPipeline.from_pretrained;
   5. serving at E=1: single-image requests and one batch, checked for shape,
@@ -88,6 +93,16 @@ Phases, none of which catches its own failure:
      ms per micro-step and peak memory, a profile of one micro-step, and
      one micro-step's loss and every gradient against every attention on
      the plain path;
+  10c. SD1.x-class fine-tuning: a full-width SD1.x-class base checkpoint
+     (4-channel UNet, 1x1-conv projections, quick_gelu CLIP) through
+     MarigoldDepthTrainer (the depth surgery) in bf16: one iteration of 2
+     micro-steps at [2, 3, 480, 640] (d = 40 and 80), one micro-step at
+     [1, 3, 1024, 1024] (d = 160 too), one under remat full (the lse
+     forward again in each recompute), then fp32 with TF32 off at both
+     sizes; flash launches exact per width, ms per micro-step, peak memory,
+     a profile of one micro-step per dtype, and one micro-step's loss and
+     gradients against all-plain attention in each dtype (phase 10's
+     tolerances);
   10b. fine-tuning across ranks (train/ over parallel/mesh.py): two gloo
      ranks share the card, each with the full-width depth trainer, one
      iteration of 2 micro-steps at the global micro-batch [2, 3, 480, 640],
@@ -105,9 +120,9 @@ Phases, none of which catches its own failure:
      second, launches exact per rank;
   11. the training entry point, cli/train.py, on the four shipped recipes
      (depth, normals, IID appearance, IID lighting) at full SD2 width, each
-     through an overlay config (split lists, max_iter, periods; for normals
-     and IID the effective batch) on datasets fabricated in their own
-     layouts: depth 2 iterations of 16 micro-steps with the recipe's
+     through an overlay config (split lists, max_iter, periods, the
+     effective batch) on datasets fabricated in their own
+     layouts: depth 2 iterations of 4 micro-steps with the recipe's
      2-worker loader, validation and visualization, then --resume_run for
      a third; the others 2 iterations with validation, on Adafactor (its
      checkpoints a third of Adam's); flash launches exact
@@ -157,11 +172,12 @@ cards).
 
     python3 chip_smoke.py --sd1 [--bits-against DIR]
 
-runs phases 1 and 2, 3c and 4b, then prints their kernel rows and the last
-line: the short call after a change to the SD1.x-class path. With
+runs phases 1 and 2, 3c, 4b and 10c, then prints their kernel rows and the
+last line: the short call after a change to the SD1.x-class path. With
 --bits-against DIR (a checkout of the previous build) it first runs the
-64-wide forwards of both trees on the same inputs, each tree's package in
-a process of its own, and fails unless every output is equal bit for bit.
+64-wide forwards and backward of both trees on the same inputs, each
+tree's package in a process of its own, and fails unless every output is
+equal bit for bit.
 """
 
 from __future__ import annotations
@@ -231,26 +247,30 @@ def build_kernels():
                  "conv3x3_f32", "winograd_f32"):  # the ones with wgmma kernels
         hgmma.update(print_hgmma(os.path.join(os.path.dirname(
             cuda_build.BUILD_INFO[name]["log"]), f"lib{name}.so")))
-    check_tf32_build(hgmma)
+    check_wgmma_build(hgmma)
 
 
-# The 3xTF32 wgmma kernels: (library, kernel name in the mangled symbol).
-TF32_KERNELS = [("flash_attention_f32", "flash_fwd_f32_kernel"),
-                ("flash_attention_f32", "flash_fwd_d512_f32_kernel"),
-                ("flash_attention_bwd_f32", "flash_bwd_dq_f32_kernel"),
-                ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel"),
-                ("conv3x3_f32", "conv3x3_f32_kernel"),
-                ("winograd_f32", "winograd_f32_gemm_kernel")]
+# The wgmma kernels held to HGMMA in every instantiation and no spills:
+# the 3xTF32 ones and the bf16 backward pair (a template on the head
+# width): (library, kernel name in the mangled symbol).
+WGMMA_KERNELS = [("flash_attention_f32", "flash_fwd_f32_kernel"),
+                 ("flash_attention_f32", "flash_fwd_d512_f32_kernel"),
+                 ("flash_attention_bwd_f32", "flash_bwd_dq_f32_kernel"),
+                 ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel"),
+                 ("conv3x3_f32", "conv3x3_f32_kernel"),
+                 ("winograd_f32", "winograd_f32_gemm_kernel"),
+                 ("flash_attention_bwd", "flash_bwd_dq_kernel"),
+                 ("flash_attention_bwd", "flash_bwd_dkv_kernel")]
 
 
-def check_tf32_build(hgmma: dict) -> None:
-    """Each instantiation of the 3xTF32 kernels has HGMMA in its SASS (where
+def check_wgmma_build(hgmma: dict) -> None:
+    """Each instantiation of WGMMA_KERNELS has HGMMA in its SASS (where
     cuobjdump ran) and no spills in ptxas's report."""
     import re
 
     from marigold_tpu_torch.ops import cuda_build
 
-    for lib, kernel in TF32_KERNELS:
+    for lib, kernel in WGMMA_KERNELS:
         spills, fn = {}, None
         with open(cuda_build.BUILD_INFO[lib]["log"]) as f:
             for line in f:
@@ -1247,7 +1267,7 @@ def check_sd1_kernels() -> dict:
     return results
 
 
-def write_sd1_checkpoint(root: str, seed: int) -> None:
+def write_sd1_checkpoint(root: str, seed: int, in_channels: int = 8) -> None:
     """A diffusers-layout depth checkpoint of the SD1.x class at full width,
     random weights by the JAX package's init scheme from a seeded
     generator, the fp16 weight variant: SD1.5's UNet (unet/config.json of
@@ -1255,9 +1275,10 @@ def write_sd1_checkpoint(root: str, seed: int) -> None:
     1280], attention_head_dim 8, cross_attention_dim 768, layers_per_block
     2, norm_num_groups 32, no use_linear_projection key, so proj_in and
     proj_out are 1x1 convs stored [C, C, 1, 1]) widened to 8 input channels
-    by the depth surgery, its text tower CLIP ViT-L/14 (hidden 768, 12
-    layers, 12 heads, intermediate 3072, quick_gelu), and the SD VAE and
-    scheduler of write_checkpoint."""
+    by the depth surgery (`in_channels` 4: the base a fine-tuning run
+    starts from, which the trainer's surgery widens), its text tower CLIP
+    ViT-L/14 (hidden 768, 12 layers, 12 heads, intermediate 3072,
+    quick_gelu), and the SD VAE and scheduler of write_checkpoint."""
     import torch
 
     from marigold_tpu_torch.core.scheduler import DiffusionSchedule
@@ -1270,7 +1291,8 @@ def write_sd1_checkpoint(root: str, seed: int) -> None:
     unet_dict = {"block_out_channels": [320, 640, 1280, 1280],
                  "attention_head_dim": 8, "cross_attention_dim": 768,
                  "layers_per_block": 2, "norm_num_groups": 32,
-                 "in_channels": 8, "out_channels": 4, "sample_size": 96}
+                 "in_channels": in_channels, "out_channels": 4,
+                 "sample_size": 96}
     unet_cfg = UNetConfig.from_dict(unet_dict)
     clip_cfg = CLIPTextConfig(hidden_size=768, intermediate_size=3072,
                               num_hidden_layers=12, num_attention_heads=12,
@@ -1568,9 +1590,9 @@ def sd1_kernel_rows(results: dict, counts: dict, f32_counts: dict) -> list:
 
 # The D = 64 instantiations' outputs on fixed inputs, computed by a tree's
 # own package in a process of its own (bf16 and fp32, both softmax modes,
-# the training forward with its logsumexp, the folded entry): run in this
-# checkout and in a checkout of the previous build (`--bits-against DIR`),
-# they must be equal bit for bit.
+# the training forward with its logsumexp, dQ and dK/dV, the folded
+# entry): run in this checkout and in a checkout of the previous build
+# (`--bits-against DIR`), they must be equal bit for bit.
 D64_BITS_SNIPPET = r'''
 import sys
 import torch
@@ -1580,27 +1602,32 @@ cases = {"l0": (1, 9216, 9216, 320, 5), "l1": (1, 2304, 2304, 640, 10),
          "ragged": (2, 1000, 1300, 320, 5), "fold": (5, 1030, 1030, 64, 1)}
 outs = {}
 for name, (b, nq, nk, c, h) in cases.items():
-    q = torch.randn((b, nq, c), generator=gen, device="cuda")
+    q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
+            for _ in range(2))
     k, v = (torch.randn((b, nk, c), generator=gen, device="cuda")
             for _ in range(2))
     for dt in (torch.bfloat16, torch.float32):
-        qq, kk, vv = (t.to(dt) for t in (q, k, v))
+        qq, kk, vv, gg = (t.to(dt) for t in (q, k, v, g))
         tag = f"{name}_{str(dt)[6:]}"
         if name == "fold":
             outs[tag] = fa.flash_attention_folded(qq, kk, vv)
             continue
         for mode in ("shifted", "online"):
             outs[f"{tag}_{mode}"] = fa.flash_attention(qq, kk, vv, h, mode)
-        outs[f"{tag}_lse_out"], outs[f"{tag}_lse"] = fa.flash_attention_lse(
-            qq, kk, vv, h)
+        out, lse = fa.flash_attention_lse(qq, kk, vv, h)
+        outs[f"{tag}_lse_out"], outs[f"{tag}_lse"] = out, lse
+        for what, x in zip(("dq", "dk", "dv"),
+                           fa.flash_attention_bwd(qq, kk, vv, out, lse, gg, h)):
+            outs[f"{tag}_{what}"] = x
 torch.cuda.synchronize()
 torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
 '''
 
 
 def d64_bits_against(tree: str) -> None:
-    """The D = 64 forwards of this checkout against those of the checkout
-    at `tree` (the previous build), bit for bit (D64_BITS_SNIPPET)."""
+    """The D = 64 forwards and backward of this checkout against those of
+    the checkout at `tree` (the previous build), bit for bit
+    (D64_BITS_SNIPPET)."""
     import tempfile
 
     import torch
@@ -1626,6 +1653,453 @@ def d64_bits_against(tree: str) -> None:
           f"bit for bit to the previous build's", flush=True)
     if unequal or old.keys() != new.keys():
         _fail(f"d64 outputs differ from the previous build's: {unequal}")
+
+
+# ---- SD1.x-class fine-tuning (phase 3c's training rows, phase 10c) ------
+
+# (name, B, Nq, Nk, C, heads): the SD1.x-class UNet's training
+# self-attentions at the recipe's [2, 3, 480, 640] (60x80 latent: level 0
+# at d = 40, level 1 at d = 80) and at [1, 3, 1024, 1024] (level 2, 1024
+# tokens at d = 160), then a ragged nq != nk case per width. The plain
+# versions run the whole batch (the backward in BWD_CHUNK query rows).
+SD1_TRAIN_CASES = [
+    ("sd1_train_l0", 2, 4800, 4800, 320, 8),
+    ("sd1_train_l1", 2, 1200, 1200, 640, 8),
+    ("sd1_train_l2_1024", 1, 1024, 1024, 1280, 8),
+    ("sd1_train_l0_ragged", 1, 1000, 1300, 320, 8),
+    ("sd1_train_l1_ragged", 2, 1100, 900, 640, 8),
+    ("sd1_train_l2_ragged", 1, 1100, 1300, 1280, 8),
+]
+# (head width, the case whose times stand for its rows)
+SD1_TRAIN_ROW_CASES = {40: "sd1_train_l0", 80: "sd1_train_l1",
+                       160: "sd1_train_l2_1024"}
+# (row key, TPU site, what it is checked on): rows 4-6
+SD1_TRAIN_ROWS = [
+    ("lse", "marigold_tpu/ops/flash_attention.py:638", ("out", "lse")),
+    ("bwd_dq", "marigold_tpu/ops/flash_attention.py:800", ("dq",)),
+    ("bwd_dkv", "marigold_tpu/ops/flash_attention.py:832", ("dk", "dv")),
+]
+SD1_TRAIN_SOURCES = {
+    ("lse", "bf16"): SM90_SOURCE,
+    ("bwd_dq", "bf16"): "marigold_tpu_torch/csrc/flash_bwd_sm90.cu",
+    ("bwd_dkv", "bf16"): "marigold_tpu_torch/csrc/flash_bwd_sm90.cu",
+    ("lse", "fp32"): F32_D64_SOURCE,
+    ("bwd_dq", "fp32"): F32_DQ_SOURCE,
+    ("bwd_dkv", "fp32"): F32_DKV_SOURCE,
+}
+
+
+def sd1_train_bound(b, heads, nq, nk, d, itemsize, flops_per_pair, q_io,
+                    kv_io, stats) -> tuple:
+    """(bound_ms, bound_by, floor) of a training kernel, the largest of
+    sd1_bound's three floors: its tensor work (flops_per_pair B H nq nk d:
+    4 for the lse forward, 6 for dQ, 8 for dK/dV; in fp32 three tf32
+    passes over the TF32 rate), its bytes (q_io [B, nq, C] and kv_io
+    [B, nk, C] tensors read or written once, `stats` bytes of fp32 row
+    statistics) and one exponential per logit (each backward kernel
+    recomputes P)."""
+    pairs = b * heads * nq * nk
+    flops = flops_per_pair * pairs * d
+    t_tensor = (3 * flops / PEAK_TF32_FLOPS if itemsize == 4
+                else flops / PEAK_BF16_FLOPS) * 1e3
+    nbytes = itemsize * b * heads * d * (q_io * nq + kv_io * nk) + stats
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_exp = pairs / PEAK_EXP_OPS * 1e3
+    t, floor = max((t_tensor, "tensor"), (t_bytes, "bytes"), (t_exp, "exp"))
+    return t, ("bytes" if floor == "bytes" else "operations"), floor
+
+
+def check_sd1_train_kernels() -> dict:
+    """Phase 3c's training rows: the lse forward, dQ and dK/dV at head
+    widths 40, 80 and 160, bf16 and fp32 (TF32 off), at SD1_TRAIN_CASES
+    against flash_attention_lse_plain and flash_attention_bwd_plain (bf16:
+    TOL_REL with GRAD_TOL_ABS, the lse at LSE_TOL_*; fp32: F32_TOL_*),
+    launches counted per call, two backward calls held to the same bits;
+    at the row cases the CUDA-event times of each kernel (bf16 dQ and
+    dK/dV on bwd_stats' rows; fp32 the forward and dQ with their split,
+    dK/dV on dQ's pairs), the plain forward and whole plain backward, SDPA's
+    forward and whole backward, and sd1_train_bound. Returns {(case, what,
+    d, dtype): record}."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results, failures = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        f32 = dtype == torch.float32
+        counter = fa.launches_f32 if f32 else fa.launches
+        for name, b, nq, nk, c, heads in SD1_TRAIN_CASES:
+            d = c // heads
+            q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            k, v = (torch.randn((b, nk, c), generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            before = dict(counter)
+            out, lse = fa.flash_attention_lse(q, k, v, heads)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+            got = {key: n - before.get(key, 0) for key, n in counter.items()
+                   if n != before.get(key, 0)}
+            want = {f"lse_d{d}": 1, f"bwd_dq_d{d}": 1, f"bwd_dkv_d{d}": 1,
+                    **({"tf32_split": 2} if f32 else {})}
+            if got != want:
+                failures.append(f"{name} {tag}: launches {got} != {want}")
+            out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
+            refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(grads, again))
+            del again
+            if not same:
+                failures.append(f"{name} {tag}: two backward calls differ")
+            timed = SD1_TRAIN_ROW_CASES[d] == name
+            times = {}
+            if timed:
+                bwd_plain_ms = _time_ms(
+                    lambda: fa.flash_attention_bwd_plain(q, k, v, g, heads), 3)
+                lib_bwd_ms = sdpa_ms(q, k, v, heads, backward=True, iters=5)
+                if f32:
+                    parts = fa.split_bwd_f32(q, k, v, g)
+                    _, lse_pad, delta_pad = fa.flash_attention_bwd_dq_f32(
+                        q, k, v, out, lse, g, heads, parts)
+                    dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq_f32(
+                        q, k, v, out, lse, g, heads), 10)
+                    dkv_parts = parts
+                else:
+                    lse_pad, delta_pad = fa.bwd_stats(out, lse, g, heads)
+                    dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq(
+                        q, k, v, g, lse_pad, delta_pad, heads), 10)
+                    dkv_parts = None
+                dkv_ms = _time_ms(lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, g, lse_pad, delta_pad, heads, dkv_parts), 10)
+                bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, g, heads), 10)
+                del lse_pad, delta_pad, dkv_parts
+                stats = 4 * b * heads * nq  # one fp32 row statistic
+                times = {
+                    "lse": (_time_ms(lambda: fa.flash_attention_lse(
+                        q, k, v, heads), 10),
+                        _time_ms(lambda: fa.flash_attention_lse_plain(
+                            q, k, v, heads), 3),
+                        sdpa_ms(q, k, v, heads, iters=5), (4, 2, 2, stats)),
+                    # dQ reads q, dO, k, v and writes dq (fp32: also reads
+                    # O for delta and writes the padded rows); dK/dV reads
+                    # q, dO, k, v and writes dk and dv
+                    "bwd_dq": (dq_ms, bwd_plain_ms, lib_bwd_ms,
+                               (6, 4 if f32 else 3, 2, 3 * stats)),
+                    "bwd_dkv": (dkv_ms, bwd_plain_ms, lib_bwd_ms,
+                                (8, 2, 4, 2 * stats))}
+                print(f"sd1 train {name} {tag}: whole backward (delta + dQ "
+                      f"+ dK/dV{', its split' if f32 else ''}) {bwd_ms:.3f} "
+                      f"ms against plain {bwd_plain_ms:.3f} ms and sdpa "
+                      f"{lib_bwd_ms:.3f} ms", flush=True)
+            for key, whats in (("lse", ("out", "lse")), ("bwd_dq", ("dq",)),
+                               ("bwd_dkv", ("dk", "dv"))):
+                for what in whats:
+                    x, ref = {"out": (out, out_p), "lse": (lse, lse_p),
+                              "dq": (grads[0], refs[0]),
+                              "dk": (grads[1], refs[1]),
+                              "dv": (grads[2], refs[2])}[what]
+                    err = (x.float() - ref.float()).abs().max().item()
+                    ref_max = ref.float().abs().max().item()
+                    if f32:
+                        tol = F32_TOL_REL * ref_max + F32_TOL_ABS
+                    elif what == "lse":
+                        tol = LSE_TOL_REL * ref_max + LSE_TOL_ABS
+                    else:
+                        tol = TOL_REL * ref_max + GRAD_TOL_ABS
+                    ok = bool(torch.isfinite(x.float()).all()) and err <= tol
+                    rec = dict(max_abs_err=err)
+                    line = ""
+                    if key in times:
+                        ms, plain_ms, lib_ms, (fpp, q_io, kv_io, st) = times[key]
+                        b_ms, b_by, floor = sd1_train_bound(
+                            b, heads, nq, nk, d, 4 if f32 else 2, fpp, q_io,
+                            kv_io, st)
+                        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   bound_floor=floor)
+                        line = (f" | kernel {ms:.3f} ms plain {plain_ms:.3f} "
+                                f"ms sdpa {lib_ms:.3f} ms bound {b_ms:.3f} ms "
+                                f"({floor})")
+                    print(f"sd1 train kernel {name:19s} {tag} {what:3s} "
+                          f"[{b},{nq}x{nk},{c}] h={heads} d={d}: max_abs_err "
+                          f"{err:.3e} max|ref| {ref_max:.3e} tol {tol:.3e} "
+                          f"{'ok' if ok else 'FAILED'}{line}", flush=True)
+                    if not ok:
+                        failures.append(f"{name} {tag} {what}: {err} > {tol}")
+                    results[(name, what, d, tag)] = rec
+            del q, k, v, g, out, lse, grads, out_p, lse_p, refs
+            torch.cuda.empty_cache()
+    if failures:
+        _fail(f"SD1 training kernels: {failures}")
+    return results
+
+
+def sd1_train_kernel_rows(results: dict, counts: dict,
+                          f32_counts: dict) -> list:
+    """The JSON line's rows 4-6 at the SD1 widths: per dtype, kernel and
+    width, launches from the SD1 fine-tuning phase's runs and times from
+    the width's SD1_TRAIN_ROW_CASES case; a backward row's plain and
+    library times are those of the whole backward."""
+    rows = []
+    times = ROW_TIMES + ("bound_floor",)
+    for tag, counter in (("bf16", counts), ("fp32", f32_counts)):
+        suffix = "_f32" if tag == "fp32" else ""
+        for key, replaces, whats in SD1_TRAIN_ROWS:
+            for d in SD1_WIDTHS:
+                mine = [r for k, r in results.items()
+                        if k[1] in whats and k[2:] == (d, tag)]
+                timed = results[(SD1_TRAIN_ROW_CASES[d], whats[0], d, tag)]
+                rows.append({
+                    "name": f"flash_{key}_d{d}{suffix}", "route": "cuda",
+                    "source": SD1_TRAIN_SOURCES[(key, tag)],
+                    "replaces": replaces,
+                    "launches": counter.get(f"{key}_d{d}", 0),
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    **{k: timed[k] for k in times}})
+    return rows
+
+
+SD1_TRAIN_HW_1024 = (1024, 1024)
+
+
+def _sd1_step_against_plain(trainer, batch, seed: int, f32: bool,
+                            failures: list) -> None:
+    """One micro-step's loss and every gradient with the kernels against
+    the same draws with every attention on the plain path: bf16 as phase
+    10 (the loss within TRAIN_LOSS_TOL, the whole gradient within
+    TRAIN_GRAD_TOL relative L2, each level-0/1 self-attention's to_q/to_k/
+    to_v within TRAIN_PROJ_TOL and non-zero), fp32 as its fp32 phase (the
+    loss within F32_TRAIN_LOSS_TOL, every gradient tensor within
+    F32_TRAIN_GRAD_TOL)."""
+    import torch
+
+    from marigold_tpu_torch.ops import attention as attn
+    from marigold_tpu_torch.train.train_step import make_loss_and_grad
+
+    core = trainer.core
+    loss_and_grad = make_loss_and_grad(core.unet, core.vae, core.schedule,
+                                       **trainer._step_kwargs())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ds = core.vae_cfg.downscale_factor
+    rows = batch["rgb_norm"].shape[0]
+    hw = batch["rgb_norm"].shape[2:]
+    t_draw = torch.randint(0, core.schedule.num_train_timesteps, (rows,),
+                           generator=gen, device="cuda")
+    noise = torch.randn((rows, core.vae_cfg.latent_channels, hw[0] // ds,
+                         hw[1] // ds), generator=gen, device="cuda")
+    loss_k, grads_k = loss_and_grad(trainer.state.params, trainer.text_embed,
+                                    batch, timesteps=t_draw, noise=noise)
+    saved, attn.FLASH_MIN_SEQ = attn.FLASH_MIN_SEQ, 1 << 30
+    try:
+        loss_p, grads_p = loss_and_grad(trainer.state.params,
+                                        trainer.text_embed, batch,
+                                        timesteps=t_draw, noise=noise)
+    finally:
+        attn.FLASH_MIN_SEQ = saved
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    rel = {n: float((grads_k[n] - g).norm() / g.norm().clamp(min=1e-30))
+           for n, g in grads_p.items()}
+    num = sum(((grads_k[n] - grads_p[n]) ** 2).sum() for n in grads_p)
+    den = sum((grads_p[n] ** 2).sum() for n in grads_p)
+    whole = float(num.sqrt() / den.sqrt())
+    worst = max(rel, key=rel.get)
+    tag = "fp32" if f32 else "bf16"
+    loss_tol = F32_TRAIN_LOSS_TOL if f32 else TRAIN_LOSS_TOL
+    print(f"sd1 {tag} micro-step, kernels vs plain attention: loss "
+          f"{float(loss_k):.8f} vs {float(loss_p):.8f} (rel {rel_loss:.2e}, "
+          f"tol {loss_tol}); gradient rel L2 whole {whole:.2e}, per tensor "
+          f"worst {rel[worst]:.2e} at {worst}, median "
+          f"{sorted(rel.values())[len(rel) // 2]:.2e} ({len(rel)} tensors)",
+          flush=True)
+    if not rel_loss <= loss_tol:
+        failures.append(f"{tag} micro-step loss rel diff {rel_loss}")
+    if f32:
+        bad = [n for n, r in rel.items() if not r <= F32_TRAIN_GRAD_TOL]
+        if bad:
+            failures.append(f"fp32 gradients off plain: {bad[:8]}")
+        return
+    if not whole <= TRAIN_GRAD_TOL:
+        failures.append(f"bf16 micro-step gradient rel L2 {whole}")
+    n_levels = len(core.unet_cfg.block_out_channels)
+    proj = [n for n in grads_k if ".attn1.to_" in n and n.endswith("weight")
+            and "to_out" not in n
+            and ((n.startswith("down_blocks") and int(n.split(".")[1]) < 2)
+                 or (n.startswith("up_blocks")
+                     and n_levels - 1 - int(n.split(".")[1]) < 2))]
+    bad = [n for n in proj if not rel[n] <= TRAIN_PROJ_TOL
+           or not grads_k[n].abs().max().item() > 0]
+    print(f"sd1 bf16 level-0/1 self-attention to_q/to_k/to_v: {len(proj)} "
+          f"weights, worst rel L2 against plain "
+          f"{max(rel[n] for n in proj):.2e} (tol {TRAIN_PROJ_TOL})", flush=True)
+    if bad or not proj:
+        failures.append(f"bf16 projections off plain or zero: {bad[:8]}")
+
+
+def sd1_train_phase(root: str) -> tuple:
+    """Phase 10c, SD1.x-class fine-tuning: a full-width SD1.x-class base
+    checkpoint (write_sd1_checkpoint with a 4-channel UNet) loaded through
+    from_pretrained into MarigoldDepthTrainer (the depth surgery to 8
+    channels) in bf16 for one iteration of TRAIN_ACCUM micro-steps at
+    [2, 3, 480, 640] by trainer.train() (levels 0 and 1 on the flash path:
+    d = 40 and 80), one micro-step at [1, 3, 1024, 1024] (level 2's 1024
+    tokens: d = 160) and one under remat "full" (each lse forward again in
+    the recompute), flash launches exact per width from the shapes; ms per
+    micro-step, peak memory and a profile of one micro-step; one
+    micro-step's loss and gradients against plain attention. Then the
+    same checkpoint in fp32 (TF32 off): a micro-step at [2, 3, 480, 640]
+    and one at [1, 3, 1024, 1024], fp32 launches exact, a warm one's time,
+    peak and profile, and one against plain attention. Returns the bf16 and fp32 launch counts of its runs
+    (the SD1 training rows')."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from marigold_tpu_torch import MarigoldDepthPipeline
+    from marigold_tpu_torch.ops import flash_attention as fa
+    from marigold_tpu_torch.train.trainer import MarigoldDepthTrainer
+
+    t_phase = time.perf_counter()
+    _free()
+    t0 = time.perf_counter()
+    write_sd1_checkpoint(root, 19, in_channels=4)
+    print(f"sd1 base checkpoint (4-channel UNet) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    failures = []
+    tmp = tempfile.TemporaryDirectory()
+    out_dir = os.path.join(tmp.name, "run")
+    batches = _train_batches(7, TRAIN_ACCUM)
+    big = _train_batches(8, 1, rows=1, hw=SD1_TRAIN_HW_1024)[0]
+
+    def make_trainer(dtype):
+        pipe = MarigoldDepthPipeline.from_pretrained(
+            root, dtype=dtype, device="cuda", variant="fp16")
+        return MarigoldDepthTrainer(
+            train_config(1), pipe, batches, os.path.join(out_dir, "ckpt"),
+            os.path.join(out_dir, "eval"), os.path.join(out_dir, "vis"),
+            accumulation_steps=TRAIN_ACCUM)
+
+    def gated_step(trainer, counter, batch, want, what):
+        """One micro-step, host ms around it, its launches held to want."""
+        before = dict(counter)
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = _timed(lambda: trainer.train_step(
+            trainer.state, trainer.text_embed, trainer._assemble_batch(batch),
+            trainer._step_generator()))
+        got = {k: n - before.get(k, 0) for k, n in counter.items()
+               if n != before.get(k, 0)}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"sd1 {what}: {ms:.1f} ms, peak device memory {peak:.2f} GiB; "
+              f"flash launches {got}, expected {want}", flush=True)
+        if got != want:
+            failures.append(f"{what}: launches {got} != {want}")
+        return ms
+
+    trainer = make_trainer(torch.bfloat16)
+    core = trainer.core
+    widths = [c // h for c, h in zip(core.unet_cfg.block_out_channels,
+                                     core.unet_cfg.attention_head_dim)]
+    print(f"sd1 trainer: surgery to {core.unet_cfg.in_channels} input "
+          f"channels, head widths {widths}, "
+          f"{sum(p.numel() for p in trainer.state.params.values()) / 1e6:.1f}"
+          f" M fp32 masters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "on the card", flush=True)
+    want = expected_train_launches(core, TRAIN_HW, TRAIN_ACCUM)
+    want_1024 = expected_train_launches(core, SD1_TRAIN_HW_1024, 1)
+    want_full = expected_train_launches(core, TRAIN_HW, 1, "full")
+    if {k for k in want if k.startswith("lse")} != {"lse_d40", "lse_d80"} or \
+            "lse_d160" not in want_1024:
+        _fail(f"sd1 training: expected launches {want}, {want_1024}")
+    fa.launches.clear()  # the SD1 fine-tuning path's bf16 run starts here
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = _timed(trainer.train)
+    got = dict(fa.launches)
+    loss = trainer.metrics_log[-1]["loss"]
+    print(f"sd1 trainer.train(): 1 iteration of {TRAIN_ACCUM} micro-steps "
+          f"[{TRAIN_BATCH}, 3, {TRAIN_HW[0]}, {TRAIN_HW[1]}] in {wall:.1f} ms "
+          f"(the first steps, the Adam apply and the backup save included); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; loss {loss:.6f}; flash launches {got}, expected {want}",
+          flush=True)
+    if got != want:
+        failures.append(f"train(): launches {got} != {want}")
+    if not np.isfinite(loss) or trainer.effective_iter != 1:
+        failures.append(f"train(): loss {loss}, effective_iter "
+                        f"{trainer.effective_iter}")
+    shutil.rmtree(os.path.join(out_dir, "ckpt", trainer._get_backup_ckpt_name()))
+    ms_1024 = gated_step(trainer, fa.launches, big, want_1024,
+                         "bf16 micro-step [1, 3, 1024, 1024]")
+    trainer.cfg.trainer.remat = "full"
+    trainer._build_train_step()
+    gated_step(trainer, fa.launches, batches[0], want_full,
+               f"bf16 micro-step [{TRAIN_BATCH}, 3, {TRAIN_HW[0]}, "
+               f"{TRAIN_HW[1]}] remat full")
+    trainer.cfg.trainer.remat = "none"
+    trainer._build_train_step()
+    counts = dict(fa.launches)  # ... and ends here
+    micro = [gated_step(trainer, fa.launches, batches[i % TRAIN_ACCUM],
+                        expected_train_launches(core, TRAIN_HW, 1),
+                        f"bf16 micro-step [{TRAIN_BATCH}, 3, {TRAIN_HW[0]}, "
+                        f"{TRAIN_HW[1]}] #{i + 1}") for i in range(3)]
+    print(f"sd1 bf16 ms per micro-step [{TRAIN_BATCH}, 3, {TRAIN_HW[0]}, "
+          f"{TRAIN_HW[1]}]: {', '.join(f'{m:.1f}' for m in micro)}; "
+          f"[1, 3, 1024, 1024]: {ms_1024:.1f}", flush=True)
+    profile_request(
+        lambda: trainer.train_step(trainer.state, trainer.text_embed,
+                                   trainer._assemble_batch(batches[1]),
+                                   trainer._step_generator()),
+        TRAIN_CLASSES, f"one SD1 bf16 micro-step [{TRAIN_BATCH}, 3, "
+        f"{TRAIN_HW[0]}, {TRAIN_HW[1]}]")
+    _sd1_step_against_plain(trainer, trainer._assemble_batch(batches[0]), 5,
+                            False, failures)
+    del trainer, core
+    _free()
+
+    with tf32_off():
+        trainer = make_trainer(torch.float32)
+        print(f"sd1 fp32 trainer: compute dtype {trainer.core.dtype}, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+              flush=True)
+        bf16_before = sum(fa.launches.values())
+        fa.launches_f32.clear()  # the fp32 run starts here
+        gated_step(trainer, fa.launches_f32, batches[0],
+                   expected_train_launches(trainer.core, TRAIN_HW, 1,
+                                           f32=True),
+                   f"fp32 micro-step [{TRAIN_BATCH}, 3, {TRAIN_HW[0]}, "
+                   f"{TRAIN_HW[1]}] (first)")
+        gated_step(trainer, fa.launches_f32, big,
+                   expected_train_launches(trainer.core, SD1_TRAIN_HW_1024, 1,
+                                           f32=True),
+                   "fp32 micro-step [1, 3, 1024, 1024]")
+        f32_counts = dict(fa.launches_f32)  # ... and ends here
+        gated_step(trainer, fa.launches_f32, batches[1],
+                   expected_train_launches(trainer.core, TRAIN_HW, 1,
+                                           f32=True),
+                   f"fp32 micro-step [{TRAIN_BATCH}, 3, {TRAIN_HW[0]}, "
+                   f"{TRAIN_HW[1]}] (warm)")
+        if sum(fa.launches.values()) != bf16_before:
+            failures.append("the fp32 trainer launched bf16 flash kernels")
+        profile_request(
+            lambda: trainer.train_step(trainer.state, trainer.text_embed,
+                                       trainer._assemble_batch(batches[1]),
+                                       trainer._step_generator()),
+            TRAIN_CLASSES, f"one SD1 fp32 micro-step [{TRAIN_BATCH}, 3, "
+            f"{TRAIN_HW[0]}, {TRAIN_HW[1]}]")
+        _sd1_step_against_plain(trainer, trainer._assemble_batch(batches[0]),
+                                6, True, failures)
+        del trainer
+        _free()
+    tmp.cleanup()
+    print(f"sd1 fine-tuning phase launches: bf16 {counts}, fp32 {f32_counts}; "
+          f"phase ran in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if failures:
+        _fail(f"SD1 fine-tuning phase: {failures}")
+    return counts, f32_counts
 
 
 def main(argv: list) -> None:
@@ -1655,11 +2129,16 @@ def main(argv: list) -> None:
             d64_bits_against(bits_tree)
             done("the D = 64 bits against the previous build")
         sd1_results = check_sd1_kernels()
+        sd1_train_results = check_sd1_train_kernels()
         done("the SD1 kernel checks")
         with tempfile.TemporaryDirectory() as root:
-            sd1_counts, sd1_f32_counts = sd1_phase(root)
-        done("the SD1 phase")
-        rows = sd1_kernel_rows(sd1_results, sd1_counts, sd1_f32_counts)
+            sd1_counts, sd1_f32_counts = sd1_phase(os.path.join(root, "sd1"))
+            shutil.rmtree(os.path.join(root, "sd1"))
+            done("the SD1 phase")
+            sd1_train_counts = sd1_train_phase(os.path.join(root, "sd1_base"))
+        done("the SD1 fine-tuning phase")
+        rows = (sd1_kernel_rows(sd1_results, sd1_counts, sd1_f32_counts)
+                + sd1_train_kernel_rows(sd1_train_results, *sd1_train_counts))
         missing = [r["name"] for r in rows if r["launches"] == 0]
         if missing:
             _fail(f"kernels never launched by the SD1 path: {missing}")
@@ -1706,6 +2185,7 @@ def main(argv: list) -> None:
     train_results = check_train_kernels()
     f32_results = check_f32_kernels()
     sd1_results = check_sd1_kernels()
+    sd1_train_results = check_sd1_train_kernels()
     done("the kernel checks")
     with tempfile.TemporaryDirectory() as root:
         depth_dir = os.path.join(root, "depth")
@@ -1741,6 +2221,10 @@ def main(argv: list) -> None:
         f32_counts = collections.Counter(f32_counts)
         f32_counts.update(f32_train_phase(sd2))
         done("the fp32 fine-tuning phase")
+        sd1_base = os.path.join(base_ckpt, "sd1")
+        sd1_train_counts = sd1_train_phase(sd1_base)
+        shutil.rmtree(sd1_base)
+        done("the SD1 fine-tuning phase")
         ranks_counts = train_parallel_phase(base_ckpt)
         done("the fine-tuning phase across ranks")
         cli_train_counts = train_cli_phase(base_ckpt)
@@ -1752,13 +2236,15 @@ def main(argv: list) -> None:
             + [folded_kernel_row(folded_results, folded_counts)]
             + conv_kernel_rows(conv_results, serve_counts)
             + f32_kernel_rows(f32_results, f32_counts)
-            + sd1_kernel_rows(sd1_results, sd1_counts, sd1_f32_counts))
+            + sd1_kernel_rows(sd1_results, sd1_counts, sd1_f32_counts)
+            + sd1_train_kernel_rows(sd1_train_results, *sd1_train_counts))
     missing = [r["name"] for r in rows if r["launches"] == 0]
     # 9 bf16 rows; fp32: F32_ROWS, the folded entry, the training rows,
     # the split and the two convs; the SD1 widths: per dtype 2 modes x 3
-    # widths and the folded entry
+    # widths and the folded entry, then the 3 training kernels x 3 widths
     if missing or len(rows) != (9 + len(F32_ROWS) + 4 + len(F32_TRAIN_ROWS)
-                                + 2 * (2 * len(SD1_WIDTHS) + 1)):
+                                + 2 * (2 * len(SD1_WIDTHS) + 1)
+                                + 2 * len(SD1_TRAIN_ROWS) * len(SD1_WIDTHS)):
         _fail(f"kernels never launched by the main path: {missing}")
     print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi, flush=True)
@@ -4168,14 +4654,16 @@ def expected_train_launches(core, hw: tuple, micro_steps: int,
     return want
 
 
-def _train_batches(seed: int, n: int, rows: int = TRAIN_BATCH) -> list:
-    """Synthetic batches of `rows` in the trainer's layout (NHWC numpy):
-    smooth depth in [-1, 1], noise RGB, an invalid block in the first
-    sample and 5% invalid pixels in the others."""
+def _train_batches(seed: int, n: int, rows: int = TRAIN_BATCH,
+                   hw: tuple = None) -> list:
+    """Synthetic batches of `rows` at size `hw` (TRAIN_HW by default) in the
+    trainer's layout (NHWC numpy): smooth depth in [-1, 1], noise RGB, an
+    invalid block in the first sample and 5% invalid pixels in the
+    others."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    h, w = TRAIN_HW
+    h, w = hw or TRAIN_HW
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     out = []
     for _ in range(n):
@@ -5037,13 +5525,13 @@ def train_parallel_phase(base_ckpt: str, n_ranks: int = TRAIN_PAR_RANKS,
 # whose base_config is the recipe. The overlay replaces only the split-list
 # paths (lists of the first lines of the shipped ones; where the shipped
 # list is missing, lines of the same dataset's val/vis list), max_iter, the
-# periods and, for normals and IID, effective_batch_size (to bound the
-# phase's time); depth runs its recipe's loader as shipped (micro-batch 2,
-# effective batch 32, 2 forked workers). The datasets are fabricated in
+# periods and effective_batch_size (to bound the phase's time: depth 8,
+# 4 micro-steps per iteration, since PR 19, 32 before); depth runs its
+# recipe's loader as shipped (micro-batch 2, 2 forked workers). The datasets are fabricated in
 # each dataset's own layout, member names and native geometry.
 CLI_TRAIN_RECIPES = [
     # (run, recipe, effective batch override, saved UNet in/out channels)
-    ("depth", "config/train_marigold_depth.yaml", None, (8, 4)),
+    ("depth", "config/train_marigold_depth.yaml", 8, (8, 4)),
     ("normals", "config/train_marigold_normals.yaml", 4, (8, 4)),
     ("iid_appearance", "config/train_marigold_iid_appearance.yaml", 4, (12, 8)),
     ("iid_lighting", "config/train_marigold_iid_lighting.yaml", 4, (16, 12)),
@@ -5053,7 +5541,7 @@ CLI_TRAIN_ITERS = 2
 # whole run is held to the time limit)
 CLI_TRAIN_SAMPLES = {"train": 8, "val": 2, "vis": 2}
 # hypersim depth train: 12 samples, so that with vkitti's 8 an epoch is 10
-# batches of 2 and the resume lands mid-epoch (32 micro-steps in 2 iterations)
+# batches of 2 and the resume lands mid-epoch (8 micro-steps in 2 iterations)
 CLI_TRAIN_HYPERSIM_DEPTH = 12
 CLI_PROFILE_STEPS = 3
 REMAT_MODES = ("none", "full", "save_heavy")

@@ -4,8 +4,8 @@
 // Replaces the forward variants of the TPU package's
 // marigold_tpu/ops/flash_attention.py:_flash_dt_impl and
 // _flash_dt_impl_lse. Heads 40, 64, 80 and 160 wide (the UNets' of SD2 and
-// SD1.x-class checkpoints, every softmax mode; the training forward with
-// the logsumexp at 64) go to the Hopper kernel of flash_fwd_sm90.cu, a
+// SD1.x-class checkpoints, every softmax mode and the training forward
+// with the logsumexp) go to the Hopper kernel of flash_fwd_sm90.cu, a
 // template on the head width; the 512-wide VAE mid head, in both softmax
 // modes, to
 // the Hopper kernel of flash_fwd_d512_sm90.cu (wgmma, TMA, the output's D
@@ -44,13 +44,14 @@ int mt_flash_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // The training forward: exact online softmax, output plus the row
-// logsumexp `lse` ([B*H, nq] fp32), by the 64-wide Hopper kernel. Any other
-// head dim returns cudaErrorInvalidValue.
+// logsumexp `lse` ([B*H, nq] fp32), by the Hopper kernel at head widths 40,
+// 64, 80 and 160. Any other head dim returns cudaErrorInvalidValue.
 int mt_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int nq,
                                int nk, int D, int ldq, int ldkv, int ldo,
                                float scale, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
+  if (D != 40 && D != 64 && D != 80 && D != 160)
+    return (int)cudaErrorInvalidValue;
   return mt_flash_fwd_sm90(q, k, v, nullptr, o, lse, B, H, nq, nk, D, ldq,
                            ldkv, ldo, scale, 1, stream);
 }

@@ -1,17 +1,20 @@
-// Flash-attention backward for 64-wide heads, designed for Hopper (sm_90a):
-// two kernels with no atomics, each built like the forward
-// (flash_fwd_sm90.cu): wgmma tensor-core products, TMA loads into a ring of
-// shared-memory stages tracked by mbarriers, a producer warp and two
-// consumer warpgroups, and every intermediate (S, dP, P, dS) in registers.
+// Flash-attention backward for heads 40, 64, 80 and 160 wide (a template on
+// the head width D), designed for Hopper (sm_90a): two kernels with no
+// atomics, each built like the forward (flash_fwd_sm90.cu): wgmma
+// tensor-core products, TMA loads into a ring of shared-memory stages
+// tracked by mbarriers, a producer warp and two consumer warpgroups, and
+// every intermediate (S, dP, P, dS) in registers.
 //
 // Replaces the two backward Pallas kernels of the TPU package's
-// marigold_tpu/ops/flash_attention.py:_flash_dt_bwd_pallas (:751):
+// marigold_tpu/ops/flash_attention.py:_flash_dt_bwd_pallas (:751) at those
+// widths (SD2's 64-wide heads; the 40-, 80- and 160-wide heads of an
+// SD1.x-class UNet, 320, 640 and 1280 channels over 8 heads):
 //   * _flash_bwd_dq_kernel (:650; pallas_call at :800) ->
 //     flash_bwd_dq_kernel: one block per (128 query rows, batch*head),
 //     streaming K and V;
 //   * _flash_bwd_dkv_kernel (:695; pallas_call at :832) ->
-//     flash_bwd_dkv_kernel: one block per (128 key rows, batch*head),
-//     streaming Q and dO.
+//     flash_bwd_dkv_kernel: one block per (128 key rows, or 64 at D = 80
+//     and 160, batch*head), streaming Q and dO.
 // Each output element is written by exactly one block, so the kernels need
 // no atomics and give the same bits on every run. The price is S and dP
 // computed in both kernels (14 N^2 d FLOPs per head, against 10 N^2 d for a
@@ -34,31 +37,47 @@
 // operand, so what those rows hold reaches nothing that is stored.
 //
 // Layout: q/k/v/dO and dQ/dK/dV are [B, N, ld] bf16, head h at channels
-// [64h, 64h + 64), each with a 3-D TMA map {ld, N, B}, a {64, rows, 1} box
-// at channel 64h and the 128-byte swizzle (one 64-wide bf16 row is one
-// swizzle row). lse and delta are [B*H, ld_stat] fp32, ld_stat a multiple
-// of 64 at least nq, so that each 64-row stage of the dK/dV kernel finds
-// its statistics, padded ones included, in one 256-byte bulk copy.
+// [Dh, Dh + D). Each tensor has a 4-D TMA map {D, H, N, B} (head stride D,
+// row stride ld), a {64, 1, rows, 1} box and the 128-byte swizzle, as the
+// forward's maps: one 64-wide bf16 row is one swizzle atom, a head wider
+// than 64 takes ATOMS = ceil(D / 64) boxes side by side, each its own
+// [rows, 128 B] block of shared memory, and a box's lanes past D lie
+// outside the map: zeros on a load (never the next head's lanes), dropped
+// on a store. S and dP contract over KSTEPS = ceil(D / 16) k16 steps (the
+// lanes past D zero in both operands); each gradient product runs one
+// m64n64 product per atom, its columns past D computed on zeros and never
+// stored. lse and delta are [B*H, ld_stat] fp32, ld_stat a multiple of 64
+// at least nq, so that each 64-row stage of the dK/dV kernel finds its
+// statistics, padded ones included, in one 256-byte bulk copy.
 //
 // What bounds it on the H100: per head, the dQ kernel does 6 N^2 d FLOPs
 // (S, dP, dQ) and the dK/dV kernel 8 N^2 d (S^T, dP^T, dV, dK) over about
 // 4 N d * 2 bytes of inputs each, thousands of FLOPs per byte at N = 4800,
-// far above the card's ~295 FLOP/byte ridge: tensor-core bound, with one
-// exp2 per 384 (dQ) or 512 (dK/dV) FLOPs of wgmma beside it. The design:
+// far above the card's ~295 FLOP/byte ridge: tensor-core bound at d = 64,
+// with one exp2 per 384 (dQ) or 512 (dK/dV) FLOPs of wgmma beside it; at
+// d = 40 the exponentials (one per logit in each kernel, 16 per SM per
+// clock) take about as long as the products. The design:
 //   * dQ kernel: Q and dO resident (each consumer warpgroup owns 64 query
 //     rows), K and V streamed 64 keys per stage. S = Q K^T and dP = dO V^T
 //     by wgmma m64n64k16 with both operands K-major in shared memory; P and
 //     dS computed on the accumulator registers with the row's lse and delta
 //     held in registers; dS packed in place into bf16 A fragments (the
 //     accumulator pair (d[2i], d[2i+1]) is A register i); dQ += dS K by the
-//     register-A wgmma reading the same K stage MN-major (transpose bit).
-//   * dK/dV kernel, computed transposed: K and V resident (64 key rows per
-//     consumer warpgroup), Q and dO streamed 64 query rows per stage.
-//     S^T = K Q^T and dP^T = V dO^T (K-major); P^T and dS^T with lse and
-//     delta per column, read from the stage's shared memory where the
-//     producer copied them beside Q and dO; dV += P^T dO and dK += dS^T Q
-//     with P^T and dS^T as register A fragments and the dO and Q stages read
-//     MN-major. Four fp32 accumulators (S^T, dP^T, dK, dV) of 32 registers.
+//     register-A wgmma reading the same K stage MN-major (transpose bit),
+//     one m64n64 per atom. Registers per consumer thread: S and dP (32
+//     each), dQ (32 per atom), dS (16): 176 at D = 160.
+//   * dK/dV kernel, computed transposed: K and V resident, Q and dO
+//     streamed 64 query rows per stage. S^T = K Q^T and dP^T = V dO^T
+//     (K-major); P^T and dS^T with lse and delta per column, read from the
+//     stage's shared memory where the producer copied them beside Q and
+//     dO; dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
+//     fragments and the dO and Q stages read MN-major. At D <= 64 each
+//     consumer owns 64 key rows and holds four fp32 accumulators (S^T,
+//     dP^T, dK, dV) of 32 registers. At D = 80 and 160 dK and dV take 64
+//     or 96 registers each, which with S^T, dP^T and the fragments is more
+//     than setmaxnreg's 240 (SPLIT): the block owns 64 keys, one consumer
+//     computes S^T, dP^T and dK, the other S^T again and dV (S^T 32, dK or
+//     dV 32 per atom, dP^T 32, fragments 16: 176 at D = 160);
 //   * one producer thread keeps STAGES stages in flight with TMA; the
 //     consumers wait on "full" barriers and release "empty" ones (one
 //     arrival per warpgroup), with no block-wide barrier in the loop;
@@ -70,37 +89,60 @@
 //     C7515);
 //   * setmaxnreg moves registers from the producer warpgroup (24) to the
 //     consumers (240): one block per SM, 384 threads;
-//   * the epilogue stages the bf16 gradients in the warpgroup's idle
-//     resident tile (Q, or K and V) for TMA stores, which drop rows past
-//     nq or nk.
+//   * the epilogue stages the bf16 gradients in an idle resident tile (Q,
+//     or K and V) for TMA stores, which drop rows past nq or nk and lanes
+//     past D.
+// Shared memory: two resident tiles (rows x 128 B per atom each) and
+// STAGES stages of two [64, 128 B] tiles per atom plus 512 B of
+// statistics: STAGES = 4 but at D = 160, whose dQ takes 2 (96 KB resident,
+// 48 KB a stage) and dK/dV 3 (48 KB resident at 64 keys).
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int D = 64;             // head width
-constexpr int BM = 128;           // output rows per block (2 x 64)
 constexpr int BN = 64;            // streamed rows per stage
-constexpr int STAGES = 4;         // stages in flight
 constexpr int CONSUMERS = 2;      // consumer warpgroups
 constexpr int THREADS = 128 * (1 + CONSUMERS);
-constexpr int ROW_BYTES = D * 2;  // 128: one swizzle row
-constexpr int RES_BYTES = BM * ROW_BYTES;   // a resident [128, 64] tile
-constexpr int TILE_BYTES = BN * ROW_BYTES;  // a streamed [64, 64] tile
+constexpr int ROW_BYTES = 128;    // one 64-lane bf16 swizzle atom row
+constexpr int TILE_ATOM = BN * ROW_BYTES;   // one atom of a streamed tile
 constexpr int STAT_BYTES = BN * 4;          // 64 fp32 row statistics
 constexpr int STAT_PAD = 64;                // ld_stat's multiple
+constexpr int SMEM_LIMIT = 232448;          // what a block can use
 
-// Shared memory: the two resident tiles, the two streamed tiles per stage,
-// the statistics per stage (lse then delta; dK/dV kernel only), then the
-// barriers; every tile 1024-byte aligned (the 128B swizzle atom).
-constexpr int SM_R0 = 0;
-constexpr int SM_R1 = RES_BYTES;
-constexpr int SM_S0 = 2 * RES_BYTES;
-constexpr int SM_S1 = SM_S0 + STAGES * TILE_BYTES;
-constexpr int SM_STAT = SM_S1 + STAGES * TILE_BYTES;
-constexpr int SM_BAR = SM_STAT + STAGES * 2 * STAT_BYTES;
-constexpr int SM_BYTES = SM_BAR + 8 * (2 * STAGES + 1);
-constexpr int SMEM_REQUEST = SM_BYTES + 1024;  // room to align the base
+// The shared-memory plan of a kernel at head width D whose two resident
+// tiles hold RES_ROWS rows: the resident tiles, the two streamed tiles per
+// stage, the statistics per stage (lse then delta; dK/dV kernel only),
+// then the barriers; every tile 1024-byte aligned (the 128B swizzle atom).
+template <int D, int RES_ROWS>
+struct Plan {
+  static_assert(D % 8 == 0 && D <= 192, "D a multiple of 8, at most 3 atoms");
+  static constexpr int ATOMS = (D + 63) / 64;   // 64-lane boxes per row
+  static constexpr int KSTEPS = (D + 15) / 16;  // k16 steps of S and dP
+  static constexpr int RES_ATOM = RES_ROWS * ROW_BYTES;
+  static constexpr int RES_BYTES = ATOMS * RES_ATOM;
+  static constexpr int TILE_BYTES = ATOMS * TILE_ATOM;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 8 * 9 - 2 * RES_BYTES) /
+                             (2 * TILE_BYTES + 2 * STAT_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;  // stages in flight
+  static_assert(STAGES >= 2, "two stages fit");
+  static constexpr int SM_R0 = 0;
+  static constexpr int SM_R1 = RES_BYTES;
+  static constexpr int SM_S0 = 2 * RES_BYTES;
+  static constexpr int SM_S1 = SM_S0 + STAGES * TILE_BYTES;
+  static constexpr int SM_STAT = SM_S1 + STAGES * TILE_BYTES;
+  static constexpr int SM_BAR = SM_STAT + STAGES * 2 * STAT_BYTES;
+  static constexpr int SM_BYTES = SM_BAR + 8 * (2 * STAGES + 1);
+  static constexpr int SMEM_REQUEST = SM_BYTES + 1024;  // room to align
+  static_assert(SMEM_REQUEST <= SMEM_LIMIT, "fits the 227 KB a block can use");
+};
+
+// dK and dV on separate consumers, the block owning 64 keys (see above).
+template <int D>
+constexpr bool kSplit = D > 64;
+template <int D>
+constexpr int kDkvRows = kSplit<D> ? 64 : 128;  // key rows per dK/dV block
+constexpr int BM_DQ = 128;                      // query rows per dQ block
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
 constexpr float kLsePad = 1e30f;   // the TPU wrapper's _LSE_PAD
@@ -126,13 +168,14 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 // full[STAGES], empty[STAGES] and the resident tiles' barrier, initialised
 // by thread 0 (one producer arrival, one per consumer warpgroup) before a
 // block-wide barrier.
+template <class P>
 struct Barriers {
   uint32_t full, empty, res;
   __device__ explicit Barriers(uint32_t base)
-      : full(base + SM_BAR), empty(full + 8 * STAGES),
-        res(empty + 8 * STAGES) {
+      : full(base + P::SM_BAR), empty(full + 8 * P::STAGES),
+        res(empty + 8 * P::STAGES) {
     if (threadIdx.x == 0) {
-      for (int s = 0; s < STAGES; ++s) {
+      for (int s = 0; s < P::STAGES; ++s) {
         mbar_init(full + 8 * s, 1);
         mbar_init(empty + 8 * s, CONSUMERS);
       }
@@ -143,68 +186,139 @@ struct Barriers {
   }
 };
 
-// The producer (thread 0): the block's two resident [128, 64] tiles at row
-// m0, then, per stage, the two streamed [64, 64] tiles of rows it * 64 and,
-// with `lse` (the dK/dV kernel), their lse and delta rows.
+// The producer (thread 0): the block's two resident tiles at row m0 (one
+// box per atom), then, per stage, the two streamed tiles of rows it * 64
+// and, with `lse` (the dK/dV kernel), their lse and delta rows.
+template <class P>
 __device__ __forceinline__ void produce(
-    uint32_t base, const Barriers& bar, const CUtensorMap* res0,
+    uint32_t base, const Barriers<P>& bar, const CUtensorMap* res0,
     const CUtensorMap* res1, const CUtensorMap* str0, const CUtensorMap* str1,
     int h, int m0, int b, int n_tiles, const float* lse, const float* delta) {
-  mbar_expect_tx(bar.res, 2 * RES_BYTES);
-  tma_load(base + SM_R0, res0, h * D, m0, b, bar.res);
-  tma_load(base + SM_R1, res1, h * D, m0, b, bar.res);
+  mbar_expect_tx(bar.res, 2 * P::RES_BYTES);
+#pragma unroll
+  for (int a = 0; a < P::ATOMS; ++a) {
+    tma_load_4d(base + P::SM_R0 + a * P::RES_ATOM, res0, 64 * a, h, m0, b,
+                bar.res);
+    tma_load_4d(base + P::SM_R1 + a * P::RES_ATOM, res1, 64 * a, h, m0, b,
+                bar.res);
+  }
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % STAGES;
+    const int st = it % P::STAGES;
     const uint32_t full = bar.full + 8 * st;
-    if (it >= STAGES) mbar_wait(bar.empty + 8 * st, ((it / STAGES) - 1) & 1);
-    mbar_expect_tx(full, 2 * TILE_BYTES + (lse ? 2 * STAT_BYTES : 0));
-    tma_load(base + SM_S0 + st * TILE_BYTES, str0, h * D, it * BN, b, full);
-    tma_load(base + SM_S1 + st * TILE_BYTES, str1, h * D, it * BN, b, full);
+    if (it >= P::STAGES)
+      mbar_wait(bar.empty + 8 * st, ((it / P::STAGES) - 1) & 1);
+    mbar_expect_tx(full, 2 * P::TILE_BYTES + (lse ? 2 * STAT_BYTES : 0));
+#pragma unroll
+    for (int a = 0; a < P::ATOMS; ++a) {
+      const uint32_t off = st * P::TILE_BYTES + a * TILE_ATOM;
+      tma_load_4d(base + P::SM_S0 + off, str0, 64 * a, h, it * BN, b, full);
+      tma_load_4d(base + P::SM_S1 + off, str1, 64 * a, h, it * BN, b, full);
+    }
     if (lse) {
-      const uint32_t stat = base + SM_STAT + st * 2 * STAT_BYTES;
+      const uint32_t stat = base + P::SM_STAT + st * 2 * STAT_BYTES;
       bulk_load(stat, lse + it * BN, STAT_BYTES, full);
       bulk_load(stat + STAT_BYTES, delta + it * BN, STAT_BYTES, full);
     }
   }
 }
 
-// x = A B^T over the head's 64 columns: A this warpgroup's 64 rows, B a
-// stage's 64 rows, both K-major tiles in shared memory. One commit group.
+// x = A B^T over the head's D columns: A this warpgroup's 64 rows of a
+// resident tile (atom 0 at `a`), B a stage's 64 rows (atom 0 at `b`), both
+// K-major in shared memory. One commit group.
+template <class P>
 __device__ __forceinline__ void issue_nt(float (&x)[32], uint32_t a,
                                          uint32_t b) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_m64n64k16_ss(x, kmajor_desc(a + 32 * kk), kmajor_desc(b + 32 * kk),
-                       kk);
+  for (int kk = 0; kk < P::KSTEPS; ++kk) {
+    const uint32_t off = 32 * (kk % 4);
+    wgmma_m64n64k16_ss(x, kmajor_desc(a + (kk / 4) * P::RES_ATOM + off),
+                       kmajor_desc(b + (kk / 4) * TILE_ATOM + off), kk);
+  }
   wgmma_commit();
 }
 
-// acc += A B over a 64-deep reduction: A the bf16 fragments `a` (k16 step kk
-// in a[4kk..4kk+3]), B a stage's [64, 64] tile read MN-major (its rows are
-// the reduction). No fence or commit.
-__device__ __forceinline__ void issue_nn(float (&acc)[32],
+// acc[atom] += A B over a 64-deep reduction: A the bf16 fragments `a` (k16
+// step kk in a[4kk..4kk+3]), B a stage's [64, 64] tile of each atom read
+// MN-major (its rows are the reduction). No fence or commit.
+template <int ATOMS>
+__device__ __forceinline__ void issue_nn(float (&acc)[ATOMS][32],
                                          const uint32_t (&a)[16],
                                          uint32_t tile) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_m64n64k16_rs(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
-                       a[4 * kk + 3], mnmajor_desc(tile + 2048 * kk));
+  for (int at = 0; at < ATOMS; ++at) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_m64n64k16_rs(acc[at], a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                         a[4 * kk + 3],
+                         mnmajor_desc(tile + at * TILE_ATOM + 2048 * kk));
+  }
 }
 
-// Writes acc * mul as bf16 into a [64, 64] tile in the 128-byte swizzle (row
-// r's 16-byte chunk j at r * 128 + ((j ^ r % 8) << 4)), this thread's rows
-// r0 and r0 + 8.
-__device__ __forceinline__ void stage_out(unsigned char* tile,
-                                          const float (&acc)[32], float mul,
-                                          int r0, int col) {
+template <int ATOMS>
+__device__ __forceinline__ void fence_atoms(float (&acc)[ATOMS][32]) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const uint32_t off = (static_cast<uint32_t>(j ^ (r0 & 7)) << 4) + 2 * col;
-    *reinterpret_cast<uint32_t*>(tile + r0 * ROW_BYTES + off) =
-        pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-    *reinterpret_cast<uint32_t*>(tile + (r0 + 8) * ROW_BYTES + off) =
-        pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  for (int at = 0; at < ATOMS; ++at) fence_regs(acc[at]);
+}
+
+// Writes acc * mul as bf16 into a resident tile (atom at `tile + at *
+// atom_bytes`) in the 128-byte swizzle (row r's 16-byte chunk j at r * 128
+// + ((j ^ r % 8) << 4)), this thread's rows r0 and r0 + 8.
+template <int ATOMS>
+__device__ __forceinline__ void stage_out(unsigned char* tile,
+                                          int atom_bytes,
+                                          const float (&acc)[ATOMS][32],
+                                          float mul, int r0, int col) {
+#pragma unroll
+  for (int at = 0; at < ATOMS; ++at) {
+    unsigned char* atom = tile + at * atom_bytes;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t off =
+          (static_cast<uint32_t>(j ^ (r0 & 7)) << 4) + 2 * col;
+      *reinterpret_cast<uint32_t*>(atom + r0 * ROW_BYTES + off) =
+          pack_bf16(acc[at][4 * j] * mul, acc[at][4 * j + 1] * mul);
+      *reinterpret_cast<uint32_t*>(atom + (r0 + 8) * ROW_BYTES + off) =
+          pack_bf16(acc[at][4 * j + 2] * mul, acc[at][4 * j + 3] * mul);
+    }
+  }
+}
+
+// P^T = exp2(s * scale * log2e - lse * log2e) in place, lse per column
+// (query row) from a stage's statistics; padded query rows hold lse =
+// +1e30.
+__device__ __forceinline__ void probabilities_t(float (&s)[32],
+                                                const unsigned char* stat,
+                                                int col, float scale_log2) {
+  const float2* lse2 = reinterpret_cast<const float2*>(stat);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 l = lse2[(8 * j + col) / 2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float nl = -(e ? l.y : l.x) * kLog2e;
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, nl));
+      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], scale_log2, nl));
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - delta) in place in dp, delta per column (0 on padded
+// rows) from a stage's statistics.
+__device__ __forceinline__ void grad_logits_t(const float (&s)[32],
+                                              float (&dp)[32],
+                                              const unsigned char* stat,
+                                              int col) {
+  const float2* dl2 = reinterpret_cast<const float2*>(stat + STAT_BYTES);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 dl = dl2[(8 * j + col) / 2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float d = e ? dl.y : dl.x;
+      dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - d);
+      dp[4 * j + 2 + e] = s[4 * j + 2 + e] * (dp[4 * j + 2 + e] - d);
+    }
   }
 }
 
@@ -214,6 +328,7 @@ __device__ __forceinline__ void stage_out(unsigned char* tile,
 // fragment of a k16 step kk takes columns 16kk..16kk+15 in the same rows,
 // so the bf16 pair (d[2i], d[2i+1]) is A register i: P and dS need no
 // shuffle.
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_g,
@@ -223,33 +338,37 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, int H, int ld_stat,
                     int nq, int nk, float scale, float scale_log2) {
+  using P = Plan<D, BM_DQ>;
+  constexpr int ATOMS = P::ATOMS;
+  constexpr int STAGES = P::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const Barriers bar(base);
+  const Barriers<P> bar(base);
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * BM_DQ;
   const int n_tiles = cdiv(nk, BN);
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0)
-      produce(base, bar, &tm_q, &tm_g, &tm_k, &tm_v, h, q0, b, n_tiles,
-              nullptr, nullptr);
+      produce<P>(base, bar, &tm_q, &tm_g, &tm_k, &tm_v, h, q0, b, n_tiles,
+                 nullptr, nullptr);
     return;
   }
 
-  // Consumer warpgroup c owns query rows [64c, 64c + 64) of the block.
+  // Consumer warpgroup c owns query rows [64c, 64c + 64) of the block: the
+  // same rows of each atom of the Q and dO tiles.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int c = wg - 1;
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
   const int r0 = (t / 32) * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
   const int col = 2 * (lane % 4);           // its column pair in each 8
-  const uint32_t q_tile = base + SM_R0 + c * 64 * ROW_BYTES;
-  const uint32_t g_tile = base + SM_R1 + c * 64 * ROW_BYTES;
+  const uint32_t q_tile = base + P::SM_R0 + c * 64 * ROW_BYTES;
+  const uint32_t g_tile = base + P::SM_R1 + c * 64 * ROW_BYTES;
 
   // The rows' statistics; rows past nq take lse = +1e30, delta = 0.
   const int qr = q0 + 64 * c + r0;
@@ -260,9 +379,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float dl0 = qr < nq ? dl_r[qr] : 0.f;
   const float dl1 = qr + 8 < nq ? dl_r[qr + 8] : 0.f;
 
-  float s[32], dp[32], dq[32];
+  float s[32], dp[32], dq[ATOMS][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int at = 0; at < ATOMS; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[at][i] = 0.f;
   uint32_t ds[16];
 
   // P = exp2(s * scale * log2e - lse * log2e) of stage `it` in place, key
@@ -307,18 +428,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 16; ++i) ds[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
   };
   auto issue_dq = [&](int st) {
-    fence_regs(dq);
+    fence_atoms(dq);
     fence_regs(ds);
     wgmma_fence();
-    issue_nn(dq, ds, base + SM_S0 + st * TILE_BYTES);
+    issue_nn(dq, ds, base + P::SM_S0 + st * P::TILE_BYTES);
     wgmma_commit();
   };
 
   // Stage 0: S and dP as two commit groups, P while dP runs.
   mbar_wait(bar.res, 0);
   mbar_wait(bar.full, 0);
-  issue_nt(s, q_tile, base + SM_S0);
-  issue_nt(dp, g_tile, base + SM_S1);
+  issue_nt<P>(s, q_tile, base + P::SM_S0);
+  issue_nt<P>(dp, g_tile, base + P::SM_S1);
   wgmma_wait<1>();
   fence_regs(s);
   probabilities(0);
@@ -335,8 +456,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int st = it % STAGES;
     const int pst = (it - 1) % STAGES;
     mbar_wait(bar.full + 8 * st, (it / STAGES) & 1);
-    issue_nt(s, q_tile, base + SM_S0 + st * TILE_BYTES);
-    issue_nt(dp, g_tile, base + SM_S1 + st * TILE_BYTES);
+    issue_nt<P>(s, q_tile, base + P::SM_S0 + st * P::TILE_BYTES);
+    issue_nt<P>(dp, g_tile, base + P::SM_S1 + st * P::TILE_BYTES);
     issue_dq(pst);
     wgmma_wait<2>();
     fence_regs(s);
@@ -345,24 +466,31 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(dp);
     grad_logits();
     wgmma_wait<0>();
-    fence_regs(dq);
+    fence_atoms(dq);
     fence_regs(ds);
     if (t == 0) mbar_arrive(bar.empty + 8 * pst);
     pack();
   }
   issue_dq((n_tiles - 1) % STAGES);
   wgmma_wait<0>();
-  fence_regs(dq);
+  fence_atoms(dq);
 
-  // Stage bf16 dQ * scale in this warpgroup's Q rows (its last S product
-  // has completed), then one TMA store; rows past nq are dropped.
-  stage_out(smem_raw + (q_tile - smem_u32(smem_raw)), dq, scale, r0, col);
+  // Stage bf16 dQ * scale in this warpgroup's Q rows of each atom (its last
+  // S product has completed), then one TMA store per atom; rows past nq and
+  // lanes past D are dropped.
+  stage_out(smem_raw + (q_tile - smem_u32(smem_raw)), P::RES_ATOM, dq, scale,
+            r0, col);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   named_barrier(1 + c, 128);
-  if (t == 0 && q0 + 64 * c < nq)
-    tma_store(&tm_dq, q_tile, h * D, q0 + 64 * c, b);
+  if (t == 0 && q0 + 64 * c < nq) {
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at)
+      tma_store_4d(&tm_dq, q_tile + at * P::RES_ATOM, 64 * at, h,
+                   q0 + 64 * c, b);
+  }
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
@@ -373,9 +501,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, int H, int ld_stat,
                      int nq, int nk, float scale, float scale_log2) {
+  constexpr bool SPLIT = kSplit<D>;
+  constexpr int BM = kDkvRows<D>;
+  using P = Plan<D, BM>;
+  constexpr int ATOMS = P::ATOMS;
+  constexpr int STAGES = P::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const Barriers bar(base);
+  const Barriers<P> bar(base);
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
@@ -386,12 +519,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0)
-      produce(base, bar, &tm_k, &tm_v, &tm_q, &tm_g, h, k0, b, n_tiles,
-              lse + (size_t)bh * ld_stat, delta + (size_t)bh * ld_stat);
+      produce<P>(base, bar, &tm_k, &tm_v, &tm_q, &tm_g, h, k0, b, n_tiles,
+                 lse + (size_t)bh * ld_stat, delta + (size_t)bh * ld_stat);
     return;
   }
 
-  // Consumer warpgroup c owns key rows [64c, 64c + 64) of the block; its
+  // Consumer warpgroup c owns key rows [64c, 64c + 64) of the block (SPLIT:
+  // both own the block's 64 keys, c = 0 computing dK, c = 1 dV); its
   // accumulator columns are the stage's query rows.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int c = wg - 1;
@@ -399,140 +533,245 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int lane = t % 32;
   const int r0 = (t / 32) * 16 + lane / 4;
   const int col = 2 * (lane % 4);
-  const uint32_t k_tile = base + SM_R0 + c * 64 * ROW_BYTES;
-  const uint32_t v_tile = base + SM_R1 + c * 64 * ROW_BYTES;
+  const uint32_t rows = SPLIT ? 0 : c * 64 * ROW_BYTES;
+  const uint32_t k_tile = base + P::SM_R0 + rows;
+  const uint32_t v_tile = base + P::SM_R1 + rows;
   const unsigned char* stats =
-      smem_raw + (base + SM_STAT - smem_u32(smem_raw));
+      smem_raw + (base + P::SM_STAT - smem_u32(smem_raw));
+  auto stat = [&](int st) { return stats + st * 2 * STAT_BYTES; };
+  auto q_stage = [&](int st) { return base + P::SM_S0 + st * P::TILE_BYTES; };
+  auto g_stage = [&](int st) { return base + P::SM_S1 + st * P::TILE_BYTES; };
+  auto k_gen = smem_raw + (k_tile - smem_u32(smem_raw));
+  auto v_gen = smem_raw + (v_tile - smem_u32(smem_raw));
 
-  float s[32], dp[32], dk[32], dv[32];
+  if constexpr (!SPLIT) {
+    float s[32], dp[32], dk[ATOMS][32], dv[ATOMS][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-  uint32_t pt[16], dst[16];
+    for (int at = 0; at < ATOMS; ++at)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[at][i] = dv[at][i] = 0.f;
+    uint32_t pt[16], dst[16];
 
-  // P^T = exp2(s * scale * log2e - lse * log2e) of stage st in place, lse
-  // per column (query row) from the stage's copy; padded query rows hold
-  // lse = +1e30.
-  auto probabilities = [&](int st) {
-    const float2* lse2 =
-        reinterpret_cast<const float2*>(stats + st * 2 * STAT_BYTES);
+    // P^T and dS^T into the bf16 A fragments of the gradient products.
+    auto pack = [&]() {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 l = lse2[(8 * j + col) / 2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float nl = -(e ? l.y : l.x) * kLog2e;
-        s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, nl));
-        s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], scale_log2, nl));
+      for (int i = 0; i < 16; ++i) {
+        pt[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+        dst[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
       }
-    }
-  };
-  // dS^T = P^T (dP^T - delta) in place in dp, delta per column (0 on
-  // padded rows).
-  auto grad_logits = [&](int st) {
-    const float2* dl2 =
-        reinterpret_cast<const float2*>(stats + (2 * st + 1) * STAT_BYTES);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 dl = dl2[(8 * j + col) / 2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = e ? dl.y : dl.x;
-        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - d);
-        dp[4 * j + 2 + e] = s[4 * j + 2 + e] * (dp[4 * j + 2 + e] - d);
-      }
-    }
-  };
-  // P^T and dS^T into the bf16 A fragments of the gradient products.
-  auto pack = [&]() {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      pt[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-      dst[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
-    }
-  };
-  // dV += P^T dO and dK += dS^T Q on stage st's dO and Q read MN-major, one
-  // commit group.
-  auto issue_grads = [&](int st) {
-    fence_regs(dk);
-    fence_regs(dv);
-    fence_regs(pt);
-    fence_regs(dst);
-    wgmma_fence();
-    issue_nn(dv, pt, base + SM_S1 + st * TILE_BYTES);
-    issue_nn(dk, dst, base + SM_S0 + st * TILE_BYTES);
-    wgmma_commit();
-  };
+    };
+    // dV += P^T dO and dK += dS^T Q on stage st's dO and Q read MN-major,
+    // one commit group.
+    auto issue_grads = [&](int st) {
+      fence_atoms(dk);
+      fence_atoms(dv);
+      fence_regs(pt);
+      fence_regs(dst);
+      wgmma_fence();
+      issue_nn(dv, pt, g_stage(st));
+      issue_nn(dk, dst, q_stage(st));
+      wgmma_commit();
+    };
 
-  // Stage 0: S^T and dP^T as two commit groups, P^T while dP^T runs.
-  mbar_wait(bar.res, 0);
-  mbar_wait(bar.full, 0);
-  issue_nt(s, k_tile, base + SM_S0);
-  issue_nt(dp, v_tile, base + SM_S1);
-  wgmma_wait<1>();
-  fence_regs(s);
-  probabilities(0);
-  wgmma_wait<0>();
-  fence_regs(dp);
-  grad_logits(0);
-  pack();
-
-  // Stage it: S^T, dP^T and the previous stage's dV and dK products in
-  // flight as three groups; the previous stage released once its gradient
-  // products are done. No group stays in flight across iterations.
-  for (int it = 1; it < n_tiles; ++it) {
-    const int st = it % STAGES;
-    const int pst = (it - 1) % STAGES;
-    mbar_wait(bar.full + 8 * st, (it / STAGES) & 1);
-    issue_nt(s, k_tile, base + SM_S0 + st * TILE_BYTES);
-    issue_nt(dp, v_tile, base + SM_S1 + st * TILE_BYTES);
-    issue_grads(pst);
-    wgmma_wait<2>();
-    fence_regs(s);
-    probabilities(st);
+    // Stage 0: S^T and dP^T as two commit groups, P^T while dP^T runs.
+    mbar_wait(bar.res, 0);
+    mbar_wait(bar.full, 0);
+    issue_nt<P>(s, k_tile, q_stage(0));
+    issue_nt<P>(dp, v_tile, g_stage(0));
     wgmma_wait<1>();
-    fence_regs(dp);
-    grad_logits(st);
+    fence_regs(s);
+    probabilities_t(s, stat(0), col, scale_log2);
     wgmma_wait<0>();
-    fence_regs(dk);
-    fence_regs(dv);
-    fence_regs(pt);
-    fence_regs(dst);
-    if (t == 0) mbar_arrive(bar.empty + 8 * pst);
+    fence_regs(dp);
+    grad_logits_t(s, dp, stat(0), col);
     pack();
-  }
-  issue_grads((n_tiles - 1) % STAGES);
-  wgmma_wait<0>();
-  fence_regs(dk);
-  fence_regs(dv);
 
-  // Stage bf16 dK * scale and dV in this warpgroup's K and V rows (idle
-  // since its last S^T and dP^T), then two TMA stores; rows past nk are
-  // dropped.
-  stage_out(smem_raw + (k_tile - smem_u32(smem_raw)), dk, scale, r0, col);
-  stage_out(smem_raw + (v_tile - smem_u32(smem_raw)), dv, 1.f, r0, col);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  named_barrier(1 + c, 128);
-  if (t == 0 && k0 + 64 * c < nk) {
-    tma_store(&tm_dk, k_tile, h * D, k0 + 64 * c, b);
-    tma_store(&tm_dv, v_tile, h * D, k0 + 64 * c, b);
+    // Stage it: S^T, dP^T and the previous stage's dV and dK products in
+    // flight as three groups; the previous stage released once its
+    // gradient products are done. No group stays in flight across
+    // iterations.
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const int pst = (it - 1) % STAGES;
+      mbar_wait(bar.full + 8 * st, (it / STAGES) & 1);
+      issue_nt<P>(s, k_tile, q_stage(st));
+      issue_nt<P>(dp, v_tile, g_stage(st));
+      issue_grads(pst);
+      wgmma_wait<2>();
+      fence_regs(s);
+      probabilities_t(s, stat(st), col, scale_log2);
+      wgmma_wait<1>();
+      fence_regs(dp);
+      grad_logits_t(s, dp, stat(st), col);
+      wgmma_wait<0>();
+      fence_atoms(dk);
+      fence_atoms(dv);
+      fence_regs(pt);
+      fence_regs(dst);
+      if (t == 0) mbar_arrive(bar.empty + 8 * pst);
+      pack();
+    }
+    issue_grads((n_tiles - 1) % STAGES);
+    wgmma_wait<0>();
+    fence_atoms(dk);
+    fence_atoms(dv);
+
+    // Stage bf16 dK * scale and dV in this warpgroup's K and V rows (idle
+    // since its last S^T and dP^T), then TMA stores; rows past nk and
+    // lanes past D are dropped.
+    stage_out(k_gen, P::RES_ATOM, dk, scale, r0, col);
+    stage_out(v_gen, P::RES_ATOM, dv, 1.f, r0, col);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_barrier(1 + c, 128);
+    if (t == 0 && k0 + 64 * c < nk) {
+#pragma unroll
+      for (int at = 0; at < ATOMS; ++at) {
+        tma_store_4d(&tm_dk, k_tile + at * P::RES_ATOM, 64 * at, h,
+                     k0 + 64 * c, b);
+        tma_store_4d(&tm_dv, v_tile + at * P::RES_ATOM, 64 * at, h,
+                     k0 + 64 * c, b);
+      }
+    }
+  } else if (c == 0) {
+    // dK: S^T, dP^T, dS^T and dK += dS^T Q per stage, pipelined as above.
+    float s[32], dp[32], dk[ATOMS][32];
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[at][i] = 0.f;
+    uint32_t dst[16];
+    auto pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dst[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+    };
+    auto issue_dk = [&](int st) {
+      fence_atoms(dk);
+      fence_regs(dst);
+      wgmma_fence();
+      issue_nn(dk, dst, q_stage(st));
+      wgmma_commit();
+    };
+    mbar_wait(bar.res, 0);
+    mbar_wait(bar.full, 0);
+    issue_nt<P>(s, k_tile, q_stage(0));
+    issue_nt<P>(dp, v_tile, g_stage(0));
+    wgmma_wait<1>();
+    fence_regs(s);
+    probabilities_t(s, stat(0), col, scale_log2);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    grad_logits_t(s, dp, stat(0), col);
+    pack();
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const int pst = (it - 1) % STAGES;
+      mbar_wait(bar.full + 8 * st, (it / STAGES) & 1);
+      issue_nt<P>(s, k_tile, q_stage(st));
+      issue_nt<P>(dp, v_tile, g_stage(st));
+      issue_dk(pst);
+      wgmma_wait<2>();
+      fence_regs(s);
+      probabilities_t(s, stat(st), col, scale_log2);
+      wgmma_wait<1>();
+      fence_regs(dp);
+      grad_logits_t(s, dp, stat(st), col);
+      wgmma_wait<0>();
+      fence_atoms(dk);
+      fence_regs(dst);
+      if (t == 0) mbar_arrive(bar.empty + 8 * pst);
+      pack();
+    }
+    issue_dk((n_tiles - 1) % STAGES);
+    wgmma_wait<0>();
+    fence_atoms(dk);
+    // both consumers are done with K and V: dK goes out through V's tile
+    named_barrier(1, 256);
+    stage_out(v_gen, P::RES_ATOM, dk, scale, r0, col);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_barrier(2, 128);
+    if (t == 0 && k0 < nk) {
+#pragma unroll
+      for (int at = 0; at < ATOMS; ++at)
+        tma_store_4d(&tm_dk, v_tile + at * P::RES_ATOM, 64 * at, h, k0, b);
+    }
+  } else {
+    // dV: S^T, P^T and dV += P^T dO per stage; the stage's dO tile is read
+    // only by the product.
+    float s[32], dv[ATOMS][32];
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dv[at][i] = 0.f;
+    uint32_t pt[16];
+    auto pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pt[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    };
+    auto issue_dv = [&](int st) {
+      fence_atoms(dv);
+      fence_regs(pt);
+      wgmma_fence();
+      issue_nn(dv, pt, g_stage(st));
+      wgmma_commit();
+    };
+    mbar_wait(bar.res, 0);
+    mbar_wait(bar.full, 0);
+    issue_nt<P>(s, k_tile, q_stage(0));
+    wgmma_wait<0>();
+    fence_regs(s);
+    probabilities_t(s, stat(0), col, scale_log2);
+    pack();
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const int pst = (it - 1) % STAGES;
+      mbar_wait(bar.full + 8 * st, (it / STAGES) & 1);
+      issue_nt<P>(s, k_tile, q_stage(st));
+      issue_dv(pst);
+      wgmma_wait<1>();
+      fence_regs(s);
+      probabilities_t(s, stat(st), col, scale_log2);
+      wgmma_wait<0>();
+      fence_atoms(dv);
+      fence_regs(pt);
+      if (t == 0) mbar_arrive(bar.empty + 8 * pst);
+      pack();
+    }
+    issue_dv((n_tiles - 1) % STAGES);
+    wgmma_wait<0>();
+    fence_atoms(dv);
+    named_barrier(1, 256);
+    stage_out(k_gen, P::RES_ATOM, dv, 1.f, r0, col);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_barrier(3, 128);
+    if (t == 0 && k0 < nk) {
+#pragma unroll
+      for (int at = 0; at < ATOMS; ++at)
+        tma_store_4d(&tm_dv, k_tile + at * P::RES_ATOM, 64 * at, h, k0, b);
+    }
   }
 }
 
-// A map of a [B, N, ld] bf16 tensor with a {64, rows, 1} box.
-bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int N,
-            int ld, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)N * ld * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
-  return encode_bf16_sw128(fn, map, ptr, 3, dims, strides, box);
+// A map of the heads of a [B, N, ld] bf16 tensor: {D, H, N, B} (head h at
+// channels [Dh, Dh + D)), a {64, 1, rows, 1} box. Lanes of a box past D and
+// rows past N read as zeros and are not stored.
+bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int H,
+            int N, int D, int ld, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)ld * 2,
+                                 (cuuint64_t)N * ld * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_bf16_sw128(fn, map, ptr, 4, dims, strides, box);
 }
 
-// What both entry points check: a 64-wide head, TMA's 16-byte row strides,
-// statistics rows covering every 64-row stage, 16-byte aligned statistics.
-int check_args(int B, int H, int nq, int nk, int D_, int ldq, int ldkv,
+// What both entry points check: a head width with an instantiation, TMA's
+// 16-byte row strides, rows holding every head, statistics rows covering
+// every 64-row stage, 16-byte aligned statistics.
+int check_args(int B, int H, int nq, int nk, int D, int ldq, int ldkv,
                int ld_stat, const void* lse, const void* delta) {
-  if (D_ != D || B < 1 || H < 1 || nq < 1 || nk < 1 || ldq % 8 || ldkv % 8 ||
-      ld_stat % STAT_PAD || ld_stat < nq ||
+  if ((D != 40 && D != 64 && D != 80 && D != 160) || B < 1 || H < 1 ||
+      nq < 1 || nk < 1 || ldq % 8 || ldkv % 8 || ldq < D * H ||
+      ldkv < D * H || ld_stat % STAT_PAD || ld_stat < nq ||
       reinterpret_cast<uintptr_t>(lse) % 16 ||
       reinterpret_cast<uintptr_t>(delta) % 16)
     return (int)cudaErrorInvalidValue;
@@ -540,45 +779,89 @@ int check_args(int B, int H, int nq, int nk, int D_, int ldq, int ldkv,
 }
 
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel) {
+cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_REQUEST);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int D>
+cudaError_t launch_dq(const CUtensorMap (&maps)[5], const float* lse,
+                      const float* delta, int B, int H, int nq, int nk,
+                      int ld_stat, float scale, cudaStream_t stream) {
+  constexpr int smem = Plan<D, BM_DQ>::SMEM_REQUEST;
+  cudaError_t e = prepare(flash_bwd_dq_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(cdiv(nq, BM_DQ), B * H);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, delta, H, ld_stat, nq,
+      nk, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* const (&ptrs)[6], const float* lse,
+                       const float* delta, int B, int H, int nq, int nk,
+                       int ldq, int ldkv, int ld_stat, float scale,
+                       cudaStream_t stream) {
+  constexpr int bm = kDkvRows<D>;
+  constexpr int smem = Plan<D, bm>::SMEM_REQUEST;
+  const EncodeTiledFn fn = encode_tiled();
+  CUtensorMap maps[6];
+  if (!encode(fn, &maps[0], ptrs[0], B, H, nk, D, ldkv, bm) ||   // k
+      !encode(fn, &maps[1], ptrs[1], B, H, nk, D, ldkv, bm) ||   // v
+      !encode(fn, &maps[2], ptrs[2], B, H, nq, D, ldq, BN) ||    // q
+      !encode(fn, &maps[3], ptrs[3], B, H, nq, D, ldq, BN) ||    // dO
+      !encode(fn, &maps[4], ptrs[4], B, H, nk, D, ldkv, 64) ||   // dk
+      !encode(fn, &maps[5], ptrs[5], B, H, nk, D, ldkv, 64))     // dv
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare(flash_bwd_dkv_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(cdiv(nk, bm), B * H);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], lse, delta, H,
+      ld_stat, nq, nk, scale, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dQ of the attention backward. q/g/dq: [B, nq, ldq] bf16; k/v: [B, nk,
-// ldkv] bf16; all 16-byte aligned with row strides a multiple of 8
-// elements. lse/delta: [B*H, ld_stat] fp32, ld_stat a multiple of 64 and
-// at least nq, rows past nq padded with lse = +1e30 and delta = 0. Returns
-// cudaSuccess (0) or the error of the checks, the map encoding, the
-// attribute call or the launch.
+// dQ of the attention backward at head width D (40, 64, 80 or 160). q/g/dq:
+// [B, nq, ldq] bf16; k/v: [B, nk, ldkv] bf16; all 16-byte aligned with row
+// strides a multiple of 8 elements and at least H D. lse/delta: [B*H,
+// ld_stat] fp32, ld_stat a multiple of 64 and at least nq, rows past nq
+// padded with lse = +1e30 and delta = 0. Returns cudaSuccess (0) or the
+// error of the checks, the map encoding, the attribute call or the launch.
 int mt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                               const void* g, const void* lse,
                               const void* delta, void* dq, int B, int H,
-                              int nq, int nk, int D_, int ldq, int ldkv,
+                              int nq, int nk, int D, int ldq, int ldkv,
                               int ld_stat, float scale, void* stream) {
-  int err = check_args(B, H, nq, nk, D_, ldq, ldkv, ld_stat, lse, delta);
+  int err = check_args(B, H, nq, nk, D, ldq, ldkv, ld_stat, lse, delta);
   if (err) return err;
   const EncodeTiledFn fn = encode_tiled();
   CUtensorMap maps[5];
-  if (!encode(fn, &maps[0], q, B, nq, ldq, BM) ||
-      !encode(fn, &maps[1], g, B, nq, ldq, BM) ||
-      !encode(fn, &maps[2], k, B, nk, ldkv, BN) ||
-      !encode(fn, &maps[3], v, B, nk, ldkv, BN) ||
-      !encode(fn, &maps[4], dq, B, nq, ldq, 64))
+  if (!encode(fn, &maps[0], q, B, H, nq, D, ldq, BM_DQ) ||
+      !encode(fn, &maps[1], g, B, H, nq, D, ldq, BM_DQ) ||
+      !encode(fn, &maps[2], k, B, H, nk, D, ldkv, BN) ||
+      !encode(fn, &maps[3], v, B, H, nk, D, ldkv, BN) ||
+      !encode(fn, &maps[4], dq, B, H, nq, D, ldq, 64))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = prepare(flash_bwd_dq_kernel);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(cdiv(nq, BM), B * H);
-  flash_bwd_dq_kernel<<<grid, THREADS, SMEM_REQUEST,
-                        static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4],
-      static_cast<const float*>(lse), static_cast<const float*>(delta), H,
-      ld_stat, nq, nk, scale, scale * kLog2e);
-  return (int)cudaGetLastError();
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 40:
+      return (int)launch_dq<40>(maps, ls, dl, B, H, nq, nk, ld_stat, scale, st);
+    case 64:
+      return (int)launch_dq<64>(maps, ls, dl, B, H, nq, nk, ld_stat, scale, st);
+    case 80:
+      return (int)launch_dq<80>(maps, ls, dl, B, H, nq, nk, ld_stat, scale, st);
+    default:
+      return (int)launch_dq<160>(maps, ls, dl, B, H, nq, nk, ld_stat, scale,
+                                 st);
+  }
 }
 
 // dK and dV of the attention backward; dk/dv: [B, nk, ldkv] bf16, the
@@ -586,29 +869,29 @@ int mt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
 int mt_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* g, const void* lse,
                                const void* delta, void* dk, void* dv, int B,
-                               int H, int nq, int nk, int D_, int ldq,
+                               int H, int nq, int nk, int D, int ldq,
                                int ldkv, int ld_stat, float scale,
                                void* stream) {
-  int err = check_args(B, H, nq, nk, D_, ldq, ldkv, ld_stat, lse, delta);
+  int err = check_args(B, H, nq, nk, D, ldq, ldkv, ld_stat, lse, delta);
   if (err) return err;
-  const EncodeTiledFn fn = encode_tiled();
-  CUtensorMap maps[6];
-  if (!encode(fn, &maps[0], k, B, nk, ldkv, BM) ||
-      !encode(fn, &maps[1], v, B, nk, ldkv, BM) ||
-      !encode(fn, &maps[2], q, B, nq, ldq, BN) ||
-      !encode(fn, &maps[3], g, B, nq, ldq, BN) ||
-      !encode(fn, &maps[4], dk, B, nk, ldkv, 64) ||
-      !encode(fn, &maps[5], dv, B, nk, ldkv, 64))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = prepare(flash_bwd_dkv_kernel);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(cdiv(nk, BM), B * H);
-  flash_bwd_dkv_kernel<<<grid, THREADS, SMEM_REQUEST,
-                         static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
-      static_cast<const float*>(lse), static_cast<const float*>(delta), H,
-      ld_stat, nq, nk, scale, scale * kLog2e);
-  return (int)cudaGetLastError();
+  const void* const ptrs[6] = {k, v, q, g, dk, dv};
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 40:
+      return (int)launch_dkv<40>(ptrs, ls, dl, B, H, nq, nk, ldq, ldkv,
+                                 ld_stat, scale, st);
+    case 64:
+      return (int)launch_dkv<64>(ptrs, ls, dl, B, H, nq, nk, ldq, ldkv,
+                                 ld_stat, scale, st);
+    case 80:
+      return (int)launch_dkv<80>(ptrs, ls, dl, B, H, nq, nk, ldq, ldkv,
+                                 ld_stat, scale, st);
+    default:
+      return (int)launch_dkv<160>(ptrs, ls, dl, B, H, nq, nk, ldq, ldkv,
+                                  ld_stat, scale, st);
+  }
 }
 
 const char* mt_cuda_error_string(int err) {

@@ -13,9 +13,9 @@
 //   * _flash_kernel_dt (exact online softmax; :460), the parity pin;
 //   * _flash_kernel through flash_attention (the folded [BH, N, D] entry;
 //     :522), run online with one head per batch row;
-//   * _flash_kernel_dt_lse (the training forward; :638; D = 64 only, the
-//     width the backward kernels take): online, and it writes the row
-//     logsumexp the backward reads.
+//   * _flash_kernel_dt_lse (the training forward; :638): online, and it
+//     writes the row logsumexp the backward kernels
+//     (flash_bwd_dq_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu) read.
 // At D = 64 it took the place of a CUDA-core FFMA design (64 x 64 tiles,
 // one in flight; 4.058 ms shifted and 3.772 ms online at [1, 9216, 320]
 // h = 5, PERF.md). The 512-wide fp32 forward is flash_fwd_d512_f32_sm90.cu.
@@ -275,23 +275,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
 #pragma unroll
     for (int sub = 0; sub < KS; ++sub) {
       wait_full(n + sub);
-      const uint32_t slot = slot_of(n + sub);
-      wgmma_fence();
-#pragma unroll
-      for (int gg = 0; gg < 8; ++gg) {  // the substage's 64 d lanes
-        const int g = 8 * sub + gg;
-        if (g >= D / 8) break;
-        const int i = g / 4;  // the 32-lane box of Q, and of K in the slot
-        const uint32_t ra = i * RES_BOX + 32 * (g % 4);
-        const uint32_t rb = (i % 2) * ATT_BOX + 32 * (g % 4);
-        const uint32_t a_hi = kdesc(qh + ra), a_lo = kdesc(ql + ra);
-        const uint32_t b_hi = kdesc(slot + rb);
-        const uint32_t b_lo = kdesc(slot + 2 * ATT_BOX + rb);
-        wgmma_m64n64k8_tf32_ss(s, a_lo, b_hi, g > 0);
-        wgmma_m64n64k8_tf32_ss(s, a_hi, b_lo, 1);
-        wgmma_m64n64k8_tf32_ss(s, a_hi, b_hi, 1);
-      }
-      wgmma_commit();
+      wgmma_att_nt<D>(s, qh, ql, RES_BOX, slot_of(n + sub), sub);
       wgmma_wait<0>();
       fence_regs(s);
       release(n + sub);
@@ -403,31 +387,6 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   }
 }
 
-// A map of the heads of a [B, N, ld] fp32 tensor: {D, H, N, B} (head h at
-// channels [Dh, Dh + D)), a {32, 1, rows, 1} box.
-bool encode_heads(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
-                  int H, int N, int D, int ld, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)ld * 4,
-                                 (cuuint64_t)N * ld * 4};
-  const cuuint32_t box[4] = {TF32_ROW, 1, (cuuint32_t)rows, 1};
-  return encode_f32_sw128(fn, map, ptr, 4, dims, strides, box);
-}
-
-// A map of the heads of a transposed [B, ld, NKP] copy: {NKP, D, H, B}, a
-// {32 keys, 64 rows, 1, 1} box (rows past D read as zeros).
-bool encode_heads_t(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
-                    int B, int H, int nkp, int D, int ld) {
-  const cuuint64_t dims[4] = {(cuuint64_t)nkp, (cuuint64_t)D, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)nkp * 4,
-                                 (cuuint64_t)D * nkp * 4,
-                                 (cuuint64_t)ld * nkp * 4};
-  const cuuint32_t box[4] = {TF32_ROW, 64, 1, 1};
-  return encode_f32_sw128(fn, map, ptr, 4, dims, strides, box);
-}
-
 // The TMA maps of one call: q_hi, q_lo, k_hi, k_lo ([B, N, ld]) and
 // vt_hi, vt_lo ([B, ld, round_up(nk, 8)]). False if the encode refuses one.
 bool encode_maps(CUtensorMap (&maps)[6], const void* const (&ptrs)[6], int B,
@@ -518,23 +477,39 @@ int mt_flash_fwd_f32(const void* q_hi, const void* q_lo, const void* k_hi,
   }
 }
 
-// The training forward at D = 64: online, and lse [B*H, nq] fp32 in
-// natural-log units. Other arguments as mt_flash_fwd_f32's.
+// The training forward at head width D (40, 64, 80 or 160): online, and
+// lse [B*H, nq] fp32 in natural-log units. Other arguments as
+// mt_flash_fwd_f32's.
 int mt_flash_fwd_lse_f32(const void* q_hi, const void* q_lo, const void* k_hi,
                          const void* k_lo, const void* vt_hi,
                          const void* vt_lo, void* o, void* lse, int B, int H,
-                         int nq, int nk, int ld, int ldo, float scale,
+                         int nq, int nk, int D, int ld, int ldo, float scale,
                          void* stream) {
-  if (bad_args(B, H, nq, nk, 64, ld, ldo) || lse == nullptr)
+  if (bad_args(B, H, nq, nk, D, ld, ldo) || lse == nullptr)
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[6];
   if (!encode_maps(maps, {q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo}, B, H, nq, nk,
-                   64, ld))
+                   D, ld))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<64, true, true>(maps, nullptr, static_cast<float*>(o),
-                                     static_cast<float*>(lse), B, H, nq, nk,
-                                     ldo, scale,
-                                     static_cast<cudaStream_t>(stream));
+  float* of = static_cast<float*>(o);
+  float* ls = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 40:
+      return (int)launch<40, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
+                                         ldo, scale, st);
+    case 64:
+      return (int)launch<64, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
+                                         ldo, scale, st);
+    case 80:
+      return (int)launch<80, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
+                                         ldo, scale, st);
+    case 160:
+      return (int)launch<160, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
+                                          ldo, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mt_cuda_error_string(int err) {

@@ -10,8 +10,9 @@
 // marigold_tpu/ops/flash_attention.py kernels:
 //   * _flash_kernel_dt_shifted  (shifted softmax; pallas_call at :396)
 //   * _flash_kernel_dt          (exact online softmax; :460)
-//   * _flash_kernel_dt_lse      (online softmax + row logsumexp; :638; D = 64
-//     only, the width the backward kernels take)
+//   * _flash_kernel_dt_lse      (online softmax + row logsumexp; :638), the
+//     training forward whose lse the backward kernels (flash_bwd_sm90.cu)
+//     read
 //   * _flash_kernel             (the folded [BH, N, D] entry; :522), which the
 //     wrapper runs as the online variant with one head per batch row.
 // The 512-wide VAE head has its own kernel, flash_fwd_d512_sm90.cu.
@@ -411,10 +412,15 @@ cudaError_t launch(const CUtensorMap* maps, const float* shift, float* lse,
   return cudaGetLastError();
 }
 
+// The training forward (online, with the lse) when `lse` is given, else
+// the serving forward in the caller's mode.
 template <int D>
 cudaError_t launch_mode(const CUtensorMap* maps, const float* shift,
                         float* lse, int B, int H, int nq, int nk, float scale,
                         int online, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch<D, true, true>(maps, shift, lse, B, H, nq, nk, scale,
+                                 stream);
   if (online)
     return launch<D, true, false>(maps, shift, lse, B, H, nq, nk, scale,
                                   stream);
@@ -431,7 +437,7 @@ extern "C" {
 // q and o are [B, nq, ldq/ldo], k and v [B, nk, ldkv] bf16, 16-byte
 // aligned, with row strides a multiple of 8 elements (TMA's 16-byte rule);
 // `shift` is [B*H, nq] fp32 in shifted mode, `lse` [B*H, nq] fp32 or null
-// (D = 64 only). Returns cudaSuccess or the error of the checks, the map
+// (the training forward, online only). Returns cudaSuccess or the error of the checks, the map
 // encoding, the attribute call or the launch.
 int mt_flash_fwd_sm90(const void* q, const void* k, const void* v,
                       const void* shift, void* o, void* lse, int B, int H,
@@ -440,7 +446,7 @@ int mt_flash_fwd_sm90(const void* q, const void* k, const void* v,
   if (B < 1 || H < 1 || nq < 1 || nk < 1 || ldq % 8 || ldkv % 8 || ldo % 8 ||
       ldq < D * H || ldkv < D * H || ldo < D * H ||
       (!online && shift == nullptr) ||
-      (lse != nullptr && (!online || D != 64)))
+      (lse != nullptr && !online))
     return (int)cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
@@ -458,8 +464,6 @@ int mt_flash_fwd_sm90(const void* q, const void* k, const void* v,
     case 40:
       return launch_mode<40>(maps, sh, ls, B, H, nq, nk, scale, online, st);
     case 64:
-      if (ls != nullptr)
-        return launch<64, true, true>(maps, sh, ls, B, H, nq, nk, scale, st);
       return launch_mode<64>(maps, sh, ls, B, H, nq, nk, scale, online, st);
     case 80:
       return launch_mode<80>(maps, sh, ls, B, H, nq, nk, scale, online, st);

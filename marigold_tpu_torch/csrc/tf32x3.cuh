@@ -3,8 +3,8 @@
 // flash_bwd_dq_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu, conv3x3_f32_sm90.cu,
 // winograd_f32_sm90.cu) and the operand split the attention kernels read
 // (tf32_split.cu): the split of an fp32 value into two TF32 parts, the tf32
-// wgmma wrappers, the accumulator-to-A-fragment packing, the 64-wide
-// attention kernels' tile products and the fp32 tensor-map encode.
+// wgmma wrappers, the accumulator-to-A-fragment packing, the attention
+// kernels' tile products and the fp32 tensor-map encodes.
 //
 // 3xTF32. wgmma takes fp32 storage only as tf32 (the top 19 bits of each
 // 32-bit word: 10 mantissa bits). One tf32 product keeps ~2^-11 of each
@@ -199,29 +199,36 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
         "r"(KDESC_HI));
 }
 
-// The tiles of the 64-wide attention kernels (flash_fwd_d64_f32_sm90.cu,
-// flash_bwd_dq_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu). A resident [128, 64]
-// fp32 tile is two TMA boxes of {32 columns, 128 rows}, ATT_RES_BOX bytes
-// each, a consumer's 64 rows 8 KB into each; a ring slot is four boxes of
-// {32 columns, 64 rows}, ATT_BOX bytes each: hi columns 0-31 and 32-63,
-// then lo columns 0-31 and 32-63.
+// The tiles of the attention kernels (flash_fwd_d64_f32_sm90.cu,
+// flash_bwd_dq_f32_sm90.cu, flash_bwd_dkv_f32_sm90.cu). A resident tile of
+// R rows at head width D is ceil(D / 32) TMA boxes of {32 lanes, R rows},
+// R x 128 bytes each (ATT_RES_BOX at 128 rows), a consumer's 64 rows 8 KB
+// into each when R = 128; a ring slot is four boxes of {32 lanes, 64
+// rows}, ATT_BOX bytes each: hi lanes [64 sub, 64 sub + 32) and
+// [64 sub + 32, 64 sub + 64) of a substage `sub`, then lo the same (or, in
+// a transposed slot, hi keys 0-31 and 32-63 of 64 head rows, then lo).
 constexpr int ATT_RES_BOX = 128 * 128;  // 16 KB
 constexpr int ATT_BOX = 64 * 128;       // 8 KB
 
-// x (+)= A B^T over 64 columns, 3xTF32: A a consumer's 64 rows of a
-// resident tile (hi at `ah`, lo at `al`), B a slot's [64, 64] tile. One
-// commit group; the first k8 step overwrites x.
+// x (+)= A B^T over the head lanes [64 sub, 64 sub + 64) below D, 3xTF32:
+// A a consumer's rows of a resident tile (hi at `ah`, lo at `al`, its
+// 32-lane boxes `res_box` bytes apart), B a slot's [64, 64] tile of those
+// lanes. One commit group; the first k8 step of substage 0 overwrites x.
+template <int D>
 __device__ __forceinline__ void wgmma_att_nt(float (&x)[32], uint32_t ah,
-                                             uint32_t al, uint32_t slot) {
+                                             uint32_t al, uint32_t res_box,
+                                             uint32_t slot, int sub) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t ra = (kk / 4) * ATT_RES_BOX + 32 * (kk % 4);
-    const uint32_t rb = (kk / 4) * ATT_BOX + 32 * (kk % 4);
+  for (int gg = 0; gg < 8; ++gg) {
+    const int g = 8 * sub + gg;  // the k8 step: head lanes [8g, 8g + 8)
+    if (g >= D / 8) break;
+    const uint32_t ra = (g / 4) * res_box + 32 * (g % 4);
+    const uint32_t rb = (gg / 4) * ATT_BOX + 32 * (g % 4);
     const uint32_t a_hi = kdesc(ah + ra), a_lo = kdesc(al + ra);
     const uint32_t b_hi = kdesc(slot + rb);
     const uint32_t b_lo = kdesc(slot + 2 * ATT_BOX + rb);
-    wgmma_m64n64k8_tf32_ss(x, a_lo, b_hi, kk > 0);
+    wgmma_m64n64k8_tf32_ss(x, a_lo, b_hi, g > 0);
     wgmma_m64n64k8_tf32_ss(x, a_hi, b_lo, 1);
     wgmma_m64n64k8_tf32_ss(x, a_hi, b_hi, 1);
   }
@@ -283,6 +290,34 @@ inline bool encode_f32_rows(EncodeTiledFn fn, CUtensorMap* map,
                                  (cuuint64_t)rows * ld * 4};
   const cuuint32_t box[3] = {(cuuint32_t)TF32_ROW, (cuuint32_t)box_rows, 1};
   return encode_f32_sw128(fn, map, ptr, 3, dims, strides, box);
+}
+
+// A map of the heads of a [B, N, ld] fp32 tensor: {D, H, N, B} (head h at
+// channels [Dh, Dh + D)), a {32, 1, rows, 1} box; a box's lanes past D read
+// as zeros, never the next head's (the head stride, 4 D bytes, a multiple
+// of 16 for D a multiple of 4).
+inline bool encode_heads(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
+                         int B, int H, int N, int D, int ld, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)ld * 4,
+                                 (cuuint64_t)N * ld * 4};
+  const cuuint32_t box[4] = {TF32_ROW, 1, (cuuint32_t)rows, 1};
+  return encode_f32_sw128(fn, map, ptr, 4, dims, strides, box);
+}
+
+// A map of the heads of a transposed [B, ld, NP] copy (tf32_split.cu):
+// {NP, D, H, B}, a {32 columns, 64 rows, 1, 1} box (rows past D read as
+// zeros).
+inline bool encode_heads_t(EncodeTiledFn fn, CUtensorMap* map,
+                           const void* ptr, int B, int H, int np, int D,
+                           int ld) {
+  const cuuint64_t dims[4] = {(cuuint64_t)np, (cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)np * 4, (cuuint64_t)D * np * 4,
+                                 (cuuint64_t)ld * np * 4};
+  const cuuint32_t box[4] = {TF32_ROW, 64, 1, 1};
+  return encode_f32_sw128(fn, map, ptr, 4, dims, strides, box);
 }
 
 }  // namespace

@@ -2,12 +2,12 @@
 (`csrc/flash_fwd_sm90.cu` for every bf16 forward at head widths 40, 64, 80
 and 160, `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one,
 `csrc/flash_attention.cu` for their C entry points, `csrc/flash_bwd_sm90.cu`
-for the dQ and dK/dV backward; in fp32 `csrc/flash_fwd_d64_f32_sm90.cu` for
-the forwards at 40, 64, 80 and 160, `csrc/flash_fwd_d512_f32_sm90.cu` for
-the 512-wide one,
+for the dQ and dK/dV backward at 40, 64, 80 and 160; in fp32
+`csrc/flash_fwd_d64_f32_sm90.cu` for the forwards at 40, 64, 80 and 160,
+`csrc/flash_fwd_d512_f32_sm90.cu` for the 512-wide one,
 `csrc/flash_bwd_dq_f32_sm90.cu` for dQ, `csrc/flash_bwd_dkv_f32_sm90.cu` for
-dK/dV and `csrc/tf32_split.cu` for the operand split they all read) and
-their plain PyTorch versions.
+dK/dV (both at 40, 64, 80 and 160) and `csrc/tf32_split.cu` for the operand
+split they all read) and their plain PyTorch versions.
 
 Replaces the TPU package's `marigold_tpu/ops/flash_attention.py` kernels:
   * serving forward, `_flash_dt_impl` and its three Pallas kernels:
@@ -36,12 +36,12 @@ Under autograd (`FlashAttentionFunction`, which `ops/attention.py` calls
 when an input requires grad) the forward is the exact online softmax with
 the logsumexp whatever the serving mode, and the backward recomputes P from
 it, as the TPU package's `_flash_dt_fwd`/`_flash_dt_bwd` do. The kernels
-for that take 64-wide heads; the 512-wide VAE head (which the TPU
-package's `_use_pallas_bwd` also keeps off its kernels) takes the serving
-forward and the plain backward `flash_attention_bwd_plain`; the widths 40,
-80 and 160 (`SERVING_ONLY_HEAD_DIMS`), whose TPU backward runs Pallas
-kernels, raise on a CUDA tensor until their training kernels exist
-(ROADMAP queue 2).
+for that take the UNet head widths of TRAIN_HEAD_DIMS (SD2's 64; an
+SD1.x-class UNet's 40, 80 and 160), at any N (the TPU package's
+`_use_pallas_bwd` sends rows over 6 MiB to its XLA backward, a VMEM
+limit: the math is the same); the 512-wide VAE head (which
+`_use_pallas_bwd` also keeps off its kernels) takes the serving forward and
+the plain backward `flash_attention_bwd_plain`.
 
 fp32 storage takes every kernel to an fp32-accurate design, as the Pallas
 kernels take fp32 storage: the serving forwards in both softmax modes and
@@ -74,7 +74,8 @@ plain version only for a tensor on the CPU. The raw kernel wrappers are not
 differentiable and raise when called with grad enabled on an input that
 requires grad. `launches` counts kernel launches by variant
 ("shifted_d<D>", "online_d<D>" and "folded_d<D>" for each D in HEAD_DIMS,
-"lse_d64", "bwd_dq_d64", "bwd_dkv_d64") for bf16, and
+"lse_d<D>", "bwd_dq_d<D>", "bwd_dkv_d<D>" for each D in TRAIN_HEAD_DIMS)
+for bf16, and
 `launches_f32` those of the fp32 kernels by the same names, and the
 operand split as "tf32_split".
 """
@@ -94,13 +95,7 @@ SHIFT_SAMPLE_TARGET = 128  # ~128 sampled K columns per row
 EXP_CLAMP = 75.0
 SOFTMAX_MODES = ("shifted", "online")
 HEAD_DIMS = (40, 64, 80, 160, 512)  # the serving forwards' instantiations
-TRAIN_HEAD_DIMS = (64,)  # the lse forward and the backward kernels
-# widths whose TPU backward runs Pallas kernels (`_use_pallas_bwd`) and
-# whose training kernels the port does not have yet: autograd on a CUDA
-# tensor raises there rather than run the plain backward
-SERVING_ONLY_HEAD_DIMS = (40, 80, 160)
-TRAIN_WIDTHS_ITEM = ("the lse forward, dQ and dK/dV at head widths 40, 80 "
-                     "and 160 are ROADMAP queue 2 (SD1.x-class fine-tuning)")
+TRAIN_HEAD_DIMS = (40, 64, 80, 160)  # the lse forward and the backward kernels
 # the dtypes whose kernels read q, k and v in place at any row stride
 # (`flash_attention_packed`); the fp32 route splits them into contiguous
 # tf32 copies first
@@ -359,7 +354,7 @@ def _f32_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_f32", F32_SOURCES)
     _bind(lib, "mt_flash_fwd_f32", 8, 8)
     _bind(lib, "mt_flash_fwd_d512_f32", 8, 7)
-    _bind(lib, "mt_flash_fwd_lse_f32", 8, 6)
+    _bind(lib, "mt_flash_fwd_lse_f32", 8, 7)
     return lib
 
 
@@ -588,8 +583,9 @@ def flash_attention_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (out [B, Nq, C], lse [B*H, Nq] fp32), exact
     online softmax. On a CUDA tensor this launches the Hopper kernel (bf16,
-    or fp32: the split, then `csrc/flash_fwd_d64_f32_sm90.cu`; head dim 64)
-    or raises; on a CPU tensor it runs `flash_attention_lse_plain`."""
+    or fp32: the split, then `csrc/flash_fwd_d64_f32_sm90.cu`; a head dim in
+    TRAIN_HEAD_DIMS) or raises; on a CPU tensor it runs
+    `flash_attention_lse_plain`."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, num_heads)
@@ -597,7 +593,7 @@ def flash_attention_lse(
     nk = k.shape[1]
     d = c // num_heads
     _check_cuda({"q": q, "k": k, "v": v}, d, TRAIN_HEAD_DIMS, b * num_heads)
-    check_tma({"q": q, "k": k, "v": v})
+    check_tma({"q": q, "k": k, "v": v}, d)
     out = torch.empty_like(q)
     lse = torch.empty((b * num_heads, nq), device=q.device, dtype=torch.float32)
     if q.dtype == torch.float32:
@@ -605,7 +601,7 @@ def flash_attention_lse(
         operands = _split_fwd_f32(q, k, v)
         fn, args = lib.mt_flash_fwd_lse_f32, (
             *(t.data_ptr() for t in operands), out.data_ptr(),
-            lse.data_ptr(), b, num_heads, nq, nk, c, c)
+            lse.data_ptr(), b, num_heads, nq, nk, d, c, c)
     else:
         lib, counter = _library(), launches
         fn, args = lib.mt_flash_attention_fwd_lse, (
@@ -655,10 +651,10 @@ def flash_attention_bwd(
     lse. On a CUDA tensor this launches the dQ kernel and the dK/dV kernel
     (bf16 after `bwd_stats`; fp32 after one split, `split_bwd_f32`: dQ on
     `csrc/flash_bwd_dq_f32_sm90.cu`, which also writes the padded
-    statistics, dK/dV on `csrc/flash_bwd_dkv_f32_sm90.cu`; head dim 64; q,
-    k, v and dout as TMA takes them, `check_tma`) or raises; on a CPU tensor
-    it runs `flash_attention_bwd_plain` (which recomputes the softmax
-    itself)."""
+    statistics, dK/dV on `csrc/flash_bwd_dkv_f32_sm90.cu`; a head dim in
+    TRAIN_HEAD_DIMS; q, k, v and dout as TMA takes them, `check_tma`) or
+    raises; on a CPU tensor it runs `flash_attention_bwd_plain` (which
+    recomputes the softmax itself)."""
     _check_inputs(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, num_heads)
@@ -670,7 +666,7 @@ def flash_attention_bwd(
     if lse.shape != (b * num_heads, nq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 [{b * num_heads}, {nq}]")
-    check_tma({"q": q, "k": k, "v": v, "dout": dout})
+    check_tma({"q": q, "k": k, "v": v, "dout": dout}, d)
     _check_cuda({"q": q, "k": k, "v": v, "dout": dout, "out": out}, d,
                 TRAIN_HEAD_DIMS, b * num_heads)
     if q.dtype == torch.float32:
@@ -802,24 +798,18 @@ class FlashAttentionFunction(torch.autograd.Function):
     `flash_attention_dt` custom VJP (`_flash_dt_fwd`, `_flash_dt_bwd`).
 
     apply(q, k, v, num_heads, softmax) with q: [B, Nq, C], k/v: [B, Nk, C].
-    For 64-wide heads the forward is the exact online softmax with the row
-    logsumexp (`flash_attention_lse_op`), whatever the serving `softmax` mode,
-    and the backward runs the dQ and dK/dV kernels (`flash_attention_bwd`).
-    The 512-wide VAE head, whose rows the TPU package's `_use_pallas_bwd`
-    also rejects, runs the serving forward in `softmax` mode and the plain
-    chunked backward. On a CUDA tensor the widths of SERVING_ONLY_HEAD_DIMS
-    raise NotImplementedError: the TPU package trains them on its kernels,
-    and the port's are not written yet (it never runs the plain backward in
-    their place)."""
+    For heads of TRAIN_HEAD_DIMS (40, 64, 80, 160) the forward is the exact
+    online softmax with the row logsumexp (`flash_attention_lse_op`),
+    whatever the serving `softmax` mode, and the backward runs the dQ and
+    dK/dV kernels (`flash_attention_bwd`); on a CPU tensor their plain
+    versions. The 512-wide VAE head, whose rows the TPU package's
+    `_use_pallas_bwd` also rejects, runs the serving forward in `softmax`
+    mode and the plain chunked backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, softmax: str = "shifted"):
         _check_inputs(q, k, v, num_heads, softmax)
         d = q.shape[2] // num_heads
-        if q.device.type == "cuda" and d in SERVING_ONLY_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash attention under autograd at head dim {d}: "
-                f"{TRAIN_WIDTHS_ITEM}")
         ctx.num_heads = num_heads
         ctx.kernel_bwd = d in TRAIN_HEAD_DIMS
         if ctx.kernel_bwd:

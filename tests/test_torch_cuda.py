@@ -709,9 +709,10 @@ def test_f32_folded_flash_matches_plain(cuda, bh, n, d):
     _f32_close(out, fa.flash_attention_plain(q, k, v, 1, "online"))
 
 
-# one split before the lse forward, one for the whole backward
-F32_TRAIN_LAUNCHES = {"lse_d64": 1, "bwd_dq_d64": 1, "bwd_dkv_d64": 1,
-                      "tf32_split": 2}
+def f32_train_launches(d: int) -> dict:
+    """One split before the lse forward, one for the whole backward."""
+    return {f"lse_d{d}": 1, f"bwd_dq_d{d}": 1, f"bwd_dkv_d{d}": 1,
+            "tf32_split": 2}
 
 
 @pytest.mark.parametrize("b,nq,nk,c,heads", [
@@ -720,6 +721,10 @@ F32_TRAIN_LAUNCHES = {"lse_d64": 1, "bwd_dq_d64": 1, "bwd_dkv_d64": 1,
     (1, 127, 129, 128, 2),    # a row short of a block, a key past two tiles
     (2, 129, 128, 64, 1),     # a row past a block
     (2, 1300, 1100, 320, 5),  # ragged, B > 1, nq > nk
+    (2, 1300, 1100, 320, 8),  # d=40: lanes past D in each 32-lane box
+    (1, 65, 130, 640, 8),     # d=80: 64-row blocks, a row past one
+    (1, 1100, 1300, 1280, 8),  # d=160: the 2-slot ring, nq < nk
+    (2, 130, 77, 1280, 8),    # d=160: fewer keys than two tiles
 ])
 def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     """The fp32 lse forward (csrc/flash_fwd_d64_f32_sm90.cu) and the dQ and
@@ -732,10 +737,11 @@ def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
             for _ in range(2))
     k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda")
             for _ in range(2))
+    want = f32_train_launches(c // heads)
     before, bf16 = dict(fa.launches_f32), sum(fa.launches.values())
     out, lse = fa.flash_attention_lse(q, k, v, heads)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
-    assert _f32_launched(before) == F32_TRAIN_LAUNCHES
+    assert _f32_launched(before) == want
     out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
     refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
     assert lse.dtype == torch.float32 and lse.shape == (b * heads, nq)
@@ -750,7 +756,7 @@ def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     before = dict(fa.launches_f32)
     out_f = fa.FlashAttentionFunction.apply(*leaves, heads, "shifted")
     out_f.backward(g)
-    assert _f32_launched(before) == F32_TRAIN_LAUNCHES
+    assert _f32_launched(before) == want
     assert sum(fa.launches.values()) == bf16
     _f32_close(out_f.detach(), out_p)
     for leaf, ref in zip(leaves, refs):
@@ -761,6 +767,8 @@ def test_f32_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     (1, 64, 100, 64, 1),      # a whole 64-row stage: no padding
     (2, 129, 128, 128, 2),    # 63 padded rows, past the first 128-row block
     (1, 1300, 1100, 320, 5),  # the last block's rows run past the padding
+    (1, 130, 100, 640, 8),    # d=80: 64-row blocks, one consumer writes
+    (2, 70, 200, 1280, 8),    # d=160
 ])
 def test_f32_dq_writes_the_padded_statistics(cuda, b, nq, nk, c, heads):
     """The fp32 dQ kernel's delta and padded lse and delta rows, which the
@@ -775,7 +783,8 @@ def test_f32_dq_writes_the_padded_statistics(cuda, b, nq, nk, c, heads):
     before = dict(fa.launches_f32)
     dq, lse_p, delta_p = fa.flash_attention_bwd_dq_f32(q, k, v, out, lse, g,
                                                        heads)
-    assert _f32_launched(before) == {"bwd_dq_d64": 1, "tf32_split": 1}
+    assert _f32_launched(before) == {f"bwd_dq_d{c // heads}": 1,
+                                     "tf32_split": 1}
     lse_ref, delta_ref = fa.bwd_stats(out, lse, g, heads)
     assert lse_p.shape == lse_ref.shape == (b * heads, -(-nq // 64) * 64)
     assert torch.equal(lse_p, lse_ref)
@@ -836,6 +845,10 @@ def test_f32_conv_wrappers_raise_on_an_unsplit_prepared_weight(cuda):
     (1, 1000, 1300, 128, 2),  # nq < nk, both ragged against 128
     (2, 4800, 4800, 320, 5),  # the training shape at level 0
     (2, 1200, 1200, 640, 10),  # level 1: B*H = 20
+    (2, 1300, 1100, 320, 8),  # d=40: lanes past D in each 64-lane box
+    (1, 1100, 1300, 640, 8),  # d=80: dK and dV on separate consumers
+    (1, 1025, 1025, 1280, 8),  # d=160: one row and key past the tiles
+    (2, 130, 77, 1280, 8),    # d=160: fewer keys than two stages
 ])
 def test_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     q, g = (torch.randn((b, nq, c), generator=cuda, device="cuda").to(torch.bfloat16)
@@ -845,7 +858,8 @@ def test_training_kernels_match_plain(cuda, b, nq, nk, c, heads):
     before = dict(fa.launches)
     out, lse = fa.flash_attention_lse(q, k, v, heads)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
-    for key in ("lse_d64", "bwd_dq_d64", "bwd_dkv_d64"):
+    d = c // heads
+    for key in (f"lse_d{d}", f"bwd_dq_d{d}", f"bwd_dkv_d{d}"):
         assert fa.launches[key] == before.get(key, 0) + 1
     out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, heads)
     refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
@@ -1021,16 +1035,37 @@ def test_projected_self_attention_on_the_card(cuda, monkeypatch):
     assert got_f32.dtype == torch.float32  # the linear path
 
 
-def test_sd1_widths_raise_under_autograd_and_unknown_widths(cuda):
-    """Autograd at 40, 80 and 160 needs training kernels the port does not
-    have yet: it raises, naming the ROADMAP item, and runs nothing; a width
-    without an instantiation raises, naming its queue."""
-    before = (dict(fa.launches), dict(fa.launches_f32))
-    for d in fa.SERVING_ONLY_HEAD_DIMS:
-        q, k, v = (t.requires_grad_() for t in _qkv(cuda, 1, 1100, 8 * d))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fa.FlashAttentionFunction.apply(q, k, v, 8, "shifted")
-    assert (dict(fa.launches), dict(fa.launches_f32)) == before
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_sd1_widths_train_under_autograd(cuda, d, dtype):
+    """FlashAttentionFunction at 40, 80 and 160 runs the lse forward, dQ and
+    dK/dV kernels (counted; nothing on the other dtype's counter), its
+    output and gradients against the plain lse forward and backward at the
+    kernels' tolerances."""
+    q, k, v = _qkv(cuda, 2, 1100, 8 * d, dtype)
+    g = torch.randn(q.shape, generator=cuda, device="cuda").to(dtype)
+    counter, other = ((fa.launches, fa.launches_f32)
+                      if dtype == torch.bfloat16
+                      else (fa.launches_f32, fa.launches))
+    before, other_before = dict(counter), dict(other)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.FlashAttentionFunction.apply(*leaves, 8, "shifted")
+    out.backward(g)
+    for key in (f"lse_d{d}", f"bwd_dq_d{d}", f"bwd_dkv_d{d}"):
+        assert counter[key] == before.get(key, 0) + 1
+    assert dict(other) == other_before
+    out_p, _ = fa.flash_attention_lse_plain(q, k, v, 8)
+    refs = fa.flash_attention_bwd_plain(q, k, v, g, 8)
+    torch.cuda.synchronize()
+    for got, ref in zip((out.detach(), *(t.grad for t in leaves)),
+                        (out_p, *refs)):
+        m = ref.float().abs().max().item()
+        tol = 1e-2 * m + 1e-5 if dtype == torch.bfloat16 else 1e-4 * m + 1e-6
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_unknown_widths_raise(cuda):
+    """A width without an instantiation raises, naming its queue."""
     q, k, v = _qkv(cuda, 1, 1100, 8 * 48)
     with pytest.raises(ValueError, match="ROADMAP"):
         fa.flash_attention(q, k, v, 8)

@@ -431,13 +431,24 @@ def test_check_tma_holds_the_head_stride():
 
 
 def test_widths_and_the_autograd_raise_are_declared():
-    assert set(fa.SERVING_ONLY_HEAD_DIMS) <= set(fa.HEAD_DIMS)
-    assert not set(fa.SERVING_ONLY_HEAD_DIMS) & set(fa.TRAIN_HEAD_DIMS)
-    assert "ROADMAP" in fa.TRAIN_WIDTHS_ITEM
-    # on the CPU autograd at these widths runs the plain versions, as before
-    q, k, v = (torch.randn(1, 20, 80, requires_grad=True) for _ in range(3))
-    fa.FlashAttentionFunction.apply(q, k, v, 2, "shifted").sum().backward()
-    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    """The SD1.x widths are declared training widths and routed: autograd
+    no longer raises at 40, 80 and 160 (their training kernels exist), and
+    on the CPU FlashAttentionFunction takes the lse route whatever the
+    serving mode, its output flash_attention_lse_plain's, as the JAX custom
+    VJP runs its exact online lse forward at those widths."""
+    assert {40, 80, 160} <= set(fa.TRAIN_HEAD_DIMS) <= set(fa.HEAD_DIMS)
+    assert not hasattr(fa, "SERVING_ONLY_HEAD_DIMS")
+    for d in (40, 80, 160):
+        q, k, v = (torch.randn(1, 20, 2 * d, requires_grad=True)
+                   for _ in range(3))
+        out = fa.FlashAttentionFunction.apply(q, k, v, 2, "shifted")
+        assert out.grad_fn._forward_cls is fa.FlashAttentionFunction
+        assert out.grad_fn.kernel_bwd
+        ref, _ = fa.flash_attention_lse_plain(q.detach(), k.detach(),
+                                              v.detach(), 2)
+        assert torch.equal(out.detach(), ref)
+        out.sum().backward()
+        assert q.grad is not None and bool(torch.isfinite(q.grad).all())
 
 
 def test_sd1_config_from_dict_matches_jax():

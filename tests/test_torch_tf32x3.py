@@ -12,7 +12,8 @@ reconstruction, the 3xTF32 product against float64 at the fp32 gate that
 the split's transposed layout and the A-fragment permutation it encodes,
 and emulated forwards, dQ (with its delta and padded statistics) and dK/dV
 against the TPU kernels (Pallas interpret mode) and the port's plain
-versions; the 64-wide emulations walk the keys in the sources' tiles.
+versions, dQ and dK/dV also at the SD1.x head widths 40, 80 and 160; the
+emulations walk the keys and query rows in the sources' tiles.
 """
 
 import re
@@ -311,16 +312,97 @@ def test_emulated_dq_matches_the_tpu_kernel(nq, nk):
 @pytest.mark.parametrize("source", ["flash_fwd_d64_f32_sm90.cu",
                                     "flash_bwd_dq_f32_sm90.cu"])
 def test_emulations_walk_the_keys_as_the_sources(source):
-    """The emulations' key tile is the sources' BK; both kernels take 128
-    query rows per block (two consumers of 64), and the dQ kernel pads the
-    statistics to STAT_PAD."""
+    """The emulations' key tile is the sources' BK; the forward takes 128
+    query rows per block (two consumers of 64), the dQ kernel 128 at
+    D <= 64 and 64 at 80 and 160 (both consumers on the same rows), which
+    leaves each row's sums as they are; the dQ kernel pads the statistics
+    to STAT_PAD."""
     text = (CSRC / source).read_text()
     assert int(re.search(r"constexpr int BK = (\d+);", text).group(1)) == KEY_TILE
-    assert "constexpr int BQ = 128;" in text
     assert "constexpr int CONSUMERS = 2;" in text
     if "dq" in source:
+        assert "static constexpr int BQ = COLSPLIT ? 64 : 128;" in text
+        assert "static constexpr bool COLSPLIT = D > 64;" in text
         pad = int(re.search(r"constexpr int STAT_PAD = (\d+);", text).group(1))
         assert pad == fa.STAT_PAD
+    else:
+        assert "constexpr int BQ = 128;" in text
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_emulated_dq_matches_the_tpu_kernel_at_sd1_widths(d):
+    """The dQ emulation (KEY_TILE keys per fresh tile product, as
+    csrc/flash_bwd_dq_f32_sm90.cu walks them at every width) at the SD1.x
+    head widths against the Pallas dQ kernel in interpret mode and the
+    port's plain backward, nq != nk across the tiles; the padded rows
+    against bwd_stats."""
+    nq, nk = 129, 150
+    q, g = _randn(50 + d, nq, d), _randn(51 + d, nq, d)
+    k, v = _randn(52 + d, nk, d), _randn(53 + d, nk, d)
+    out_j, lse_j = jfa._flash_dt_impl_lse(_fold(q), _fold(k), _fold(v), 128,
+                                          128, True)
+    dq_j, _, _ = jfa._flash_dt_bwd_pallas(
+        _fold(q), _fold(k), _fold(v), out_j, lse_j, _fold(g), block_q=128,
+        block_k=128, interpret=True)
+    out = torch.from_numpy(np.asarray(out_j)[0].T.copy())
+    lse = torch.from_numpy(np.asarray(lse_j)[0].copy())
+    dq, lse_p, delta_p = _emulated_dq(q, k, v, out, lse, g)
+    dq_plain = fa.flash_attention_bwd_plain(q[None], k[None], v[None],
+                                            g[None], 1)[0][0]
+    for ref in (np.asarray(dq_j)[0].T, dq_plain.numpy()):
+        assert np.abs(dq.numpy() - ref).max() <= (
+            F32_TOL_REL * np.abs(ref).max() + F32_TOL_ABS)
+    lse_ref, delta_ref = fa.bwd_stats(out[None], lse[None], g[None], 1)
+    assert torch.equal(lse_p, lse_ref[0])
+    assert _gate((delta_p - delta_ref[0]).abs().max().item(), delta_ref[0])
+
+
+def _emulated_dkv(q, k, v, g):
+    """One head's dK and dV as csrc/flash_bwd_dkv_f32_sm90.cu computes them
+    in fp32: per KEY_TILE query rows S^T and dP^T as 3xTF32, P^T and dS^T
+    from the logsumexp and delta, and the stage's dV and dK products as
+    3xTF32 into fresh products added into dV and dK; dK * scale at the
+    end."""
+    nq, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    out, lse = fa.flash_attention_lse_plain(q[None], k[None], v[None], 1)
+    delta = (out[0] * g).sum(-1)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for r0 in range(0, nq, KEY_TILE):
+        qt, gt = q[r0:r0 + KEY_TILE], g[r0:r0 + KEY_TILE]
+        st = fa.matmul_tf32x3_plain(k, qt.T)
+        pt = torch.exp2(st * (scale * LOG2E)
+                        - (lse[0, r0:r0 + KEY_TILE] * LOG2E)[None])
+        dst = pt * (fa.matmul_tf32x3_plain(v, gt.T)
+                    - delta[r0:r0 + KEY_TILE][None])
+        dv = dv + fa.matmul_tf32x3_plain(pt, gt)
+        dk = dk + fa.matmul_tf32x3_plain(dst, qt)
+    return dk * scale, dv
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_emulated_dkv_matches_the_plain_backward_at_sd1_widths(d):
+    """dK/dV walked in the source's 64-row query stages (its BN, at every
+    width) at the SD1.x head widths, against the port's plain backward and
+    the Pallas dK/dV kernel in interpret mode."""
+    text = (CSRC / "flash_bwd_dkv_f32_sm90.cu").read_text()
+    assert int(re.search(r"constexpr int BN = (\d+);", text).group(1)) == KEY_TILE
+    nq, nk = 150, 129
+    q, g = _randn(60 + d, nq, d), _randn(61 + d, nq, d)
+    k, v = _randn(62 + d, nk, d), _randn(63 + d, nk, d)
+    dk, dv = _emulated_dkv(q, k, v, g)
+    _, dk_ref, dv_ref = fa.flash_attention_bwd_plain(q[None], k[None], v[None],
+                                                     g[None], 1)
+    out_j, lse_j = jfa._flash_dt_impl_lse(_fold(q), _fold(k), _fold(v), 128,
+                                          128, True)
+    _, dk_j, dv_j = jfa._flash_dt_bwd_pallas(
+        _fold(q), _fold(k), _fold(v), out_j, lse_j, _fold(g), block_q=128,
+        block_k=128, interpret=True)
+    for got, refs in ((dk, (dk_ref[0].numpy(), np.asarray(dk_j)[0].T)),
+                      (dv, (dv_ref[0].numpy(), np.asarray(dv_j)[0].T))):
+        for ref in refs:
+            assert np.abs(got.numpy() - ref).max() <= (
+                F32_TOL_REL * np.abs(ref).max() + F32_TOL_ABS)
 
 
 def test_split_takes_the_backward_s_seven_jobs():
