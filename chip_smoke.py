@@ -21,15 +21,21 @@ Phases, none of which catches its own failure:
      for bit), with
      errors and CUDA-event times of the
      kernel, the plain version, one PyTorch library call of the same
-     function and, beside the shifted kernel, its row shift, beside the
+     function and, beside the shifted kernel at D < 512, the row shift it
+     computes in its own launch against row_shift (check_shift: the
+     largest error, its output the serving call's bits, torch.profiler's
+     CUDA kernels per shifted call against an online call's, the forward's
+     device ms alone; the packed entry too where nq = nk), beside the
+     512-wide shifted kernel the row_shift it reads, beside the
      conv kernels their weight rearrangement and blocks launched, beside the
      backward pair SDPA's whole backward, row_delta and two calls held to
      the same bits, and the bound from bytes and operations;
   3c. the SD1.x head widths (40, 80, 160: 8 heads at 320, 640 and 1280
      channels), bf16 and fp32, both softmax modes, at SD1_KERNEL_CASES
      (nq != nk among them) and the folded entry at the three widths,
-     against their plain versions, with the kernel's, the plain version's,
-     SDPA's and row_shift's times and the largest of three floors (tensor
+     against their plain versions, with the kernel's, the plain version's
+     and SDPA's times, check_shift on every shifted case (the packed entry
+     in bf16 where nq = nk) and the largest of three floors (tensor
      work, bytes, exponentials at PEAK_EXP_OPS); then the training kernels
      at those widths (the lse forward, dQ and dK/dV, bf16 and fp32) at
      SD1_TRAIN_CASES, the fine-tuning shapes and a ragged case per width,
@@ -175,9 +181,17 @@ cards).
 runs phases 1 and 2, 3c, 4b and 10c, then prints their kernel rows and the
 last line: the short call after a change to the SD1.x-class path. With
 --bits-against DIR (a checkout of the previous build) it first runs the
-64-wide forwards and backward of both trees on the same inputs, each
-tree's package in a process of its own, and fails unless every output is
-equal bit for bit.
+forwards and backward of both trees at head widths 64, 40, 80 and 160 on
+the same inputs, each tree's package in a process of its own, twice in
+turns (previous, this, this, previous; bits_against): it fails unless
+every online, lse, dQ, dK/dV and folded output is equal bit for bit to
+the previous build's, every shifted output is within phase 3's gate of
+the previous build's (where one build reads row_shift and the other
+computes the shift inside the kernel, its rounding differs by design),
+this build's two runs and two
+shifted calls are equal bit for bit, and each shifted row-1 shape
+(BITS_TIMED) times no slower than the previous build's; it prints both
+builds' device ms per kernel of a shifted and an online call there.
 """
 
 from __future__ import annotations
@@ -251,9 +265,13 @@ def build_kernels():
 
 
 # The wgmma kernels held to HGMMA in every instantiation and no spills:
-# the 3xTF32 ones and the bf16 backward pair (a template on the head
-# width): (library, kernel name in the mangled symbol).
-WGMMA_KERNELS = [("flash_attention_f32", "flash_fwd_f32_kernel"),
+# the 3xTF32 ones, the bf16 forwards and the bf16 backward pair (templates
+# on the head width): (library, kernel name in the mangled symbol). The
+# forwards are also held to no wgmma-serialization note from ptxas
+# (C7511, C7514, C7515, C7517).
+WGMMA_KERNELS = [("flash_attention", "flash_fwd_sm90_kernel"),
+                 ("flash_attention", "flash_fwd_d512_kernel"),
+                 ("flash_attention_f32", "flash_fwd_f32_kernel"),
                  ("flash_attention_f32", "flash_fwd_d512_f32_kernel"),
                  ("flash_attention_bwd_f32", "flash_bwd_dq_f32_kernel"),
                  ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel"),
@@ -265,15 +283,19 @@ WGMMA_KERNELS = [("flash_attention_f32", "flash_fwd_f32_kernel"),
 
 def check_wgmma_build(hgmma: dict) -> None:
     """Each instantiation of WGMMA_KERNELS has HGMMA in its SASS (where
-    cuobjdump ran) and no spills in ptxas's report."""
+    cuobjdump ran) and no spills in ptxas's report; no forward has a
+    wgmma-serialization note."""
     import re
 
     from marigold_tpu_torch.ops import cuda_build
 
     for lib, kernel in WGMMA_KERNELS:
-        spills, fn = {}, None
+        spills, fn, serialized = {}, None, []
         with open(cuda_build.BUILD_INFO[lib]["log"]) as f:
             for line in f:
+                if (re.search(r"\(C751[1457]\)", line) and kernel in line
+                        and "flash_fwd" in kernel):
+                    serialized.append(line.strip())
                 m = re.search(r"Function properties for (\S+)", line)
                 if m:
                     fn = m.group(1)
@@ -287,6 +309,8 @@ def check_wgmma_build(hgmma: dict) -> None:
               f"{sorted(spills.values())}", flush=True)
         if not spills or any(spills.values()):
             _fail(f"{kernel}: ptxas reports spills or no entry: {spills}")
+        if serialized:
+            _fail(f"{kernel}: ptxas serialises its wgmmas: {serialized}")
         if hgmma and (not counts or not all(counts.values())):
             _fail(f"{kernel}: no HGMMA in its SASS: {counts}")
 
@@ -376,12 +400,75 @@ def sdpa_ms(q, k, v, heads, backward=False, iters=10):
 
 
 def attention_bound(b, heads, nq, nk, d, flops_per_pair, q_io, kv_io,
-                    extra=0):
-    """Bound of an attention kernel: flops_per_pair * B*H*nq*nk*d operations;
-    q_io [B, nq, C] and kv_io [B, nk, C] bf16 tensors read or written, plus
-    `extra` bytes (fp32 row statistics)."""
+                    extra=0, extra_flops=0.0):
+    """Bound of an attention kernel: flops_per_pair * B*H*nq*nk*d operations
+    plus `extra_flops`; q_io [B, nq, C] and kv_io [B, nk, C] bf16 tensors
+    read or written, plus `extra` bytes (fp32 row statistics)."""
     nbytes = 2 * b * heads * d * (q_io * nq + kv_io * nk) + extra
-    return bound(flops_per_pair * b * heads * nq * nk * d, nbytes)
+    return bound(flops_per_pair * b * heads * nq * nk * d + extra_flops,
+                 nbytes)
+
+
+def shift_flops(b, heads, nq, nk, d) -> float:
+    """The shifted softmax's row shift: one QK^T over the sampled keys."""
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    return 2.0 * b * heads * nq * fa.shift_sample(nk)[1] * d
+
+
+# The row shift a shifted kernel at D < 512 computes in its own launch
+# against row_shift (fp32 products of the same sampled keys): sums in
+# another order, and nothing relies on their bits, so |err| <= SHIFT_TOL *
+# max(1, |shift|).
+SHIFT_TOL = 1e-4
+
+
+def check_shift(what: str, q, k, v, heads: int, packed=None) -> dict:
+    """The shifted forward at D < 512: the shift it writes through its lse
+    pointer (fa.flash_attention_shift) against row_shift, its output equal
+    to the serving call's bits, and torch.profiler's CUDA kernels per
+    shifted call, which must be an online call's (bf16: the forward; fp32:
+    the split and the forward), with the forward's device ms alone.
+    `packed`, a [B, N, 3C] tensor holding q, k and v side by side, is held
+    the same way through the strided views flash_attention_packed reads
+    (its shift, and its output's bits against the unpacked call's). Fails
+    on any of these; returns {shift_max_err, kernels_per_call,
+    kernel_device_ms}."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    def shift_err(q, k, v, strided=False):
+        out, shift = fa.flash_attention_shift(q, k, v, heads, strided)
+        ref = fa.row_shift(q, k, heads)
+        err = ((shift - ref).abs() / ref.abs().clamp(min=1)).max().item()
+        return out, err
+
+    out, err = shift_err(q, k, v)
+    same_bits = bool((out == fa.flash_attention(q, k, v, heads)).all())
+    n_shifted, split = kernel_profile(
+        lambda: fa.flash_attention(q, k, v, heads, "shifted"), 3)
+    n_online = 2 if q.dtype == torch.float32 else 1
+    forward = [ms for name, ms in split.items() if "flash_fwd" in name]
+    note = ""
+    if packed is not None:
+        c = q.shape[2]
+        views = [packed[..., i * c:(i + 1) * c] for i in range(3)]
+        out_p, err_p = shift_err(*views, strided=True)
+        same_bits &= bool((out_p == out).all())
+        err = max(err, err_p)
+        note = f"; packed: own shift err {err_p:.3e}, the unpacked bits"
+    print(f"  {what}: the kernel's own shift against row_shift, max "
+          f"|err| / max(1, |shift|) {err:.3e} (gate {SHIFT_TOL:g}); CUDA "
+          f"kernels per shifted call {n_shifted:g} (an online call's "
+          f"{n_online}); forward device ms alone {forward[0]:.3f}{note}",
+          flush=True)
+    if not err <= SHIFT_TOL or n_shifted != n_online or not same_bits:
+        _fail(f"{what}: the kernel's shift err {err} > {SHIFT_TOL}, "
+              f"{n_shifted} kernels per shifted call against {n_online} "
+              f"online, or the output's bits differ from the serving call's")
+    return dict(shift_max_err=err, kernels_per_call=n_shifted,
+                kernel_device_ms=forward[0])
 
 
 # (name, B, N, C, heads): the main path's attention shapes at 768 px, the
@@ -484,15 +571,27 @@ def check_kernels(cases=None) -> dict:
             ms = _time_ms(lambda: fa.flash_attention(q, k, v, heads, mode),
                           iters=20)
             plain_ms = _time_ms(plain, iters=5 if n >= 4096 else 20)
-            # the shifted wrapper's small product outside the kernel
-            shift_ms = (_time_ms(lambda: fa.row_shift(q, k, heads), 20)
-                        if mode == "shifted" else None)
             d = c // heads
+            # the shifted mode's row shift: computed by the kernel below
+            # 512 (checked here), a product outside it at 512 (timed)
+            shifted = {}
+            if mode == "shifted" and d == 512:
+                shifted["shift_ms"] = _time_ms(
+                    lambda: fa.row_shift(q, k, heads), 20)
+            elif mode == "shifted":
+                shifted = check_shift(
+                    f"{name} {mode}", q, k, v, heads,
+                    torch.cat([q, k, v], -1) if n == nk else None)
             flops = 4.0 * b * heads * n * nk * d
             lib_ms = sdpa_ms(q, k, v, heads)
-            # the shifted mode also reads its [B*H, N] fp32 shift
-            b_ms, b_by = attention_bound(b, heads, n, nk, d, 4, 2, 2, extra=(
-                4 * b * heads * n if mode == "shifted" else 0))
+            # the shifted mode's shift: at 512 the kernel reads it ([B*H, N]
+            # fp32), below 512 it computes it (a QK^T on the sampled keys)
+            b_ms, b_by = attention_bound(
+                b, heads, n, nk, d, 4, 2, 2,
+                extra=4 * b * heads * n if mode == "shifted" and d == 512
+                else 0,
+                extra_flops=shift_flops(b, heads, n, nk, d)
+                if mode == "shifted" and d < 512 else 0.0)
             shape = f"[{b},{n},{c}]" + (f" x [{b},{nk},{c}]" if nk != n else "")
             print(
                 f"kernel {name:15s} {mode:7s} {shape} h={heads} d={d}: "
@@ -500,8 +599,8 @@ def check_kernels(cases=None) -> dict:
                 f"max|ref| {ref_max:.3e} tol {tol:.3e} | kernel {ms:.3f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
                 f"sdpa {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by})"
-                + (f"; of the kernel time, row_shift {shift_ms:.3f} ms"
-                   if shift_ms is not None else ""),
+                + (f"; of the kernel time, row_shift {shifted['shift_ms']:.3f}"
+                   " ms" if "shift_ms" in shifted else ""),
                 flush=True,
             )
             if not finite or not max_err <= tol:
@@ -509,8 +608,7 @@ def check_kernels(cases=None) -> dict:
                       f"or non-finite output")
             results[(name, mode, d)] = dict(
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                shift_ms=shift_ms)
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **shifted)
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -784,16 +882,24 @@ def check_f32_kernels() -> dict:
             ms = _time_ms(lambda: fa.flash_attention(q, k, v, heads, mode), 10)
             plain_ms = _time_ms(plain, 3)
             lib_ms = sdpa_ms(q, k, v, heads)
-            bb = bound_f32(4.0 * b * heads * n * n * d,
-                           4 * 4 * b * n * c + (4 * b * heads * n
-                                                if mode == "shifted" else 0))
+            # the shifted mode's shift: read at 512, computed below it
+            shifted = mode == "shifted"
+            bb = bound_f32(
+                4.0 * b * heads * n * n * d
+                + (shift_flops(b, heads, n, n, d) if shifted and d < 512
+                   else 0.0),
+                4 * 4 * b * n * c + (4 * b * heads * n
+                                     if shifted and d == 512 else 0))
             split = launch_split(lambda: fa.flash_attention(q, k, v, heads,
                                                             mode))
-            _f32_record(results, (name, mode, d),
-                        f"{name:9s} {mode:7s} [{b},{n},{c}] h={heads}", out,
-                        ref, ms, plain_ms, lib_ms, bb,
+            what = f"{name:9s} {mode:7s} [{b},{n},{c}] h={heads}"
+            _f32_record(results, (name, mode, d), what, out, ref, ms,
+                        plain_ms, lib_ms, bb,
                         f"; {4.0 * b * heads * n * n * d / ms / 1e9:.1f} "
                         f"TFLOP/s; device ms per launch: {split}")
+            if shifted and d < 512:
+                results[(name, mode, d)].update(
+                    check_shift(what, q, k, v, heads))
         del q, k, v
     name, bh, n, d = F32_FOLDED_CASE
     q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda")
@@ -1042,12 +1148,17 @@ def f32_kernel_rows(results: dict, counts: dict) -> list:
     for name, replaces, (mode, d), case, source in F32_ROWS:
         mine = {key: r for key, r in results.items()
                 if len(key) == 3 and key[1] == mode and key[2] == d}
+        timed = mine[(case, mode, d)]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts.get(f"{mode}_d{d}", 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
-            **{k: mine[(case, mode, d)][k] for k in F32_ROW_TIMES},
+            **{k: timed[k] for k in F32_ROW_TIMES},
+            **{k: timed[k] for k in SHIFT_KEYS if k in timed},
         })
+        if "shift_max_err" in timed:
+            rows[-1]["shift_max_err"] = max(r["shift_max_err"]
+                                            for r in mine.values())
     name = F32_FOLDED_CASE[0]
     folded = results[(name, "folded", F32_FOLDED_CASE[3])]
     rows.append({"name": "flash_folded_f32", "route": "cuda",
@@ -1103,12 +1214,19 @@ def kernel_rows(results: dict, counts: dict) -> list:
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
             **{k: timed[k] for k in ROW_TIMES},
-            **({"shift_ms": timed["shift_ms"]} if mode == "shifted" else {}),
+            **{k: timed[k] for k in SHIFT_KEYS if k in timed},
         })
+        if "shift_max_err" in timed:
+            rows[-1]["shift_max_err"] = max(r["shift_max_err"]
+                                            for r in mine.values())
     return rows
 
 
 ROW_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# a shifted row's shift: check_shift's numbers below 512, row_shift's ms at
+# 512
+SHIFT_KEYS = ("shift_max_err", "kernels_per_call", "kernel_device_ms",
+              "shift_ms")
 
 
 # ---- the SD1.x-class slice (phases 3c and 4b; `--sd1`) --------------------
@@ -1150,17 +1268,17 @@ SD1_BATCH = 3
 
 def sd1_bound(b, heads, nq, nk, d, itemsize, shifted) -> tuple:
     """(bound_ms, bound_by, floor): the largest of three floors, the tensor
-    work (4 B H nq nk d FLOPs over the bf16 rate; in fp32 three tf32
-    passes over the TF32 rate), the bytes (q and the output [B, nq, C], k
-    and v [B, nk, C] once each, the shifted mode's [B*H, nq] fp32 shift)
-    over the memory rate, and the exponentials (one per logit) over
-    PEAK_EXP_OPS; floor names the one that binds."""
+    work (4 B H nq nk d FLOPs, and in the shifted mode the row shift's QK^T
+    on the sampled keys, over the bf16 rate; in fp32 three tf32 passes over
+    the TF32 rate), the bytes (q and the output [B, nq, C], k and v
+    [B, nk, C] once each) over the memory rate, and the exponentials (one
+    per logit) over PEAK_EXP_OPS; floor names the one that binds."""
     pairs = b * heads * nq * nk
-    flops = 4.0 * pairs * d
+    flops = 4.0 * pairs * d + (shift_flops(b, heads, nq, nk, d) if shifted
+                               else 0.0)
     t_tensor = (3 * flops / PEAK_TF32_FLOPS if itemsize == 4
                 else flops / PEAK_BF16_FLOPS) * 1e3
-    nbytes = itemsize * b * heads * d * (2 * nq + 2 * nk) + (
-        4 * b * heads * nq if shifted else 0)
+    nbytes = itemsize * b * heads * d * (2 * nq + 2 * nk)
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_exp = pairs / PEAK_EXP_OPS * 1e3
     t, floor = max((t_tensor, "tensor"), (t_bytes, "bytes"), (t_exp, "exp"))
@@ -1183,9 +1301,8 @@ def check_sd1_kernels() -> dict:
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(18)
 
-    def record(key, what, out, ref, plain, call, sdpa, b_args, shift=None):
-        """shift: the shifted mode's row_shift call, timed apart (it is
-        inside the kernel's time)."""
+    def record(key, what, out, ref, plain, call, sdpa, b_args, shifted=None):
+        """shifted: check_shift's numbers of a shifted case."""
         dtype = key[3]
         f32 = dtype == "fp32"
         err = (out.float() - ref.float()).abs().max().item()
@@ -1197,20 +1314,17 @@ def check_sd1_kernels() -> dict:
         plain_ms = _time_ms(plain, 3)
         lib_ms = sdpa()
         b_ms, b_by, floor = sd1_bound(*b_args, 4 if f32 else 2,
-                                      shift is not None)
-        shift_ms = _time_ms(shift, 10) if shift else None
+                                      shifted is not None)
         print(f"sd1 kernel {what}: max_abs_err {err:.3e} max|ref| "
               f"{ref_max:.3e} tol {tol:.3e} | kernel {ms:.3f} ms plain "
               f"{plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {b_ms:.3f} ms "
-              f"({floor})" + (f"; of the kernel time, row_shift "
-                              f"{shift_ms:.3f} ms" if shift else ""),
-              flush=True)
+              f"({floor})", flush=True)
         if not finite or not err <= tol:
             _fail(f"sd1 kernel {what}: max_abs_err {err} > {tol} or "
                   "non-finite output")
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                            bound_floor=floor, shift_ms=shift_ms)
+                            bound_floor=floor, **(shifted or {}))
 
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, b, nq, nk, c, heads in SD1_KERNEL_CASES:
@@ -1234,13 +1348,16 @@ def check_sd1_kernels() -> dict:
                 torch.cuda.synchronize()
                 shape = f"[{b},{nq},{c}]" + (f" x [{b},{nk},{c}]"
                                              if nk != nq else "")
-                record((name, mode, d, tag),
-                       f"{name:14s} {tag} {mode:7s} {shape} h={heads} d={d}",
-                       out, ref, plain, call,
+                what = f"{name:14s} {tag} {mode:7s} {shape} h={heads} d={d}"
+                shifted = None
+                if mode == "shifted":  # the packed entry takes bf16 only
+                    shifted = check_shift(
+                        what, q, k, v, heads,
+                        torch.cat([q, k, v], -1)
+                        if nq == nk and tag == "bf16" else None)
+                record((name, mode, d, tag), what, out, ref, plain, call,
                        lambda: sdpa_ms(q, k, v, heads, iters=5),
-                       (b, heads, nq, nk, d),
-                       (lambda: fa.row_shift(q, k, heads))
-                       if mode == "shifted" else None)
+                       (b, heads, nq, nk, d), shifted)
             del q, k, v
             torch.cuda.empty_cache()
         for name, bh, n, d in SD1_FOLDED_CASES:
@@ -1572,7 +1689,10 @@ def sd1_kernel_rows(results: dict, counts: dict, f32_counts: dict) -> list:
                     "launches": counter.get(f"{mode}_d{d}", 0),
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     **{k: timed[k] for k in times},
-                    **({"shift_ms": timed["shift_ms"]}
+                    **({"shift_max_err": max(r["shift_max_err"]
+                                             for r in mine),
+                        "kernels_per_call": timed["kernels_per_call"],
+                        "kernel_device_ms": timed["kernel_device_ms"]}
                        if mode == "shifted" else {})})
         mine = [r for key, r in results.items()
                 if key[1] == "folded" and key[3] == tag]
@@ -1588,19 +1708,26 @@ def sd1_kernel_rows(results: dict, counts: dict, f32_counts: dict) -> list:
     return rows
 
 
-# The D = 64 instantiations' outputs on fixed inputs, computed by a tree's
-# own package in a process of its own (bf16 and fp32, both softmax modes,
-# the training forward with its logsumexp, dQ and dK/dV, the folded
-# entry): run in this checkout and in a checkout of the previous build
-# (`--bits-against DIR`), they must be equal bit for bit.
-D64_BITS_SNIPPET = r'''
+# The flash kernels' outputs on fixed inputs, computed by a tree's own
+# package in a process of its own (bf16 and fp32 at head widths 64, 40, 80
+# and 160: both softmax modes, a second shifted call, the training forward
+# with its logsumexp, dQ and dK/dV, the folded entry), then the shifted
+# forward's CUDA-event ms at the row-1 shapes (BITS_TIMED): run in this
+# checkout and in a checkout of the previous build (`--bits-against DIR`).
+# Uses only entry points both builds have.
+BITS_SNIPPET = r'''
 import sys
 import torch
 from marigold_tpu_torch.ops import flash_attention as fa
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(7)
 cases = {"l0": (1, 9216, 9216, 320, 5), "l1": (1, 2304, 2304, 640, 10),
-         "ragged": (2, 1000, 1300, 320, 5), "fold": (5, 1030, 1030, 64, 1)}
-outs = {}
+         "ragged": (2, 1000, 1300, 320, 5), "fold": (5, 1030, 1030, 64, 1),
+         "d40": (1, 4608, 4608, 320, 8), "d80": (2, 2304, 1700, 640, 8),
+         "d160": (1, 1100, 1300, 1280, 8), "fold40": (3, 1030, 1030, 40, 1),
+         "fold80": (2, 777, 777, 80, 1), "fold160": (2, 600, 600, 160, 1)}
+outs, twice = {}, {}
 for name, (b, nq, nk, c, h) in cases.items():
     q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
             for _ in range(2))
@@ -1609,50 +1736,158 @@ for name, (b, nq, nk, c, h) in cases.items():
     for dt in (torch.bfloat16, torch.float32):
         qq, kk, vv, gg = (t.to(dt) for t in (q, k, v, g))
         tag = f"{name}_{str(dt)[6:]}"
-        if name == "fold":
+        if name.startswith("fold"):
             outs[tag] = fa.flash_attention_folded(qq, kk, vv)
             continue
         for mode in ("shifted", "online"):
             outs[f"{tag}_{mode}"] = fa.flash_attention(qq, kk, vv, h, mode)
+        twice[tag] = torch.equal(outs[f"{tag}_shifted"],
+                                 fa.flash_attention(qq, kk, vv, h, "shifted"))
         out, lse = fa.flash_attention_lse(qq, kk, vv, h)
         outs[f"{tag}_lse_out"], outs[f"{tag}_lse"] = out, lse
         for what, x in zip(("dq", "dk", "dv"),
                            fa.flash_attention_bwd(qq, kk, vv, out, lse, gg, h)):
             outs[f"{tag}_{what}"] = x
 torch.cuda.synchronize()
-torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
+
+
+def device_ms(mode):
+    """{kernel: device ms per call}, 5 calls under torch.profiler"""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fa.flash_attention(q, k, v, h, mode)
+        torch.cuda.synchronize()
+    return {e.key[:60]: (e.self_device_time_total / 5e3, e.count / 5)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+ms, dev = {}, {}
+for name, (dt, b, nq, nk, c, h) in %s.items():
+    q = torch.randn((b, nq, c), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((b, nk, c), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    for _ in range(3):
+        fa.flash_attention(q, k, v, h, "shifted")
+    times = []
+    for _ in range(20):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fa.flash_attention(q, k, v, h, "shifted")
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    ms[name] = sorted(times)[len(times) // 2]
+    dev[name] = {mode: device_ms(mode) for mode in ("shifted", "online")}
+    del q, k, v
+torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "twice": twice,
+            "ms": ms, "dev": dev}, sys.argv[1])
 '''
+# (dtype, B, Nq, Nk, C, heads): the shifted forward's row-1 shapes, both
+# builds timed in turns (previous, this, this, previous)
+BITS_TIMED = {
+    "bf16_d64": ("torch.bfloat16", 1, 9216, 9216, 320, 5),
+    "bf16_d64_b10": ("torch.bfloat16", 10, 9216, 9216, 320, 5),
+    "bf16_d64_shard": ("torch.bfloat16", 1, 18432, 36864, 320, 5),
+    "bf16_d40": ("torch.bfloat16", 1, 9216, 9216, 320, 8),
+    "bf16_d80": ("torch.bfloat16", 1, 2304, 2304, 640, 8),
+    "bf16_d160": ("torch.bfloat16", 1, 1024, 1024, 1280, 8),
+    "fp32_d40": ("torch.float32", 1, 9216, 9216, 320, 8),
+    "fp32_d64": ("torch.float32", 1, 9216, 9216, 320, 5),
+    "fp32_d80": ("torch.float32", 1, 2304, 2304, 640, 8),
+    "fp32_d160": ("torch.float32", 1, 1024, 1024, 1280, 8),
+}
+# this build's shifted row may take at most this factor of the previous
+# build's time (both medians of two runs' medians, the same card)
+BITS_TIME_SLACK = 1.02
 
 
-def d64_bits_against(tree: str) -> None:
-    """The D = 64 forwards and backward of this checkout against those of
-    the checkout at `tree` (the previous build), bit for bit
-    (D64_BITS_SNIPPET)."""
+def bits_against(tree: str) -> None:
+    """The flash kernels of this checkout against those of the checkout at
+    `tree` (the previous build), each tree run twice in turns (previous,
+    this, this, previous; BITS_SNIPPET): every online, lse, dQ, dK/dV and
+    folded output equal bit for bit to the previous build's; the shifted
+    outputs, whose shift this build computes inside the kernel (its
+    rounding differs by design), within phase 3's gate of the previous
+    build's (TOL_REL/TOL_ABS in bf16, F32_TOL_REL/F32_TOL_ABS in fp32); two
+    shifted calls and the two runs of this build equal bit for bit; and
+    each BITS_TIMED row no slower than the previous build's (within
+    BITS_TIME_SLACK)."""
     import tempfile
 
     import torch
 
     here = os.path.dirname(os.path.abspath(__file__))
+    timed = "{" + ", ".join(
+        f"{name!r}: ({dt}, {b}, {nq}, {nk}, {c}, {h})"
+        for name, (dt, b, nq, nk, c, h) in BITS_TIMED.items()) + "}"
+    runs = {"this build": [], "the previous build": []}
     with tempfile.TemporaryDirectory() as tmp:
-        script = os.path.join(tmp, "d64_bits.py")
+        script = os.path.join(tmp, "bits.py")
         with open(script, "w") as f:
-            f.write(D64_BITS_SNIPPET)
-        outs = {}
-        for which, cwd in (("this build", here),
-                           ("the previous build", os.path.abspath(tree))):
-            path = os.path.join(tmp, f"{len(outs)}.pt")
+            f.write(BITS_SNIPPET % timed)
+        for i, which in enumerate(("the previous build", "this build",
+                                   "this build", "the previous build")):
+            cwd = here if which == "this build" else os.path.abspath(tree)
+            path = os.path.join(tmp, f"{i}.pt")
             t0 = time.perf_counter()
             subprocess.run([sys.executable, script, path], cwd=cwd,
                            check=True, env=dict(os.environ, PYTHONPATH=cwd))
-            print(f"d64 bits: {which} ({cwd}) in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-            outs[which] = torch.load(path)
-    new, old = outs["this build"], outs["the previous build"]
-    unequal = [k for k in old if not torch.equal(old[k], new[k])]
-    print(f"d64 bits: {len(old) - len(unequal)} of {len(old)} outputs equal "
-          f"bit for bit to the previous build's", flush=True)
-    if unequal or old.keys() != new.keys():
-        _fail(f"d64 outputs differ from the previous build's: {unequal}")
+            print(f"bits: {which} ({cwd}) in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            runs[which].append(torch.load(path))
+    (new, new2), (old, old2) = runs["this build"], runs["the previous build"]
+    failures = []
+    if new["outs"].keys() != old["outs"].keys():
+        failures.append("the builds computed different outputs")
+    unequal, shifted_err = [], {}
+    for key, ref in old["outs"].items():
+        got = new["outs"][key]
+        if not key.endswith("_shifted"):
+            if not torch.equal(got, ref):
+                unequal.append(key)
+            continue
+        err = (got.float() - ref.float()).abs().max().item()
+        m = ref.float().abs().max().item()
+        tol = (F32_TOL_REL * m + F32_TOL_ABS if "float32" in key
+               else TOL_REL * m + TOL_ABS)
+        shifted_err[key] = err
+        if not err <= tol:
+            failures.append(f"{key}: {err} from the previous build's > {tol}")
+    n_exact = len(old["outs"]) - len(shifted_err)
+    print(f"bits: {n_exact - len(unequal)} of {n_exact} non-shifted outputs "
+          "equal bit for bit to the previous build's; shifted outputs "
+          "against the previous build's, max abs err: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in shifted_err.items()),
+          flush=True)
+    if unequal:
+        failures.append(f"outputs differ from the previous build's: {unequal}")
+    same = [k for k in new["outs"] if torch.equal(new["outs"][k],
+                                                  new2["outs"][k])]
+    print(f"bits: this build's two runs: {len(same)} of {len(new['outs'])} "
+          f"outputs equal; two shifted calls equal: {new['twice']}",
+          flush=True)
+    if len(same) != len(new["outs"]) or not all(new["twice"].values()):
+        failures.append("this build's shifted calls or runs differ")
+    for name in BITS_TIMED:
+        t_new = sorted((new["ms"][name], new2["ms"][name]))
+        t_old = sorted((old["ms"][name], old2["ms"][name]))
+        print(f"bits: shifted {name}: this build {t_new[0]:.3f} / "
+              f"{t_new[1]:.3f} ms, the previous build {t_old[0]:.3f} / "
+              f"{t_old[1]:.3f} ms (each run's median; x"
+              f"{sum(t_old) / sum(t_new):.2f})", flush=True)
+        for which, run in (("this build", new), ("the previous build", old)):
+            print(f"  {which}, device ms per call (kernels per call) by "
+                  "kernel: " + "; ".join(
+                      f"{mode}: " + ", ".join(
+                          f"{k} {t:.4f} ({n:g})"
+                          for k, (t, n) in run["dev"][name][mode].items())
+                      for mode in ("shifted", "online")), flush=True)
+        if sum(t_new) > BITS_TIME_SLACK * sum(t_old):
+            failures.append(f"{name}: shifted slower than the previous build")
+    if failures:
+        _fail(f"against the previous build: {failures}")
 
 
 # ---- SD1.x-class fine-tuning (phase 3c's training rows, phase 10c) ------
@@ -2126,8 +2361,8 @@ def main(argv: list) -> None:
     build_kernels()
     if argv == ["--sd1"]:
         if bits_tree:
-            d64_bits_against(bits_tree)
-            done("the D = 64 bits against the previous build")
+            bits_against(bits_tree)
+            done("the bits and shifted times against the previous build")
         sd1_results = check_sd1_kernels()
         sd1_train_results = check_sd1_train_kernels()
         done("the SD1 kernel checks")
@@ -2681,9 +2916,10 @@ CONV_CASES = [
 CONV_ROW_CASE = "unet_1280"
 
 
-def launch_split(fn, iters: int = 5) -> str:
-    """Mean device ms per call of each kernel that fn() launches, from
-    torch.profiler over `iters` calls (after one warm-up call)."""
+def kernel_profile(fn, iters: int = 5) -> tuple:
+    """(CUDA kernels launched per call, {kernel: mean device ms per call})
+    of fn(), from torch.profiler over `iters` calls (after one warm-up
+    call)."""
     import re
 
     import torch
@@ -2697,12 +2933,22 @@ def launch_split(fn, iters: int = 5) -> str:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
     def short(key):
         m = re.search(r"(\w+_kernel)(<\w+>)?", key)
         return m.group(0) if m else key[:40]
 
-    return ", ".join(f"{short(e.key)} {e.self_device_time_total / 1e3 / iters:.3f}"
-                     for e in sorted(events, key=lambda e: -e.self_device_time_total))
+    per_call = sum(e.count for e in events) / iters
+    return per_call, {short(e.key): e.self_device_time_total / 1e3 / iters
+                      for e in sorted(events,
+                                      key=lambda e: -e.self_device_time_total)}
+
+
+def launch_split(fn, iters: int = 5) -> str:
+    """Mean device ms per call of each kernel that fn() launches, from
+    torch.profiler over `iters` calls (after one warm-up call)."""
+    return ", ".join(f"{name} {ms:.3f}"
+                     for name, ms in kernel_profile(fn, iters)[1].items())
 
 
 def check_conv_kernels() -> dict:

@@ -9,7 +9,9 @@
 // the 40-, 80- and 160-wide heads of an SD1.x-class UNet) of the TPU
 // package's marigold_tpu/ops/flash_attention.py kernels:
 //   * _flash_kernel_dt_shifted (shifted softmax; pallas_call at :396), every
-//     UNet self-attention of an fp32 request;
+//     UNet self-attention of an fp32 request, and the row shift its wrapper
+//     _flash_dt_impl computes outside it (:362-373), which this kernel
+//     computes in its own launch;
 //   * _flash_kernel_dt (exact online softmax; :460), the parity pin;
 //   * _flash_kernel through flash_attention (the folded [BH, N, D] entry;
 //     :522), run online with one head per batch row;
@@ -23,7 +25,10 @@
 // Math per (batch, head, query row r), as the plain version
 // (ops/flash_attention.py:_plain_forward) computes it in fp32:
 //   s_j = (q_r . k_j) / sqrt(D);
-//   shifted: p_j = exp(min(s_j - shift_r, 75)), shift_r from the caller;
+//   shifted: p_j = exp(min(s_j - shift_r, 75)), shift_r = max of s_j over
+//            the sampled keys j = 0, stride, 2 stride, ... < nk (stride =
+//            max(1, nk // 128), n_sub <= 255 of them) + 40, computed by the
+//            kernel (below);
 //   online:  running max m, p_j = exp(s_j - m), O and l rescaled by
 //            exp(m_old - m_new) when the max grows;
 //   out_r = (sum_j p_j v_j) / max(sum_j p_j, 1e-30), stored fp32;
@@ -73,6 +78,19 @@
 //   * the epilogue reduces l over the quad, divides and stores fp32 straight
 //     from registers (two floats per thread per 8 columns, the columns past
 //     D skipped), rows past nq skipped, and with the lse one float per row.
+//   * shifted mode, before the key loop: ceil(n_sub / 64) sample tiles,
+//     each KS K substages (hi and lo) read through two more maps over
+//     k_hi and k_lo, {D, H, n_sub, B} with a row stride of stride * ld
+//     elements, rows past n_sub zero-filled, go through the same ring
+//     first; each consumer computes their S with the main loop's 3xTF32
+//     products (the same hi/lo terms, so the sampled max is the kernel's
+//     own logit up to accumulation order), masks the columns >= n_sub,
+//     takes the row max over its quad and sets shift = max * scale *
+//     log2(e) + 40 log2(e); no exponential, no P V. When the `lse` pointer
+//     is given the shifted mode writes that shift into it (natural-log
+//     units), for the tests. The TPU wrapper computes the shift outside its
+//     kernel; on the card that chain of eager launches cost up to half the
+//     kernel's time.
 // Shared memory: Q hi and lo (32 KB per box pair) + a ring of STAGES x 32 KB
 // + barriers: at D = 40 and 64, 64 KB + 4 slots = 192 KB; at D = 80, 96 KB
 // + 4 slots = 224 KB; at D = 160, 160 KB + 2 slots = 224 KB (the producer
@@ -124,6 +142,8 @@ constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kClamp2 = 75.0f * 1.4426950408889634f;  // exp clamp, base 2
+constexpr float kMargin2 = 40.0f * 1.4426950408889634f;  // shift margin, base 2
+constexpr int kMaxSample = 255;  // sampled keys: max(1, nk // 128) strides
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -153,9 +173,11 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
                      const __grid_constant__ CUtensorMap tm_kl,
                      const __grid_constant__ CUtensorMap tm_vh,
                      const __grid_constant__ CUtensorMap tm_vl,
-                     const float* __restrict__ shift,
+                     const __grid_constant__ CUtensorMap tm_ksh,
+                     const __grid_constant__ CUtensorMap tm_ksl,
                      float* __restrict__ out, float* __restrict__ lse,
-                     int H, int nq, int nk, int ldo, float scale_log2) {
+                     int H, int nq, int nk, int n_sub, int ldo,
+                     float scale_log2) {
   using S_ = Shape<D>;
   constexpr int STAGES = S_::STAGES;
   constexpr int KS = S_::KS;
@@ -171,6 +193,8 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   const int h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int n_tiles = cdiv(nk, BK);
+  // shifted mode: the sample tiles of K that go through the ring first
+  const int n_pre = ONLINE ? 0 : cdiv(n_sub, BK);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -195,35 +219,51 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
         tma_load_4d(base + S_::SM_QL + i * RES_BOX, &tm_ql, 32 * i, h, q0, b,
                     res);
       }
-      // per 64 keys: KS substages of K (row-major), NV of V^T (transposed)
+      // per 64 keys: KS substages of K (row-major), NV of V^T (transposed);
+      // in shifted mode the sample tiles' K substages first
       const CUtensorMap* k_maps[2] = {&tm_kh, &tm_kl};
+      const CUtensorMap* s_maps[2] = {&tm_ksh, &tm_ksl};
       const CUtensorMap* v_maps[2] = {&tm_vh, &tm_vl};
+      // [B, nk, ld] (or the sample's rows): 64 keys, 32 d lanes per box
+      auto load_k = [&](const CUtensorMap* const* maps, int row, int sub,
+                        int n) {
+        const int slot = n % STAGES;
+        const uint32_t full = full0 + 8 * slot;
+        const uint32_t dst = base + S_::SM_RING + slot * SLOT_BYTES;
+        if (n >= STAGES) mbar_wait(empty0 + 8 * slot, (n / STAGES - 1) & 1);
+        const int boxes = S_::QB - 2 * sub < 2 ? 1 : 2;
+        mbar_expect_tx(full, 2 * boxes * ATT_BOX);
+#pragma unroll
+        for (int part = 0; part < 2; ++part)    // hi, lo
+#pragma unroll
+          for (int half = 0; half < boxes; ++half)
+            tma_load_4d(dst + (2 * part + half) * ATT_BOX, maps[part],
+                        32 * (2 * sub + half), h, row, b, full);
+      };
       int n = 0;
+      for (int j = 0; j < n_pre; ++j) {
+#pragma unroll
+        for (int sub = 0; sub < KS; ++sub, ++n) load_k(s_maps, j * BK, sub, n);
+      }
       for (int j = 0; j < n_tiles; ++j) {
 #pragma unroll
         for (int sub = 0; sub < SUBS; ++sub, ++n) {
+          if (sub < KS) {
+            load_k(k_maps, j * BK, sub, n);
+            continue;
+          }
+          // [B, ld, NKP]: 64 d rows of the head, 32 keys per box
           const int slot = n % STAGES;
           const uint32_t full = full0 + 8 * slot;
           const uint32_t dst = base + S_::SM_RING + slot * SLOT_BYTES;
           if (n >= STAGES) mbar_wait(empty0 + 8 * slot, (n / STAGES - 1) & 1);
-          if (sub < KS) {  // [B, nk, ld]: 64 keys, 32 d lanes per box
-            const int boxes = S_::QB - 2 * sub < 2 ? 1 : 2;
-            mbar_expect_tx(full, 2 * boxes * ATT_BOX);
+          mbar_expect_tx(full, SLOT_BYTES);
 #pragma unroll
-            for (int part = 0; part < 2; ++part)    // hi, lo
+          for (int part = 0; part < 2; ++part)
 #pragma unroll
-              for (int half = 0; half < boxes; ++half)
-                tma_load_4d(dst + (2 * part + half) * ATT_BOX, k_maps[part],
-                            32 * (2 * sub + half), h, j * BK, b, full);
-          } else {  // [B, ld, NKP]: 64 d rows of the head, 32 keys per box
-            mbar_expect_tx(full, SLOT_BYTES);
-#pragma unroll
-            for (int part = 0; part < 2; ++part)
-#pragma unroll
-              for (int half = 0; half < 2; ++half)
-                tma_load_4d(dst + (2 * part + half) * ATT_BOX, v_maps[part],
-                            j * BK + 32 * half, 64 * (sub - KS), h, b, full);
-          }
+            for (int half = 0; half < 2; ++half)
+              tma_load_4d(dst + (2 * part + half) * ATT_BOX, v_maps[part],
+                          j * BK + 32 * half, 64 * (sub - KS), h, b, full);
         }
       }
     }
@@ -242,22 +282,9 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   const int row0 = q0 + 64 * c + r0;        // global query rows
   const int row1 = row0 + 8;
 
-  float sh0 = 0.f, sh1 = 0.f;  // shifted mode: the row shift, base 2
-  if (!ONLINE) {
-    if (row0 < nq) sh0 = shift[(size_t)bh * nq + row0] * kLog2e;
-    if (row1 < nq) sh1 = shift[(size_t)bh * nq + row1] * kLog2e;
-  }
-  float m0 = kNegInf, m1 = kNegInf;  // running max (online), base 2
-  float l0 = 0.f, l1 = 0.f;          // this thread's part of its row sums
   float s[32], part[32];
-  float o[NV][32];                   // output columns [64v, 64v + 64)
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = part[i] = 0.f;
-#pragma unroll
-  for (int v = 0; v < NV; ++v)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[v][i] = 0.f;
-  uint32_t lo[32];
 
   auto slot_of = [&](int n) {
     return base + S_::SM_RING + (n % STAGES) * SLOT_BYTES;
@@ -268,8 +295,51 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   auto release = [&](int n) { mbar_arrive(empty0 + 8 * (n % STAGES)); };
 
   mbar_wait(res, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n = j * SUBS;
+  float sh0 = 0.f, sh1 = 0.f;  // shifted mode: the row shift, base 2
+  if (!ONLINE) {
+    // The sample pass: S on the sampled keys (3xTF32, as below), columns
+    // >= n_sub masked, the row max over the quad, plus the margin.
+    float mx0 = kNegInf, mx1 = kNegInf;
+    for (int j = 0; j < n_pre; ++j) {
+#pragma unroll
+      for (int sub = 0; sub < KS; ++sub) {
+        wait_full(j * KS + sub);
+        wgmma_att_nt<D>(s, qh, ql, RES_BOX, slot_of(j * KS + sub), sub);
+        wgmma_wait<0>();
+        fence_regs(s);
+        release(j * KS + sub);
+      }
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (j * BK + 8 * jj + col + e < n_sub) {
+            mx0 = fmaxf(mx0, s[4 * jj + e]);
+            mx1 = fmaxf(mx1, s[4 * jj + 2 + e]);
+          }
+        }
+      }
+    }
+    sh0 = fmaf(quad_max(mx0), scale_log2, kMargin2);
+    sh1 = fmaf(quad_max(mx1), scale_log2, kMargin2);
+    if (lse != nullptr && col == 0) {
+      if (row0 < nq) lse[(size_t)bh * nq + row0] = sh0 * kLn2;
+      if (row1 < nq) lse[(size_t)bh * nq + row1] = sh1 * kLn2;
+    }
+  }
+  float m0 = kNegInf, m1 = kNegInf;  // running max (online), base 2
+  float l0 = 0.f, l1 = 0.f;          // this thread's part of its row sums
+  float o[NV][32];                   // output columns [64v, 64v + 64)
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[v][i] = 0.f;
+  uint32_t lo[32];
+
+  // n: the tile's first ring slot, after the sample's (a running count:
+  // computing it from j and n_pre cost ptxas the registers to pipeline the
+  // D = 160 wgmmas, C7511)
+  for (int j = 0, n = n_pre * KS; j < n_tiles; ++j, n += SUBS) {
     // S = Q K^T, 3xTF32 over the D / 8 k8 steps, one commit group per K
     // substage; the first step overwrites S.
 #pragma unroll
@@ -387,25 +457,35 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_qh,
   }
 }
 
-// The TMA maps of one call: q_hi, q_lo, k_hi, k_lo ([B, N, ld]) and
-// vt_hi, vt_lo ([B, ld, round_up(nk, 8)]). False if the encode refuses one.
-bool encode_maps(CUtensorMap (&maps)[6], const void* const (&ptrs)[6], int B,
-                 int H, int nq, int nk, int D, int ld) {
+// The TMA maps of one call: q_hi, q_lo, k_hi, k_lo ([B, N, ld]), vt_hi,
+// vt_lo ([B, ld, round_up(nk, 8)]) and the shifted mode's sample of k_hi
+// and k_lo (every stride-th row; `stride` 0 for a call that reads none).
+// False if the encode refuses one.
+bool encode_maps(CUtensorMap (&maps)[8], const void* const (&ptrs)[6], int B,
+                 int H, int nq, int nk, int D, int ld, int stride) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const int nkp = (nk + 7) / 8 * 8;
-  return encode_heads(fn, &maps[0], ptrs[0], B, H, nq, D, ld, BQ) &&
-         encode_heads(fn, &maps[1], ptrs[1], B, H, nq, D, ld, BQ) &&
-         encode_heads(fn, &maps[2], ptrs[2], B, H, nk, D, ld, BK) &&
-         encode_heads(fn, &maps[3], ptrs[3], B, H, nk, D, ld, BK) &&
-         encode_heads_t(fn, &maps[4], ptrs[4], B, H, nkp, D, ld) &&
-         encode_heads_t(fn, &maps[5], ptrs[5], B, H, nkp, D, ld);
+  const bool ok =
+      encode_heads(fn, &maps[0], ptrs[0], B, H, nq, D, ld, BQ) &&
+      encode_heads(fn, &maps[1], ptrs[1], B, H, nq, D, ld, BQ) &&
+      encode_heads(fn, &maps[2], ptrs[2], B, H, nk, D, ld, BK) &&
+      encode_heads(fn, &maps[3], ptrs[3], B, H, nk, D, ld, BK) &&
+      encode_heads_t(fn, &maps[4], ptrs[4], B, H, nkp, D, ld) &&
+      encode_heads_t(fn, &maps[5], ptrs[5], B, H, nkp, D, ld);
+  if (!ok || stride == 0) {
+    maps[6] = maps[2];  // unread
+    maps[7] = maps[3];
+    return ok;
+  }
+  return encode_heads(fn, &maps[6], ptrs[2], B, H, nk, D, ld, BK, stride) &&
+         encode_heads(fn, &maps[7], ptrs[3], B, H, nk, D, ld, BK, stride);
 }
 
 template <int D, bool ONLINE, bool LSE>
-cudaError_t launch(const CUtensorMap (&maps)[6], const float* shift,
-                   float* out, float* lse, int B, int H, int nq, int nk,
-                   int ldo, float scale, cudaStream_t stream) {
+cudaError_t launch(const CUtensorMap (&maps)[8], float* out, float* lse,
+                   int B, int H, int nq, int nk, int n_sub, int ldo,
+                   float scale, cudaStream_t stream) {
   auto kernel = flash_fwd_f32_kernel<D, ONLINE, LSE>;
   constexpr int smem = Shape<D>::SMEM_REQUEST;
   cudaError_t err = cudaFuncSetAttribute(
@@ -413,19 +493,22 @@ cudaError_t launch(const CUtensorMap (&maps)[6], const float* shift,
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(nq, BQ), B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], shift, out, lse,
-      H, nq, nk, ldo, scale * kLog2e);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
+      out, lse, H, nq, nk, n_sub, ldo, scale * kLog2e);
   return cudaGetLastError();
 }
 
+// Online: the serving forward. Shifted: the serving forward, which writes
+// its row shift into `shift_out` when given.
 template <int D>
-cudaError_t launch_mode(const CUtensorMap (&maps)[6], const float* shift,
-                        float* out, int B, int H, int nq, int nk, int ldo,
-                        int online, float scale, cudaStream_t stream) {
+cudaError_t launch_mode(const CUtensorMap (&maps)[8], float* out,
+                        float* shift_out, int B, int H, int nq, int nk,
+                        int n_sub, int ldo, int online, float scale,
+                        cudaStream_t stream) {
   if (online)
-    return launch<D, true, false>(maps, shift, out, nullptr, B, H, nq, nk,
+    return launch<D, true, false>(maps, out, nullptr, B, H, nq, nk, n_sub,
                                   ldo, scale, stream);
-  return launch<D, false, false>(maps, shift, out, nullptr, B, H, nq, nk,
+  return launch<D, false, false>(maps, out, shift_out, B, H, nq, nk, n_sub,
                                  ldo, scale, stream);
 }
 
@@ -441,37 +524,43 @@ extern "C" {
 // The fp32 serving forward at head width D (40, 64, 80 or 160) on split
 // operands (tf32_split.cu): q_hi/q_lo [B, nq, ld], k_hi/k_lo [B, nk, ld],
 // vt_hi/vt_lo [B, ld, round_up(nk, 8)] fp32, all 16-byte aligned, ld = D H;
-// o [B, nq, ldo] fp32 with ldo a multiple of 2; `shift` [B*H, nq] fp32 in
-// shifted mode (online = 0). Returns cudaSuccess (0) or the error of the
-// checks, the map encoding, the attribute call or the launch; any other D
-// returns cudaErrorInvalidValue.
+// o [B, nq, ldo] fp32 with ldo a multiple of 2. Shifted mode (online = 0):
+// the kernel computes the row shift from K's rows 0, stride, 2 stride, ...
+// < nk, n_sub = ceil(nk / stride) <= 255 of them, and writes it into
+// `shift_out` ([B*H, nq] fp32, natural-log units) when that is not null;
+// online: `shift_out` null, stride and n_sub ignored. Returns cudaSuccess
+// (0) or the error of the checks, the map encoding, the attribute call or
+// the launch; any other D returns cudaErrorInvalidValue.
 int mt_flash_fwd_f32(const void* q_hi, const void* q_lo, const void* k_hi,
                      const void* k_lo, const void* vt_hi, const void* vt_lo,
-                     const void* shift, void* o, int B, int H, int nq, int nk,
-                     int D, int ld, int ldo, int online, float scale,
-                     void* stream) {
-  if (bad_args(B, H, nq, nk, D, ld, ldo) || (!online && shift == nullptr))
+                     void* o, void* shift_out, int B, int H, int nq, int nk,
+                     int D, int ld, int ldo, int online, int stride, int n_sub,
+                     float scale, void* stream) {
+  if (bad_args(B, H, nq, nk, D, ld, ldo) ||
+      (online && shift_out != nullptr) ||
+      (!online && (stride < 1 || n_sub > kMaxSample ||
+                   n_sub != cdiv(nk, stride))))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[6];
+  CUtensorMap maps[8];
   if (!encode_maps(maps, {q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo}, B, H, nq, nk,
-                   D, ld))
+                   D, ld, online ? 0 : stride))
     return (int)cudaErrorInvalidValue;
-  const float* sh = static_cast<const float*>(shift);
   float* of = static_cast<float*>(o);
+  float* sh = static_cast<float*>(shift_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return (int)launch_mode<40>(maps, sh, of, B, H, nq, nk, ldo, online,
-                                  scale, st);
+      return (int)launch_mode<40>(maps, of, sh, B, H, nq, nk, n_sub, ldo,
+                                  online, scale, st);
     case 64:
-      return (int)launch_mode<64>(maps, sh, of, B, H, nq, nk, ldo, online,
-                                  scale, st);
+      return (int)launch_mode<64>(maps, of, sh, B, H, nq, nk, n_sub, ldo,
+                                  online, scale, st);
     case 80:
-      return (int)launch_mode<80>(maps, sh, of, B, H, nq, nk, ldo, online,
-                                  scale, st);
+      return (int)launch_mode<80>(maps, of, sh, B, H, nq, nk, n_sub, ldo,
+                                  online, scale, st);
     case 160:
-      return (int)launch_mode<160>(maps, sh, of, B, H, nq, nk, ldo, online,
-                                   scale, st);
+      return (int)launch_mode<160>(maps, of, sh, B, H, nq, nk, n_sub, ldo,
+                                   online, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -487,26 +576,26 @@ int mt_flash_fwd_lse_f32(const void* q_hi, const void* q_lo, const void* k_hi,
                          void* stream) {
   if (bad_args(B, H, nq, nk, D, ld, ldo) || lse == nullptr)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[6];
+  CUtensorMap maps[8];
   if (!encode_maps(maps, {q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo}, B, H, nq, nk,
-                   D, ld))
+                   D, ld, 0))
     return (int)cudaErrorInvalidValue;
   float* of = static_cast<float*>(o);
   float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return (int)launch<40, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
-                                         ldo, scale, st);
+      return (int)launch<40, true, true>(maps, of, ls, B, H, nq, nk, nk, ldo,
+                                         scale, st);
     case 64:
-      return (int)launch<64, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
-                                         ldo, scale, st);
+      return (int)launch<64, true, true>(maps, of, ls, B, H, nq, nk, nk, ldo,
+                                         scale, st);
     case 80:
-      return (int)launch<80, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
-                                         ldo, scale, st);
+      return (int)launch<80, true, true>(maps, of, ls, B, H, nq, nk, nk, ldo,
+                                         scale, st);
     case 160:
-      return (int)launch<160, true, true>(maps, nullptr, of, ls, B, H, nq, nk,
-                                          ldo, scale, st);
+      return (int)launch<160, true, true>(maps, of, ls, B, H, nq, nk, nk, ldo,
+                                          scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -8,7 +8,9 @@
 // 40-, 80- and 160-wide heads of an SD1.x-class UNet, 320, 640 and 1280
 // channels over 8 heads) of the TPU package's
 // marigold_tpu/ops/flash_attention.py kernels:
-//   * _flash_kernel_dt_shifted  (shifted softmax; pallas_call at :396)
+//   * _flash_kernel_dt_shifted  (shifted softmax; pallas_call at :396), and
+//     the row shift its wrapper _flash_dt_impl computes outside it
+//     (:362-373), which this kernel computes in its own launch
 //   * _flash_kernel_dt          (exact online softmax; :460)
 //   * _flash_kernel_dt_lse      (online softmax + row logsumexp; :638), the
 //     training forward whose lse the backward kernels (flash_bwd_sm90.cu)
@@ -18,14 +20,18 @@
 // The 512-wide VAE head has its own kernel, flash_fwd_d512_sm90.cu.
 //
 // Math per (batch, head, query row r), s_j = (q_r . k_j) * scale, fp32:
-//   shifted: p_j = exp(min(s_j - shift_r, 75)), shift_r from the caller;
+//   shifted: p_j = exp(min(s_j - shift_r, 75)), shift_r = max of s_j over
+//            the sampled keys j = 0, stride, 2 stride, ... < nk (stride =
+//            max(1, nk // 128), n_sub <= 255 of them) + 40, computed by the
+//            kernel itself (below);
 //   online:  running max m, p_j = exp(s_j - m), O and l rescaled by
 //            exp(m_old - m_new) when the max grows;
 //   out_r = (sum_j bf16(p_j) v_j) / max(sum_j p_j, 1e-30), stored bf16;
 //   lse_r = m + log(max(l, 1e-30)) in natural-log units (LSE variant).
 // Every exponential is exp2: the logits are multiplied by scale * log2(e),
 // and the shift, the clamp and the running max live in the same base-2
-// units; the lse is converted back to natural log. Key columns j >= nk get
+// units; the lse (and the shift the shifted mode writes when asked) is
+// converted back to natural log. Key columns j >= nk get
 // s_j = -1e30; query rows r >= nq are computed on TMA's zero fill and not
 // stored.
 //
@@ -81,6 +87,22 @@
 // per logit against 4 D = 160 FLOPs of products per logit, and the card's
 // special-function units (16 exp2 per SM per clock) finish fewer
 // exponentials per second than its tensor cores finish those FLOPs.
+//
+// The shifted mode's row shift comes from a sample pass in the same CTA,
+// before the K loop (the TPU wrapper computes it outside its kernel, as a
+// strided slice of K, a product and a max that XLA fuses; on the card that
+// chain of eager launches, with a copy of Q to fp32, cost as much as the
+// kernel at the SD1.x widths). A fifth TMA map reads K's sampled rows in
+// place: {D, H, n_sub, B} with a row stride of stride * ldkv elements (any
+// multiple of 16 bytes will do), its rows past n_sub zero-filled. The
+// producer puts ceil(n_sub / BK) sample tiles, K only, into the ring ahead
+// of the first K/V tile; each consumer computes S for them with the main
+// loop's QK^T, masks the columns >= n_sub, takes the row max over its quad
+// and sets shift = max * scale * log2(e) + 40 log2(e), then runs the K
+// loop unchanged. No exponential and no P V in that pass: ceil(n_sub / BK)
+// extra QK^T tiles of ceil(nk / BK) (1.4-2.8% at nk = 9216, 12.5-25% at
+// 1024). When the `lse` pointer is given the shifted mode writes that
+// shift into it (natural-log units), for the tests.
 
 #include "sm90.cuh"
 
@@ -116,9 +138,11 @@ struct Shape {
 };
 
 constexpr float kNegInf = -1e30f;                 // the TPU kernels' NEG_INF
+constexpr int kMaxSample = 255;  // sampled keys: max(1, nk // 128) strides
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kClamp2 = 75.0f * 1.4426950408889634f;  // exp clamp, base 2
+constexpr float kMargin2 = 40.0f * 1.4426950408889634f;  // shift margin, base 2
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -147,9 +171,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_o,
-                      const float* __restrict__ shift,
+                      const __grid_constant__ CUtensorMap tm_ks,
                       float* __restrict__ lse, int H, int nq, int nk,
-                      float scale_log2) {
+                      int n_sub, float scale_log2) {
   static_assert(ONLINE || !LSE, "the logsumexp needs the running max");
   using S_ = Shape<D>;
   constexpr int ATOMS = S_::ATOMS;
@@ -165,6 +189,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int n_tiles = (nk + BK - 1) / BK;
+  // shifted mode: the sample tiles of K that go through the ring first
+  const int n_pre = ONLINE ? 0 : (n_sub + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < KV_STAGES; ++s) {
@@ -187,18 +213,25 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int a = 0; a < ATOMS; ++a)
         tma_load_4d(base + S_::SM_Q + a * S_::Q_ATOM, &tm_q, 64 * a, h, q0, b,
                     bar_q);
-      for (int it = 0; it < n_tiles; ++it) {
+      for (int it = 0; it < n_pre + n_tiles; ++it) {
         const int st = it % KV_STAGES;
         if (it >= KV_STAGES)
           mbar_wait(bar_empty + 8 * st, ((it / KV_STAGES) - 1) & 1);
-        mbar_expect_tx(bar_full + 8 * st, 2 * S_::KV_BYTES);
+        const bool sample = it < n_pre;  // K's sampled rows only
+        mbar_expect_tx(bar_full + 8 * st, (sample ? 1 : 2) * S_::KV_BYTES);
 #pragma unroll
         for (int a = 0; a < ATOMS; ++a) {
           const uint32_t off = st * S_::KV_BYTES + a * S_::KV_ATOM;
-          tma_load_4d(base + S_::SM_K + off, &tm_k, 64 * a, h, it * BK, b,
-                      bar_full + 8 * st);
-          tma_load_4d(base + S_::SM_V + off, &tm_v, 64 * a, h, it * BK, b,
-                      bar_full + 8 * st);
+          if (sample) {
+            tma_load_4d(base + S_::SM_K + off, &tm_ks, 64 * a, h, it * BK, b,
+                        bar_full + 8 * st);
+          } else {
+            const int k0 = (it - n_pre) * BK;
+            tma_load_4d(base + S_::SM_K + off, &tm_k, 64 * a, h, k0, b,
+                        bar_full + 8 * st);
+            tma_load_4d(base + S_::SM_V + off, &tm_v, 64 * a, h, k0, b,
+                        bar_full + 8 * st);
+          }
         }
       }
     }
@@ -217,18 +250,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row1 = row0 + 8;
   const uint32_t q_tile = base + S_::SM_Q + c * 64 * ROW_BYTES;
 
-  float sh0 = 0.f, sh1 = 0.f;  // shifted mode: the row shift, base 2
-  if (!ONLINE) {
-    if (row0 < nq) sh0 = shift[(size_t)bh * nq + row0] * kLog2e;
-    if (row1 < nq) sh1 = shift[(size_t)bh * nq + row1] * kLog2e;
-  }
-  float m0 = kNegInf, m1 = kNegInf;  // running max (online), base 2
-  float l0 = 0.f, l1 = 0.f;          // this thread's part of the row sums
-  float o[ATOMS][32];                // output columns [64a, 64a + 64)
-#pragma unroll
-  for (int a = 0; a < ATOMS; ++a)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
   float s[BK / 2];
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
@@ -247,13 +268,51 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
 
   mbar_wait(bar_q, 0);
-  mbar_wait(bar_full, 0);
-  issue_qk(0);
+  float sh0 = 0.f, sh1 = 0.f;  // shifted mode: the row shift, base 2
+  if (!ONLINE) {
+    // The sample pass: S on the sampled keys, columns >= n_sub masked, the
+    // row max over the quad, plus the margin.
+    float mx0 = kNegInf, mx1 = kNegInf;
+    for (int it = 0; it < n_pre; ++it) {
+      const int st = it % KV_STAGES;
+      mbar_wait(bar_full + 8 * st, (it / KV_STAGES) & 1);
+      issue_qk(st);
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (t == 0) mbar_arrive(bar_empty + 8 * st);  // release sample stage st
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (it * BK + 8 * j + col + e < n_sub) {
+            mx0 = fmaxf(mx0, s[4 * j + e]);
+            mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
+          }
+        }
+      }
+    }
+    sh0 = fmaf(quad_max(mx0), scale_log2, kMargin2);
+    sh1 = fmaf(quad_max(mx1), scale_log2, kMargin2);
+    if (lse != nullptr && lane % 4 == 0) {
+      if (row0 < nq) lse[(size_t)bh * nq + row0] = sh0 * kLn2;
+      if (row1 < nq) lse[(size_t)bh * nq + row1] = sh1 * kLn2;
+    }
+  }
+  float m0 = kNegInf, m1 = kNegInf;  // running max (online), base 2
+  float l0 = 0.f, l1 = 0.f;          // this thread's part of the row sums
+  float o[ATOMS][32];                // output columns [64a, 64a + 64)
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
+
+  mbar_wait(bar_full + 8 * (n_pre % KV_STAGES), (n_pre / KV_STAGES) & 1);
+  issue_qk(n_pre % KV_STAGES);
   wgmma_wait<0>();
   fence_regs(s);
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % KV_STAGES;
+    const int st = (n_pre + it) % KV_STAGES;
     const int k0 = it * BK;
     if (k0 + BK > nk) {  // the ragged last tile: mask key columns >= nk
 #pragma unroll
@@ -332,8 +391,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     wgmma_commit();
     if (it + 1 < n_tiles) {
-      const int nst = (it + 1) % KV_STAGES;
-      mbar_wait(bar_full + 8 * nst, ((it + 1) / KV_STAGES) & 1);
+      const int nst = (n_pre + it + 1) % KV_STAGES;
+      mbar_wait(bar_full + 8 * nst, ((n_pre + it + 1) / KV_STAGES) & 1);
       issue_qk(nst);
       wgmma_wait<1>();  // P V of this tile is done; QK^T may still run
     } else {
@@ -385,21 +444,23 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // A map of the heads of a [B, N, ld] bf16 tensor: {D, H, N, B} (head h at
 // channels [Dh, Dh + D)), a {64, 1, rows, 1} box. Lanes of a box past D and
-// rows past N read as zeros and are not stored.
+// rows past N read as zeros and are not stored. With `stride` > 1 the map
+// takes every stride-th row, ceil(N / stride) of them (the shifted mode's
+// sample of K).
 bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int H,
-            int N, int D, int ld, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)ld * 2,
+            int N, int D, int ld, int rows, int stride = 1) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)cdiv(N, stride), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)ld * stride * 2,
                                  (cuuint64_t)N * ld * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return encode_bf16_sw128(fn, map, ptr, 4, dims, strides, box);
 }
 
 template <int D, bool ONLINE, bool LSE>
-cudaError_t launch(const CUtensorMap* maps, const float* shift, float* lse,
-                   int B, int H, int nq, int nk, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const CUtensorMap* maps, float* lse, int B, int H, int nq,
+                   int nk, int n_sub, float scale, cudaStream_t stream) {
   auto kernel = flash_fwd_sm90_kernel<D, ONLINE, LSE>;
   constexpr int smem = Shape<D>::SMEM_REQUEST;
   cudaError_t err = cudaFuncSetAttribute(
@@ -407,25 +468,26 @@ cudaError_t launch(const CUtensorMap* maps, const float* shift, float* lse,
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + BQ - 1) / BQ, B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], shift, lse, H, nq, nk,
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, H, nq, nk, n_sub,
       scale * kLog2e);
   return cudaGetLastError();
 }
 
-// The training forward (online, with the lse) when `lse` is given, else
-// the serving forward in the caller's mode.
+// Online: the training forward (with the lse) when `lse` is given, else
+// the serving forward. Shifted: the serving forward, which writes its row
+// shift into `lse` when given.
 template <int D>
-cudaError_t launch_mode(const CUtensorMap* maps, const float* shift,
-                        float* lse, int B, int H, int nq, int nk, float scale,
-                        int online, cudaStream_t stream) {
+cudaError_t launch_mode(const CUtensorMap* maps, float* lse, int B, int H,
+                        int nq, int nk, int n_sub, float scale, int online,
+                        cudaStream_t stream) {
+  if (!online)
+    return launch<D, false, false>(maps, lse, B, H, nq, nk, n_sub, scale,
+                                   stream);
   if (lse != nullptr)
-    return launch<D, true, true>(maps, shift, lse, B, H, nq, nk, scale,
+    return launch<D, true, true>(maps, lse, B, H, nq, nk, n_sub, scale,
                                  stream);
-  if (online)
-    return launch<D, true, false>(maps, shift, lse, B, H, nq, nk, scale,
-                                  stream);
-  return launch<D, false, false>(maps, shift, lse, B, H, nq, nk, scale,
-                                 stream);
+  return launch<D, true, false>(maps, lse, B, H, nq, nk, n_sub, scale,
+                                stream);
 }
 
 }  // namespace
@@ -435,40 +497,48 @@ extern "C" {
 // The forward at head width D (40, 64, 80 or 160), called by
 // mt_flash_attention_fwd and mt_flash_attention_fwd_lse (flash_attention.cu).
 // q and o are [B, nq, ldq/ldo], k and v [B, nk, ldkv] bf16, 16-byte
-// aligned, with row strides a multiple of 8 elements (TMA's 16-byte rule);
-// `shift` is [B*H, nq] fp32 in shifted mode, `lse` [B*H, nq] fp32 or null
-// (the training forward, online only). Returns cudaSuccess or the error of the checks, the map
-// encoding, the attribute call or the launch.
-int mt_flash_fwd_sm90(const void* q, const void* k, const void* v,
-                      const void* shift, void* o, void* lse, int B, int H,
-                      int nq, int nk, int D, int ldq, int ldkv, int ldo,
-                      float scale, int online, void* stream) {
+// aligned, with row strides a multiple of 8 elements (TMA's 16-byte rule).
+// Shifted mode (online = 0): the kernel computes the row shift from K's
+// rows 0, stride, 2 stride, ... < nk, n_sub = ceil(nk / stride) <= 255 of
+// them, and writes it into `lse` ([B*H, nq] fp32, natural-log units) when
+// that is not null. Online: `lse` [B*H, nq] fp32 or null (the training
+// forward's logsumexp); stride and n_sub are ignored. Returns cudaSuccess
+// or the error of the checks, the map encoding, the attribute call or the
+// launch.
+int mt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int B, int H, int nq, int nk, int D, int ldq,
+                      int ldkv, int ldo, int stride, int n_sub, float scale,
+                      int online, void* stream) {
   if (B < 1 || H < 1 || nq < 1 || nk < 1 || ldq % 8 || ldkv % 8 || ldo % 8 ||
       ldq < D * H || ldkv < D * H || ldo < D * H ||
-      (!online && shift == nullptr) ||
-      (lse != nullptr && !online))
+      (!online && (stride < 1 || n_sub > kMaxSample ||
+                   n_sub != cdiv(nk, stride))))
     return (int)cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const int bk = D > 128 ? 64 : 128;  // Shape<D>::BK
-  CUtensorMap maps[4];
+  CUtensorMap maps[5];
   if (!encode(fn, &maps[0], q, B, H, nq, D, ldq, BQ) ||
       !encode(fn, &maps[1], k, B, H, nk, D, ldkv, bk) ||
       !encode(fn, &maps[2], v, B, H, nk, D, ldkv, bk) ||
       !encode(fn, &maps[3], o, B, H, nq, D, ldo, 64))
     return (int)cudaErrorInvalidValue;
-  const float* sh = static_cast<const float*>(shift);
+  if (online)
+    maps[4] = maps[1];  // unread
+  else if (!encode(fn, &maps[4], k, B, H, nk, D, ldkv, bk, stride))
+    return (int)cudaErrorInvalidValue;
   float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return launch_mode<40>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+      return launch_mode<40>(maps, ls, B, H, nq, nk, n_sub, scale, online, st);
     case 64:
-      return launch_mode<64>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+      return launch_mode<64>(maps, ls, B, H, nq, nk, n_sub, scale, online, st);
     case 80:
-      return launch_mode<80>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+      return launch_mode<80>(maps, ls, B, H, nq, nk, n_sub, scale, online, st);
     case 160:
-      return launch_mode<160>(maps, sh, ls, B, H, nq, nk, scale, online, st);
+      return launch_mode<160>(maps, ls, B, H, nq, nk, n_sub, scale, online,
+                              st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -295,12 +295,16 @@ inline bool encode_f32_rows(EncodeTiledFn fn, CUtensorMap* map,
 // A map of the heads of a [B, N, ld] fp32 tensor: {D, H, N, B} (head h at
 // channels [Dh, Dh + D)), a {32, 1, rows, 1} box; a box's lanes past D read
 // as zeros, never the next head's (the head stride, 4 D bytes, a multiple
-// of 16 for D a multiple of 4).
+// of 16 for D a multiple of 4). With `stride` > 1 the map takes every
+// stride-th row, ceil(N / stride) of them (the shifted forward's sample of
+// K).
 inline bool encode_heads(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
-                         int B, int H, int N, int D, int ld, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)ld * 4,
+                         int B, int H, int N, int D, int ld, int rows,
+                         int stride = 1) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)cdiv(N, stride), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4,
+                                 (cuuint64_t)ld * stride * 4,
                                  (cuuint64_t)N * ld * 4};
   const cuuint32_t box[4] = {TF32_ROW, 1, (cuuint32_t)rows, 1};
   return encode_f32_sw128(fn, map, ptr, 4, dims, strides, box);

@@ -28,8 +28,12 @@ its channel offset.
 
 Softmax modes (see the TPU module's notes for the numerical design):
   * "shifted": p = exp(min(s - shift_row, 75)) with shift_row = max of the
-    row's logits over a strided K subsample (stride max(1, nk // 128)) + 40.
-    The shift is a small product outside the kernel (`row_shift`).
+    row's logits over a strided K subsample (`shift_sample`: stride
+    max(1, nk // 128), at most 255 keys) + 40. The kernels at head widths
+    40, 64, 80 and 160 compute it in their own launch, from a sample pass
+    over those keys before their K loop (`flash_attention_shift` returns
+    the shift they used); the 512-wide ones take it from `row_shift`, the
+    plain version, which also runs on the CPU.
   * "online": exact running-max softmax.
 
 Under autograd (`FlashAttentionFunction`, which `ops/attention.py` calls
@@ -92,6 +96,7 @@ from marigold_tpu_torch.ops import cuda_build
 
 SHIFT_MARGIN = 40.0  # marigold_tpu/ops/flash_attention.py:_SHIFT_MARGIN
 SHIFT_SAMPLE_TARGET = 128  # ~128 sampled K columns per row
+SHIFT_SAMPLE_MAX = 255  # the most a row samples: 255 keys at nk = 255
 EXP_CLAMP = 75.0
 SOFTMAX_MODES = ("shifted", "online")
 HEAD_DIMS = (40, 64, 80, 160, 512)  # the serving forwards' instantiations
@@ -129,15 +134,25 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
 
 
+def shift_sample(nk: int) -> tuple[int, int]:
+    """(stride, n_sub) of the shifted softmax's K subsample: the keys 0,
+    stride, 2 stride, ... < nk, n_sub = ceil(nk / stride) <= SHIFT_SAMPLE_MAX
+    of them, as the TPU wrapper's `kt[:, :, ::stride]` takes them
+    (`_flash_dt_impl`, flash_attention.py:366; stride from the unpadded
+    nk). The shifted kernels get both."""
+    stride = max(1, nk // SHIFT_SAMPLE_TARGET)
+    return stride, -(-nk // stride)
+
+
 def row_shift(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Per-query-row softmax shift [B*H, Nq] fp32: max over a strided K
-    subsample of the fp32 logits, plus the margin (TPU wrapper
-    `_flash_dt_impl`, flash_attention.py:366-373; stride from the unpadded
-    nk)."""
+    subsample (`shift_sample`) of the fp32 logits, plus the margin (TPU
+    wrapper `_flash_dt_impl`, flash_attention.py:366-373). The plain
+    version of the shift the kernels at D < 512 compute themselves; the
+    512-wide kernels read it."""
     b, nq, c = q.shape
-    nk = k.shape[1]
     scale = 1.0 / math.sqrt(c // num_heads)
-    stride = max(1, nk // SHIFT_SAMPLE_TARGET)
+    stride, _ = shift_sample(k.shape[1])
     qh = _heads(q, num_heads).float()
     kh = _heads(k[:, ::stride], num_heads).float()
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
@@ -341,8 +356,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.mt_flash_attention_fwd
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
+        fn.argtypes = [p] * 6 + [i] * 10 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         lib.mt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
@@ -352,7 +366,7 @@ def _library() -> ctypes.CDLL:
 
 def _f32_library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention_f32", F32_SOURCES)
-    _bind(lib, "mt_flash_fwd_f32", 8, 8)
+    _bind(lib, "mt_flash_fwd_f32", 8, 10)
     _bind(lib, "mt_flash_fwd_d512_f32", 8, 7)
     _bind(lib, "mt_flash_fwd_lse_f32", 8, 7)
     return lib
@@ -372,14 +386,18 @@ def _split_fwd_f32(q, k, v) -> list:
 
 
 def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
-                    online: bool, variant: str) -> None:
+                    online: bool, variant: str, shift_out=None) -> None:
     """One serving forward on q's stream: the bf16 Hopper kernels (q, k, v
     and out read at their own row strides) or, in fp32, the operand split
     of contiguous q, k, v and then the 3xTF32 kernel of the head width,
-    counted as `variant` in `launches` or `launches_f32`."""
+    counted as `variant` in `launches` or `launches_f32`. Shifted: `shift`
+    is `row_shift`'s at D = 512 and None below, where the kernel computes
+    it on `shift_sample`'s keys and writes it into `shift_out` if given."""
     nq, nk, scale = q.shape[1], k.shape[1], 1.0 / math.sqrt(d)
+    stride, n_sub = shift_sample(nk)
     stream = torch.cuda.current_stream().cuda_stream
     shift_ptr = shift.data_ptr() if shift is not None else None
+    out_ptr = shift_out.data_ptr() if shift_out is not None else None
     if q.dtype == torch.float32:
         lib, counter = _f32_library(), launches_f32
         operands = [t.data_ptr() for t in _split_fwd_f32(q, k, v)]
@@ -391,15 +409,16 @@ def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
                     ld, ld, int(online), scale, stream)
             else:
                 err = lib.mt_flash_fwd_f32(
-                    *operands, shift_ptr, out.data_ptr(), b, heads, nq, nk, d,
-                    ld, ld, int(online), scale, stream)
+                    *operands, out.data_ptr(), out_ptr, b, heads, nq, nk, d,
+                    ld, ld, int(online), stride, n_sub, scale, stream)
     else:
         lib, counter = _library(), launches
         with torch.cuda.device(q.device):
             err = lib.mt_flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), shift_ptr,
-                out.data_ptr(), b, heads, nq, nk, d, q.stride(1), k.stride(1),
-                out.stride(1), scale, int(online), stream,
+                out.data_ptr(), out_ptr, b, heads, nq, nk, d, q.stride(1),
+                k.stride(1), out.stride(1), stride, n_sub, scale, int(online),
+                stream,
             )
     _raise_on(lib, err, f"flash attention ({q.dtype})")
     counter.add(variant)
@@ -513,22 +532,44 @@ def flash_attention(
 
 
 def _serving_forward(q, k, v, num_heads: int, softmax: str,
-                     strided: bool = False) -> torch.Tensor:
+                     strided: bool = False,
+                     shift_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`flash_attention`'s body; `strided` takes [B, N, C] views of rows
-    with any row stride (`flash_attention_packed`'s q, k and v)."""
+    with any row stride (`flash_attention_packed`'s q, k and v);
+    `shift_out` ([B*H, Nq] fp32, shifted mode) receives the row shift."""
     _check_inputs(q, k, v, num_heads, softmax)
     if q.device.type == "cpu":
+        if shift_out is not None:
+            shift_out.copy_(row_shift(q, k, num_heads))
         return flash_attention_plain(q, k, v, num_heads, softmax)
     b, n, c = q.shape
     d = c // num_heads
     _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, b * num_heads,
                 strided)
     check_tma({"q": q, "k": k, "v": v}, d)
-    shift = row_shift(q, k, num_heads) if softmax == "shifted" else None
+    # the kernels below 512 compute the shift themselves
+    shift = (row_shift(q, k, num_heads) if softmax == "shifted" and d == 512
+             else None)
     out = q.new_empty((b, n, c))
     _launch_forward(q, k, v, shift, out, b, num_heads, d,
-                    softmax == "online", f"{softmax}_d{d}")
+                    softmax == "online", f"{softmax}_d{d}", shift_out)
     return out
+
+
+def flash_attention_shift(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          num_heads: int, strided: bool = False
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shifted forward and the row shift it used, [B*H, Nq] fp32 in
+    natural-log units: on a CUDA tensor at head dims 40, 64, 80 and 160 the
+    kernel writes the shift it computed through its `lse` pointer (what the
+    serving path leaves null; the 512-wide kernels, which read
+    `row_shift`'s, raise); on a CPU tensor it is `row_shift`'s. `strided`
+    as `flash_attention_packed` reads q, k and v. For the tests and
+    chip_smoke.py, which hold the kernel's shift to `row_shift`."""
+    shift = torch.empty((q.shape[0] * num_heads, q.shape[1]),
+                        dtype=torch.float32, device=q.device)
+    out = _serving_forward(q, k, v, num_heads, "shifted", strided, shift)
+    return out, shift
 
 
 def flash_attention_packed(qkv: torch.Tensor, num_heads: int,

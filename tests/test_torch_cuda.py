@@ -15,7 +15,10 @@ csrc/flash_bwd_dq_f32_sm90.cu, with 128-row query blocks, and
 csrc/flash_bwd_dkv_f32_sm90.cu, with their operand split
 csrc/tf32_split.cu, and the convs csrc/conv3x3_f32_sm90.cu and
 csrc/winograd_f32_sm90.cu), against
-their plain PyTorch versions, the wrappers' checks, the dispatch on CUDA tensors with
+their plain PyTorch versions, the row shift the shifted forwards at 40, 64,
+80 and 160 compute in their own launch against row_shift (and one CUDA
+kernel per call, two in fp32, as online), the wrappers' checks, the
+dispatch on CUDA tensors with
 and without autograd, and the slices on the card against the CPU: depth at
 E=1 and E=3, normals and IID appearance at E=1, and bf16 normals and IID
 requests through the flash kernels against plain attention, and the
@@ -1071,3 +1074,96 @@ def test_unknown_widths_raise(cuda):
         fa.flash_attention(q, k, v, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fa.flash_attention_folded(*_qkv(cuda, 1, 100, 48))
+
+
+# ---- the shifted forwards' own row shift (a sample pass inside the kernel)
+
+# The kernel's shift (its own S on the sampled keys) against row_shift (fp32
+# products of the same inputs): sums in another order, and nothing relies
+# on their bits, so |err| <= SHIFT_TOL * max(1, |shift|).
+SHIFT_TOL = 1e-4
+
+
+def _device_kernels(fn) -> int:
+    """CUDA kernels fn() launches, from torch.profiler (after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _shift_close(shift, q, k, heads):
+    ref = fa.row_shift(q, k, heads)
+    assert shift.shape == ref.shape and shift.dtype == torch.float32
+    assert bool(((shift - ref).abs() <= SHIFT_TOL * ref.abs().clamp(min=1)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,c,heads", [
+    (1, 2304, 2304, 320, 8),   # d=40: stride 18, n_sub 128
+    (2, 1300, 4800, 320, 5),   # d=64: stride 37, the last sample at 4773
+    (1, 4608, 9216, 320, 5),   # d=64: a shard's queries against all keys
+    (2, 77, 130, 640, 8),      # d=80: stride 1, 130 keys over two 128-key tiles
+    (1, 1100, 1300, 1280, 8),  # d=160: stride 10, n_sub 130, nq != nk
+    (1, 200, 255, 160, 1),     # d=160: stride 1, 255 keys over four tiles
+])
+def test_shifted_kernel_computes_its_row_shift(cuda, b, nq, nk, c, heads,
+                                               dtype):
+    """The shifted forward at 40, 64, 80 and 160 computes its row shift in
+    its own launch: the shift it writes through its lse pointer against
+    row_shift, the output against the plain version and equal to the
+    serving call's bits (which passes no pointer), and as many CUDA
+    kernels per shifted call as per online call (bf16: the forward; fp32:
+    the split and the forward)."""
+    q = torch.randn((b, nq, c), generator=cuda, device="cuda").to(dtype)
+    k, v = (torch.randn((b, nk, c), generator=cuda, device="cuda").to(dtype)
+            for _ in range(2))
+    out, shift = fa.flash_attention_shift(q, k, v, heads)
+    _shift_close(shift, q, k, heads)
+    assert torch.equal(out, fa.flash_attention(q, k, v, heads, "shifted"))
+    ref = fa.flash_attention_plain(q, k, v, heads, "shifted")
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, dtype)
+    kernels = [_device_kernels(lambda: fa.flash_attention(q, k, v, heads, m))
+               for m in ("shifted", "online")]
+    assert kernels[0] == kernels[1] == (1 if dtype == torch.bfloat16 else 2)
+
+
+@pytest.mark.parametrize("c", [320, 640, 1280])
+def test_packed_shifted_kernel_computes_its_row_shift(cuda, c):
+    """The packed entry (q, k and v read in place at row stride 3C; the
+    sample map's row stride is stride * 3C) writes the same shift and
+    launches one kernel, as the online call does."""
+    qkv = torch.randn((1, 1300, 3 * c), generator=cuda,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    out, shift = fa.flash_attention_shift(q, k, v, 8, strided=True)
+    _shift_close(shift, q.contiguous(), k.contiguous(), 8)
+    assert torch.equal(out, fa.flash_attention_packed(qkv, 8, "shifted"))
+    kernels = [_device_kernels(lambda: fa.flash_attention_packed(qkv, 8, m))
+               for m in ("shifted", "online")]
+    assert kernels == [1, 1]
+
+
+def test_shifted_entries_refuse_the_old_pointer_route(cuda):
+    """At D < 512 the C entries take no shift from the caller: a shift
+    pointer there is refused, not read; at 512 none is written."""
+    q, k, v = _qkv(cuda, 1, 256, 64)
+    shift = fa.row_shift(q, k, 1)
+    out = torch.empty_like(q)
+    lib = fa._library()
+    stride, n_sub = fa.shift_sample(256)
+    with torch.cuda.device(q.device):
+        err = lib.mt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), shift.data_ptr(),
+            out.data_ptr(), None, 1, 1, 256, 256, 64, 64, 64, 64, stride,
+            n_sub, 0.125, 0, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    # the 512-wide kernels read row_shift's shift and write none
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention_shift(*_qkv(cuda, 1, 256, 512), 1)

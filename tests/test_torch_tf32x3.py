@@ -204,16 +204,39 @@ def _fold(x):  # one head's [N, D] -> the TPU kernels' [BH, D, N]
     return jnp.asarray(x.numpy().T[None])
 
 
+def _emulated_shift(q, k):
+    """The row shift [nq, 1] in base-2 units as the shifted kernel of
+    csrc/flash_fwd_d64_f32_sm90.cu computes it, before its key loop: the
+    sampled keys (`fa.shift_sample`: 0, stride, ... < nk) in tiles of
+    KEY_TILE rows (zeros past n_sub, as TMA fills them), S as 3xTF32, the
+    columns >= n_sub masked to -1e30, the row max, then max * scale log2(e)
+    + 40 log2(e) in fp32."""
+    nq, d = q.shape
+    scale_log2 = np.float32(1.0 / np.sqrt(d)) * LOG2E
+    stride, n_sub = fa.shift_sample(k.shape[0])
+    n_pad = -(-n_sub // KEY_TILE) * KEY_TILE
+    sample = torch.zeros(n_pad, d)
+    sample[:n_sub] = k[::stride]
+    mx = torch.full((nq, 1), -1e30)
+    for k0 in range(0, n_pad, KEY_TILE):
+        s = fa.matmul_tf32x3_plain(q, sample[k0:k0 + KEY_TILE].T)
+        s[:, max(0, n_sub - k0):] = -1e30
+        mx = torch.maximum(mx, s.amax(-1, keepdim=True))
+    return mx * scale_log2 + np.float32(fa.SHIFT_MARGIN) * LOG2E
+
+
 def _emulated_d64_forward(q, k, v, softmax):
-    """One 64-wide head as csrc/flash_fwd_d64_f32_sm90.cu computes it in
-    fp32: per KEY_TILE keys S as 3xTF32, the softmax in base 2 (online: the
-    running max, O and l rescaled; shifted: the row shift and the clamp in
-    base-2 units), the tile's P V as 3xTF32 into a fresh product added into
-    O. Returns (out, lse in natural-log units)."""
+    """One head (the kernel's instantiations at 40, 64, 80 and 160 walk the
+    keys alike) as csrc/flash_fwd_d64_f32_sm90.cu computes it in fp32: in
+    shifted mode first the row shift (`_emulated_shift`), then per
+    KEY_TILE keys S as 3xTF32, the softmax in base 2 (online: the running
+    max, O and l rescaled; shifted: the row shift and the clamp in base-2
+    units), the tile's P V as 3xTF32 into a fresh product added into O.
+    Returns (out, lse in natural-log units)."""
     nq, d = q.shape
     scale_log2 = np.float32(1.0 / np.sqrt(d)) * LOG2E
     m = torch.full((nq, 1), -1e30)
-    ref = fa.row_shift(q[None], k[None], 1)[0][:, None] * LOG2E
+    ref = _emulated_shift(q, k) if softmax == "shifted" else None
     l, o = torch.zeros(nq, 1), torch.zeros(nq, d)
     for k0 in range(0, k.shape[0], KEY_TILE):
         s = fa.matmul_tf32x3_plain(q, k[k0:k0 + KEY_TILE].T)
@@ -239,6 +262,39 @@ def test_emulated_d64_forward_matches_the_tpu_kernel(softmax, nq, nk):
     ref = np.asarray(jfa._flash_dt_impl(
         _fold(q), _fold(k), _fold(v), block_q=128, block_k=128, interpret=True,
         softmax=softmax))[0].T
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= F32_TOL_REL * np.abs(ref).max() + F32_TOL_ABS
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("nq,nk", [(129, 300), (70, 1300)])
+def test_emulated_shift_meets_row_shift(d, nq, nk, negative):
+    """The kernel's own shift (3xTF32 on the sampled keys, base 2) against
+    row_shift's (fp32 products of the same keys) in base 2: nk = 300 takes
+    stride 2 and 150 keys over three 64-key sample tiles, nk = 1300 stride
+    10 and 130 keys. With every logit negative a zero-filled sample row
+    left unmasked would win the max."""
+    q, k = _randn(40, nq, d), _randn(41, nk, d)
+    if negative:
+        q, k = q.abs(), -k.abs()
+    got = _emulated_shift(q, k)[:, 0]
+    ref = fa.row_shift(q[None], k[None], 1)[0] * LOG2E
+    assert bool(((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1)).all())
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("nq,nk", [(129, 300), (70, 1300)])
+def test_emulated_shifted_forward_matches_the_tpu_kernel(d, nq, nk):
+    """The emulated shifted forward, with the shift the kernel computes
+    itself, against the Pallas kernel (interpret mode), whose wrapper takes
+    the shift from its own strided product: nq != nk, nk ragged against
+    the 64-key tiles, at every width the kernel is instantiated for."""
+    q, k, v = _randn(42, nq, d), _randn(43, nk, d), _randn(44, nk, d)
+    got, _ = _emulated_d64_forward(q, k, v, "shifted")
+    ref = np.asarray(jfa._flash_dt_impl(
+        _fold(q), _fold(k), _fold(v), block_q=128, block_k=128, interpret=True,
+        softmax="shifted"))[0].T
     err = np.abs(got.numpy() - ref).max()
     assert err <= F32_TOL_REL * np.abs(ref).max() + F32_TOL_ABS
 
