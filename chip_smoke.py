@@ -1,6 +1,18 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--full-depth]
+
+A watchdog (Watchdog, armed first) holds the whole run to WATCHDOG_S
+seconds: each phase prints its name and the run's time as it starts, and an
+overrun or a kernel that hangs ends the run with exit code WATCHDOG_EXIT,
+the phase it was in and every thread's stack, the processes it started
+killed. The default run keeps each phase's depth inside the time limit (depth():
+REQUEST_RUNS, TRAIN_PAR_ACCUM, CLI_TRAIN_OTHER_ITERS,
+CLI_TRAIN_EVAL_SAMPLES, REMAT_BATCH_REPEATS, TARIO_SAMPLES, TARIO_TURNS,
+the plain versions' timed runs in phase 3; the host ops of each profile
+and phase 13's cold start only at full depth): fewer requests per shape,
+micro-steps, iterations and samples, every path, gate and kernel
+row kept; --full-depth runs the full ones.
 
 Phases, none of which catches its own failure:
   1. the card: its name and power limit (nvidia-smi);
@@ -30,6 +42,11 @@ Phases, none of which catches its own failure:
      conv kernels their weight rearrangement and blocks launched, beside the
      backward pair SDPA's whole backward, row_delta and two calls held to
      the same bits, and the bound from bytes and operations;
+  3h. the bf16 forward's host path (check_host_path): rows 1, 3, 4 and 7
+     at d = 40, 64, 80, 160, the host microseconds of a call over
+     HOST_CALLS back-to-back calls (at full depth also of its five
+     tensor-map encodes), the CUDA-event ms of a call beside SDPA's and the
+     forward's device ms;
   3c. the SD1.x head widths (40, 80, 160: 8 heads at 320, 640 and 1280
      channels), bf16 and fp32, both softmax modes, at SD1_KERNEL_CASES
      (nq != nk among them) and the folded entry at the three widths,
@@ -48,8 +65,8 @@ Phases, none of which catches its own failure:
      range, determinism and the exact number of flash-kernel launches, the
      768 px map against the same request on plain attention, the 768 px
      request with MARIGOLD_TPU_PROJECTED_ATTN off and on (the packed
-     entry's calls counted), and a torch.profiler breakdown per softmax
-     mode;
+     entry's calls counted), and a torch.profiler breakdown of the
+     shifted mode's request (of each softmax mode's at full depth);
   4b. an SD1.x-class checkpoint at full width (SD1.5's UNet widened to 8
      input channels, 1x1-conv proj_in/proj_out, CLIP ViT-L/14 with
      quick_gelu, the SD VAE), written in diffusers layout and loaded
@@ -65,13 +82,14 @@ Phases, none of which catches its own failure:
      host syncs, a reference-exact (host scipy) request, two requests
      (first and warm) under each opt-in conv kernel (MARIGOLD_TPU_CONV=pallas,
      winograd) with exact conv launch counts against the default map, and a
-     profile;
+     profile (and one under each conv mode at full depth);
   7. the other modalities at full SD2 width, each UNet random from its own
      seed beside the depth checkpoint's VAE and text encoder: normals (4
      steps, 768 px: E=1, E=10 against plain attention by angle, a 3-image
-     E=10 batch, uint16 readback, a profile), IID appearance (2 targets: E=1
-     at 768 px, a 16-image E=1 batch at 640 px, a profile; conv_in/conv_out
-     on cuDNN under every conv mode), IID lighting (3 targets, E=1 768 px),
+     E=10 batch, uint16 readback, at full depth a profile), IID
+     appearance (2 targets: E=1 at 768 px, a 16-image E=1 batch at 640 px,
+     at full depth a profile; conv_in/conv_out on cuDNN under every conv
+     mode), IID lighting (3 targets, E=1 768 px),
      LCM depth (the depth UNet with an LCMScheduler config: 1 step E=10, 4
      steps E=1 with fresh noise); maps checked for shape, range and
      determinism, flash launches exact per head width;
@@ -86,11 +104,12 @@ Phases, none of which catches its own failure:
   8. the command-line entry points on those checkpoints: validate_ckpt as
      a subprocess (and on a unet/ header with one wrong shape), run (depth
      E=10 with the Spectral PNGs, normals E=1), serve --once (six 768^2
-     images, NI=3, E=10, two batches in flight), the HTTP API (concurrent
-     requests, /healthz, the drain) and benchmark nyu on two fabricated
-     480x640 samples with --parity (online launches only, the ensemble's
-     parity pins) and without it (shifted launches only), flash launches
-     exact per step;
+     images, NI=3, E=10, two batches in flight; at full depth then one at a
+     time), the HTTP API (concurrent requests, /healthz, the drain) and
+     benchmark nyu on fabricated 480x640 samples, one with --parity (online
+     launches only, the ensemble's parity pins) and one (two at full
+     depth) without it (shifted launches only), flash launches exact per
+     step;
   9. the folded flash entry at its two shapes;
   10. training at full SD2 width (the depth fine-tuning recipe), then the
      same trainer on the checkpoint loaded in fp32 (TF32 off): one
@@ -111,7 +130,8 @@ Phases, none of which catches its own failure:
      tolerances);
   10b. fine-tuning across ranks (train/ over parallel/mesh.py): two gloo
      ranks share the card, each with the full-width depth trainer, one
-     iteration of 2 micro-steps at the global micro-batch [2, 3, 480, 640],
+     iteration of 1 micro-step (2 at full depth) at the global micro-batch
+     [2, 3, 480, 640],
      one row per rank, the rows' valid counts unequal: gloo's
      reduce_scatter on CUDA tensors checked; against rank 0 alone on the
      global batch (the loss and the reduced gradient within phase 10's
@@ -130,26 +150,27 @@ Phases, none of which catches its own failure:
      effective batch) on datasets fabricated in their own
      layouts: depth 2 iterations of 4 micro-steps with the recipe's
      2-worker loader, validation and visualization, then --resume_run for
-     a third; the others 2 iterations with validation, on Adafactor (its
-     checkpoints a third of Adam's); flash launches exact
+     a third; the others 1 iteration (2 at full depth) with validation,
+     on Adafactor (its checkpoints a third of Adam's); flash launches exact
      from the batch and validation shapes; the run-dir files and the saved
      UNets' channels; the loader's rate, a profiled window of micro-steps,
-     one micro-step under each remat mode (none, full, save_heavy) at the
-     recipe's micro-batch and at 4x it, where full must peak at least
+     one micro-step under each remat mode (none, full, save_heavy) at 4x
+     the recipe's micro-batch (and at full depth at the recipe's own), where
+     full must peak at least
      1 GiB and save_heavy some memory below none, and one Adafactor update
      against Adam's;
   12. `--full_precision`: run and serve --once for one 768 px depth map at
      E=1 in fp32 (the fp32 flash kernels, TF32 off), the same request in
      process against every attention on the plain path, under the online
      pin and under each opt-in conv mode (the fp32 conv kernels: a first
-     and a warm request each, timed beside the default's warm one, and a
-     profile of the warm request in each conv mode), and the
+     and a warm request each, timed beside the default's warm one, and at
+     full depth a profile of the warm request in each conv mode), and the
      folded entry in fp32, fp32 launches exact (the nine-tap's split of x
      counted apart);
   13. checkpoint loads: the full SD2 load by fastload and by the
-     per-tensor path (MARIGOLD_TPU_FASTLOAD=0), bit for bit, the cold start
-     of a fresh process to its first E=1 768 px map with fastload (the
-     default), and one warm request split into phases by PhaseTimer (run
+     per-tensor path (MARIGOLD_TPU_FASTLOAD=0), bit for bit, (at full
+     depth) the cold start of a fresh process to its first E=1 768 px map
+     with fastload (the default), and one warm request split into phases by PhaseTimer (run
      after phase 6);
   14. the native tar reader: the depth loader with 2 forked workers over a
      fabricated 480x640 tar, native against tarfile, batches identical.
@@ -166,8 +187,8 @@ KILL`, since a wrong mbarrier parity hangs).
     python3 chip_smoke.py --parallel
 
 runs phases 1 and 2, the shard shapes of phase 3, phase 7b on a freshly
-written checkpoint and phase 10b on a freshly written SD2 checkpoint: the
-short call after a change to the parallel code.
+written checkpoint and phase 10b at full depth on a freshly written SD2
+checkpoint: the short call after a change to the parallel code.
 
     python3 chip_smoke.py --nccl
 
@@ -178,36 +199,138 @@ cards).
 
     python3 chip_smoke.py --sd1 [--bits-against DIR]
 
-runs phases 1 and 2, 3c, 4b and 10c, then prints their kernel rows and the
-last line: the short call after a change to the SD1.x-class path. With
---bits-against DIR (a checkout of the previous build) it first runs the
+runs phases 1 and 2, 3c, 3h, 4b and 10c, then prints their kernel rows
+and the last line: the short call after a change to the SD1.x-class path
+or to the bf16 forward.
+
+    python3 chip_smoke.py [--sd1] --bits-against DIR
+
+with DIR a checkout of another build (the previous one), first runs the
 forwards and backward of both trees at head widths 64, 40, 80 and 160 on
 the same inputs, each tree's package in a process of its own, twice in
-turns (previous, this, this, previous; bits_against): it fails unless
-every online, lse, dQ, dK/dV and folded output is equal bit for bit to
-the previous build's, every shifted output is within phase 3's gate of
-the previous build's (where one build reads row_shift and the other
-computes the shift inside the kernel, its rounding differs by design),
-this build's two runs and two
-shifted calls are equal bit for bit, and each shifted row-1 shape
-(BITS_TIMED) times no slower than the previous build's; it prints both
-builds' device ms per kernel of a shifted and an online call there.
+turns (other, this, this, other; bits_against): it fails unless every
+output but the shifted ones is equal bit for bit to the other build's
+(the online, folded and lse forwards, the lse, dQ, dK and dV, bf16 and
+fp32), every shifted output is within phase 3's gate of the other
+build's (where one build reads row_shift and the other computes the shift
+inside the kernel, its rounding differs by design), this build's two
+runs and two shifted calls are equal bit for bit, and the forward kernel
+at each BITS_TIMED shape (rows 1, 3, 4 and 7) is no slower on the device
+than the other build's; it prints both builds' CUDA-event ms of a call,
+host µs per call and device ms per kernel there. Without --sd1 it stops
+after the comparison.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import faulthandler
 import json
 import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 
 def _fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+# The whole run's deadline, under the 1200 s a run is given: past it the
+# watchdog names the phase, prints every thread's stack, kills the
+# processes the run started and exits with WATCHDOG_EXIT.
+WATCHDOG_S = 1100.0
+WATCHDOG_EXIT = 3
+
+
+class Watchdog:
+    """A deadline over the run. `phase(name)` prints the name and the run's
+    time as the phase starts; when the deadline passes, a timer thread
+    prints the phase the run is in and every thread's stack, kills every
+    process below this one and exits with WATCHDOG_EXIT: an overrun or a
+    kernel that hangs on an mbarrier ends as a named failure before the
+    run's time limit. faulthandler's own timer, set `backstop` s later and
+    running without the interpreter lock, dumps the stacks and exits even
+    if the Python thread cannot run. `cancel()` disarms both."""
+
+    def __init__(self, seconds: float, backstop: float = 30.0):
+        self.t0 = time.time()
+        os.environ["CHIP_SMOKE_T0"] = repr(self.t0)  # the ranks' phase()
+        self.seconds = seconds
+        self.current = "start"
+        faulthandler.dump_traceback_later(seconds + backstop, exit=True)
+        self.timer = threading.Timer(seconds, self._expire)
+        self.timer.daemon = True
+        self.timer.start()
+
+    def elapsed(self) -> float:
+        return time.time() - self.t0
+
+    def phase(self, name: str) -> None:
+        self.current = name
+        print(f"chip_smoke.py at {self.elapsed():.1f} s: phase {name}",
+              flush=True)
+
+    def cancel(self) -> None:
+        self.timer.cancel()
+        faulthandler.cancel_dump_traceback_later()
+
+    def _expire(self) -> None:
+        print(f"FAIL: watchdog: {self.seconds:.0f} s passed in phase "
+              f"{self.current!r}; every thread's stack follows", flush=True)
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+        sys.stdout.flush()
+        for pid in _descendants(os.getpid()):
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        os._exit(WATCHDOG_EXIT)
+
+
+def _descendants(pid: int) -> list:
+    """Every process below `pid`, children first (from /proc)."""
+    found, todo = [], [pid]
+    while todo:
+        parent = todo.pop()
+        try:
+            tasks = os.listdir(f"/proc/{parent}/task")
+        except OSError:
+            continue
+        for task in tasks:
+            with contextlib.suppress(OSError), \
+                    open(f"/proc/{parent}/task/{task}/children") as f:
+                kids = [int(x) for x in f.read().split()]
+                found += kids
+                todo += kids
+    return found
+
+
+WATCHDOG = None  # main's; phase() prints through it
+# The depths of the default run, cut to keep it well inside its time limit;
+# `--full-depth` (and `--parallel`, `--nccl` for phase 10b) restores the
+# full ones. Every path, gate and kernel row runs at either depth.
+FULL_DEPTH = False
+
+
+def depth(default, full):
+    """A phase's depth (runs, micro-steps, iterations): `full` under
+    --full-depth, else `default`."""
+    return full if FULL_DEPTH else default
+
+
+def phase(name: str) -> None:
+    """Marks the start of a phase (see Watchdog); in a process without
+    main's watchdog (a rank) a print with the run's time, read from the
+    environment main's watchdog set."""
+    if WATCHDOG is not None:
+        WATCHDOG.phase(name)
+        return
+    t0 = os.environ.get("CHIP_SMOKE_T0")
+    at = f" at {time.time() - float(t0):.1f} s" if t0 else ""
+    print(f"chip_smoke.py{at}: phase {name}", flush=True)
 
 
 def check_card():
@@ -256,11 +379,15 @@ def build_kernels():
                     print("  ptxas:", line.strip(), flush=True)
     print(f"build: {len(builds)} libraries in {wall:.2f} s", flush=True)
     hgmma = {}
-    for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
-                 "winograd", "flash_attention_f32", "flash_attention_bwd_f32",
-                 "conv3x3_f32", "winograd_f32"):  # the ones with wgmma kernels
-        hgmma.update(print_hgmma(os.path.join(os.path.dirname(
-            cuda_build.BUILD_INFO[name]["log"]), f"lib{name}.so")))
+    libs = [os.path.join(os.path.dirname(cuda_build.BUILD_INFO[name]["log"]),
+                         f"lib{name}.so")
+            for name in ("flash_attention", "flash_attention_bwd", "conv3x3",
+                         "winograd", "flash_attention_f32",
+                         "flash_attention_bwd_f32", "conv3x3_f32",
+                         "winograd_f32")]  # the ones with wgmma kernels
+    with ThreadPoolExecutor(len(libs)) as pool:  # cuobjdump side by side
+        for counts in pool.map(print_hgmma, libs):
+            hgmma.update(counts)
     check_wgmma_build(hgmma)
 
 
@@ -336,8 +463,8 @@ def print_hgmma(lib: str) -> dict:
             counts[fn] = 0
         elif fn and "HGMMA" in line:
             counts[fn] += 1
-    for fn, n in counts.items():
-        print(f"  sass: {n:3d} HGMMA in {fn}", flush=True)
+    print("".join(f"  sass: {n:3d} HGMMA in {fn}\n"
+                  for fn, n in counts.items()), end="", flush=True)
     return counts
 
 
@@ -447,7 +574,7 @@ def check_shift(what: str, q, k, v, heads: int, packed=None) -> dict:
     out, err = shift_err(q, k, v)
     same_bits = bool((out == fa.flash_attention(q, k, v, heads)).all())
     n_shifted, split = kernel_profile(
-        lambda: fa.flash_attention(q, k, v, heads, "shifted"), 3)
+        lambda: fa.flash_attention(q, k, v, heads, "shifted"), 3, "flash_fwd")
     n_online = 2 if q.dtype == torch.float32 else 1
     forward = [ms for name, ms in split.items() if "flash_fwd" in name]
     note = ""
@@ -469,6 +596,102 @@ def check_shift(what: str, q, k, v, heads: int, packed=None) -> dict:
               f"online, or the output's bits differ from the serving call's")
     return dict(shift_max_err=err, kernels_per_call=n_shifted,
                 kernel_device_ms=forward[0])
+
+
+# The bf16 forward's calls whose host path check_host_path measures, at
+# the shapes of PERF.md's rows: (row, mode, B, N, C, heads); rows 1 and 3 at
+# the serving shapes, row 4 (the training forward) at the fine-tuning ones,
+# row 7 (the folded entry, [B*H, N, D]) at each width.
+HOST_CASES = [
+    *[(row, mode, 1, n, c, h) for row, mode in (("1", "shifted"),
+                                                ("3", "online"))
+      for n, c, h in ((9216, 320, 5), (9216, 320, 8), (2304, 640, 8),
+                      (1024, 1280, 8))],
+    ("4", "lse", 2, 4800, 320, 5), ("4", "lse", 2, 4800, 320, 8),
+    ("4", "lse", 2, 1200, 640, 8), ("4", "lse", 1, 1024, 1280, 8),
+    ("7", "folded", 50, 9216, 64, 1), ("7", "folded", 8, 9216, 40, 1),
+    ("7", "folded", 8, 2304, 80, 1), ("7", "folded", 8, 1024, 160, 1),
+]
+HOST_CALLS = 1000  # back-to-back calls, then one synchronize
+# the calls whose host time is read before the launch queue can fill: the
+# host blocks on a full queue, so over HOST_CALLS calls of a kernel longer
+# than the host path the host clock reads the device's time
+HOST_FIRST_CALLS = 100
+
+
+def host_us(call) -> tuple:
+    """(host µs per call over HOST_CALLS back-to-back calls of call(), read
+    before the one synchronize after them; the same over the first
+    HOST_FIRST_CALLS of them), after three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(HOST_CALLS):
+        if i == HOST_FIRST_CALLS:
+            t_first = time.perf_counter()
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return ((t1 - t0) / HOST_CALLS * 1e6,
+            (t_first - t0) / HOST_FIRST_CALLS * 1e6)
+
+
+def check_host_path() -> dict:
+    """The bf16 forward's calls at HOST_CASES: the host µs of a call
+    (host_us), the CUDA-event ms of a call beside SDPA's on the same inputs,
+    the forward's device ms (torch.profiler) and, at full depth, the host µs
+    of the call's five tensor-map encodes alone (mt_flash_fwd_maps_ns: what
+    caching the maps could save). Measures only: the outputs are held to
+    their plain versions in phases 3 and 3c. Returns {(row, d): {...}}."""
+    import ctypes
+
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    maps_ns = fa._library().mt_flash_fwd_maps_ns
+    maps_ns.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    maps_ns.restype = ctypes.c_double
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    for row, mode, b, n, c, heads in HOST_CASES:
+        q, k, v = (torch.randn((b, n, c), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        d = c // heads
+        call = {"shifted": lambda: fa.flash_attention(q, k, v, heads, "shifted"),
+                "online": lambda: fa.flash_attention(q, k, v, heads, "online"),
+                "lse": lambda: fa.flash_attention_lse(q, k, v, heads),
+                "folded": lambda: fa.flash_attention_folded(q, k, v)}[mode]
+        host, first = host_us(call)
+        ms = _time_ms(call, 20)
+        lib_ms = sdpa_ms(q, k, v, heads, iters=20)
+        # one profile: a lost launch leaves its ms per call unbiased here,
+        # and a retake costs seconds a case on a host that loses them
+        split = kernel_profile(call, 5, "flash_fwd", PROFILE_PADS[:1])[1]
+        dev_ms = sum(t for name, t in split.items() if "flash_fwd" in name)
+        maps = ""
+        if FULL_DEPTH:
+            out = torch.empty_like(q)
+            maps_us = maps_ns(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), b, heads, n, n, d, c, c, c,
+                              fa.shift_sample(n)[0], int(mode != "shifted"),
+                              HOST_CALLS) / 1e3
+            if maps_us < 0:
+                _fail(f"host path: the maps of row {row} d={d} did not encode")
+            maps = f", the five tensor maps alone {maps_us:.2f} us"
+        print(f"host path: row {row} {mode:7s} d={d:3d} [{b},{n},{c}] h={heads}: "
+              f"host {host:.1f} us per call over {HOST_CALLS} calls, "
+              f"{first:.1f} over the first {HOST_FIRST_CALLS}{maps}; call {ms:.4f} "
+              f"ms (CUDA events) against sdpa {lib_ms:.4f} ms; the forward's "
+              f"device ms {dev_ms:.4f}", flush=True)
+        results[(row, d)] = dict(host_us=host, first_us=first, ms=ms,
+                                 library_ms=lib_ms, device_ms=dev_ms)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return results
 
 
 # (name, B, N, C, heads): the main path's attention shapes at 768 px, the
@@ -525,8 +748,10 @@ TOL_ABS = 1e-3
 # attention on the plain fp32-softmax path: both run the bf16 UNet, so the
 # maps differ by bf16 rounding carried through 4 steps and the decoder.
 DEPTH_TOL = 5e-2
-# timed runs per request shape: the first (cold) and the rest (warm)
-REQUEST_RUNS = 4
+# timed runs per request shape: the first (cold) and the rest (warm);
+# depth(REQUEST_RUNS, REQUEST_RUNS_FULL)
+REQUEST_RUNS = 3
+REQUEST_RUNS_FULL = 4
 
 
 def check_kernels(cases=None) -> dict:
@@ -570,7 +795,8 @@ def check_kernels(cases=None) -> dict:
             tol = TOL_REL * ref_max + TOL_ABS
             ms = _time_ms(lambda: fa.flash_attention(q, k, v, heads, mode),
                           iters=20)
-            plain_ms = _time_ms(plain, iters=5 if n >= 4096 else 20)
+            plain_ms = _time_ms(plain, iters=depth(3, 5) if n >= 4096 else 20,
+                                warmup=depth(1, 2))
             d = c // heads
             # the shifted mode's row shift: computed by the kernel below
             # 512 (checked here), a product outside it at 512 (timed)
@@ -1713,11 +1939,12 @@ def sd1_kernel_rows(results: dict, counts: dict, f32_counts: dict) -> list:
 # and 160: both softmax modes, a second shifted call, the training forward
 # with its logsumexp, dQ and dK/dV, the folded entry), then the shifted
 # forward's CUDA-event ms at the row-1 shapes (BITS_TIMED): run in this
-# checkout and in a checkout of the previous build (`--bits-against DIR`).
+# checkout and in a checkout of the other build (`--bits-against DIR`).
 # Uses only entry points both builds have.
 BITS_SNIPPET = r'''
 import sys
 import torch
+# HELPERS
 from marigold_tpu_torch.ops import flash_attention as fa
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -1751,84 +1978,104 @@ for name, (b, nq, nk, c, h) in cases.items():
 torch.cuda.synchronize()
 
 
-def device_ms(mode):
-    """{kernel: device ms per call}, 5 calls under torch.profiler"""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fa.flash_attention(q, k, v, h, mode)
-        torch.cuda.synchronize()
-    return {e.key[:60]: (e.self_device_time_total / 5e3, e.count / 5)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+def call(mode):
+    if mode == "lse":
+        return fa.flash_attention_lse(q, k, v, h)
+    if mode == "folded":
+        return fa.flash_attention_folded(q, k, v)
+    return fa.flash_attention(q, k, v, h, mode)
 
 
-ms, dev = {}, {}
-for name, (dt, b, nq, nk, c, h) in %s.items():
+ms, dev, host = {}, {}, {}
+for name, (dt, b, nq, nk, c, h, mode) in TIMED.items():
     q = torch.randn((b, nq, c), generator=gen, device="cuda").to(dt)
     k, v = (torch.randn((b, nk, c), generator=gen, device="cuda").to(dt)
             for _ in range(2))
-    for _ in range(3):
-        fa.flash_attention(q, k, v, h, "shifted")
+    host[name] = host_us(lambda: call(mode))
     times = []
     for _ in range(20):
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
-        fa.flash_attention(q, k, v, h, "shifted")
+        call(mode)
         t1.record()
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     ms[name] = sorted(times)[len(times) // 2]
-    dev[name] = {mode: device_ms(mode) for mode in ("shifted", "online")}
+    dev[name] = kernel_profile(lambda: call(mode), 5, "flash_fwd")
     del q, k, v
 torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "twice": twice,
-            "ms": ms, "dev": dev}, sys.argv[1])
+            "ms": ms, "dev": dev, "host": host}, sys.argv[1])
 '''
-# (dtype, B, Nq, Nk, C, heads): the shifted forward's row-1 shapes, both
-# builds timed in turns (previous, this, this, previous)
+# (dtype, B, Nq, Nk, C, heads, mode): the shifted forward's row-1 shapes,
+# then the bf16 online row 3, the training forward (row 4, "lse") and the
+# folded row 7 ([B, N, D], one head) at each width; both builds timed in
+# turns (previous, this, this, previous)
+_BF16 = "torch.bfloat16"
 BITS_TIMED = {
-    "bf16_d64": ("torch.bfloat16", 1, 9216, 9216, 320, 5),
-    "bf16_d64_b10": ("torch.bfloat16", 10, 9216, 9216, 320, 5),
-    "bf16_d64_shard": ("torch.bfloat16", 1, 18432, 36864, 320, 5),
-    "bf16_d40": ("torch.bfloat16", 1, 9216, 9216, 320, 8),
-    "bf16_d80": ("torch.bfloat16", 1, 2304, 2304, 640, 8),
-    "bf16_d160": ("torch.bfloat16", 1, 1024, 1024, 1280, 8),
-    "fp32_d40": ("torch.float32", 1, 9216, 9216, 320, 8),
-    "fp32_d64": ("torch.float32", 1, 9216, 9216, 320, 5),
-    "fp32_d80": ("torch.float32", 1, 2304, 2304, 640, 8),
-    "fp32_d160": ("torch.float32", 1, 1024, 1024, 1280, 8),
+    "bf16_d64": (_BF16, 1, 9216, 9216, 320, 5, "shifted"),
+    "bf16_d64_b10": (_BF16, 10, 9216, 9216, 320, 5, "shifted"),
+    "bf16_d64_shard": (_BF16, 1, 18432, 36864, 320, 5, "shifted"),
+    "bf16_d40": (_BF16, 1, 9216, 9216, 320, 8, "shifted"),
+    "bf16_d80": (_BF16, 1, 2304, 2304, 640, 8, "shifted"),
+    "bf16_d160": (_BF16, 1, 1024, 1024, 1280, 8, "shifted"),
+    "fp32_d40": ("torch.float32", 1, 9216, 9216, 320, 8, "shifted"),
+    "fp32_d64": ("torch.float32", 1, 9216, 9216, 320, 5, "shifted"),
+    "fp32_d80": ("torch.float32", 1, 2304, 2304, 640, 8, "shifted"),
+    "fp32_d160": ("torch.float32", 1, 1024, 1024, 1280, 8, "shifted"),
+    "bf16_d64_b10_online": (_BF16, 10, 9216, 9216, 320, 5, "online"),
+    **{f"bf16_d{d}_online": (_BF16, 1, n, n, c, h, "online")
+       for d, n, c, h in ((64, 9216, 320, 5), (40, 9216, 320, 8),
+                          (80, 2304, 640, 8), (160, 1024, 1280, 8))},
+    **{f"bf16_d{d}_lse": (_BF16, b, n, n, c, h, "lse")
+       for d, b, n, c, h in ((64, 2, 4800, 320, 5), (40, 2, 4800, 320, 8),
+                             (80, 2, 1200, 640, 8), (160, 1, 1024, 1280, 8))},
+    **{f"bf16_d{d}_folded": (_BF16, b, n, n, d, 1, "folded")
+       for d, b, n in ((64, 50, 9216), (40, 8, 9216), (80, 8, 2304),
+                       (160, 8, 1024))},
 }
-# this build's shifted row may take at most this factor of the previous
-# build's time (both medians of two runs' medians, the same card)
+# this build's forward kernel may take at most this factor of the previous
+# build's device time (torch.profiler, the lower of each build's two runs,
+# the same card); the CUDA-event times of the calls are printed beside it
 BITS_TIME_SLACK = 1.02
 
 
 def bits_against(tree: str) -> None:
     """The flash kernels of this checkout against those of the checkout at
-    `tree` (the previous build), each tree run twice in turns (previous,
-    this, this, previous; BITS_SNIPPET): every online, lse, dQ, dK/dV and
-    folded output equal bit for bit to the previous build's; the shifted
-    outputs, whose shift this build computes inside the kernel (its
-    rounding differs by design), within phase 3's gate of the previous
-    build's (TOL_REL/TOL_ABS in bf16, F32_TOL_REL/F32_TOL_ABS in fp32); two
-    shifted calls and the two runs of this build equal bit for bit; and
-    each BITS_TIMED row no slower than the previous build's (within
-    BITS_TIME_SLACK)."""
+    `tree` (another build: the previous one), each tree run twice in turns
+    (other, this, this, other; BITS_SNIPPET): every output but the shifted
+    ones equal bit for bit to the other build's (the online, folded and lse
+    forwards, the lse, dQ, dK and dV, in bf16 and fp32); the shifted
+    outputs, whose shift one build may compute inside the kernel and the
+    other outside it (its rounding differs by design), within phase 3's
+    gate of the other build's (TOL_REL/TOL_ABS in bf16,
+    F32_TOL_REL/F32_TOL_ABS in fp32); two
+    shifted calls and the two runs of this build equal bit for bit; and at
+    each BITS_TIMED shape the forward kernel no slower on the device than
+    the other build's (within BITS_TIME_SLACK; the calls' CUDA-event
+    times, which the card's clock moves between processes, printed)."""
+    import inspect
     import tempfile
 
     import torch
 
     here = os.path.dirname(os.path.abspath(__file__))
     timed = "{" + ", ".join(
-        f"{name!r}: ({dt}, {b}, {nq}, {nk}, {c}, {h})"
-        for name, (dt, b, nq, nk, c, h) in BITS_TIMED.items()) + "}"
-    runs = {"this build": [], "the previous build": []}
+        f"{name!r}: ({dt}, {b}, {nq}, {nk}, {c}, {h}, {mode!r})"
+        for name, (dt, b, nq, nk, c, h, mode) in BITS_TIMED.items()) + "}"
+    # the measuring helpers this script uses itself, so that both trees are
+    # timed by the same code
+    helpers = "\n".join([
+        "import time", f"TIMED = {timed}", f"HOST_CALLS = {HOST_CALLS}",
+        f"HOST_FIRST_CALLS = {HOST_FIRST_CALLS}",
+        f"PROFILE_PADS = {PROFILE_PADS!r}", inspect.getsource(host_us),
+        inspect.getsource(kernel_profile)])
+    runs = {"this build": [], "the other build": []}
     with tempfile.TemporaryDirectory() as tmp:
         script = os.path.join(tmp, "bits.py")
         with open(script, "w") as f:
-            f.write(BITS_SNIPPET % timed)
-        for i, which in enumerate(("the previous build", "this build",
-                                   "this build", "the previous build")):
+            f.write(BITS_SNIPPET.replace("# HELPERS", helpers))
+        for i, which in enumerate(("the other build", "this build",
+                                   "this build", "the other build")):
             cwd = here if which == "this build" else os.path.abspath(tree)
             path = os.path.join(tmp, f"{i}.pt")
             t0 = time.perf_counter()
@@ -1837,11 +2084,11 @@ def bits_against(tree: str) -> None:
             print(f"bits: {which} ({cwd}) in {time.perf_counter() - t0:.1f} s",
                   flush=True)
             runs[which].append(torch.load(path))
-    (new, new2), (old, old2) = runs["this build"], runs["the previous build"]
+    (new, new2), (old, old2) = runs["this build"], runs["the other build"]
     failures = []
     if new["outs"].keys() != old["outs"].keys():
         failures.append("the builds computed different outputs")
-    unequal, shifted_err = [], {}
+    unequal, gated = [], {}
     for key, ref in old["outs"].items():
         got = new["outs"][key]
         if not key.endswith("_shifted"):
@@ -1852,17 +2099,18 @@ def bits_against(tree: str) -> None:
         m = ref.float().abs().max().item()
         tol = (F32_TOL_REL * m + F32_TOL_ABS if "float32" in key
                else TOL_REL * m + TOL_ABS)
-        shifted_err[key] = err
+        gated[key] = err
         if not err <= tol:
-            failures.append(f"{key}: {err} from the previous build's > {tol}")
-    n_exact = len(old["outs"]) - len(shifted_err)
-    print(f"bits: {n_exact - len(unequal)} of {n_exact} non-shifted outputs "
-          "equal bit for bit to the previous build's; shifted outputs "
-          "against the previous build's, max abs err: "
-          + ", ".join(f"{k} {e:.3e}" for k, e in shifted_err.items()),
+            failures.append(f"{key}: {err} from the other build's > {tol}")
+    n_exact = len(old["outs"]) - len(gated)
+    print(f"bits: {n_exact - len(unequal)} of {n_exact} outputs but the "
+          "shifted ones equal bit for bit to the other build's (unequal: "
+          f"{unequal}); the shifted outputs against the other build's, max "
+          "abs err: " + ", ".join(f"{k} {e:.3e}" for k, e in gated.items())
+          + f" ({sum(e == 0 for e in gated.values())} of {len(gated)} equal)",
           flush=True)
     if unequal:
-        failures.append(f"outputs differ from the previous build's: {unequal}")
+        failures.append(f"outputs differ from the other build's: {unequal}")
     same = [k for k in new["outs"] if torch.equal(new["outs"][k],
                                                   new2["outs"][k])]
     print(f"bits: this build's two runs: {len(same)} of {len(new['outs'])} "
@@ -1870,24 +2118,41 @@ def bits_against(tree: str) -> None:
           flush=True)
     if len(same) != len(new["outs"]) or not all(new["twice"].values()):
         failures.append("this build's shifted calls or runs differ")
-    for name in BITS_TIMED:
+    def forward_ms(run, name):
+        """The forward kernel's device ms per call in a run (the split's
+        excluded in fp32), or None where the profile lost it"""
+        dev = [t for key, t in run["dev"][name][1].items()
+               if "flash_fwd" in key]
+        return dev[0] if dev else None
+
+    for name, spec in BITS_TIMED.items():
         t_new = sorted((new["ms"][name], new2["ms"][name]))
         t_old = sorted((old["ms"][name], old2["ms"][name]))
-        print(f"bits: shifted {name}: this build {t_new[0]:.3f} / "
-              f"{t_new[1]:.3f} ms, the previous build {t_old[0]:.3f} / "
-              f"{t_old[1]:.3f} ms (each run's median; x"
-              f"{sum(t_old) / sum(t_new):.2f})", flush=True)
-        for which, run in (("this build", new), ("the previous build", old)):
-            print(f"  {which}, device ms per call (kernels per call) by "
-                  "kernel: " + "; ".join(
-                      f"{mode}: " + ", ".join(
-                          f"{k} {t:.4f} ({n:g})"
-                          for k, (t, n) in run["dev"][name][mode].items())
-                      for mode in ("shifted", "online")), flush=True)
-        if sum(t_new) > BITS_TIME_SLACK * sum(t_old):
-            failures.append(f"{name}: shifted slower than the previous build")
+        d_new = [forward_ms(r, name) for r in (new, new2)]
+        d_old = [forward_ms(r, name) for r in (old, old2)]
+        h_new = min(new["host"][name], new2["host"][name])
+        h_old = min(old["host"][name], old2["host"][name])
+        print(f"bits: {spec[-1]} {name}: call (CUDA events) this build "
+              f"{t_new[0]:.4f} / {t_new[1]:.4f} ms, the other build "
+              f"{t_old[0]:.4f} / {t_old[1]:.4f} ms (each run's median; x"
+              f"{sum(t_old) / sum(t_new):.3f}); the forward's device ms this "
+              f"build {d_new}, the other build {d_old}; host us per call "
+              f"over 1000 calls (the first 100) this build {h_new[0]:.1f} "
+              f"({h_new[1]:.1f}), the other build {h_old[0]:.1f} "
+              f"({h_old[1]:.1f})", flush=True)
+        for which, run in (("this build", new), ("the other build", old)):
+            n, split = run["dev"][name]
+            print(f"  {which}, {n:g} kernels per call, device ms per call by "
+                  "kernel: " + ", ".join(f"{k} {t:.4f}"
+                                         for k, t in split.items()),
+                  flush=True)
+        if None in d_new or None in d_old:
+            failures.append(f"{name}: a profile lost the forward kernel")
+        elif min(d_new) > BITS_TIME_SLACK * min(d_old):
+            failures.append(f"{name}: slower on the device than the previous "
+                            "build")
     if failures:
-        _fail(f"against the previous build: {failures}")
+        _fail(f"against the other build: {failures}")
 
 
 # ---- SD1.x-class fine-tuning (phase 3c's training rows, phase 10c) ------
@@ -2344,125 +2609,155 @@ def main(argv: list) -> None:
 
     import torch
 
+    global WATCHDOG, FULL_DEPTH
+    WATCHDOG = Watchdog(WATCHDOG_S)
     bits_tree = None
     if argv[-2:-1] == ["--bits-against"]:
         bits_tree, argv = argv[-1], argv[:-2]
+    if argv == ["--full-depth"]:
+        FULL_DEPTH, argv = True, []
     if argv not in ([], ["--f32-kernels"], ["--parallel"], ["--nccl"],
-                    ["--sd1"]) or (bits_tree and argv != ["--sd1"]):
-        _fail("usage: python3 chip_smoke.py [--f32-kernels | --parallel | "
-              f"--nccl | --sd1 [--bits-against DIR]], got {argv}")
-    t0 = time.perf_counter()
+                    ["--sd1"]) or (bits_tree and argv not in ([], ["--sd1"])):
+        _fail("usage: python3 chip_smoke.py [--full-depth | --f32-kernels | "
+              "--parallel | --nccl | [--sd1] [--bits-against DIR]], got "
+              f"{argv}")
 
-    def done(what: str) -> None:  # every phase shares the run's time limit
-        print(f"chip_smoke.py at {time.perf_counter() - t0:.1f} s: {what} "
-              "done", flush=True)
+    def finish(rows=None) -> None:
+        """The last lines: the run's time, the card, the kernels line (when
+        `rows`) and the result, with the watchdog disarmed."""
+        print(f"chip_smoke.py ran in {WATCHDOG.elapsed():.1f} s", flush=True)
+        print(smi, flush=True)
+        WATCHDOG.cancel()
+        if rows is not None:
+            print(json.dumps({"kernels": rows}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
 
+    phase("1: the card")
     smi = check_card()
+    phase("2: build")
     build_kernels()
+    if bits_tree:
+        phase("the bits and times against the other build")
+        bits_against(bits_tree)
+        if not argv:
+            finish()
+            return
     if argv == ["--sd1"]:
-        if bits_tree:
-            bits_against(bits_tree)
-            done("the bits and shifted times against the previous build")
+        phase("3c: the SD1 kernels")
         sd1_results = check_sd1_kernels()
+        phase("3c: the SD1 training kernels")
         sd1_train_results = check_sd1_train_kernels()
-        done("the SD1 kernel checks")
+        phase("3h: the bf16 forward's host path")
+        check_host_path()
         with tempfile.TemporaryDirectory() as root:
+            phase("4b: SD1")
             sd1_counts, sd1_f32_counts = sd1_phase(os.path.join(root, "sd1"))
             shutil.rmtree(os.path.join(root, "sd1"))
-            done("the SD1 phase")
+            phase("10c: SD1 fine-tuning")
             sd1_train_counts = sd1_train_phase(os.path.join(root, "sd1_base"))
-        done("the SD1 fine-tuning phase")
         rows = (sd1_kernel_rows(sd1_results, sd1_counts, sd1_f32_counts)
                 + sd1_train_kernel_rows(sd1_train_results, *sd1_train_counts))
         missing = [r["name"] for r in rows if r["launches"] == 0]
         if missing:
             _fail(f"kernels never launched by the SD1 path: {missing}")
-        print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        print(smi, flush=True)
-        print(json.dumps({"kernels": rows}), flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
+        finish(rows)
         return
     if argv == ["--f32-kernels"]:
+        phase("3: the fp32 kernels")
         check_f32_kernels()
-        done("the fp32 kernel checks")
-        print(smi, flush=True)
+        finish()
         return
     if argv == ["--parallel"]:
+        FULL_DEPTH = True
+        phase("3: the shard shapes")
         check_kernels(SHARD_CASES)
         with tempfile.TemporaryDirectory() as root:
             write_checkpoint(root, 0)
+            phase("7b: parallel")
             parallel_phase(root)
-            done("the shard-shape kernel checks and the parallel phase")
             write_checkpoint(os.path.join(root, "stable-diffusion-2"), 0, sd2=True)
+            phase("10b: fine-tuning across ranks")
             train_parallel_phase(root)
-        done("the fine-tuning phase across ranks")
-        print(smi, flush=True)
+        finish()
         return
     if argv == ["--nccl"]:
+        FULL_DEPTH = True
         n = torch.cuda.device_count()
         if n < 2:
             _fail(f"--nccl needs several cards, found {n}")
         with tempfile.TemporaryDirectory() as root:
             write_checkpoint(root, 0)
+            phase(f"7b: parallel on {n} cards over NCCL")
             parallel_phase(root, n, "cuda", "nccl", NCCL_A)
-            done(f"the parallel phase on {n} cards over NCCL")
             write_checkpoint(os.path.join(root, "stable-diffusion-2"), 0, sd2=True)
+            phase(f"10b: fine-tuning across ranks on {n} cards over NCCL")
             train_parallel_phase(root, n, "cuda", "nccl")
-        done(f"the fine-tuning phase across ranks on {n} cards over NCCL")
-        print(smi, flush=True)
+        finish()
         return
+    phase("3: the serving kernels")
     results = check_kernels()
+    phase("3: the folded entry")
     folded_results = check_folded()
+    phase("3: the convs")
     conv_results = check_conv_kernels()
+    phase("3: the training kernels")
     train_results = check_train_kernels()
+    phase("3: the fp32 kernels")
     f32_results = check_f32_kernels()
+    phase("3c: the SD1 kernels")
     sd1_results = check_sd1_kernels()
+    phase("3c: the SD1 training kernels")
     sd1_train_results = check_sd1_train_kernels()
-    done("the kernel checks")
+    phase("3h: the bf16 forward's host path")
+    check_host_path()
     with tempfile.TemporaryDirectory() as root:
         depth_dir = os.path.join(root, "depth")
+        phase("4-5: the SD2 checkpoint, E=1 serving")
         pipe = load_serving_pipe(depth_dir)
         serve_counts = collections.Counter(serve(pipe))
+        phase("6: the E=10 protocol")
         serve_counts.update(serve_ensembles(pipe))
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
-        done("serving")
         sd1_dir = os.path.join(root, "sd1")
+        phase("4b: SD1")
         sd1_counts, sd1_f32_counts = sd1_phase(sd1_dir)
         shutil.rmtree(sd1_dir)
-        done("the SD1 phase")
+        phase("13: loads")
         load_phase(depth_dir)
-        done("the load phase")
+        phase("7: the other modalities")
         serve_counts.update(serve_modalities(root, depth_dir))
-        done("the modalities")
+        phase("7b: parallel")
         parallel_phase(depth_dir)
-        done("the parallel phase")
+        phase("8: the CLIs")
         serve_counts.update(cli_phase(root, depth_dir))
-        done("the CLI phase")
+        phase("12: --full_precision")
         f32_counts = full_precision_phase(root, depth_dir)
+        phase("14: the tar reader")
         tario_phase(root)
+    phase("9: the folded path")
     folded_counts = folded_path()
-    done("--full_precision, tar and folded phases")
     with tempfile.TemporaryDirectory() as base_ckpt:
         # one SD2 base checkpoint (4-channel UNet) for the training phases
         sd2 = os.path.join(base_ckpt, "stable-diffusion-2")
+        phase("10: training")
         write_checkpoint(sd2, 0, sd2=True)
         train_counts = collections.Counter(train_phase(sd2))
-        done("the SD2 checkpoint and the training phase")
+        phase("10: fp32 fine-tuning")
         f32_counts = collections.Counter(f32_counts)
         f32_counts.update(f32_train_phase(sd2))
-        done("the fp32 fine-tuning phase")
         sd1_base = os.path.join(base_ckpt, "sd1")
+        phase("10c: SD1 fine-tuning")
         sd1_train_counts = sd1_train_phase(sd1_base)
         shutil.rmtree(sd1_base)
-        done("the SD1 fine-tuning phase")
+        phase("10b: fine-tuning across ranks")
         ranks_counts = train_parallel_phase(base_ckpt)
-        done("the fine-tuning phase across ranks")
+        phase("11: the training CLI")
         cli_train_counts = train_cli_phase(base_ckpt)
+    phase("the kernels line")
     for counts in (cli_train_counts, ranks_counts):
         train_counts.update(counts)
         serve_counts.update(counts)  # the serving kernels they ran
@@ -2481,12 +2776,7 @@ def main(argv: list) -> None:
                                 + 2 * (2 * len(SD1_WIDTHS) + 1)
                                 + 2 * len(SD1_TRAIN_ROWS) * len(SD1_WIDTHS)):
         _fail(f"kernels never launched by the main path: {missing}")
-    print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s", flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    finish(rows)
 
 
 def write_checkpoint(root: str, seed: int, sd2: bool = False) -> None:
@@ -2743,7 +3033,7 @@ def serve(pipe) -> dict:
         for hw in shapes if mode == "shifted" else shapes[:1]:
             maps, times = [], []
             want = expected_flash_launches(pipe, hw, steps)
-            for _ in range(REQUEST_RUNS):
+            for _ in range(depth(REQUEST_RUNS, REQUEST_RUNS_FULL)):
                 before = sum(fa.launches.values())
                 out, ms = _timed(lambda: pipe(
                     images[hw], denoising_steps=steps, ensemble_size=1,
@@ -2816,7 +3106,7 @@ def serve(pipe) -> dict:
         images[(768, 768)], denoising_steps=steps, seed=seed,
         color_map=None).depth_np, expected_flash(pipe, (768, 768), steps),
         shifted)
-    for mode in fa.SOFTMAX_MODES:
+    for mode in depth(("shifted",), fa.SOFTMAX_MODES):
         attn.set_flash_softmax(mode)
         print(f"softmax={mode}:", flush=True)
         profile_request(lambda: pipe(images[(768, 768)], denoising_steps=steps,
@@ -2916,32 +3206,57 @@ CONV_CASES = [
 CONV_ROW_CASE = "unet_1280"
 
 
-def kernel_profile(fn, iters: int = 5) -> tuple:
+def kernel_profile(fn, iters: int = 5, expect: str = "",
+                   pads: tuple = None) -> tuple:
     """(CUDA kernels launched per call, {kernel: mean device ms per call})
     of fn(), from torch.profiler over `iters` calls (after one warm-up
-    call)."""
+    call). The calls start pads[i] s (PROFILE_PADS) after the profile
+    does, and it ends as long after they have. A profile that lost events
+    (no CUDA kernel, a count per call that is not whole, or no kernel whose
+    name holds `expect`) is taken again with the next pad; the last one is
+    returned as it is, for the caller's gate to judge. A kernel's ms per
+    call is its mean per launch times its launches per call, rounded, so
+    that a profile that lost one launch of a kernel does not read short."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-
     def short(key):
         m = re.search(r"(\w+_kernel)(<\w+>)?", key)
         return m.group(0) if m else key[:40]
 
-    per_call = sum(e.count for e in events) / iters
-    return per_call, {short(e.key): e.self_device_time_total / 1e3 / iters
-                      for e in sorted(events,
-                                      key=lambda e: -e.self_device_time_total)}
+    fn()
+    torch.cuda.synchronize()
+    pads = pads or PROFILE_PADS
+    for attempt, pad in enumerate(pads, 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = [e for e in prof.key_averages() if getattr(
+            e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        per_call = sum(e.count for e in events) / iters
+        split = {short(e.key): e.self_device_time_total / 1e3 / e.count
+                 * max(1, round(e.count / iters))
+                 for e in sorted(events,
+                                 key=lambda e: -e.self_device_time_total)}
+        if (per_call > 0 and per_call == int(per_call)
+                and any(expect in name for name in split)):
+            break
+        print(f"  torch.profiler lost events (attempt {attempt} of "
+              f"{len(pads)}, pad {pad} s: {per_call:g} kernels per "
+              f"call, {list(split)})", flush=True)
+    return per_call, split
+
+
+# Host seconds between a profile's start and the first call, and between
+# the last call's end and the profile's end, attempt by attempt: without a
+# pad torch.profiler (CUPTI) has lost the first kernel of a profile, or
+# every kernel of a short one, on some hosts.
+PROFILE_PADS = (0.02, 0.2, 1.0)
 
 
 def launch_split(fn, iters: int = 5) -> str:
@@ -3209,8 +3524,9 @@ def serve_ensembles(pipe) -> dict:
         conv_counts[key] = total
         layers._CONV_IMPL = mode
         try:
-            profile_request(request, what=f"one E={E} 768x768 request under "
-                            f"MARIGOLD_TPU_CONV={mode}")
+            if FULL_DEPTH:
+                profile_request(request, what=f"one E={E} 768x768 request "
+                                f"under MARIGOLD_TPU_CONV={mode}")
         finally:
             layers._CONV_IMPL = "xla"
     base.ensemble_depth = ensemble_depth
@@ -3534,7 +3850,9 @@ def serve_normals(root: str, depth_dir: str) -> None:
           flush=True)
     if diff > 1 / 65535 + 1e-6 or lo > -0.5:
         _fail("normals uint16 readback differs from the float readback")
-    profile_request(request(E), what=f"one normals E={E} {hw[0]}x{hw[1]} request")
+    if FULL_DEPTH:
+        profile_request(request(E),
+                        what=f"one normals E={E} {hw[0]}x{hw[1]} request")
     free(pipe)
 
 
@@ -3595,8 +3913,9 @@ def serve_iid(root: str, depth_dir: str) -> None:
                 check_batch, arrays)
             print(f"IID appearance NI={ni} @{res}px E=1: "
                   f"{times[-1] / ni:.1f} ms/map (warm)", flush=True)
-            profile_request(run_batch, what=f"one IID appearance "
-                            f"{ni}x{res}x{res} E=1 batch")
+            if FULL_DEPTH:
+                profile_request(run_batch, what=f"one IID appearance "
+                                f"{ni}x{res}x{res} E=1 batch")
         free(pipe)
 
 
@@ -3915,7 +4234,7 @@ CLI_STEPS = 4  # the checkpoints' default_denoising_steps
 CLI_RES = 768  # and default_processing_resolution
 CLI_HW = (768, 768)
 RUN_SHAPES = [CLI_HW, CLI_HW, (480, 640)]
-SERVE_IMAGES = 6  # CLI_HW, in batches of NI=3 at E=10, two in flight, then one
+SERVE_IMAGES = 6  # CLI_HW, in batches of NI=3 at E=10, two in flight (then one)
 HTTP_BATCH_WAIT = 0.25
 NYU_SPLIT = "data_split/nyu_depth/labeled/filename_list_test.txt"
 NYU_DIR = "nyuv2/nyu_labeled_extracted.tar"  # a directory stands in for it
@@ -4161,7 +4480,7 @@ def cli_serve_once(root: str, depth_dir: str) -> None:
                                CLI_STEPS, n_images=ni,
                                ensemble_size=ENSEMBLE_SIZE, res=CLI_RES)
     want = {d: n * (SERVE_IMAGES // ni) for d, n in per_batch.items()}
-    for in_flight in (2, 1):
+    for in_flight in depth((2,), (2, 1)):  # one at a time: at full depth
         out = os.path.join(root, f"serve_out{in_flight}")
         before = dict(fa.launches)
         torch.cuda.reset_peak_memory_stats()
@@ -4324,8 +4643,8 @@ def cli_benchmark(root: str, depth_dir: str) -> None:
     """benchmark --benchmark nyu at the protocol's own pins (E=10, 1 step,
     native resolution): --limit 1 with --parity (online launches only, the
     ensemble at reg_max_res 1024 and gauge_anchor 0; one sample shows the
-    pins, and its ensemble is the reference's host BFGS), then --limit 2
-    without it (shifted launches only)."""
+    pins, and its ensemble is the reference's host BFGS), then --limit 1
+    (2 at full depth) without it (shifted launches only)."""
     import numpy as np
 
     from marigold_tpu_torch.cli import benchmark as bench_cli
@@ -4351,7 +4670,7 @@ def cli_benchmark(root: str, depth_dir: str) -> None:
     try:
         for parity in (True, False):
             out = os.path.join(root, f"bench_{'parity' if parity else 'serving'}")
-            n = 1 if parity else 2
+            n = 1 if parity else depth(1, 2)
             want = {d: c * n for d, c in one.items()}
             seen.clear()
             before = dict(fa.launches)
@@ -4575,8 +4894,9 @@ def full_precision_phase(root: str, depth_dir: str) -> dict:
                 before = f32_launches()
                 runs.append(_timed(request))
                 _f32_gate(f"fp32 request, conv mode {mode}", before, conv_want)
-            profile_request(request, what="one fp32 768x768 E=1 request "
-                            f"under MARIGOLD_TPU_CONV={mode}")
+            if FULL_DEPTH:
+                profile_request(request, what="one fp32 768x768 E=1 request "
+                                f"under MARIGOLD_TPU_CONV={mode}")
         finally:
             layers._CONV_IMPL = saved_impl
         (depth, first_ms), (again, warm_ms) = runs
@@ -4691,7 +5011,8 @@ def load_phase(depth_dir: str) -> None:
           f"{times['per-tensor']:.2f} s; every parameter bit-identical",
           flush=True)
 
-    for flag in ("1",):  # the default; the per-tensor path timed above
+    # the default (the per-tensor path timed above), at full depth
+    for flag in ("1",) if FULL_DEPTH else ():
         env = dict(os.environ, MARIGOLD_TPU_FASTLOAD=flag)
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", COLD_START, depth_dir],
@@ -4736,7 +5057,10 @@ def load_phase(depth_dir: str) -> None:
 # fabricated NYU-layout tar of 480x640 samples, read by the native reader
 # and by tarfile in turns (two runs each): samples/s of each run and the
 # batches held equal.
-TARIO_SAMPLES = 32
+# samples of the fabricated tar, and the readers in turns: depth(default,
+# full)
+TARIO_SAMPLES = (8, 32)
+TARIO_TURNS = ((True, False), (True, False, False, True))
 TARIO_HW = (480, 640)
 
 
@@ -4751,10 +5075,11 @@ def tario_phase(root: str) -> None:
 
     if tario.load_lib() is None:
         _fail("the native tar reader did not build on this machine")
+    n_samples, turns = depth(*TARIO_SAMPLES), depth(*TARIO_TURNS)
     rng = np.random.default_rng(25)
     stage, lines = os.path.join(root, "tario_stage"), []
     os.makedirs(os.path.join(stage, "train"))
-    for i in range(TARIO_SAMPLES):
+    for i in range(n_samples):
         _png(os.path.join(stage, "train", f"rgb_{i}.png"),
              _noise_rgb(rng, *TARIO_HW))
         for kind in ("depth", "filled"):
@@ -4794,9 +5119,9 @@ def tario_phase(root: str) -> None:
 
     rates = {True: [], False: []}
     runs = {}
-    for native in (True, False, False, True):  # in turns
+    for native in turns:
         runs[native], s = batches(native)
-        rates[native].append(TARIO_SAMPLES / s)
+        rates[native].append(n_samples / s)
     if len(runs[True]) != len(runs[False]) or any(
             a.keys() != b.keys() or any(
                 not np.array_equal(a[k], b[k], equal_nan=True)
@@ -4804,9 +5129,10 @@ def tario_phase(root: str) -> None:
             for a, b in zip(runs[True], runs[False])):
         _fail("the loader's batches differ between the native reader and "
               "tarfile")
-    print(f"tar loader ({TARIO_SAMPLES} samples of {TARIO_HW[0]}x"
+    print(f"tar loader ({n_samples} samples of {TARIO_HW[0]}x"
           f"{TARIO_HW[1]}, micro-batch 2, 2 forked workers, pool start "
-          f"included; native, tarfile, tarfile, native): native reader "
+          f"included; {', '.join('native' if t else 'tarfile' for t in turns)}"
+          f"): native reader "
           f"{', '.join(f'{r:.1f}' for r in rates[True])} samples/s, tarfile "
           f"{', '.join(f'{r:.1f}' for r in rates[False])} samples/s; batches "
           f"identical; the native library {tario.library_path()}", flush=True)
@@ -5368,6 +5694,10 @@ def f32_train_phase(root: str) -> dict:
 # wrote (45 GiB).
 TRAIN_PAR_RANKS = 2
 TRAIN_PAR_SEED = 4
+# micro-steps per iteration of phase 10b's single, replicated and ZeRO-1
+# runs (each reduces its gradients over gloo, 3.5-11 s a micro-step on one
+# card): depth(default, full)
+TRAIN_PAR_ACCUM = (1, TRAIN_ACCUM)
 
 
 def _bits_sum(t) -> int:
@@ -5476,7 +5806,7 @@ def train_parallel_rank(mesh, root: str, batches: list, cli: dict) -> dict:
         d = os.path.join(cli["tmp"], f"{what}_{mesh.rank}")
         trainer = MarigoldDepthTrainer(
             cfg, pipe, batches, os.path.join(d, "ckpt"), os.path.join(d, "eval"),
-            os.path.join(d, "vis"), accumulation_steps=TRAIN_ACCUM,
+            os.path.join(d, "vis"), accumulation_steps=cli["accum"],
             mesh=mesh if on_mesh else None)
         rec = {"ms": [], "loss": [], "acc": None}
         step = trainer.train_step
@@ -5502,7 +5832,7 @@ def train_parallel_rank(mesh, root: str, batches: list, cli: dict) -> dict:
         torch.cuda.synchronize()
         rec["launches"] = dict(fa.launches)  # ... and ends here
         rec["peak"] = torch.cuda.max_memory_allocated() / 2**30
-        rec["want"] = expected_train_launches(trainer.core, TRAIN_HW, TRAIN_ACCUM)
+        rec["want"] = expected_train_launches(trainer.core, TRAIN_HW, cli["accum"])
         rec["reduce_ms"] = list(reduce_ms)
         print(f"rank {mesh.rank} {what}: ms per micro-step "
               f"{', '.join(f'{x:.1f}' for x in rec['ms'])}; the reduction's ms "
@@ -5610,7 +5940,7 @@ def train_parallel_rank(mesh, root: str, batches: list, cli: dict) -> dict:
     # the training CLI in this rank, then --resume_run
     os.environ.setdefault("WANDB_MODE", "disabled")
     runs = {}
-    for what, argv in (("cli", cli["argv"]), ("resume", None)):
+    for what, argv in (("cli", cli["argv"]), ("resume", None))[:len(cli["runs"])]:
         if argv is None:
             if mesh.rank == 0:  # one more iteration, without validation
                 _check_run_dir(cli["run_dir"], [1], (8, 4), failures, "depth_dp")
@@ -5640,7 +5970,8 @@ def train_parallel_rank(mesh, root: str, batches: list, cli: dict) -> dict:
         del trainer
         free()
     if mesh.rank == 0:
-        _check_run_dir(cli["run_dir"], [2], (8, 4), failures, "depth_dp resumed")
+        _check_run_dir(cli["run_dir"], [len(runs)], (8, 4), failures,
+                       f"depth_dp after {len(runs)} runs")
         if not os.path.exists(os.path.join(cli["run_dir"], ".run_marker")):
             failures.append("no run marker from rank 0")
         shutil.rmtree(cli["run_dir"])
@@ -5665,7 +5996,9 @@ def train_parallel_phase(base_ckpt: str, n_ranks: int = TRAIN_PAR_RANKS,
     failures: list = []
     tmp = tempfile.TemporaryDirectory()
     root = os.path.join(base_ckpt, "stable-diffusion-2")
-    batches = _train_batches(TRAIN_PAR_SEED, TRAIN_ACCUM, rows=n_ranks)
+    accum = depth(*TRAIN_PAR_ACCUM)
+    runs = ("cli", "resume")
+    batches = _train_batches(TRAIN_PAR_SEED, accum, rows=n_ranks)
     recipe = CLI_TRAIN_RECIPES[0]
     base_data = os.path.join(tmp.name, "data")
     lists_dir = os.path.join(tmp.name, "splits")
@@ -5691,7 +6024,7 @@ def train_parallel_phase(base_ckpt: str, n_ranks: int = TRAIN_PAR_RANKS,
     common = ["--base_ckpt_dir", base_ckpt, "--base_data_dir", base_data,
               "--output_dir", out_dir, "--no_wandb", "--device", "cuda",
               "--data_parallel", "--shard_optimizer"]
-    cli = {"tmp": tmp.name, "common": common,
+    cli = {"tmp": tmp.name, "common": common, "accum": accum, "runs": runs,
            "argv": ["--config", cfg_path] + common,
            "run_dir": os.path.join(out_dir, os.path.splitext(
                os.path.basename(recipe[1]))[0])}
@@ -5707,7 +6040,7 @@ def train_parallel_phase(base_ckpt: str, n_ranks: int = TRAIN_PAR_RANKS,
     r0 = ranks[0]
     shared = "ranks sharing one card" if device != "cuda" else "one card per rank"
     micro = f"[{n_ranks}, 3, {TRAIN_HW[0]}, {TRAIN_HW[1]}]"
-    print(f"single process, one iteration of {TRAIN_ACCUM} micro-steps {micro}: "
+    print(f"single process, one iteration of {accum} micro-steps {micro}: "
           f"ms per micro-step {', '.join(f'{m:.1f}' for m in r0['single']['ms'])}; "
           f"peak {r0['single']['peak']:.2f} GiB; losses {r0['single']['loss']}; "
           f"flash launches {r0['single']['launches']}", flush=True)
@@ -5738,23 +6071,23 @@ def train_parallel_phase(base_ckpt: str, n_ranks: int = TRAIN_PAR_RANKS,
           f"in {r0['reload']['s']:.1f} s: params, mu and nu the replicated run's "
           f"bit for bit: {r0['reload']['same']}, process_count "
           f"{r0['reload']['process_count']}", flush=True)
-    for what in ("cli", "resume"):
-        runs = [o["cli"][what] for o in ranks]
-        for r, run in enumerate(runs):
+    for what in runs:
+        per_rank = [o["cli"][what] for o in ranks]
+        for r, run in enumerate(per_rank):
             print(f"cli.train --data_parallel --shard_optimizer ({what}), rank {r}: "
                   f"iteration {run['iter']}, updates {run['updates']}, losses "
                   f"{run['losses']}, ms per micro-step "
                   f"{', '.join(f'{x:.1f}' for x in run['micro_ms'])}, validation "
                   f"ms {run['validate_ms']}", flush=True)
-        if any(run["losses"] != runs[0]["losses"] for run in runs) or \
-                runs[0]["iter"] != (1 if what == "cli" else 2):
-            failures.append(f"{what}: losses {[run['losses'] for run in runs]}, "
-                            f"iteration {runs[0]['iter']}")
+        if any(run["losses"] != per_rank[0]["losses"] for run in per_rank) or \
+                per_rank[0]["iter"] != (1 if what == "cli" else 2):
+            failures.append(f"{what}: losses {[run['losses'] for run in per_rank]}, "
+                            f"iteration {per_rank[0]['iter']}")
     counts = collections.Counter()
     for out in ranks:
         for mode in ("replicated", "zero1"):
             counts.update(out[mode]["launches"])
-        for what in ("cli", "resume"):
+        for what in runs:
             counts.update(out["cli"][what]["counts"])
     tmp.cleanup()
     print(f"fine-tuning across ranks: {n_ranks} ranks spawned and run in "
@@ -5782,16 +6115,23 @@ CLI_TRAIN_RECIPES = [
     ("iid_appearance", "config/train_marigold_iid_appearance.yaml", 4, (12, 8)),
     ("iid_lighting", "config/train_marigold_iid_lighting.yaml", 4, (16, 12)),
 ]
-CLI_TRAIN_ITERS = 2
+CLI_TRAIN_ITERS = 2  # the depth run's (its iteration 2 is timed, then resumed)
+# the other recipes' iterations: depth(default, full)
+CLI_TRAIN_OTHER_ITERS = (1, CLI_TRAIN_ITERS)
 # 2 validation and visualization samples per dataset (4 until PR 17; the
 # whole run is held to the time limit)
 CLI_TRAIN_SAMPLES = {"train": 8, "val": 2, "vis": 2}
+# the validation and visualization samples per dataset at the default depth
+CLI_TRAIN_EVAL_SAMPLES = 1
 # hypersim depth train: 12 samples, so that with vkitti's 8 an epoch is 10
 # batches of 2 and the resume lands mid-epoch (8 micro-steps in 2 iterations)
 CLI_TRAIN_HYPERSIM_DEPTH = 12
 CLI_PROFILE_STEPS = 3
 REMAT_MODES = ("none", "full", "save_heavy")
-REMAT_BATCH_REPEATS = (1, 4)
+# micro-batches of the remat measures, as repeats of the recipe's:
+# depth(REMAT_BATCH_REPEATS, REMAT_BATCH_REPEATS_FULL)
+REMAT_BATCH_REPEATS = (4,)
+REMAT_BATCH_REPEATS_FULL = (1, 4)
 REMAT_GATED_REPEATS = 4  # [8, 3, 480, 640]: activations outweigh the state
 REMAT_FULL_MARGIN = 1.0  # GiB
 # IID train split lists the repository does not ship: lines of the same
@@ -5930,7 +6270,8 @@ def build_train_data(base: str, lists: str, recipes: list, seed: int) -> dict:
                 entries = entries["dataset_list"]
             for e in entries:
                 shipped = e["filenames"]
-                n = CLI_TRAIN_SAMPLES[split]
+                n = (CLI_TRAIN_SAMPLES[split] if split == "train"
+                     else depth(CLI_TRAIN_EVAL_SAMPLES, CLI_TRAIN_SAMPLES[split]))
                 if e["name"] == "hypersim_depth" and split == "train":
                     n = CLI_TRAIN_HYPERSIM_DEPTH
                 src, skip = CLI_TRAIN_STANDIN_SPLITS.get(shipped, (shipped, 0))
@@ -5979,9 +6320,10 @@ def build_train_data(base: str, lists: str, recipes: list, seed: int) -> dict:
 
 
 def write_overlay(folder: str, run: str, recipe: str, lists: dict,
-                  eff_bs) -> str:
+                  eff_bs, iters: int = CLI_TRAIN_ITERS) -> str:
     """An overlay config on top of the shipped recipe (printed replacement
-    by replacement), named as the recipe so that the run dir is too."""
+    by replacement), named as the recipe so that the run dir is too: `iters`
+    iterations, saved, validated and visualized at the last."""
     import copy
 
     import yaml
@@ -5998,12 +6340,11 @@ def write_overlay(folder: str, run: str, recipe: str, lists: dict,
             print(f"  {run} overlay: dataset.{split}[{e['disp_name']}].filenames "
                   f"{e['filenames']} -> {lists[e['filenames']]}", flush=True)
             e["filenames"] = lists[e["filenames"]]
-    periods = {"save_period": CLI_TRAIN_ITERS, "backup_period": 0,
-               "validation_period": CLI_TRAIN_ITERS,
-               "visualization_period": CLI_TRAIN_ITERS}
+    periods = {"save_period": iters, "backup_period": 0,
+               "validation_period": iters, "visualization_period": iters}
     overlay = {"base_config": [os.path.abspath(recipe)], "dataset": dataset,
-               "max_iter": CLI_TRAIN_ITERS, "trainer": periods}
-    print(f"  {run} overlay: max_iter {shipped.max_iter} -> {CLI_TRAIN_ITERS}",
+               "max_iter": iters, "trainer": periods}
+    print(f"  {run} overlay: max_iter {shipped.max_iter} -> {iters}",
           flush=True)
     for k, v in periods.items():
         print(f"  {run} overlay: trainer.{k} {shipped.trainer[k]} -> {v}", flush=True)
@@ -6290,7 +6631,7 @@ def cli_train_measures(trainer, failures: list, micro_ms: float) -> None:
     core.vae.encode_mean_scaled = encode_then_reset
     # the recipe's micro-batch, and 4x it (the JAX recipes' fastest
     # single-chip micro-batch) where activations outweigh the gradients
-    for reps in REMAT_BATCH_REPEATS:
+    for reps in depth(REMAT_BATCH_REPEATS, REMAT_BATCH_REPEATS_FULL):
         big = {k: torch.cat([v] * reps) for k, v in batch.items()}
         results = {}
         for mode in REMAT_MODES:
@@ -6394,15 +6735,18 @@ def train_cli_phase(base_ckpt: str) -> dict:
     common = ["--base_ckpt_dir", base_ckpt, "--base_data_dir", base_data,
               "--output_dir", out, "--no_wandb", "--device", "cuda"]
     for run, recipe, eff_bs, channels in CLI_TRAIN_RECIPES:
+        phase(f"11: the training CLI, {run}")
+        iters = (CLI_TRAIN_ITERS if run == "depth"
+                 else depth(*CLI_TRAIN_OTHER_ITERS))
         cfg_path = write_overlay(os.path.join(tmp.name, "configs"), run, recipe,
-                                 lists, eff_bs)
+                                 lists, eff_bs, iters)
         if run != "depth":  # the depth run keeps the recipes' Adam
             _adafactor_overlay(cfg_path, run)
         run_dir = os.path.join(out, os.path.splitext(os.path.basename(recipe))[0])
         trainer, counts, times, hws = _cli_train_run(
             ["--config", cfg_path] + common, failures, f"cli.train {run}")
         total.update(counts)
-        _check_run_dir(run_dir, [CLI_TRAIN_ITERS], channels, failures, run)
+        _check_run_dir(run_dir, [iters], channels, failures, run)
         _check_metrics(trainer, failures, run)
         if run == "depth":
             micro = times["micro"]
@@ -6457,6 +6801,7 @@ def train_cli_phase(base_ckpt: str) -> dict:
                                 f"epoch {trainer.epoch}, batch {trainer.n_batch_in_epoch}")
             _check_run_dir(run_dir, [CLI_TRAIN_ITERS, CLI_TRAIN_ITERS + 1], channels,
                            failures, "depth resumed")
+            phase("11: the training CLI, the depth run's measures")
             cli_train_measures(trainer, failures, warm[len(warm) // 2])
         del trainer
         _free()
@@ -6480,7 +6825,8 @@ def profile_request(fn, classes=SERVE_CLASSES,
                     what: str = "one 768x768 request") -> None:
     """Device time by kernel class and the device's busy share over one
     call of fn, from torch.profiler (single stream: kernels do not
-    overlap)."""
+    overlap); at full depth also the host ops by self CPU time (the CPU
+    events of one request take the profiler seconds to aggregate)."""
     import re
 
     import torch
@@ -6488,12 +6834,15 @@ def profile_request(fn, classes=SERVE_CLASSES,
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if FULL_DEPTH else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     by_class: dict = {}
     total = 0.0
@@ -6511,7 +6860,9 @@ def profile_request(fn, classes=SERVE_CLASSES,
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
               f"{e.key[:110]}", flush=True)
-    host = [e for e in prof.key_averages()
+    if not FULL_DEPTH:
+        return
+    host = [e for e in averages
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU]
     print("  host ops by self CPU time:", flush=True)
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:

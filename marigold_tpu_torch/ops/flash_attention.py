@@ -64,19 +64,23 @@ On the H100 the bf16 kernels are bound by tensor-core throughput (about N/2
 FLOP per byte at the UNet shapes); the notes in the .cu files say what each
 design does about it and, for the 512-wide forward, what was measured to
 bind it. Every kernel reads q/k/v (the backward also dO) and writes its
-outputs through TMA tensor maps, whose preconditions `check_tma` holds: a
-16-byte aligned base, a row stride and a head stride (the serving forwards'
-maps are {D, H, N, B}: a box past a narrow head's D reads zeros, never the
-next head) that are multiples of 16 bytes and at least one row (the fp32
-kernels' float4 loads need the same). A tensor that breaks them raises; it
-is never copied into shape. `flash_attention_packed` reads q, k and v in
-place in one [B, N, 3C] projection (row stride 3C), for
+outputs through TMA tensor maps, whose preconditions `check_kernel_args`
+holds: a 16-byte aligned base, a row stride and a head stride (the serving
+forwards' maps are {D, H, N, B}: a box past a narrow head's D reads zeros,
+never the next head) that are multiples of 16 bytes and at least one row
+(the fp32 kernels' float4 loads need the same). A tensor that breaks them
+raises; it is never copied into shape. `flash_attention_packed` reads q, k
+and v in place in one [B, N, 3C] projection (row stride 3C), for
 `ops/attention.py:self_attention_projected`.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it runs the
 plain version only for a tensor on the CPU. The raw kernel wrappers are not
 differentiable and raise when called with grad enabled on an input that
-requires grad. `launches` counts kernel launches by variant
+requires grad. On a CUDA tensor a wrapper checks its arguments in one pass
+(`check_kernel_args`: what the kernels and their TMA maps take), reads the
+raw current stream and switches the current device only when q's is
+another: at the small SD1.x shapes the host time of a call is longer than
+the kernel's. `launches` counts kernel launches by variant
 ("shifted_d<D>", "online_d<D>" and "folded_d<D>" for each D in HEAD_DIMS,
 "lse_d<D>", "bwd_dq_d<D>", "bwd_dkv_d<D>" for each D in TRAIN_HEAD_DIMS)
 for bf16, and
@@ -87,6 +91,7 @@ operand split as "tf32_split".
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -326,14 +331,13 @@ def split_tf32(rows: list, cols: list = ()) -> list:
     n = len(xs)
     ptrs = ctypes.c_void_p * n
     lib = _split_library()
-    with torch.cuda.device(xs[0].device):
-        err = lib.mt_tf32_split(
-            ptrs(*(x.data_ptr() for x in xs)),
-            ptrs(*(hi.data_ptr() for hi, _ in outs)),
-            ptrs(*(lo.data_ptr() for _, lo in outs)),
-            (ctypes.c_int * n)(*(x.shape[1] for x in xs)),
-            (ctypes.c_int * n)(*([0] * len(rows) + [1] * len(cols))),
-            n, b, c, torch.cuda.current_stream().cuda_stream)
+    err = _on_device(
+        xs[0], lib.mt_tf32_split, ptrs(*(x.data_ptr() for x in xs)),
+        ptrs(*(hi.data_ptr() for hi, _ in outs)),
+        ptrs(*(lo.data_ptr() for _, lo in outs)),
+        (ctypes.c_int * n)(*(x.shape[1] for x in xs)),
+        (ctypes.c_int * n)(*([0] * len(rows) + [1] * len(cols))),
+        n, b, c, _stream(xs[0]))
     _raise_on(lib, err, "tf32 split")
     launches_f32.add("tf32_split")
     return outs
@@ -351,6 +355,7 @@ def _bind(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int) -> None:
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
 
 
+@functools.cache  # bound once: every bf16 forward call goes through here
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load_library("flash_attention", SOURCES)
     fn = lib.mt_flash_attention_fwd
@@ -362,6 +367,26 @@ def _library() -> ctypes.CDLL:
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
     _bind(lib, "mt_flash_attention_fwd_lse", 5, 8)
     return lib
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current CUDA stream of x's device, as the kernels take it (the
+    raw handle: `torch.cuda.current_stream()` builds a Stream object, a few
+    microseconds a call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(x.get_device())
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _on_device(x: torch.Tensor, fn, *args):
+    """fn(*args) with x's device current, so that a launch goes to x's card;
+    the device guard (a few microseconds a call) only when another device
+    is current (x is a CUDA tensor, so CUDA is initialised)."""
+    if x.get_device() == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(x.device):
+        return fn(*args)
 
 
 def _f32_library() -> ctypes.CDLL:
@@ -394,33 +419,30 @@ def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
     is `row_shift`'s at D = 512 and None below, where the kernel computes
     it on `shift_sample`'s keys and writes it into `shift_out` if given."""
     nq, nk, scale = q.shape[1], k.shape[1], 1.0 / math.sqrt(d)
-    stride, n_sub = shift_sample(nk)
-    stream = torch.cuda.current_stream().cuda_stream
+    stride, n_sub = (1, nk) if online else shift_sample(nk)
+    stream = _stream(q)
     shift_ptr = shift.data_ptr() if shift is not None else None
     out_ptr = shift_out.data_ptr() if shift_out is not None else None
     if q.dtype == torch.float32:
         lib, counter = _f32_library(), launches_f32
         operands = [t.data_ptr() for t in _split_fwd_f32(q, k, v)]
         ld = q.shape[2]
-        with torch.cuda.device(q.device):
-            if d == 512:
-                err = lib.mt_flash_fwd_d512_f32(
-                    *operands, shift_ptr, out.data_ptr(), b, heads, nq, nk,
-                    ld, ld, int(online), scale, stream)
-            else:
-                err = lib.mt_flash_fwd_f32(
-                    *operands, out.data_ptr(), out_ptr, b, heads, nq, nk, d,
-                    ld, ld, int(online), stride, n_sub, scale, stream)
+        if d == 512:
+            err = _on_device(q, lib.mt_flash_fwd_d512_f32, *operands,
+                             shift_ptr, out.data_ptr(), b, heads, nq, nk, ld,
+                             ld, int(online), scale, stream)
+        else:
+            err = _on_device(q, lib.mt_flash_fwd_f32, *operands,
+                             out.data_ptr(), out_ptr, b, heads, nq, nk, d, ld,
+                             ld, int(online), stride, n_sub, scale, stream)
     else:
         lib, counter = _library(), launches
-        with torch.cuda.device(q.device):
-            err = lib.mt_flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), shift_ptr,
-                out.data_ptr(), out_ptr, b, heads, nq, nk, d, q.stride(1),
-                k.stride(1), out.stride(1), stride, n_sub, scale, int(online),
-                stream,
-            )
-    _raise_on(lib, err, f"flash attention ({q.dtype})")
+        err = _on_device(
+            q, lib.mt_flash_attention_fwd, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), shift_ptr, out.data_ptr(), out_ptr, b, heads, nq,
+            nk, d, q.stride(1), k.stride(1), out.stride(1), stride, n_sub,
+            scale, int(online), stream)
+    _raise_on(lib, err, lambda: f"flash attention ({q.dtype})")
     counter.add(variant)
 
 
@@ -431,91 +453,128 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def _raise_on(lib: ctypes.CDLL, err: int, what) -> None:
+    """Raises on a nonzero cudaError; `what` names the kernel (a callable
+    giving the name, so that a launch that went well formats nothing)."""
     if err != 0:
+        what = what() if callable(what) else what
         raise RuntimeError(
             f"{what} kernel launch failed: "
             f"{lib.mt_cuda_error_string(err).decode()} (cudaError {err})"
         )
 
 
-def _check_inputs(q, k, v, num_heads, softmax="online"):
+def _check_inputs(tensors: dict, num_heads: int,
+                  softmax: str = "online") -> list:
+    """The part of `check_kernel_args` that holds on any device: a softmax
+    mode; each tensor of `tensors` ({"q": q, "k": k, "v": v}, then the
+    backward's "dout" and "out") on q's device, of q's dtype, [B, N, C]; k
+    and v of one shape with q's batch and channels; C over `num_heads`.
+    The CPU paths check this alone. Returns the tensors' shapes."""
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"unknown softmax mode: {softmax!r}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.ndim != 3:
-            raise ValueError(f"{name} must be [B, N, C], got {tuple(t.shape)}")
-    b, nq, c = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != c:
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}"
-        )
+    q = tensors["q"]
+    device, dtype = q.device, q.dtype
+    shapes = []  # each attribute read once: a read is ~0.3 µs of host time
+    for name, t in tensors.items():
+        shape = t.shape
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, q on {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {dtype}")
+        if len(shape) != 3:
+            raise ValueError(f"{name} must be [B, N, C], got {tuple(shape)}")
+        shapes.append(shape)
+    b, nq, c = shapes[0]
+    ks, vs = shapes[1], shapes[2]
+    if ks != vs or ks[0] != b or ks[2] != c:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(ks)}, "
+                         f"v {tuple(vs)}")
     if c % num_heads:
         raise ValueError(f"C={c} is not divisible by {num_heads} heads")
+    return shapes
 
 
-def _check_cuda(tensors: dict, head_dim: int, head_dims: tuple,
-                b_h: int, strided: bool = False) -> None:
-    """What the CUDA kernels take: bf16 or fp32 (KERNEL_DTYPES; fp16 and
-    others raise ValueError), contiguous (`strided`: [B, N, C] views of
-    rows with any row stride, channels contiguous, as the bf16 forwards read
-    them), 16-byte aligned, a head width they are instantiated for, no
-    autograd."""
-    q = next(iter(tensors.values()))
-    if q.device.type != "cuda":
+def check_kernel_args(tensors: dict, num_heads: int, head_dims: tuple,
+                      softmax: str = "online", strided: bool = False) -> int:
+    """What the CUDA kernels take of `tensors` ({"q": q, "k": k, "v": v},
+    then the backward's "dout" and "out", each of q's shape), in one pass:
+    what `_check_inputs` checks on any device; a CUDA device; bf16 or fp32
+    (KERNEL_DTYPES; fp16 and others raise ValueError); a head width in
+    `head_dims`; each tensor contiguous (`strided`: [B, N, C] views of rows
+    with any row stride, channels contiguous, as the bf16 forwards read
+    them); what the TMA maps of the kernels take (at least one row, a
+    16-byte aligned base, a row stride and, for the head maps {D, H, N, B},
+    a head stride of D elements that are multiples of 16 bytes); no
+    autograd; B*H within the grid's y limit. Where several checks fail, the
+    first one met here raises (a tensor whose channels are not contiguous
+    fails as such before its row stride is looked at). Reads only each
+    tensor's device (and is_cuda), dtype, shape, strides, element size,
+    data_ptr and requires_grad, so that a stand-in with those can be
+    checked on the CPU. Returns the head width."""
+    shapes = _check_inputs(tensors, num_heads, softmax)
+    q = tensors["q"]
+    b, nq, c = shapes[0]
+    if not q.is_cuda:
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    if q.dtype not in KERNEL_DTYPES:
+    dtype = q.dtype
+    if dtype not in KERNEL_DTYPES:
         raise ValueError(
-            f"flash attention on CUDA takes {KERNEL_DTYPES}, got {q.dtype}")
-    if head_dim not in head_dims:
+            f"flash attention on CUDA takes {KERNEL_DTYPES}, got {dtype}")
+    d = c // num_heads
+    if d not in head_dims:
         raise ValueError(
-            f"head dim {head_dim} not in the kernel's {head_dims}; other "
+            f"head dim {d} not in the kernel's {head_dims}; other "
             "head widths are a ROADMAP item (queue 2)")
-    for name, t in tensors.items():
-        if strided:
-            if t.stride(2) != 1 or t.stride(0) != t.shape[1] * t.stride(1):
-                raise ValueError(
-                    f"{name} must be [B, N, C] rows with contiguous channels, "
-                    f"got strides {t.stride()}")
-        elif not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    size = q.element_size()
+    grad = torch.is_grad_enabled()
+    for (name, t), shape in zip(tensors.items(), shapes):
+        strides = t.stride()
+        if strides[2] != 1 and shape[2] > 1:  # channels first
+            _raise_layout(name, strides, strided)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise RuntimeError(
-            "the flash-attention kernels are not differentiable: with grad "
-            "enabled call FlashAttentionFunction (ops/attention.py's "
-            "dispatch_attention does)"
-        )
-    if b_h > 65535:
-        raise ValueError(f"B*H={b_h} exceeds the grid's y limit")
+        if shape[0] < 1 or shape[1] < 1:
+            raise ValueError(f"{name} {tuple(shape)} has no rows")
+        if strides[1] * size % 16:
+            raise ValueError(
+                f"{name}'s row stride of {strides[1] * size} bytes is not a "
+                "multiple of 16, which TMA needs")
+        if strided:
+            if strides[0] != shape[1] * strides[1]:
+                _raise_layout(name, strides, strided)
+        elif ((shape[1] != 1 and strides[1] != shape[2])
+              or (shape[0] != 1 and strides[0] != shape[1] * shape[2])) \
+                and not _contiguous(shape, strides):
+            _raise_layout(name, strides, strided)
+        if grad and t.requires_grad:
+            raise RuntimeError(
+                "the flash-attention kernels are not differentiable: with grad "
+                "enabled call FlashAttentionFunction (ops/attention.py's "
+                "dispatch_attention does)"
+            )
+    if d * size % 16:
+        raise ValueError(f"q's head stride of {d * size} bytes is not a "
+                         "multiple of 16, which TMA needs")
+    if b * num_heads > 65535:
+        raise ValueError(f"B*H={b * num_heads} exceeds the grid's y limit")
+    return d
 
 
-def check_tma(tensors: dict, head_dim: Optional[int] = None) -> None:
-    """What the TMA maps of the kernels (`csrc/flash_fwd_sm90.cu`,
-    `csrc/flash_fwd_d512_sm90.cu`, `csrc/flash_bwd_sm90.cu`, the fp32
-    sources) take of each [B, N, C] tensor: at least one row, a 16-byte
-    aligned base, a row stride that is a multiple of 16 bytes and, for the
-    serving forwards' maps {D, H, N, B} (`head_dim` D), a head stride of D
-    elements that is one too. Raises ValueError."""
-    for name, t in tensors.items():
-        if t.shape[0] < 1 or t.shape[1] < 1:
-            raise ValueError(f"{name} {tuple(t.shape)} has no rows")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for TMA")
-        if t.stride(1) * t.element_size() % 16:
-            raise ValueError(
-                f"{name}'s row stride of {t.stride(1) * t.element_size()} "
-                "bytes is not a multiple of 16, which TMA needs")
-        if head_dim is not None and head_dim * t.element_size() % 16:
-            raise ValueError(
-                f"{name}'s head stride of {head_dim * t.element_size()} bytes "
-                "is not a multiple of 16, which TMA needs")
+def _contiguous(shape, strides) -> bool:
+    """torch's is_contiguous of a [B, N, C] tensor from its shape and
+    strides (the stride of a dimension of size 1 does not count)."""
+    b, n, c = shape
+    return (b * n * c == 0
+            or ((c == 1 or strides[2] == 1) and (n == 1 or strides[1] == c)
+                and (b == 1 or strides[0] == n * c)))
+
+
+def _raise_layout(name: str, strides, strided: bool):
+    if strided:
+        raise ValueError(f"{name} must be [B, N, C] rows with contiguous "
+                         f"channels, got strides {tuple(strides)}")
+    raise ValueError(f"{name} must be contiguous")
 
 
 def flash_attention(
@@ -537,21 +596,19 @@ def _serving_forward(q, k, v, num_heads: int, softmax: str,
     """`flash_attention`'s body; `strided` takes [B, N, C] views of rows
     with any row stride (`flash_attention_packed`'s q, k and v);
     `shift_out` ([B*H, Nq] fp32, shifted mode) receives the row shift."""
-    _check_inputs(q, k, v, num_heads, softmax)
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check_inputs({"q": q, "k": k, "v": v}, num_heads, softmax)
         if shift_out is not None:
             shift_out.copy_(row_shift(q, k, num_heads))
         return flash_attention_plain(q, k, v, num_heads, softmax)
-    b, n, c = q.shape
-    d = c // num_heads
-    _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, b * num_heads,
-                strided)
-    check_tma({"q": q, "k": k, "v": v}, d)
+    d = check_kernel_args({"q": q, "k": k, "v": v}, num_heads, HEAD_DIMS,
+                          softmax, strided)
     # the kernels below 512 compute the shift themselves
     shift = (row_shift(q, k, num_heads) if softmax == "shifted" and d == 512
              else None)
-    out = q.new_empty((b, n, c))
-    _launch_forward(q, k, v, shift, out, b, num_heads, d,
+    # contiguous (q itself may be a strided view of a packed projection)
+    out = q.new_empty(q.shape) if strided else torch.empty_like(q)
+    _launch_forward(q, k, v, shift, out, q.shape[0], num_heads, d,
                     softmax == "online", f"{softmax}_d{d}", shift_out)
     return out
 
@@ -604,18 +661,17 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
     ragged N, and TMA zero-fills the lanes of a narrow head's boxes) or
     raises; on a CPU tensor it runs the plain online forward with one
     head."""
-    _check_inputs(q, k, v, 1)
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check_inputs({"q": q, "k": k, "v": v}, 1)
         return flash_attention_plain(q, k, v, 1, "online")
-    bh, nq, d = q.shape
-    if d not in HEAD_DIMS:
+    if q.ndim == 3 and q.shape[2] not in HEAD_DIMS:
         raise NotImplementedError(
-            f"the folded flash kernel takes D in {HEAD_DIMS}, got {d}; other "
-            "head widths are a ROADMAP item (queue 2)")
-    _check_cuda({"q": q, "k": k, "v": v}, d, HEAD_DIMS, bh)
-    check_tma({"q": q, "k": k, "v": v}, d)
+            f"the folded flash kernel takes D in {HEAD_DIMS}, got "
+            f"{q.shape[2]}; other head widths are a ROADMAP item (queue 2)")
+    d = check_kernel_args({"q": q, "k": k, "v": v}, 1, HEAD_DIMS)
     out = torch.empty_like(q)
-    _launch_forward(q, k, v, None, out, bh, 1, d, True, f"folded_d{d}")
+    _launch_forward(q, k, v, None, out, q.shape[0], 1, d, True,
+                    f"folded_d{d}")
     return out
 
 
@@ -627,14 +683,13 @@ def flash_attention_lse(
     or fp32: the split, then `csrc/flash_fwd_d64_f32_sm90.cu`; a head dim in
     TRAIN_HEAD_DIMS) or raises; on a CPU tensor it runs
     `flash_attention_lse_plain`."""
-    _check_inputs(q, k, v, num_heads)
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check_inputs({"q": q, "k": k, "v": v}, num_heads)
         return flash_attention_lse_plain(q, k, v, num_heads)
+    d = check_kernel_args({"q": q, "k": k, "v": v}, num_heads,
+                          TRAIN_HEAD_DIMS)
     b, nq, c = q.shape
     nk = k.shape[1]
-    d = c // num_heads
-    _check_cuda({"q": q, "k": k, "v": v}, d, TRAIN_HEAD_DIMS, b * num_heads)
-    check_tma({"q": q, "k": k, "v": v}, d)
     out = torch.empty_like(q)
     lse = torch.empty((b * num_heads, nq), device=q.device, dtype=torch.float32)
     if q.dtype == torch.float32:
@@ -648,10 +703,8 @@ def flash_attention_lse(
         fn, args = lib.mt_flash_attention_fwd_lse, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, num_heads, nq, nk, d, c, c, c)
-    with torch.cuda.device(q.device):
-        err = fn(*args, 1.0 / math.sqrt(d),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, f"flash attention lse ({q.dtype})")
+    err = _on_device(q, fn, *args, 1.0 / math.sqrt(d), _stream(q))
+    _raise_on(lib, err, lambda: f"flash attention lse ({q.dtype})")
     counter.add(f"lse_d{d}")
     return out, lse
 
@@ -693,23 +746,21 @@ def flash_attention_bwd(
     (bf16 after `bwd_stats`; fp32 after one split, `split_bwd_f32`: dQ on
     `csrc/flash_bwd_dq_f32_sm90.cu`, which also writes the padded
     statistics, dK/dV on `csrc/flash_bwd_dkv_f32_sm90.cu`; a head dim in
-    TRAIN_HEAD_DIMS; q, k, v and dout as TMA takes them, `check_tma`) or
+    TRAIN_HEAD_DIMS; q, k, v and dout as TMA takes them, `check_kernel_args`) or
     raises; on a CPU tensor it runs `flash_attention_bwd_plain` (which
     recomputes the softmax itself)."""
-    _check_inputs(q, k, v, num_heads)
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check_inputs({"q": q, "k": k, "v": v}, num_heads)
         return flash_attention_bwd_plain(q, k, v, dout, num_heads)
-    b, nq, c = q.shape
-    d = c // num_heads
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} / out {tuple(out.shape)} "
                          f"must match q {tuple(q.shape)}")
+    d = check_kernel_args({"q": q, "k": k, "v": v, "dout": dout, "out": out},
+                          num_heads, TRAIN_HEAD_DIMS)
+    b, nq, _ = q.shape
     if lse.shape != (b * num_heads, nq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 [{b * num_heads}, {nq}]")
-    check_tma({"q": q, "k": k, "v": v, "dout": dout}, d)
-    _check_cuda({"q": q, "k": k, "v": v, "dout": dout, "out": out}, d,
-                TRAIN_HEAD_DIMS, b * num_heads)
     if q.dtype == torch.float32:
         parts = split_bwd_f32(q, k, v, dout)
         dq, lse_p, delta_p = flash_attention_bwd_dq_f32(
@@ -741,13 +792,11 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
     d = c // num_heads
     dq = torch.empty_like(q)
     lib = _bwd_library()
-    with torch.cuda.device(q.device):
-        err = lib.mt_flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
-        )
+    err = _on_device(
+        q, lib.mt_flash_attention_bwd_dq, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
+        1.0 / math.sqrt(d), _stream(q))
     _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
     launches.add(f"bwd_dq_d{d}")
     return dq
@@ -772,13 +821,11 @@ def flash_attention_bwd_dq_f32(q, k, v, out, lse, dout, num_heads: int,
     lse_p, delta_p = (lse.new_empty((b * num_heads, ld_stat)) for _ in range(2))
     lib = _f32_bwd_library()
     operands = [t for i in (0, 1, 2, 3, 6) for t in parts[i]]  # q dO k v k^T
-    with torch.cuda.device(q.device):
-        err = lib.mt_flash_bwd_dq_f32(
-            *(t.data_ptr() for t in operands), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), lse_p.data_ptr(),
-            delta_p.data_ptr(), b, num_heads, nq, k.shape[1], d, c, ld_stat,
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
-        )
+    err = _on_device(
+        q, lib.mt_flash_bwd_dq_f32, *(t.data_ptr() for t in operands),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        lse_p.data_ptr(), delta_p.data_ptr(), b, num_heads, nq, k.shape[1], d,
+        c, ld_stat, 1.0 / math.sqrt(d), _stream(q))
     _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
     launches_f32.add(f"bwd_dq_d{d}")
     return dq, lse_p, delta_p
@@ -806,13 +853,11 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int,
         lib, counter = _bwd_library(), launches
         fn = lib.mt_flash_attention_bwd_dkv
         operands, strides = [q, k, v, dout], (c, c)
-    with torch.cuda.device(q.device):
-        err = fn(
-            *(t.data_ptr() for t in operands), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, nq,
-            k.shape[1], d, *strides, lse.shape[1], 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    err = _on_device(
+        q, fn, *(t.data_ptr() for t in operands), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, nq,
+        k.shape[1], d, *strides, lse.shape[1], 1.0 / math.sqrt(d),
+        _stream(q))
     _raise_on(lib, err, f"flash attention dK/dV ({q.dtype})")
     counter.add(f"bwd_dkv_d{d}")
     return dk, dv
@@ -849,7 +894,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, softmax: str = "shifted"):
-        _check_inputs(q, k, v, num_heads, softmax)
+        _check_inputs({"q": q, "k": k, "v": v}, num_heads, softmax)
         d = q.shape[2] // num_heads
         ctx.num_heads = num_heads
         ctx.kernel_bwd = d in TRAIN_HEAD_DIMS

@@ -18,6 +18,7 @@ from marigold_tpu.ops.flash_attention import _flash_dt_impl
 from marigold_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from marigold_tpu_torch.ops import attention as TA
 from marigold_tpu_torch.ops import flash_attention as fa
+from test_torch_flash_checks import Stand
 
 ATOL = 2e-5
 
@@ -116,27 +117,35 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing(rng):
 
 
 def test_check_tma_takes_what_the_tensor_maps_take():
-    """The forward kernels' TMA preconditions, checked on CPU tensors: a
-    16-byte aligned base, a row stride that is a multiple of 16 bytes, at
-    least one row. Contiguous [B, N, 64*H] bf16 tensors always pass."""
+    """The kernels' TMA preconditions as `check_kernel_args` holds them, on
+    stand-ins of CPU tensors that say they live on a card (q, k and v each
+    the same tensor): a 16-byte aligned base, a row stride that is a
+    multiple of 16 bytes, at least one row. Contiguous [B, N, 64*H] bf16
+    tensors always pass."""
+    def check(t, heads=1):
+        stand = Stand(t.shape, strides=t.stride(), ptr=t.data_ptr())
+        return fa.check_kernel_args({"q": stand, "k": stand, "v": stand},
+                                    heads, fa.HEAD_DIMS)
+
     ok = torch.zeros(2, 130, 320, dtype=torch.bfloat16)
-    fa.check_tma({"q": ok, "k": ok[:1, :1]})
+    assert check(ok, 5) == check(ok[:1, :1], 5) == 64
     flat = torch.zeros(4 * 64 + 16, dtype=torch.bfloat16)
     for shift, aligned in ((0, True), (1, False), (8, True)):
         t = flat[shift:shift + 4 * 64].view(1, 4, 64)
         if aligned:
-            fa.check_tma({"q": t})
+            check(t)
         else:
             with pytest.raises(ValueError, match="16-byte aligned"):
-                fa.check_tma({"q": t})
-    with pytest.raises(ValueError, match="row stride of 120 bytes"):
-        fa.check_tma({"k": torch.zeros(1, 3, 60, dtype=torch.bfloat16)})
+                check(t)
+    # a 64-wide head read out of rows of 68 channels
+    with pytest.raises(ValueError, match="row stride of 136 bytes"):
+        check(torch.zeros(1, 3, 68, dtype=torch.bfloat16)[..., :64])
     # a 512-wide head read out of rows of 516 channels
     wide = torch.zeros(1, 3, 516, dtype=torch.bfloat16)[..., :512]
     with pytest.raises(ValueError, match="row stride of 1032 bytes"):
-        fa.check_tma({"q": wide})
+        check(wide)
     with pytest.raises(ValueError, match="no rows"):
-        fa.check_tma({"v": ok[:, :0]})
+        check(ok[:, :0], 5)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from fixtures import TINY_VAE
+from test_torch_flash_checks import Stand
 from marigold_tpu.core.scheduler import DiffusionSchedule
 from marigold_tpu.models import clip_text as jclip
 from marigold_tpu.models import layers as JL
@@ -422,12 +423,17 @@ def test_folded_plain_matches_pallas_at_sd1_widths(d, rng):
 
 
 def test_check_tma_holds_the_head_stride():
-    """The head maps' stride of D elements must be a multiple of 16 bytes:
-    D = 40 in bf16 (80 bytes) and fp32 pass, D = 36 in bf16 does not."""
+    """The head maps' stride of D elements must be a multiple of 16 bytes
+    (`check_kernel_args`, on stand-ins that say they live on a card): D =
+    40 in bf16 (80 bytes) and fp32 pass, D = 36 in bf16 does not, even
+    where a kernel would take that width."""
+    def qkv(c, dtype):
+        return {name: Stand((1, 4, c), dtype) for name in ("q", "k", "v")}
+
     for dtype in (torch.bfloat16, torch.float32):
-        fa.check_tma({"q": torch.zeros(1, 4, 320, dtype=dtype)}, 40)
+        assert fa.check_kernel_args(qkv(320, dtype), 8, fa.HEAD_DIMS) == 40
     with pytest.raises(ValueError, match="head stride of 72 bytes"):
-        fa.check_tma({"q": torch.zeros(1, 4, 288, dtype=torch.bfloat16)}, 36)
+        fa.check_kernel_args(qkv(288, torch.bfloat16), 8, (36,))
 
 
 def test_widths_and_the_autograd_raise_are_declared():
