@@ -19,8 +19,9 @@ Phases, none of which catches its own failure:
   2. build every kernel library from marigold_tpu_torch/csrc, one nvcc per
      source, all started together (ptxas registers, spills and warnings
      printed, and the HGMMA count of each kernel's SASS in the flash and
-     conv libraries where the toolkit has cuobjdump; a 3xTF32 kernel or a
-     bf16 backward kernel with spills or without HGMMA fails);
+     conv libraries where the toolkit has cuobjdump; a 3xTF32 kernel, a
+     bf16 backward kernel or the bf16 Winograd GEMM with spills or without
+     HGMMA fails);
   3. each kernel against its plain PyTorch version at the main path's shapes
      (flash forward in both softmax modes, also at the E=10 rows' level-0
      shape, the folded flash entry, the nine-tap and Winograd 3x3 convs, the
@@ -39,14 +40,18 @@ Phases, none of which catches its own failure:
      CUDA kernels per shifted call against an online call's, the forward's
      device ms alone; the packed entry too where nq = nk), beside the
      512-wide shifted kernel the row_shift it reads, beside the
-     conv kernels their weight rearrangement and blocks launched, beside the
+     conv kernels their weight rearrangement, blocks launched, device ms
+     per launch and launches per call, cuDNN's ratio and, for Winograd, its
+     other design's device ms (the one-launch design must allocate no V
+     scratch), beside the
      backward pair SDPA's whole backward, row_delta and two calls held to
      the same bits, and the bound from bytes and operations;
   3h. the bf16 forward's host path (check_host_path): rows 1, 3, 4 and 7
      at d = 40, 64, 80, 160, the host microseconds of a call over
      HOST_CALLS back-to-back calls (at full depth also of its five
      tensor-map encodes), the CUDA-event ms of a call beside SDPA's and the
-     forward's device ms;
+     forward's device ms; then both conv wrappers' host microseconds of a
+     call at CONV_HOST_CASES (check_conv_host_path);
   3c. the SD1.x head widths (40, 80, 160: 8 heads at 320, 640 and 1280
      channels), bf16 and fp32, both softmax modes, at SD1_KERNEL_CASES
      (nq != nk among them) and the folded entry at the three widths,
@@ -217,8 +222,15 @@ inside the kernel, its rounding differs by design), this build's two
 runs and two shifted calls are equal bit for bit, and the forward kernel
 at each BITS_TIMED shape (rows 1, 3, 4 and 7) is no slower on the device
 than the other build's; it prints both builds' CUDA-event ms of a call,
-host µs per call and device ms per kernel there. Without --sd1 it stops
-after the comparison.
+host µs per call and device ms per kernel there. It also runs the bf16
+Winograd conv on its rearranged weight at the nine CONV_CASES in both
+trees (conv_bits), then that conv part alone in four more processes in
+turns (CONV_BITS_RUNS): this build's runs equal, its output the other
+build's bits where it runs the split design and within phase 3's gate
+where it runs the fused one (whose sums go chunk by chunk), its device ms
+(the fastest of its four runs) within BITS_TIME_SLACK of the other
+build's, every run's device ms and both conv wrappers' host µs at
+CONV_HOST_CASES printed. Without --sd1 it stops after the comparison.
 """
 
 from __future__ import annotations
@@ -404,6 +416,7 @@ WGMMA_KERNELS = [("flash_attention", "flash_fwd_sm90_kernel"),
                  ("flash_attention_bwd_f32", "flash_bwd_dkv_f32_kernel"),
                  ("conv3x3_f32", "conv3x3_f32_kernel"),
                  ("winograd_f32", "winograd_f32_gemm_kernel"),
+                 ("winograd", "winograd_gemm_kernel"),
                  ("flash_attention_bwd", "flash_bwd_dq_kernel"),
                  ("flash_attention_bwd", "flash_bwd_dkv_kernel")]
 
@@ -1938,7 +1951,8 @@ def sd1_kernel_rows(results: dict, counts: dict, f32_counts: dict) -> list:
 # package in a process of its own (bf16 and fp32 at head widths 64, 40, 80
 # and 160: both softmax modes, a second shifted call, the training forward
 # with its logsumexp, dQ and dK/dV, the folded entry), then the shifted
-# forward's CUDA-event ms at the row-1 shapes (BITS_TIMED): run in this
+# forward's CUDA-event ms at the row-1 shapes (BITS_TIMED), then the bf16
+# Winograd conv's outputs and times at CONV_CASES (conv_bits): run in this
 # checkout and in a checkout of the other build (`--bits-against DIR`).
 # Uses only entry points both builds have.
 BITS_SNIPPET = r'''
@@ -1946,6 +1960,7 @@ import sys
 import torch
 # HELPERS
 from marigold_tpu_torch.ops import flash_attention as fa
+FLASH = sys.argv[2:] != ["conv"]  # "conv": the conv part alone
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1955,7 +1970,7 @@ cases = {"l0": (1, 9216, 9216, 320, 5), "l1": (1, 2304, 2304, 640, 10),
          "d160": (1, 1100, 1300, 1280, 8), "fold40": (3, 1030, 1030, 40, 1),
          "fold80": (2, 777, 777, 80, 1), "fold160": (2, 600, 600, 160, 1)}
 outs, twice = {}, {}
-for name, (b, nq, nk, c, h) in cases.items():
+for name, (b, nq, nk, c, h) in (cases.items() if FLASH else ()):
     q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
             for _ in range(2))
     k, v = (torch.randn((b, nk, c), generator=gen, device="cuda")
@@ -1987,7 +2002,7 @@ def call(mode):
 
 
 ms, dev, host = {}, {}, {}
-for name, (dt, b, nq, nk, c, h, mode) in TIMED.items():
+for name, (dt, b, nq, nk, c, h, mode) in (TIMED.items() if FLASH else ()):
     q = torch.randn((b, nq, c), generator=gen, device="cuda").to(dt)
     k, v = (torch.randn((b, nk, c), generator=gen, device="cuda").to(dt)
             for _ in range(2))
@@ -2003,8 +2018,50 @@ for name, (dt, b, nq, nk, c, h, mode) in TIMED.items():
     ms[name] = sorted(times)[len(times) // 2]
     dev[name] = kernel_profile(lambda: call(mode), 5, "flash_fwd")
     del q, k, v
+# the bf16 Winograd conv on its rearranged weight at CONV (CONV_CASES): the
+# output, CUDA-event ms of a call and over 20 calls back to back (the
+# device's time: the host enqueues faster than the card runs them), device
+# ms by kernel; host us of both conv wrappers at CONV_HOST
+from marigold_tpu_torch.ops import conv as conv_ops
+from marigold_tpu_torch.ops import winograd as wino
+conv_out, conv_ms, conv_run, conv_dev, conv_host = {}, {}, {}, {}, {}
+gen.manual_seed(11)  # the same inputs with or without the flash part
+for name, b, c, kc, hw in CONV:
+    x = torch.randn((b, c, hw, hw), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((kc, c, 3, 3), generator=gen, device="cuda")
+         / (3.0 * c ** 0.5)).to(torch.bfloat16)
+    bias = torch.randn((kc,), generator=gen, device="cuda").to(torch.bfloat16)
+    u = wino.filter_transform(w)
+    conv_call = lambda: wino.winograd3x3(x, w, bias, prepared=u)
+    conv_out[name] = conv_call().cpu()
+    times = []
+    for _ in range(20):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        conv_call()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    conv_ms[name] = sorted(times)[len(times) // 2]
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(20):
+        conv_call()
+    t1.record()
+    t1.synchronize()
+    conv_run[name] = t0.elapsed_time(t1) / 20
+    conv_dev[name] = kernel_profile(conv_call, 5)
+    if name in CONV_HOST:
+        taps = conv_ops.taps(w)
+        conv_host[name] = {
+            "winograd": host_us(conv_call),
+            "conv3x3": host_us(lambda: conv_ops.conv3x3(x, w, bias, prepared=taps))}
+    del x, w, bias, u
 torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "twice": twice,
-            "ms": ms, "dev": dev, "host": host}, sys.argv[1])
+            "ms": ms, "dev": dev, "host": host, "conv_out": conv_out,
+            "conv_ms": conv_ms, "conv_run": conv_run, "conv_dev": conv_dev,
+            "conv_host": conv_host},
+           sys.argv[1])
 '''
 # (dtype, B, Nq, Nk, C, heads, mode): the shifted forward's row-1 shapes,
 # then the bf16 online row 3, the training forward (row 4, "lse") and the
@@ -2033,6 +2090,10 @@ BITS_TIMED = {
        for d, b, n in ((64, 50, 9216), (40, 8, 9216), (80, 8, 2304),
                        (160, 8, 1024))},
 }
+# after the whole snippet in turns, its conv part alone runs in these turns
+# (conv_bits takes each build's fastest of all its runs)
+CONV_BITS_RUNS = ("this build", "the other build", "the other build",
+                  "this build")
 # this build's forward kernel may take at most this factor of the previous
 # build's device time (torch.profiler, the lower of each build's two runs,
 # the same card); the CUDA-event times of the calls are printed beside it
@@ -2066,25 +2127,32 @@ def bits_against(tree: str) -> None:
     # timed by the same code
     helpers = "\n".join([
         "import time", f"TIMED = {timed}", f"HOST_CALLS = {HOST_CALLS}",
+        f"CONV = {CONV_CASES!r}",
+        f"CONV_HOST = {[case[0] for case in CONV_HOST_CASES]!r}",
         f"HOST_FIRST_CALLS = {HOST_FIRST_CALLS}",
         f"PROFILE_PADS = {PROFILE_PADS!r}", inspect.getsource(host_us),
         inspect.getsource(kernel_profile)])
     runs = {"this build": [], "the other build": []}
+    # the whole snippet in turns, then its conv part alone in turns
+    # (CONV_BITS_RUNS: each build's conv times from several processes)
+    order = [(which, []) for which in ("the other build", "this build",
+                                       "this build", "the other build")]
+    order += [(which, ["conv"]) for which in CONV_BITS_RUNS]
     with tempfile.TemporaryDirectory() as tmp:
         script = os.path.join(tmp, "bits.py")
         with open(script, "w") as f:
             f.write(BITS_SNIPPET.replace("# HELPERS", helpers))
-        for i, which in enumerate(("the other build", "this build",
-                                   "this build", "the other build")):
+        for i, (which, part) in enumerate(order):
             cwd = here if which == "this build" else os.path.abspath(tree)
             path = os.path.join(tmp, f"{i}.pt")
             t0 = time.perf_counter()
-            subprocess.run([sys.executable, script, path], cwd=cwd,
+            subprocess.run([sys.executable, script, path, *part], cwd=cwd,
                            check=True, env=dict(os.environ, PYTHONPATH=cwd))
-            print(f"bits: {which} ({cwd}) in {time.perf_counter() - t0:.1f} s",
-                  flush=True)
+            print(f"bits: {which} ({cwd}{', conv only' if part else ''}) in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
             runs[which].append(torch.load(path))
-    (new, new2), (old, old2) = runs["this build"], runs["the other build"]
+    (new, new2), (old, old2) = (runs["this build"][:2],
+                                runs["the other build"][:2])
     failures = []
     if new["outs"].keys() != old["outs"].keys():
         failures.append("the builds computed different outputs")
@@ -2151,8 +2219,77 @@ def bits_against(tree: str) -> None:
         elif min(d_new) > BITS_TIME_SLACK * min(d_old):
             failures.append(f"{name}: slower on the device than the previous "
                             "build")
+    failures += conv_bits(runs["this build"], runs["the other build"])
     if failures:
         _fail(f"against the other build: {failures}")
+
+
+def conv_bits(this: list, other: list) -> list:
+    """The bf16 Winograd conv of BITS_SNIPPET in both builds (each build's
+    runs in the order they ran, in turns with the other's): at each of
+    CONV_CASES this build's runs equal one another and its output equal to
+    the other build's bit for bit where this build runs the split design
+    (the same sums in the same order), within phase 3's gate (TOL_REL /
+    TOL_ABS of the other build's max) where it runs the fused one (its
+    sums go chunk by chunk), and its device ms (CUDA events over 20 calls
+    back to back, the fastest of its runs) within BITS_TIME_SLACK of the
+    other build's; every run's device ms, torch.profiler's launches and
+    device ms per call (a profile that lost launches reads short), the
+    CUDA-event ms of a call and both conv wrappers' host us printed.
+    Returns the failures."""
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    failures = []
+    for name, b, c, k, hw in CONV_CASES:
+        design = wino_ops.design(b, c, hw, hw, k)
+        got, ref = this[0]["conv_out"][name], other[0]["conv_out"][name]
+        same = torch_equal(got, ref)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = TOL_REL * ref.float().abs().max().item() + TOL_ABS
+        twice = all(torch_equal(got, r["conv_out"][name]) for r in this[1:])
+        run_new = [r["conv_run"][name] for r in this]
+        run_old = [r["conv_run"][name] for r in other]
+        d_new, d_old = min(run_new), min(run_old)
+        p_new = min(sum(r["conv_dev"][name][1].values()) for r in this)
+        p_old = min(sum(r["conv_dev"][name][1].values()) for r in other)
+        n_new = this[0]["conv_dev"][name][0]
+        n_old = other[0]["conv_dev"][name][0]
+        t_new = sorted(r["conv_ms"][name] for r in this)
+        t_old = sorted(r["conv_ms"][name] for r in other)
+        host = ""
+        if name in this[0]["conv_host"]:
+            host = "; host us per call (first 100) " + ", ".join(
+                f"{kern} this build {min(r['conv_host'][name][kern][0] for r in this):.1f} "
+                f"({min(r['conv_host'][name][kern][1] for r in this):.1f}), "
+                f"the other {min(r['conv_host'][name][kern][0] for r in other):.1f} "
+                f"({min(r['conv_host'][name][kern][1] for r in other):.1f})"
+                for kern in ("winograd", "conv3x3"))
+        print(f"bits: winograd {name} ({design}): output "
+              f"{'equal to' if same else f'max abs err {err:.3e} (gate {tol:.3e}) from'}"
+              f" the other build's; this build's {len(this)} runs equal: "
+              f"{twice}; device ms (20 calls back to back, fastest run) this "
+              f"build {d_new:.4f}, the other {d_old:.4f}, x{d_old / d_new:.3f}"
+              f"; by run this build "
+              + " ".join(f"{t:.4f}" for t in run_new) + ", the other "
+              + " ".join(f"{t:.4f}" for t in run_old)
+              + f"; torch.profiler this build {p_new:.4f} ({n_new:g} "
+              f"launches), the other {p_old:.4f} ({n_old:g}); call (CUDA "
+              f"events) this build {t_new[0]:.4f} / {t_new[-1]:.4f}, the "
+              f"other {t_old[0]:.4f} / {t_old[-1]:.4f}{host}", flush=True)
+        if not twice:
+            failures.append(f"winograd {name}: this build's runs differ")
+        if not same and (design != "fused" or not err <= tol):
+            failures.append(f"winograd {name}: {err} from the other build's")
+        if d_new > BITS_TIME_SLACK * d_old:
+            failures.append(f"winograd {name}: slower on the device than the "
+                            "other build")
+    return failures
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
 
 
 # ---- SD1.x-class fine-tuning (phase 3c's training rows, phase 10c) ------
@@ -2651,6 +2788,8 @@ def main(argv: list) -> None:
         sd1_train_results = check_sd1_train_kernels()
         phase("3h: the bf16 forward's host path")
         check_host_path()
+        phase("3h: the conv wrappers' host path")
+        check_conv_host_path()
         with tempfile.TemporaryDirectory() as root:
             phase("4b: SD1")
             sd1_counts, sd1_f32_counts = sd1_phase(os.path.join(root, "sd1"))
@@ -2712,6 +2851,8 @@ def main(argv: list) -> None:
     sd1_train_results = check_sd1_train_kernels()
     phase("3h: the bf16 forward's host path")
     check_host_path()
+    phase("3h: the conv wrappers' host path")
+    check_conv_host_path()
     with tempfile.TemporaryDirectory() as root:
         depth_dir = os.path.join(root, "depth")
         phase("4-5: the SD2 checkpoint, E=1 serving")
@@ -3272,10 +3413,15 @@ def check_conv_kernels() -> dict:
     serving path's cached Conv2d runs: "ms"), of the whole call with the
     weight rearrangement ("call_ms") and of the rearrangement alone
     ("rearrange_ms"), the device time of each launch inside "ms" (the
-    nine-tap's NHWC copy of x and conv, Winograd's input transform and
-    GEMM; PyTorch's permute-copy to NHWC beside them for scale), the plain
-    version and F.conv2d (cuDNN, bf16), the blocks launched (against 132
-    SMs), and bounds. Tolerance: both sum exact bf16 products
+    nine-tap's NHWC copy of x and conv; Winograd's launches in the design
+    `winograd.design` picks, fused: one, split: the input transform and
+    the GEMM) and the launches per call (torch.profiler), the plain version
+    and F.conv2d (cuDNN, bf16) with the kernel's ratio to it, the blocks
+    launched (against 132 SMs), and bounds. Winograd also runs in its other
+    design (device ms beside the chosen one's: the measurement behind the
+    rule), and where it is fused its call may allocate nothing beside its
+    output (no V scratch: at most 2 MB past the output's bytes, the
+    allocator's rounding). Tolerance: both sum exact bf16 products
     (Winograd: identically rounded U and V) in fp32 in another order and
     round the output to bf16, TOL_REL * max|ref| + TOL_ABS."""
     import torch
@@ -3313,7 +3459,35 @@ def check_conv_kernels() -> dict:
             b_ms, b_by = bound(flops, nbytes)
             direct_ms, _ = bound(18 * b * hw * hw * c * k, nbytes)
             n_blocks = mod.blocks(b, c, hw, hw, k)
-            split = launch_split(lambda: fn(x, w, bias, prepared=prepared))
+            per_call, split = kernel_profile(
+                lambda: fn(x, w, bias, prepared=prepared), 5)
+            dev_ms = sum(split.values())
+            extra = ""
+            row = {}
+            if kname == "winograd":
+                design = wino_ops.design(b, c, hw, hw, k)
+                fused = design == "fused"
+                other = kernel_profile(lambda: wino_ops.launch_design(
+                    x, prepared, bias, not fused), 5)
+                del out
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = fn(x, w, bias, prepared=prepared)
+                torch.cuda.synchronize()
+                scratch = (torch.cuda.max_memory_allocated() - before
+                           - out.numel() * out.element_size())
+                extra = (f"; design {design}, {per_call:g} launches per call, "
+                         f"allocated past the output {scratch / 2 ** 20:.1f} "
+                         f"MiB; the {'split' if fused else 'fused'} design "
+                         f"device ms {sum(other[1].values()):.4f} "
+                         f"({other[0]:g} launches)")
+                row = dict(design=design, other_device_ms=sum(other[1].values()),
+                           scratch_bytes=scratch)
+                if fused and (per_call != 1 or scratch > 2 ** 21):
+                    _fail(f"winograd {name}: the fused design launched "
+                          f"{per_call} kernels or allocated {scratch} bytes "
+                          "past its output")
             print(f"kernel {kname:8s} {name:15s} [{b},{c},{hw},{hw}]->{k}: "
                   f"max_abs_err {err:.3e} tol {tol:.3e} | kernel {ms:.3f} ms "
                   f"({18.0 * b * hw * hw * c * k / ms / 1e9:.1f} direct-conv "
@@ -3323,19 +3497,60 @@ def check_conv_kernels() -> dict:
                   + f") call with the weight rearrangement {call_ms:.3f} ms "
                   f"(rearrangement {prep_ms:.3f} ms = "
                   f"{100.0 * prep_ms / call_ms:.1f}% of the call) plain "
-                  f"{plain_ms:.3f} ms cudnn {lib_ms:.3f} ms bound {b_ms:.3f} "
-                  f"ms ({b_by}; direct conv {direct_ms:.3f}) blocks "
-                  f"{n_blocks} (132 SMs); device ms per launch: {split}",
-                  flush=True)
+                  f"{plain_ms:.3f} ms cudnn {lib_ms:.3f} ms (kernel / cudnn "
+                  f"{ms / lib_ms:.3f}) bound {b_ms:.3f} ms ({b_by}; direct "
+                  f"conv {direct_ms:.3f}) blocks {n_blocks} (132 SMs); device "
+                  f"ms {dev_ms:.4f} by launch: "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
+                  + extra, flush=True)
             if not err <= tol or not bool(torch.isfinite(out.float()).all()):
                 _fail(f"{kname} {name}: max_abs_err {err} > {tol}")
             results[(kname, name)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, direct_bound_ms=direct_ms,
-                call_ms=call_ms, rearrange_ms=prep_ms, blocks=n_blocks)
+                call_ms=call_ms, rearrange_ms=prep_ms, blocks=n_blocks,
+                device_ms=dev_ms, launches_per_call=per_call, **row)
             del out, ref, prepared
         del x
         torch.cuda.empty_cache()
+    return results
+
+
+# The conv wrappers' calls whose host path check_conv_host_path measures
+# (name, B, C, K, H=W): a small VAE level and a UNet level of CONV_CASES.
+CONV_HOST_CASES = [("vae_512_96", 1, 512, 512, 96),
+                   ("unet_1280", 10, 1280, 1280, 24)]
+
+
+def check_conv_host_path() -> dict:
+    """Both conv wrappers on their rearranged weights at CONV_HOST_CASES:
+    host µs per call (host_us) and the call's CUDA-event ms. Measures
+    only; phase 3 holds the outputs. Returns {(kernel, case): {...}}."""
+    import torch
+
+    from marigold_tpu_torch.ops import conv as conv_ops
+    from marigold_tpu_torch.ops import winograd as wino_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    for name, b, c, k, hw in CONV_HOST_CASES:
+        x = torch.randn((b, c, hw, hw), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, c, 3, 3), generator=gen, device="cuda")
+             / (3.0 * c ** 0.5)).to(torch.bfloat16)
+        bias = torch.randn((k,), generator=gen, device="cuda").to(torch.bfloat16)
+        for kname, fn, prepare in (("conv3x3", conv_ops.conv3x3, conv_ops.taps),
+                                   ("winograd", wino_ops.winograd3x3,
+                                    wino_ops.filter_transform)):
+            prepared = prepare(w)
+            host, first = host_us(lambda: fn(x, w, bias, prepared=prepared))
+            ms = _time_ms(lambda: fn(x, w, bias, prepared=prepared), 20)
+            print(f"host path: {kname} {name} [{b},{c},{hw},{hw}]->{k}: host "
+                  f"{host:.1f} us per call over {HOST_CALLS} calls, "
+                  f"{first:.1f} over the first {HOST_FIRST_CALLS}; call "
+                  f"{ms:.4f} ms (CUDA events)", flush=True)
+            results[(kname, name)] = dict(host_us=host, first_us=first, ms=ms)
+        del x, w, bias
+    torch.cuda.empty_cache()
     return results
 
 
@@ -3482,14 +3697,26 @@ def serve_ensembles(pipe) -> dict:
     # Conv2d weight caches, the second is warm
     conv_counts = {}
     (_, _), chunks, decodes = request_chunks(pipe, (768, 768), None, E)
-    for mode, counter, key in (("pallas", conv_ops.launches, "conv3x3"),
-                               ("winograd", wino_ops.launches, "winograd")):
+    for mode, counter, key, mod, fn_name in (
+            ("pallas", conv_ops.launches, "conv3x3", conv_ops, "conv3x3"),
+            ("winograd", wino_ops.launches, "winograd", wino_ops,
+             "winograd3x3")):
         n = gated_convs(pipe, (768, 768), mode)
         want = n["encode"] + n["unet"] * steps * chunks + n["decode"] * decodes
         layers._CONV_IMPL = mode
         mode_ms, mode_solve, total = [], [], 0
+        # the wrapper's calls by shape [B, C, H, W] -> K over the warm request
+        # (Conv2d looks the wrapper up on each call)
+        shapes, wrapper = collections.Counter(), getattr(mod, fn_name)
+
+        def tally(x, w, bias, **kw):
+            shapes[tuple(x.shape) + (w.shape[0],)] += 1
+            return wrapper(x, w, bias, **kw)
+
         try:
-            for _ in range(2):
+            for i in range(2):
+                if i == 1:
+                    setattr(mod, fn_name, tally)
                 counter.clear()
                 out, ms = _timed(request)
                 got = dict(counter)
@@ -3503,6 +3730,12 @@ def serve_ensembles(pipe) -> dict:
                           "call)")
         finally:
             layers._CONV_IMPL = "xla"
+            setattr(mod, fn_name, wrapper)
+        at_cases = {name: shapes.pop((b, c, hw, hw, k), 0)
+                    for name, b, c, k, hw in CONV_CASES}
+        print(f"E={E} under MARIGOLD_TPU_CONV={mode}: {key} calls of the warm "
+              f"request by CONV_CASES shape {at_cases}, at other shapes "
+              f"{sum(shapes.values())}", flush=True)
         diff = (members[0] - default_members).abs()
         d_max, d_mean = diff.max().item(), diff.mean().item()
         d_map = np.abs(out.depth_np - default_map)

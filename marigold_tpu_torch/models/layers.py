@@ -24,9 +24,10 @@ CPU tensor a kernel mode runs the kernel's plain version, so CPU runs
 exercise the dispatch (the JAX package instead drops to XLA off the TPU
 unless MARIGOLD_TPU_CONV_INTERPRET=1). With grad enabled a kernel conv runs
 through `ops.conv.KernelConvFunction`, whose backward is the plain conv
-gradient. Without grad, on the card, the kernel takes its rearranged weight
-from `Conv2d.prepared_weight`, a cache that follows every change of the
-weight. Tests switch the mode by setting `_CONV_IMPL`.
+gradient. On the card the kernel takes its rearranged weight from
+`Conv2d.prepared_weight`, a cache that follows every change of the weight,
+with grad too (an optimizer step rearranges it once). Tests switch the
+mode by setting `_CONV_IMPL`.
 
 Spatial parallelism: `Conv2d.forward`, `group_norm` and `GroupNorm` take
 `spatial`, a `parallel.mesh.Mesh`, when the tensor is one rank's block of an
@@ -67,6 +68,13 @@ def conv_impl_for(x_shape, w_shape, stride, padding, dtype) -> Optional[str]:
         if conv_ops.supports(x_shape, w_shape, stride, padding, dtype):
             return "pallas"
     return None
+
+
+def _reads_prepared(x: torch.Tensor) -> bool:
+    """Whether a kernel conv of x reads `Conv2d.prepared_weight`: on the
+    card; on the CPU the kernel's plain version runs and rearranges the
+    weight itself."""
+    return x.device.type != "cpu"
 
 
 class Conv2d(nn.Conv2d):
@@ -123,12 +131,16 @@ class Conv2d(nn.Conv2d):
         fn = conv_ops.conv3x3 if impl == "pallas" else winograd_ops.winograd3x3
         bias = (self.bias if self.bias is not None
                 else torch.zeros_like(weight[:, 0, 0, 0]))
+        # the kernel reads the weight rearranged once per weight version,
+        # with grad or without; the plain version rearranges it itself
+        prepared = self.prepared_weight(impl) if _reads_prepared(x) else None
         if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                         or bias.requires_grad):
-            return conv_ops.KernelConvFunction.apply(x, weight, bias, fn)
-        if x.device.type == "cpu":  # the plain version rearranges itself
+            return conv_ops.KernelConvFunction.apply(x, weight, bias, fn,
+                                                     prepared)
+        if prepared is None:
             return fn(x, weight, bias)
-        return fn(x, weight, bias, prepared=self.prepared_weight(impl))
+        return fn(x, weight, bias, prepared=prepared)
 
     def spatial_forward(self, x: torch.Tensor, mesh) -> torch.Tensor:
         """The conv of x's rows of an image sharded along H over `mesh`

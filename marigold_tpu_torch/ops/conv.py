@@ -34,8 +34,11 @@ emulates the kernel's arithmetic for the CPU tests.
 On a CUDA tensor `conv3x3` launches the kernel (bf16 or fp32, no autograd)
 or raises; on a CPU tensor it runs `conv3x3_plain`. `KernelConvFunction`
 carries a kernel conv under autograd with the plain conv gradients, as the
-TPU package's custom VJP takes XLA's; it passes no prepared weight, so the
-wrapper prepares it on every call. `launches["conv3x3"]` counts bf16
+TPU package's custom VJP takes XLA's; `models/layers.py:Conv2d` hands it
+its cached prepared weight, so the weight is rearranged once per weight
+version under autograd too. The wrappers' checks run in one pass
+(`check_cuda`), the launch on the raw stream handle, under a device guard
+only when x's device is not current. `launches["conv3x3"]` counts bf16
 kernel launches, `launches_f32["conv3x3"]` fp32 ones and
 `launches_f32["conv3x3_split"]` the fp32 split of x.
 """
@@ -63,16 +66,19 @@ launches_f32 = cuda_build.LaunchCounter()
 def supports(x_shape, w_shape, stride, padding, dtype) -> bool:
     """True when the kernel takes this conv: x NCHW, w OIHW (the JAX
     package's `supports` on NHWC/HWIO shapes, without its VMEM plan)."""
+    return (gated_shape(x_shape, w_shape) and tuple(_pair(stride)) == (1, 1)
+            and tuple(_pair(padding)) == (1, 1) and dtype in KERNEL_DTYPES)
+
+
+def gated_shape(x_shape, w_shape) -> bool:
+    """The shapes the kernels take (`supports` without stride, padding and
+    dtype; `check_cuda` holds a call to it): 4-D x NCHW and w OIHW, a 3x3
+    filter, input and output channels positive multiples of 128, a row."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
     c_out, c_in, kh, kw = w_shape
-    if (kh, kw) != (3, 3) or tuple(_pair(stride)) != (1, 1):
-        return False
-    if tuple(_pair(padding)) != (1, 1):
-        return False
-    if c_in < 128 or c_out < 128 or c_in % 128 or c_out % 128:
-        return False
-    return dtype in (torch.bfloat16, torch.float32) and x_shape[2] >= 1
+    return ((kh, kw) == (3, 3) and c_in >= 128 and c_out >= 128
+            and not c_in % 128 and not c_out % 128 and x_shape[2] >= 1)
 
 
 def _pair(v):
@@ -196,39 +202,45 @@ def split_x_tf32(x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     xs = torch.empty((2, b, h, w, c), device=x.device, dtype=x.dtype)
     lib = f32_library()
-    with torch.cuda.device(x.device):
-        err = lib.mt_conv3x3_f32_split(
-            x.data_ptr(), xs.data_ptr(), b, c, h, w,
-            torch.cuda.current_stream().cuda_stream)
+    err = cuda_build.on_device(x, lib.mt_conv3x3_f32_split, x.data_ptr(),
+                               xs.data_ptr(), b, c, h, w,
+                               cuda_build.stream_of(x))
     raise_on(lib, err, "conv3x3 x split (fp32)")
     launches_f32.add("conv3x3_split")
     return xs
 
 
-def check_cuda(x, weight, bias, what: str) -> None:
-    """What the conv kernels take: CUDA contiguous tensors on one device,
-    all bf16 or all fp32, a gated shape, no autograd."""
-    if x.device.type != "cuda":
+def check_cuda(x, weight, bias, what: str, prepared=None,
+               prepared_shape: tuple = ()) -> None:
+    """What the conv kernels take, in one pass (each attribute read once):
+    CUDA contiguous tensors on one device, all bf16 or all fp32, a gated
+    shape, no autograd; and, when given, the rearranged weight `prepared`
+    as `check_prepared` holds it to `prepared_shape`."""
+    if not x.is_cuda:
         raise ValueError(f"no {what} kernel for device {x.device}")
-    if x.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{what}: x is {x.dtype}, the kernels take "
+    dtype, device = x.dtype, x.device
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: x is {dtype}, the kernels take "
                          f"{KERNEL_DTYPES}")
+    grad = torch.is_grad_enabled()
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        if t.dtype != x.dtype:
-            raise ValueError(f"{what}: {name} is {t.dtype}, x is {x.dtype}")
-        if t.device != x.device:
-            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, x is {dtype}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if not supports(x.shape, weight.shape, 1, 1, x.dtype) or \
-            x.shape[1] != weight.shape[1] or bias.shape != (weight.shape[0],):
-        raise ValueError(f"{what}: x {tuple(x.shape)}, weight "
-                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)} "
-                         "is not a gated 3x3 conv")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+    xs, ws = x.shape, weight.shape
+    if not gated_shape(xs, ws) or xs[1] != ws[1] or bias.shape != (ws[0],):
+        raise ValueError(f"{what}: x {tuple(xs)}, weight {tuple(ws)}, bias "
+                         f"{tuple(bias.shape)} is not a gated 3x3 conv")
+    if grad and (x.requires_grad or weight.requires_grad
+                 or bias.requires_grad):
         raise RuntimeError(
             f"the {what} kernel is not differentiable: with grad enabled call "
             "KernelConvFunction (models/layers.py's Conv2d does)")
+    if prepared is not None:
+        check_prepared(prepared, prepared_shape, x, what)
 
 
 def check_prepared(prepared: torch.Tensor, shape: tuple, x: torch.Tensor,
@@ -261,52 +273,56 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     `prepare_weight(weight)` computed earlier (the CPU path ignores it)."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias)
-    check_cuda(x, weight, bias, "conv3x3")
+    f32 = x.dtype == torch.float32
+    if prepared is None:
+        check_cuda(x, weight, bias, "conv3x3")
+        prepared = prepare_weight(weight)
+    else:
+        check_cuda(x, weight, bias, "conv3x3", prepared,
+                   ((2, 9) if f32 else (9,)) + tuple(weight.shape[:2]))
     b, c, h, w = x.shape
     k = weight.shape[0]
-    if prepared is None:
-        prepared = prepare_weight(weight)
-    f32 = x.dtype == torch.float32
-    check_prepared(prepared, (2, 9, k, c) if f32 else (9, k, c), x, "conv3x3")
+    out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
     if f32:
         xs = split_x_tf32(x)
-        out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
         lib = f32_library()
-        with torch.cuda.device(x.device):
-            err = lib.mt_conv3x3_f32_fwd(
-                xs.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), b, c, h, w, k,
-                torch.cuda.current_stream().cuda_stream)
+        err = cuda_build.on_device(
+            x, lib.mt_conv3x3_f32_fwd, xs.data_ptr(), prepared.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, c, h, w, k,
+            cuda_build.stream_of(x))
         raise_on(lib, err, "conv3x3 (fp32)")
         launches_f32.add("conv3x3")
         return out
     x_nhwc = torch.empty((b, h, w, c), device=x.device, dtype=x.dtype)
-    out = torch.empty((b, k, h, w), device=x.device, dtype=x.dtype)
     lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.mt_conv3x3_fwd(
-            x.data_ptr(), prepared.data_ptr(), bias.data_ptr(),
-            x_nhwc.data_ptr(), out.data_ptr(), b, c, h, w, k,
-            torch.cuda.current_stream().cuda_stream)
+    err = cuda_build.on_device(
+        x, lib.mt_conv3x3_fwd, x.data_ptr(), prepared.data_ptr(),
+        bias.data_ptr(), x_nhwc.data_ptr(), out.data_ptr(), b, c, h, w, k,
+        cuda_build.stream_of(x))
     raise_on(lib, err, "conv3x3")
     launches.add("conv3x3")
     return out
 
 
 class KernelConvFunction(torch.autograd.Function):
-    """A kernel conv under autograd: apply(x, weight, bias, forward) with
-    forward `conv3x3` or `winograd.winograd3x3`; the backward is the plain
-    SAME 3x3 conv's gradients (`torch.nn.grad`), as the TPU package's custom
-    VJPs take XLA's conv gradients."""
+    """A kernel conv under autograd: apply(x, weight, bias, forward,
+    prepared) with forward `conv3x3` or `winograd.winograd3x3` and
+    `prepared` the weight as the kernel reads it (computed under no grad,
+    e.g. `models/layers.py:Conv2d.prepared_weight`, which keeps it until the
+    weight changes) or None (the wrapper prepares it); the backward is the
+    plain SAME 3x3 conv's gradients (`torch.nn.grad`), as the TPU package's
+    custom VJPs take XLA's conv gradients."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, forward):
+    def forward(ctx, x, weight, bias, forward, prepared=None):
         ctx.save_for_backward(x, weight)
-        return forward(x, weight, bias)
+        if prepared is None:
+            return forward(x, weight, bias)
+        return forward(x, weight, bias, prepared=prepared)
 
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         gx = torch.nn.grad.conv2d_input(x.shape, weight, g, padding=1)
         gw = torch.nn.grad.conv2d_weight(x, weight.shape, g, padding=1)
-        return gx, gw, g.sum(dim=(0, 2, 3)), None
+        return gx, gw, g.sum(dim=(0, 2, 3)), None, None

@@ -57,6 +57,31 @@ class LaunchCounter(collections.Counter):
             self[key] += 1
 
 
+def stream_of(x) -> int:
+    """The current CUDA stream of CUDA tensor x's device, as the kernels take
+    it (the raw handle: `torch.cuda.current_stream()` builds a Stream
+    object, a few microseconds a call)."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(x.get_device())
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def on_device(x, fn, *args):
+    """fn(*args) with CUDA tensor x's device current, so that a launch goes
+    to x's card; the device guard (a few microseconds a call) only when
+    another device is current (x is a CUDA tensor, so CUDA is
+    initialised)."""
+    import torch
+
+    if x.get_device() == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(x.device):
+        return fn(*args)
+
+
 def find_nvcc() -> str:
     """nvcc from torch's CUDA_HOME, else from PATH; raises if neither has it."""
     from torch.utils.cpp_extension import CUDA_HOME

@@ -331,13 +331,13 @@ def split_tf32(rows: list, cols: list = ()) -> list:
     n = len(xs)
     ptrs = ctypes.c_void_p * n
     lib = _split_library()
-    err = _on_device(
+    err = cuda_build.on_device(
         xs[0], lib.mt_tf32_split, ptrs(*(x.data_ptr() for x in xs)),
         ptrs(*(hi.data_ptr() for hi, _ in outs)),
         ptrs(*(lo.data_ptr() for _, lo in outs)),
         (ctypes.c_int * n)(*(x.shape[1] for x in xs)),
         (ctypes.c_int * n)(*([0] * len(rows) + [1] * len(cols))),
-        n, b, c, _stream(xs[0]))
+        n, b, c, cuda_build.stream_of(xs[0]))
     _raise_on(lib, err, "tf32 split")
     launches_f32.add("tf32_split")
     return outs
@@ -367,26 +367,6 @@ def _library() -> ctypes.CDLL:
         lib.mt_cuda_error_string.restype = ctypes.c_char_p
     _bind(lib, "mt_flash_attention_fwd_lse", 5, 8)
     return lib
-
-
-def _stream(x: torch.Tensor) -> int:
-    """The current CUDA stream of x's device, as the kernels take it (the
-    raw handle: `torch.cuda.current_stream()` builds a Stream object, a few
-    microseconds a call)."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(x.get_device())
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _on_device(x: torch.Tensor, fn, *args):
-    """fn(*args) with x's device current, so that a launch goes to x's card;
-    the device guard (a few microseconds a call) only when another device
-    is current (x is a CUDA tensor, so CUDA is initialised)."""
-    if x.get_device() == torch._C._cuda_getDevice():
-        return fn(*args)
-    with torch.cuda.device(x.device):
-        return fn(*args)
 
 
 def _f32_library() -> ctypes.CDLL:
@@ -420,7 +400,7 @@ def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
     it on `shift_sample`'s keys and writes it into `shift_out` if given."""
     nq, nk, scale = q.shape[1], k.shape[1], 1.0 / math.sqrt(d)
     stride, n_sub = (1, nk) if online else shift_sample(nk)
-    stream = _stream(q)
+    stream = cuda_build.stream_of(q)
     shift_ptr = shift.data_ptr() if shift is not None else None
     out_ptr = shift_out.data_ptr() if shift_out is not None else None
     if q.dtype == torch.float32:
@@ -428,16 +408,16 @@ def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
         operands = [t.data_ptr() for t in _split_fwd_f32(q, k, v)]
         ld = q.shape[2]
         if d == 512:
-            err = _on_device(q, lib.mt_flash_fwd_d512_f32, *operands,
+            err = cuda_build.on_device(q, lib.mt_flash_fwd_d512_f32, *operands,
                              shift_ptr, out.data_ptr(), b, heads, nq, nk, ld,
                              ld, int(online), scale, stream)
         else:
-            err = _on_device(q, lib.mt_flash_fwd_f32, *operands,
+            err = cuda_build.on_device(q, lib.mt_flash_fwd_f32, *operands,
                              out.data_ptr(), out_ptr, b, heads, nq, nk, d, ld,
                              ld, int(online), stride, n_sub, scale, stream)
     else:
         lib, counter = _library(), launches
-        err = _on_device(
+        err = cuda_build.on_device(
             q, lib.mt_flash_attention_fwd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), shift_ptr, out.data_ptr(), out_ptr, b, heads, nq,
             nk, d, q.stride(1), k.stride(1), out.stride(1), stride, n_sub,
@@ -703,7 +683,7 @@ def flash_attention_lse(
         fn, args = lib.mt_flash_attention_fwd_lse, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, num_heads, nq, nk, d, c, c, c)
-    err = _on_device(q, fn, *args, 1.0 / math.sqrt(d), _stream(q))
+    err = cuda_build.on_device(q, fn, *args, 1.0 / math.sqrt(d), cuda_build.stream_of(q))
     _raise_on(lib, err, lambda: f"flash attention lse ({q.dtype})")
     counter.add(f"lse_d{d}")
     return out, lse
@@ -792,11 +772,11 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
     d = c // num_heads
     dq = torch.empty_like(q)
     lib = _bwd_library()
-    err = _on_device(
+    err = cuda_build.on_device(
         q, lib.mt_flash_attention_bwd_dq, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
-        1.0 / math.sqrt(d), _stream(q))
+        1.0 / math.sqrt(d), cuda_build.stream_of(q))
     _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
     launches.add(f"bwd_dq_d{d}")
     return dq
@@ -821,11 +801,11 @@ def flash_attention_bwd_dq_f32(q, k, v, out, lse, dout, num_heads: int,
     lse_p, delta_p = (lse.new_empty((b * num_heads, ld_stat)) for _ in range(2))
     lib = _f32_bwd_library()
     operands = [t for i in (0, 1, 2, 3, 6) for t in parts[i]]  # q dO k v k^T
-    err = _on_device(
+    err = cuda_build.on_device(
         q, lib.mt_flash_bwd_dq_f32, *(t.data_ptr() for t in operands),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         lse_p.data_ptr(), delta_p.data_ptr(), b, num_heads, nq, k.shape[1], d,
-        c, ld_stat, 1.0 / math.sqrt(d), _stream(q))
+        c, ld_stat, 1.0 / math.sqrt(d), cuda_build.stream_of(q))
     _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
     launches_f32.add(f"bwd_dq_d{d}")
     return dq, lse_p, delta_p
@@ -853,11 +833,11 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int,
         lib, counter = _bwd_library(), launches
         fn = lib.mt_flash_attention_bwd_dkv
         operands, strides = [q, k, v, dout], (c, c)
-    err = _on_device(
+    err = cuda_build.on_device(
         q, fn, *(t.data_ptr() for t in operands), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, nq,
         k.shape[1], d, *strides, lse.shape[1], 1.0 / math.sqrt(d),
-        _stream(q))
+        cuda_build.stream_of(q))
     _raise_on(lib, err, f"flash attention dK/dV ({q.dtype})")
     counter.add(f"bwd_dkv_d{d}")
     return dk, dv

@@ -217,6 +217,48 @@ def test_kernel_conv_gradients_are_the_plain_conv_gradients(monkeypatch, impl):
 
 
 @pytest.mark.parametrize("impl", ["pallas", "winograd"])
+def test_autograd_prepares_the_weight_once_per_version(monkeypatch, impl):
+    """Under autograd Conv2d hands KernelConvFunction its cached rearranged
+    weight: forward, forward, an in-place update of the weight, forward
+    rearrange it twice (once per weight version, not once per call), and
+    the outputs and gradients are those of the call that prepares nothing
+    (the wrapper rearranging on its own) and of F.conv2d. Conv2d prepares
+    the weight only where the kernel reads it, on the card: here the
+    device check says so of the CPU tensors (whose plain version ignores
+    the prepared weight)."""
+    mod = tconv if impl == "pallas" else twino
+    monkeypatch.setattr(TL, "_CONV_IMPL", impl)
+    monkeypatch.setattr(TL, "_reads_prepared", lambda x: True)
+    calls = []
+    prepare = mod.prepare_weight
+    monkeypatch.setattr(mod, "prepare_weight",
+                        lambda w: calls.append(w._version) or prepare(w))
+    torch.manual_seed(0)
+    conv = TL.Conv2d(128, 128, 3, padding=1)
+    # the parameters as the module holds them: fetching `conv.weight` would
+    # drop the cache (Conv2d.__getattr__)
+    w, bias = conv._parameters["weight"], conv._parameters["bias"]
+    fn = tconv.conv3x3 if impl == "pallas" else twino.winograd3x3
+    g = torch.randn(1, 128, 6, 8)
+    for step in range(3):
+        if step == 2:
+            with torch.no_grad():
+                w.mul_(0.5)  # an optimizer step's in-place update
+        x = torch.randn(1, 128, 6, 8, requires_grad=True)
+        out = conv(x)
+        grads = torch.autograd.grad((out * g).sum(), (x, w, bias))
+        ref = tconv.KernelConvFunction.apply(x, w, bias, fn, None)
+        ref_grads = torch.autograd.grad((ref * g).sum(), (x, w, bias))
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        for a, r in zip(grads, ref_grads):
+            torch.testing.assert_close(a, r, rtol=0, atol=0)
+        conv_ref = F.conv2d(x, w, bias, padding=1)
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   conv_ref.detach().numpy(), atol=1e-4, rtol=0)
+    assert len(calls) == 2 and calls[0] != calls[1]
+
+
+@pytest.mark.parametrize("impl", ["pallas", "winograd"])
 def test_vae_decode_through_the_dispatch_matches_jax(monkeypatch, impl):
     """A 128-channel VAE decode with every gated conv on the kernel path in
     both packages (JAX: `_CONV_IMPL` patched, Pallas interpret mode)."""

@@ -557,6 +557,54 @@ def test_conv_kernels_match_plain(cuda, kernel, b, c, h, w, k):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _winograd_design(x, wt, bias, fused):
+    """The bf16 Winograd kernel in the given design, whatever
+    `twino.design` picks for the shape (both are held to the plain
+    version at every shape)."""
+    return twino.launch_design(x, twino.filter_transform(wt), bias, fused)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("b,c,h,w,k", [
+    # tests/test_torch_winograd_blocks.py's edge shapes: partial boxes, a
+    # box past every edge (W not a multiple of 8: the builders' own loads),
+    # split blocks spanning rows and images
+    (1, 128, 2, 2, 128), (3, 128, 6, 18, 128), (1, 256, 16, 34, 128),
+    (3, 128, 34, 34, 128), (1, 256, 18, 16, 256), (3, 256, 2, 34, 128),
+    (1, 512, 18, 34, 128), (3, 512, 34, 6, 128), (3, 512, 2, 2, 128),
+    # the VAE levels (TMA boxes), a 192-row level and a UNet level
+    (1, 256, 384, 384, 256), (1, 128, 768, 768, 128),
+    (1, 512, 192, 192, 512), (2, 640, 48, 48, 640),
+])
+def test_winograd_designs_match_plain(cuda, fused, b, c, h, w, k):
+    x, wt, bias = _conv_inputs(cuda, b, c, h, w, k)
+    out = _winograd_design(x, wt, bias, fused)
+    ref = twino.winograd3x3_plain(x, wt, bias)
+    torch.cuda.synchronize()
+    tol = 1e-2 * ref.float().abs().max().item() + 1e-3
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,c,h,w,k", [(1, 256, 384, 384, 256),
+                                       (1, 128, 768, 768, 128)])
+def test_winograd_one_launch_allocates_no_scratch(cuda, b, c, h, w, k):
+    """At the VAE's 384 and 768 px levels the wrapper runs the fused design:
+    nothing allocated beside the output (no V scratch; chip_smoke.py's
+    phase 3 counts its one kernel per call)."""
+    x, wt, bias = _conv_inputs(cuda, b, c, h, w, k)
+    u = twino.filter_transform(wt)
+    assert twino.design(b, c, h, w, k) == "fused"
+    twino.winograd3x3(x, wt, bias, prepared=u)
+    torch.cuda.synchronize()
+    before, launched = torch.cuda.memory_allocated(), twino.launches["winograd"]
+    torch.cuda.reset_peak_memory_stats()
+    out = twino.winograd3x3(x, wt, bias, prepared=u)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - out.numel() * 2
+    assert twino.launches["winograd"] == launched + 1
+    assert extra <= 2 ** 21  # the caching allocator's rounding at most
+
+
 def test_conv3x3_odd_pixel_count(cuda):
     """H * W odd: the NHWC copy takes its scalar path (Winograd takes even H
     and W only)."""
