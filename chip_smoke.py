@@ -44,8 +44,10 @@ Phases, none of which catches its own failure:
      per launch and launches per call, cuDNN's ratio and, for Winograd, its
      other design's device ms (the one-launch design must allocate no V
      scratch), beside the
-     backward pair SDPA's whole backward, row_delta and two calls held to
-     the same bits, and the bound from bytes and operations;
+     backward pair SDPA's whole backward, two calls held to the same bits,
+     the bf16 backward's CUDA kernels (dQ and dK/dV, once each) and the
+     padded statistics its dQ kernel writes against bwd_stats, and the
+     bound from bytes and operations;
   3h. the bf16 forward's host path (check_host_path): rows 1, 3, 4 and 7
      at d = 40, 64, 80, 160, the host microseconds of a call over
      HOST_CALLS back-to-back calls (at full depth also of its five
@@ -210,27 +212,28 @@ or to the bf16 forward.
 
     python3 chip_smoke.py [--sd1] --bits-against DIR
 
-with DIR a checkout of another build (the previous one), first runs the
-forwards and backward of both trees at head widths 64, 40, 80 and 160 on
-the same inputs, each tree's package in a process of its own, twice in
-turns (other, this, this, other; bits_against): it fails unless every
-output but the shifted ones is equal bit for bit to the other build's
-(the online, folded and lse forwards, the lse, dQ, dK and dV, bf16 and
-fp32), every shifted output is within phase 3's gate of the other
-build's (where one build reads row_shift and the other computes the shift
-inside the kernel, its rounding differs by design), this build's two
-runs and two shifted calls are equal bit for bit, and the forward kernel
-at each BITS_TIMED shape (rows 1, 3, 4 and 7) is no slower on the device
-than the other build's; it prints both builds' CUDA-event ms of a call,
-host µs per call and device ms per kernel there. It also runs the bf16
-Winograd conv on its rearranged weight at the nine CONV_CASES in both
-trees (conv_bits), then that conv part alone in four more processes in
-turns (CONV_BITS_RUNS): this build's runs equal, its output the other
-build's bits where it runs the split design and within phase 3's gate
-where it runs the fused one (whose sums go chunk by chunk), its device ms
-(the fastest of its four runs) within BITS_TIME_SLACK of the other
-build's, every run's device ms and both conv wrappers' host µs at
-CONV_HOST_CASES printed. Without --sd1 it stops after the comparison.
+with DIR a checkout of another build (the previous one), first runs
+BITS_SNIPPET in both trees on the same inputs, each tree's package in a
+process of its own, four times per build in turns (BITS_RUNS;
+bits_against): the forwards and backward at head widths 64, 40, 80 and
+160 in bf16 and fp32, the forward rows 1, 3, 4 and 7 and the whole bf16
+backward (rows 5-6) timed at BITS_TIMED, then the bf16 Winograd conv on
+its rearranged weight at the nine CONV_CASES. flash_bits fails unless
+every output is the other build's bits (the online, folded and lse
+forwards, the lse, every fp32 gradient) or, where bits_gate says, within
+phase 3's gate of it (the shifted forwards, whose row shift one build may
+compute outside the kernel; the bf16 dq, dk and dv, whose delta the dQ
+kernel sums in another order), this build's runs, second shifted calls
+and second backward calls are equal bit for bit, and each BITS_TIMED
+shape's device ms (each build's fastest run) is within BITS_TIME_SLACK
+of the other build's; it prints every run's device ms, the CUDA-event ms
+of a call and host µs per call. conv_bits fails unless this build's conv
+runs are equal, its output is the other build's bits where it runs the
+split design and within phase 3's gate where it runs the fused one
+(whose sums go chunk by chunk), and its device ms (the fastest of its
+four runs) is within BITS_TIME_SLACK of the other build's; both conv
+wrappers' host µs at CONV_HOST_CASES printed. Without --sd1 it stops
+after the comparison.
 """
 
 from __future__ import annotations
@@ -874,11 +877,53 @@ LSE_TOL_ABS = 1e-4
 # forward: autograd rounds dP (not dS) to bf16, so the two round at
 # different places: max|err| <= FN_TOL_REL * max|ref|.
 FN_TOL_REL = 3e-2
+# The bf16 dQ kernel's delta against row_delta's (fp32 sums of the same
+# products in another order): max|err| <= STAT_TOL_REL * max|ref|.
+STAT_TOL_REL = 1e-5
+
+
+def check_bf16_bwd_path(what: str, q, k, v, out, lse, g, heads) -> tuple:
+    """The bf16 backward's kernels at one shape: torch.profiler's CUDA
+    kernels of a flash_attention_bwd call are the dQ and dK/dV kernels of
+    the head width, once each, and nothing else; the padded lse the dQ
+    kernel writes is bwd_stats' bit for bit, its delta within STAT_TOL_REL.
+    Prints both. Returns (failures, lse_pad, delta_pad)."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    d = q.shape[2] // heads
+    n, split = kernel_profile(
+        lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, heads), 3,
+        "flash_bwd")
+    _, lse_pad, delta_pad = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                                      heads)
+    lse_ref, delta_ref = fa.bwd_stats(out, lse, g, heads)
+    torch.cuda.synchronize()
+    same = torch_equal(lse_pad, lse_ref)
+    err = (delta_pad - delta_ref).abs().max().item()
+    tol = STAT_TOL_REL * delta_ref.abs().max().item()
+    print(f"{what}: the bf16 backward's CUDA kernels per call {n:g}: "
+          + ", ".join(f"{key} {t:.4f} ms" for key, t in split.items())
+          + f"; dQ's padded rows: lse bit-identical to bwd_stats: {same}, "
+          f"delta max_abs_err {err:.3e} tol {tol:.3e}", flush=True)
+    failures = []
+    if n != 2 or set(split) != {f"flash_bwd_dq_kernel<{d}>",
+                                f"flash_bwd_dkv_kernel<{d}>"}:
+        failures.append(f"{what}: the bf16 backward launched {n:g} kernels "
+                        f"{list(split)}, not dQ and dK/dV once each")
+    if not same or not err <= tol:
+        failures.append(f"{what}: dQ's padded lse/delta rows differ from "
+                        "bwd_stats")
+    return failures, lse_pad, delta_pad
 
 
 def check_train_kernels() -> dict:
     """The training kernels (lse forward, dQ, dK/dV) against their plain
-    versions at the training shapes, CUDA-event times of both, and
+    versions at the training shapes, two backward calls held to the same
+    bits, check_bf16_bwd_path (two CUDA kernels per backward, dQ's padded
+    statistics against bwd_stats'), CUDA-event times of the kernels, the
+    whole backward, the plain versions and SDPA, and
     FlashAttentionFunction's gradients against autograd of the plain
     forward. Returns {(case, what): {max_abs_err, ms, plain_ms}}."""
     import torch
@@ -935,26 +980,27 @@ def check_train_kernels() -> dict:
         if not same:
             failures.append(f"{name}/bwd: two calls differ")
         del again
-        lse_pad, delta_pad = fa.bwd_stats(out, lse, g, heads)
+        path_failures, lse_pad, delta_pad = check_bf16_bwd_path(
+            f"kernel {name:13s} bwd ", q, k, v, out, lse, g, heads)
+        failures += path_failures
         bwd_plain_ms = _time_ms(
             lambda: fa.flash_attention_bwd_plain(q, k, v, g, heads), iters)
         dq_ms = _time_ms(
-            lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse_pad, delta_pad,
-                                              heads), 20)
+            lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, g, heads), 20)
         dkv_ms = _time_ms(
             lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse_pad, delta_pad,
                                                heads), 20)
-        delta_ms = _time_ms(lambda: fa.row_delta(out, g, heads), 20)
-        stats_ms = _time_ms(lambda: fa.bwd_stats(out, lse, g, heads), 20)
         bwd_ms = _time_ms(
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, heads), 20)
         # the library's backward computes dQ, dK and dV in one call; the
-        # dQ kernel recomputes S and dP (6 N^2 d per head), the dK/dV kernel
-        # S, dP, dV and dK (8 N^2 d); both read q, k, v, dO, lse and delta
+        # dQ kernel recomputes S and dP (6 N^2 d per head) and reads q, dO
+        # and O, k and v, and lse, and writes dq and the padded lse and
+        # delta; the dK/dV kernel recomputes S, dP, dV and dK (8 N^2 d) and
+        # reads q, k, v, dO and the padded statistics
         bwd_lib_ms = sdpa_ms(q, k, v, heads, backward=True)
         record(name, "dq", dq, dq_p, TOL_REL, GRAD_TOL_ABS, dq_ms, bwd_plain_ms,
                bwd_lib_ms,
-               attention_bound(b, heads, nq, nk, d, 6, 3, 2, extra=2 * stats))
+               attention_bound(b, heads, nq, nk, d, 6, 4, 2, extra=3 * stats))
         record(name, "dk", dk, dk_p, TOL_REL, GRAD_TOL_ABS, dkv_ms, bwd_plain_ms,
                bwd_lib_ms,
                attention_bound(b, heads, nq, nk, d, 8, 2, 4, extra=2 * stats))
@@ -963,13 +1009,12 @@ def check_train_kernels() -> dict:
                attention_bound(b, heads, nq, nk, d, 8, 2, 4, extra=2 * stats))
         print(f"  [{b},{nq}x{nk},{c}] h={heads}: lse fwd "
               f"{4.0 * b * heads * nq * nk * d / ms / 1e9:.1f} TFLOP/s; whole "
-              f"backward (delta + dQ + dK/dV) {bwd_ms:.3f} ms "
+              f"backward (flash_attention_bwd: dQ with delta, then dK/dV) "
+              f"{bwd_ms:.3f} ms "
               f"({10.0 * b * heads * nq * nk * d / bwd_ms / 1e9:.1f} TFLOP/s) "
               f"against plain {bwd_plain_ms:.3f} ms and sdpa {bwd_lib_ms:.3f} "
-              f"ms; of it row_delta {delta_ms:.3f} ms, the padded lse and "
-              f"delta (bwd_stats) {stats_ms:.3f} ms; dQ "
-              f"{6.0 * b * heads * nq * nk * d / dq_ms / 1e9:.1f} TFLOP/s, "
-              f"dK/dV {8.0 * b * heads * nq * nk * d / dkv_ms / 1e9:.1f} "
+              f"ms; dQ {6.0 * b * heads * nq * nk * d / dq_ms / 1e9:.1f} "
+              f"TFLOP/s, dK/dV {8.0 * b * heads * nq * nk * d / dkv_ms / 1e9:.1f} "
               "TFLOP/s", flush=True)
         del q, k, v, g, out, lse, out_p, lse_p, dq, dk, dv, dq_p, dk_p, dv_p
         del lse_pad, delta_pad
@@ -1950,17 +1995,17 @@ def sd1_kernel_rows(results: dict, counts: dict, f32_counts: dict) -> list:
 # The flash kernels' outputs on fixed inputs, computed by a tree's own
 # package in a process of its own (bf16 and fp32 at head widths 64, 40, 80
 # and 160: both softmax modes, a second shifted call, the training forward
-# with its logsumexp, dQ and dK/dV, the folded entry), then the shifted
-# forward's CUDA-event ms at the row-1 shapes (BITS_TIMED), then the bf16
-# Winograd conv's outputs and times at CONV_CASES (conv_bits): run in this
-# checkout and in a checkout of the other build (`--bits-against DIR`).
-# Uses only entry points both builds have.
+# with its logsumexp, dQ and dK/dV and a second backward call, the folded
+# entry), then the CUDA-event ms and device ms of the forwards and of the
+# bf16 backward at BITS_TIMED, then the bf16 Winograd conv's outputs and
+# times at CONV_CASES (conv_bits): run in this checkout and in a checkout
+# of the other build (`--bits-against DIR`). Uses only entry points both
+# builds have.
 BITS_SNIPPET = r'''
 import sys
 import torch
 # HELPERS
 from marigold_tpu_torch.ops import flash_attention as fa
-FLASH = sys.argv[2:] != ["conv"]  # "conv": the conv part alone
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1970,7 +2015,7 @@ cases = {"l0": (1, 9216, 9216, 320, 5), "l1": (1, 2304, 2304, 640, 10),
          "d160": (1, 1100, 1300, 1280, 8), "fold40": (3, 1030, 1030, 40, 1),
          "fold80": (2, 777, 777, 80, 1), "fold160": (2, 600, 600, 160, 1)}
 outs, twice = {}, {}
-for name, (b, nq, nk, c, h) in (cases.items() if FLASH else ()):
+for name, (b, nq, nk, c, h) in cases.items():
     q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
             for _ in range(2))
     k, v = (torch.randn((b, nk, c), generator=gen, device="cuda")
@@ -1987,9 +2032,12 @@ for name, (b, nq, nk, c, h) in (cases.items() if FLASH else ()):
                                  fa.flash_attention(qq, kk, vv, h, "shifted"))
         out, lse = fa.flash_attention_lse(qq, kk, vv, h)
         outs[f"{tag}_lse_out"], outs[f"{tag}_lse"] = out, lse
-        for what, x in zip(("dq", "dk", "dv"),
-                           fa.flash_attention_bwd(qq, kk, vv, out, lse, gg, h)):
+        grads = fa.flash_attention_bwd(qq, kk, vv, out, lse, gg, h)
+        for what, x in zip(("dq", "dk", "dv"), grads):
             outs[f"{tag}_{what}"] = x
+        twice[f"{tag}_bwd"] = all(
+            torch.equal(x, y) for x, y in
+            zip(grads, fa.flash_attention_bwd(qq, kk, vv, out, lse, gg, h)))
 torch.cuda.synchronize()
 
 
@@ -1998,14 +2046,19 @@ def call(mode):
         return fa.flash_attention_lse(q, k, v, h)
     if mode == "folded":
         return fa.flash_attention_folded(q, k, v)
+    if mode == "bwd":
+        return fa.flash_attention_bwd(q, k, v, out, lse, g, h)
     return fa.flash_attention(q, k, v, h, mode)
 
 
 ms, dev, host = {}, {}, {}
-for name, (dt, b, nq, nk, c, h, mode) in (TIMED.items() if FLASH else ()):
+for name, (dt, b, nq, nk, c, h, mode) in TIMED.items():
     q = torch.randn((b, nq, c), generator=gen, device="cuda").to(dt)
     k, v = (torch.randn((b, nk, c), generator=gen, device="cuda").to(dt)
             for _ in range(2))
+    if mode == "bwd":
+        g = torch.randn((b, nq, c), generator=gen, device="cuda").to(dt)
+        out, lse = fa.flash_attention_lse(q, k, v, h)
     host[name] = host_us(lambda: call(mode))
     times = []
     for _ in range(20):
@@ -2016,7 +2069,10 @@ for name, (dt, b, nq, nk, c, h, mode) in (TIMED.items() if FLASH else ()):
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     ms[name] = sorted(times)[len(times) // 2]
-    dev[name] = kernel_profile(lambda: call(mode), 5, "flash_fwd")
+    # device ms over PROFILE_CALLS calls: one run's mean over 5 spread
+    # 3-7% between runs of one build at the d=64 shapes, past the slack
+    dev[name] = kernel_profile(lambda: call(mode), PROFILE_CALLS,
+                               "flash_bwd" if mode == "bwd" else "flash_fwd")
     del q, k, v
 # the bf16 Winograd conv on its rearranged weight at CONV (CONV_CASES): the
 # output, CUDA-event ms of a call and over 20 calls back to back (the
@@ -2025,7 +2081,7 @@ for name, (dt, b, nq, nk, c, h, mode) in (TIMED.items() if FLASH else ()):
 from marigold_tpu_torch.ops import conv as conv_ops
 from marigold_tpu_torch.ops import winograd as wino
 conv_out, conv_ms, conv_run, conv_dev, conv_host = {}, {}, {}, {}, {}
-gen.manual_seed(11)  # the same inputs with or without the flash part
+gen.manual_seed(11)
 for name, b, c, kc, hw in CONV:
     x = torch.randn((b, c, hw, hw), generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn((kc, c, 3, 3), generator=gen, device="cuda")
@@ -2064,10 +2120,14 @@ torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "twice": twice,
            sys.argv[1])
 '''
 # (dtype, B, Nq, Nk, C, heads, mode): the shifted forward's row-1 shapes,
-# then the bf16 online row 3, the training forward (row 4, "lse") and the
-# folded row 7 ([B, N, D], one head) at each width; both builds timed in
-# turns (previous, this, this, previous)
+# then the bf16 online row 3, the training forward (row 4, "lse"), the
+# folded row 7 ([B, N, D], one head) and the whole bf16 backward (rows
+# 5-6, "bwd": every kernel it launches) at each width
 _BF16 = "torch.bfloat16"
+# (D, B, N, C, heads): the fine-tuning self-attentions timed per head width
+# (SD2's level 0, then an SD1.x-class UNet's three levels)
+TRAIN_SHAPES = ((64, 2, 4800, 320, 5), (40, 2, 4800, 320, 8),
+                (80, 2, 1200, 640, 8), (160, 1, 1024, 1280, 8))
 BITS_TIMED = {
     "bf16_d64": (_BF16, 1, 9216, 9216, 320, 5, "shifted"),
     "bf16_d64_b10": (_BF16, 10, 9216, 9216, 320, 5, "shifted"),
@@ -2084,36 +2144,141 @@ BITS_TIMED = {
        for d, n, c, h in ((64, 9216, 320, 5), (40, 9216, 320, 8),
                           (80, 2304, 640, 8), (160, 1024, 1280, 8))},
     **{f"bf16_d{d}_lse": (_BF16, b, n, n, c, h, "lse")
-       for d, b, n, c, h in ((64, 2, 4800, 320, 5), (40, 2, 4800, 320, 8),
-                             (80, 2, 1200, 640, 8), (160, 1, 1024, 1280, 8))},
+       for d, b, n, c, h in TRAIN_SHAPES},
     **{f"bf16_d{d}_folded": (_BF16, b, n, n, d, 1, "folded")
        for d, b, n in ((64, 50, 9216), (40, 8, 9216), (80, 8, 2304),
                        (160, 8, 1024))},
+    **{f"bf16_d{d}_bwd": (_BF16, b, n, n, c, h, "bwd")
+       for d, b, n, c, h in TRAIN_SHAPES},
 }
-# after the whole snippet in turns, its conv part alone runs in these turns
-# (conv_bits takes each build's fastest of all its runs)
-CONV_BITS_RUNS = ("this build", "the other build", "the other build",
-                  "this build")
-# this build's forward kernel may take at most this factor of the previous
-# build's device time (torch.profiler, the lower of each build's two runs,
-# the same card); the CUDA-event times of the calls are printed beside it
+# the whole snippet's runs, in turns: four per build
+BITS_RUNS = ("the other build", "this build", "this build", "the other build",
+             "this build", "the other build", "the other build", "this build")
+# this build's kernel may take at most this factor of the previous build's
+# device time (each build's fastest of its runs, the same card), each
+# run's device ms torch.profiler's mean over BITS_PROFILE_CALLS calls
 BITS_TIME_SLACK = 1.02
+BITS_PROFILE_CALLS = 20
+
+
+def bits_gate(key: str) -> tuple:
+    """(max|err| <= gate_rel * max|ref| + gate_abs) that output `key` of
+    BITS_SNIPPET is held to against the other build's, or None where it
+    must be equal bit for bit: the shifted forwards (one build may compute
+    the row shift outside the kernel, the other inside: its rounding
+    differs by design) at phase 3's output gate, and the bf16 dQ, dK and dV
+    (the dQ kernel sums delta in another order than row_delta's torch.sum)
+    at phase 3's gradient gate. The other forwards, the lse and every fp32
+    gradient stay exact."""
+    if key.endswith("_shifted"):
+        if "float32" in key:
+            return F32_TOL_REL, F32_TOL_ABS
+        return TOL_REL, TOL_ABS
+    if "_bfloat16_" in key and key.rsplit("_", 1)[1] in ("dq", "dk", "dv"):
+        return TOL_REL, GRAD_TOL_ABS
+    return None
+
+
+def bits_device_ms(run: dict, name: str):
+    """The device ms per call at BITS_TIMED `name` in a run: the forward
+    kernel's (the fp32 split excluded), or for "bwd" every kernel the
+    backward launched; None where the profile lost it."""
+    _, split = run["dev"][name]
+    if BITS_TIMED[name][-1] == "bwd":
+        return sum(split.values()) if any("flash_bwd" in k for k in split) \
+            else None
+    dev = [t for key, t in split.items() if "flash_fwd" in key]
+    return dev[0] if dev else None
+
+
+def flash_bits(this: list, other: list) -> list:
+    """The flash part of BITS_SNIPPET in both builds (each build's runs in
+    the order they ran, in turns with the other's): every output of this
+    build's first run against the other build's first, equal bit for bit
+    or within bits_gate's gate; this build's runs equal to one another and
+    its shifted and backward calls each equal to a second call; and at
+    each BITS_TIMED shape this build's fastest device ms (bits_device_ms)
+    within BITS_TIME_SLACK of the other build's fastest. Prints every
+    run's device ms, the CUDA-event ms of a call and host µs per call.
+    Returns the failures."""
+    import torch
+
+    new, old = this[0], other[0]
+    failures = []
+    if new["outs"].keys() != old["outs"].keys():
+        failures.append("the builds computed different outputs")
+    unequal, gated = [], {}
+    for key, ref in old["outs"].items():
+        got = new["outs"].get(key)
+        if got is None:
+            continue
+        gate = bits_gate(key)
+        if gate is None:
+            if not torch_equal(got, ref):
+                unequal.append(key)
+            continue
+        err = (got.float() - ref.float()).abs().max().item() \
+            if got.shape == ref.shape else float("inf")
+        tol = gate[0] * ref.float().abs().max().item() + gate[1]
+        gated[key] = err
+        if not err <= tol:
+            failures.append(f"{key}: {err} from the other build's > {tol}")
+    n_exact = len(old["outs"]) - len(gated)
+    print(f"bits: {n_exact - len(unequal)} of {n_exact} exact outputs equal "
+          f"bit for bit to the other build's (unequal: {unequal}); the "
+          "gated ones (shifted forwards, bf16 dq/dk/dv) against the other "
+          "build's, max abs err: " + ", ".join(
+              f"{k} {e:.3e}" for k, e in gated.items())
+          + f" ({sum(e == 0 for e in gated.values())} of {len(gated)} "
+          "equal)", flush=True)
+    if unequal:
+        failures.append(f"outputs differ from the other build's: {unequal}")
+    same = [k for k in new["outs"]
+            if all(torch_equal(new["outs"][k], r["outs"][k]) for r in this[1:])]
+    print(f"bits: this build's {len(this)} runs: {len(same)} of "
+          f"{len(new['outs'])} outputs equal; second calls equal: "
+          f"{new['twice']}", flush=True)
+    if len(same) != len(new["outs"]) or not all(
+            all(r["twice"].values()) for r in this):
+        failures.append("this build's second calls or runs differ")
+    for name, spec in BITS_TIMED.items():
+        d_new = [bits_device_ms(r, name) for r in this]
+        d_old = [bits_device_ms(r, name) for r in other]
+        t_new = [r["ms"][name] for r in this]
+        t_old = [r["ms"][name] for r in other]
+        h_new = min(r["host"][name][0] for r in this)
+        h_old = min(r["host"][name][0] for r in other)
+        lost = None in d_new or None in d_old
+        ratio = "" if lost else f" (x{min(d_old) / min(d_new):.3f})"
+        print(f"bits: {spec[-1]} {name}: device ms by run this build "
+              f"{d_new}, the other build {d_old}, fastest{ratio}; call "
+              "(CUDA events, each run's median) this build "
+              + " ".join(f"{t:.4f}" for t in t_new) + ", the other "
+              + " ".join(f"{t:.4f}" for t in t_old)
+              + f"; host us per call over 1000 calls this build "
+              f"{h_new:.1f}, the other {h_old:.1f}", flush=True)
+        for which, run in (("this build", new), ("the other build", old)):
+            n, split = run["dev"][name]
+            print(f"  {which}, {n:g} kernels per call, device ms per call by "
+                  "kernel: " + ", ".join(f"{k} {t:.4f}"
+                                         for k, t in split.items()),
+                  flush=True)
+        if lost:
+            failures.append(f"{name}: a profile lost the kernel")
+        elif min(d_new) > BITS_TIME_SLACK * min(d_old):
+            failures.append(f"{name}: slower on the device than the other "
+                            "build")
+    return failures
 
 
 def bits_against(tree: str) -> None:
-    """The flash kernels of this checkout against those of the checkout at
-    `tree` (another build: the previous one), each tree run twice in turns
-    (other, this, this, other; BITS_SNIPPET): every output but the shifted
-    ones equal bit for bit to the other build's (the online, folded and lse
-    forwards, the lse, dQ, dK and dV, in bf16 and fp32); the shifted
-    outputs, whose shift one build may compute inside the kernel and the
-    other outside it (its rounding differs by design), within phase 3's
-    gate of the other build's (TOL_REL/TOL_ABS in bf16,
-    F32_TOL_REL/F32_TOL_ABS in fp32); two
-    shifted calls and the two runs of this build equal bit for bit; and at
-    each BITS_TIMED shape the forward kernel no slower on the device than
-    the other build's (within BITS_TIME_SLACK; the calls' CUDA-event
-    times, which the card's clock moves between processes, printed)."""
+    """The flash kernels and the bf16 Winograd conv of this checkout
+    against those of the checkout at `tree` (another build: the previous
+    one): BITS_SNIPPET in each tree, each run in a process of its own, four
+    runs per build in turns (BITS_RUNS), judged by flash_bits (the outputs
+    exact or within bits_gate's gate, this build's runs and second calls
+    equal, each BITS_TIMED kernel no slower on the device) and conv_bits.
+    Fails on any failure of either."""
     import inspect
     import tempfile
 
@@ -2130,95 +2295,24 @@ def bits_against(tree: str) -> None:
         f"CONV = {CONV_CASES!r}",
         f"CONV_HOST = {[case[0] for case in CONV_HOST_CASES]!r}",
         f"HOST_FIRST_CALLS = {HOST_FIRST_CALLS}",
+        f"PROFILE_CALLS = {BITS_PROFILE_CALLS}",
         f"PROFILE_PADS = {PROFILE_PADS!r}", inspect.getsource(host_us),
         inspect.getsource(kernel_profile)])
     runs = {"this build": [], "the other build": []}
-    # the whole snippet in turns, then its conv part alone in turns
-    # (CONV_BITS_RUNS: each build's conv times from several processes)
-    order = [(which, []) for which in ("the other build", "this build",
-                                       "this build", "the other build")]
-    order += [(which, ["conv"]) for which in CONV_BITS_RUNS]
     with tempfile.TemporaryDirectory() as tmp:
         script = os.path.join(tmp, "bits.py")
         with open(script, "w") as f:
             f.write(BITS_SNIPPET.replace("# HELPERS", helpers))
-        for i, (which, part) in enumerate(order):
+        for i, which in enumerate(BITS_RUNS):
             cwd = here if which == "this build" else os.path.abspath(tree)
             path = os.path.join(tmp, f"{i}.pt")
             t0 = time.perf_counter()
-            subprocess.run([sys.executable, script, path, *part], cwd=cwd,
+            subprocess.run([sys.executable, script, path], cwd=cwd,
                            check=True, env=dict(os.environ, PYTHONPATH=cwd))
-            print(f"bits: {which} ({cwd}{', conv only' if part else ''}) in "
+            print(f"bits: {which} ({cwd}) in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             runs[which].append(torch.load(path))
-    (new, new2), (old, old2) = (runs["this build"][:2],
-                                runs["the other build"][:2])
-    failures = []
-    if new["outs"].keys() != old["outs"].keys():
-        failures.append("the builds computed different outputs")
-    unequal, gated = [], {}
-    for key, ref in old["outs"].items():
-        got = new["outs"][key]
-        if not key.endswith("_shifted"):
-            if not torch.equal(got, ref):
-                unequal.append(key)
-            continue
-        err = (got.float() - ref.float()).abs().max().item()
-        m = ref.float().abs().max().item()
-        tol = (F32_TOL_REL * m + F32_TOL_ABS if "float32" in key
-               else TOL_REL * m + TOL_ABS)
-        gated[key] = err
-        if not err <= tol:
-            failures.append(f"{key}: {err} from the other build's > {tol}")
-    n_exact = len(old["outs"]) - len(gated)
-    print(f"bits: {n_exact - len(unequal)} of {n_exact} outputs but the "
-          "shifted ones equal bit for bit to the other build's (unequal: "
-          f"{unequal}); the shifted outputs against the other build's, max "
-          "abs err: " + ", ".join(f"{k} {e:.3e}" for k, e in gated.items())
-          + f" ({sum(e == 0 for e in gated.values())} of {len(gated)} equal)",
-          flush=True)
-    if unequal:
-        failures.append(f"outputs differ from the other build's: {unequal}")
-    same = [k for k in new["outs"] if torch.equal(new["outs"][k],
-                                                  new2["outs"][k])]
-    print(f"bits: this build's two runs: {len(same)} of {len(new['outs'])} "
-          f"outputs equal; two shifted calls equal: {new['twice']}",
-          flush=True)
-    if len(same) != len(new["outs"]) or not all(new["twice"].values()):
-        failures.append("this build's shifted calls or runs differ")
-    def forward_ms(run, name):
-        """The forward kernel's device ms per call in a run (the split's
-        excluded in fp32), or None where the profile lost it"""
-        dev = [t for key, t in run["dev"][name][1].items()
-               if "flash_fwd" in key]
-        return dev[0] if dev else None
-
-    for name, spec in BITS_TIMED.items():
-        t_new = sorted((new["ms"][name], new2["ms"][name]))
-        t_old = sorted((old["ms"][name], old2["ms"][name]))
-        d_new = [forward_ms(r, name) for r in (new, new2)]
-        d_old = [forward_ms(r, name) for r in (old, old2)]
-        h_new = min(new["host"][name], new2["host"][name])
-        h_old = min(old["host"][name], old2["host"][name])
-        print(f"bits: {spec[-1]} {name}: call (CUDA events) this build "
-              f"{t_new[0]:.4f} / {t_new[1]:.4f} ms, the other build "
-              f"{t_old[0]:.4f} / {t_old[1]:.4f} ms (each run's median; x"
-              f"{sum(t_old) / sum(t_new):.3f}); the forward's device ms this "
-              f"build {d_new}, the other build {d_old}; host us per call "
-              f"over 1000 calls (the first 100) this build {h_new[0]:.1f} "
-              f"({h_new[1]:.1f}), the other build {h_old[0]:.1f} "
-              f"({h_old[1]:.1f})", flush=True)
-        for which, run in (("this build", new), ("the other build", old)):
-            n, split = run["dev"][name]
-            print(f"  {which}, {n:g} kernels per call, device ms per call by "
-                  "kernel: " + ", ".join(f"{k} {t:.4f}"
-                                         for k, t in split.items()),
-                  flush=True)
-        if None in d_new or None in d_old:
-            failures.append(f"{name}: a profile lost the forward kernel")
-        elif min(d_new) > BITS_TIME_SLACK * min(d_old):
-            failures.append(f"{name}: slower on the device than the previous "
-                            "build")
+    failures = flash_bits(runs["this build"], runs["the other build"])
     failures += conv_bits(runs["this build"], runs["the other build"])
     if failures:
         _fail(f"against the other build: {failures}")
@@ -2351,12 +2445,14 @@ def check_sd1_train_kernels() -> dict:
     widths 40, 80 and 160, bf16 and fp32 (TF32 off), at SD1_TRAIN_CASES
     against flash_attention_lse_plain and flash_attention_bwd_plain (bf16:
     TOL_REL with GRAD_TOL_ABS, the lse at LSE_TOL_*; fp32: F32_TOL_*),
-    launches counted per call, two backward calls held to the same bits;
-    at the row cases the CUDA-event times of each kernel (bf16 dQ and
-    dK/dV on bwd_stats' rows; fp32 the forward and dQ with their split,
-    dK/dV on dQ's pairs), the plain forward and whole plain backward, SDPA's
-    forward and whole backward, and sd1_train_bound. Returns {(case, what,
-    d, dtype): record}."""
+    launches counted per call, two backward calls held to the same bits,
+    in bf16 check_bf16_bwd_path (two CUDA kernels per backward, dQ's padded
+    statistics against bwd_stats'); at the row cases the CUDA-event times
+    of each kernel (bf16 dQ with its statistics, dK/dV on its rows; fp32 the
+    forward and dQ with their split, dK/dV on dQ's pairs), the whole
+    backward, the plain forward and whole plain backward, SDPA's forward
+    and whole backward, and sd1_train_bound. Returns {(case, what, d,
+    dtype): record}."""
     import torch
 
     from marigold_tpu_torch.ops import flash_attention as fa
@@ -2391,6 +2487,10 @@ def check_sd1_train_kernels() -> dict:
             del again
             if not same:
                 failures.append(f"{name} {tag}: two backward calls differ")
+            if not f32:
+                path_failures, lse_pad, delta_pad = check_bf16_bwd_path(
+                    f"sd1 train {name} {tag}", q, k, v, out, lse, g, heads)
+                failures += path_failures
             timed = SD1_TRAIN_ROW_CASES[d] == name
             times = {}
             if timed:
@@ -2405,15 +2505,14 @@ def check_sd1_train_kernels() -> dict:
                         q, k, v, out, lse, g, heads), 10)
                     dkv_parts = parts
                 else:
-                    lse_pad, delta_pad = fa.bwd_stats(out, lse, g, heads)
                     dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq(
-                        q, k, v, g, lse_pad, delta_pad, heads), 10)
+                        q, k, v, out, lse, g, heads), 10)
                     dkv_parts = None
                 dkv_ms = _time_ms(lambda: fa.flash_attention_bwd_dkv(
                     q, k, v, g, lse_pad, delta_pad, heads, dkv_parts), 10)
                 bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(
                     q, k, v, out, lse, g, heads), 10)
-                del lse_pad, delta_pad, dkv_parts
+                del dkv_parts
                 stats = 4 * b * heads * nq  # one fp32 row statistic
                 times = {
                     "lse": (_time_ms(lambda: fa.flash_attention_lse(
@@ -2421,16 +2520,17 @@ def check_sd1_train_kernels() -> dict:
                         _time_ms(lambda: fa.flash_attention_lse_plain(
                             q, k, v, heads), 3),
                         sdpa_ms(q, k, v, heads, iters=5), (4, 2, 2, stats)),
-                    # dQ reads q, dO, k, v and writes dq (fp32: also reads
-                    # O for delta and writes the padded rows); dK/dV reads
-                    # q, dO, k, v and writes dk and dv
+                    # dQ reads q, dO, O, k, v and lse and writes dq and
+                    # the padded lse and delta; dK/dV reads q, dO, k, v and
+                    # the padded rows and writes dk and dv
                     "bwd_dq": (dq_ms, bwd_plain_ms, lib_bwd_ms,
-                               (6, 4 if f32 else 3, 2, 3 * stats)),
+                               (6, 4, 2, 3 * stats)),
                     "bwd_dkv": (dkv_ms, bwd_plain_ms, lib_bwd_ms,
                                 (8, 2, 4, 2 * stats))}
-                print(f"sd1 train {name} {tag}: whole backward (delta + dQ "
-                      f"+ dK/dV{', its split' if f32 else ''}) {bwd_ms:.3f} "
-                      f"ms against plain {bwd_plain_ms:.3f} ms and sdpa "
+                print(f"sd1 train {name} {tag}: whole backward "
+                      f"(flash_attention_bwd: {'the split, ' if f32 else ''}"
+                      f"dQ with delta, then dK/dV) {bwd_ms:.3f} ms against "
+                      f"plain {bwd_plain_ms:.3f} ms and sdpa "
                       f"{lib_bwd_ms:.3f} ms", flush=True)
             for key, whats in (("lse", ("out", "lse")), ("bwd_dq", ("dq",)),
                                ("bwd_dkv", ("dk", "dv"))):

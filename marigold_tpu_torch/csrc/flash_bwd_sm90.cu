@@ -8,9 +8,11 @@
 // Replaces the two backward Pallas kernels of the TPU package's
 // marigold_tpu/ops/flash_attention.py:_flash_dt_bwd_pallas (:751) at those
 // widths (SD2's 64-wide heads; the 40-, 80- and 160-wide heads of an
-// SD1.x-class UNet, 320, 640 and 1280 channels over 8 heads):
-//   * _flash_bwd_dq_kernel (:650; pallas_call at :800) ->
-//     flash_bwd_dq_kernel: one block per (128 query rows, batch*head),
+// SD1.x-class UNet, 320, 640 and 1280 channels over 8 heads), and the row
+// statistics that wrapper computes before them (:764-776: delta =
+// rowsum(dO o O), lse and delta padded with _LSE_PAD and 0):
+//   * _flash_bwd_dq_kernel (:650; pallas_call at :800) and the statistics
+//     -> flash_bwd_dq_kernel: one block per (128 query rows, batch*head),
 //     streaming K and V;
 //   * _flash_bwd_dkv_kernel (:695; pallas_call at :832) ->
 //     flash_bwd_dkv_kernel: one block per (128 key rows, or 64 at D = 80
@@ -26,15 +28,24 @@
 //                                 - lse * log2e)
 //   dP = dO V^T                   fp32
 //   dS = bf16(P * (dP - delta))   delta = rowsum(dO * O), fp32, computed
-//                                 outside the kernels (ops/flash_attention.py)
+//                                 by the dQ kernel (below)
 //   dQ = dS K * scale,  dK = dS^T Q * scale,  dV = bf16(P)^T dO
 // with bf16 operands and fp32 sums, rounding dS and P to bf16 where the TPU
 // kernels round them. The dQ kernel masks key columns >= nk to s = -1e30
 // (zero-filled K rows would otherwise give P = exp(-lse) != 0). Query rows
-// >= nq carry lse = +1e30 and delta = 0 (the wrapper pads both), so their
+// >= nq carry lse = +1e30 and delta = 0 (the dQ kernel pads both), so their
 // P and dS are 0. Rows past nq or nk are computed on TMA's zero fill and
 // never stored; an output row depends only on its own row of the register
 // operand, so what those rows hold reaches nothing that is stored.
+//
+// Row statistics: in its prologue each dQ consumer thread computes delta
+// of its two query rows in fp32 from plain 16-byte loads of O and dO (the
+// four lanes that share a row take every fourth 8-column chunk of it, then
+// a two-shuffle sum), reads their lse from the forward's [B*H, nq] rows,
+// and writes the padded [B*H, ld_stat] lse and delta rows the dK/dV kernel
+// reads (lse 1e30 and delta 0 from nq to ld_stat, as the TPU wrapper pads
+// them; the last block's rows past ld_stat are not written). So a backward
+// is two launches, the dK/dV one after the dQ one on the stream.
 //
 // Layout: q/k/v/dO and dQ/dK/dV are [B, N, ld] bf16, head h at channels
 // [Dh, Dh + D). Each tensor has a 4-D TMA map {D, H, N, B} (head stride D,
@@ -46,9 +57,9 @@
 // on a store. S and dP contract over KSTEPS = ceil(D / 16) k16 steps (the
 // lanes past D zero in both operands); each gradient product runs one
 // m64n64 product per atom, its columns past D computed on zeros and never
-// stored. lse and delta are [B*H, ld_stat] fp32, ld_stat a multiple of 64
-// at least nq, so that each 64-row stage of the dK/dV kernel finds its
-// statistics, padded ones included, in one 256-byte bulk copy.
+// stored. The padded lse and delta are [B*H, ld_stat] fp32, ld_stat = nq
+// rounded up to 64, so that each 64-row stage of the dK/dV kernel finds
+// its statistics, padded ones included, in one 256-byte bulk copy.
 //
 // What bounds it on the H100: per head, the dQ kernel does 6 N^2 d FLOPs
 // (S, dP, dQ) and the dK/dV kernel 8 N^2 d (S^T, dP^T, dV, dK) over about
@@ -87,11 +98,24 @@
 //     every group is waited for within the iteration (a group left in
 //     flight across the loop's back edge makes ptxas serialise the wgmmas:
 //     C7515);
+//   * ping-pong (Tune, below): the two consumers take turns through two
+//     named barriers to issue a stage's products, so that one's
+//     exponentials and dS run while the tensor cores work through the
+//     other's products, instead of both issuing together and then both
+//     computing their exponentials together. Every block's consumers walk
+//     the same number of stages (past-nq or past-nk rows included), so
+//     both take the same number of turns. It moves when a product is
+//     issued, never what it sums: the bits are the same either way;
 //   * setmaxnreg moves registers from the producer warpgroup (24) to the
 //     consumers (240): one block per SM, 384 threads;
 //   * the epilogue stages the bf16 gradients in an idle resident tile (Q,
 //     or K and V) for TMA stores, which drop rows past nq or nk and lanes
 //     past D.
+// Measured on the H100 (flash_bwd_variants.py's probes, PERF.md, section
+// 6): at d = 64 and 40 the kernels are bound by their m64n64 products;
+// taking the exponentials out saves under 10%, the streamed loads under
+// 3%. At d = 40 the loads alone would take longer than at 64 (the boxes'
+// 24 lanes past the head are zero-filled), but the products hide them.
 // Shared memory: two resident tiles (rows x 128 B per atom each) and
 // STAGES stages of two [64, 128 B] tiles per atom plus 512 B of
 // statistics: STAGES = 4 but at D = 160, whose dQ takes 2 (96 KB resident,
@@ -109,6 +133,8 @@ constexpr int TILE_ATOM = BN * ROW_BYTES;   // one atom of a streamed tile
 constexpr int STAT_BYTES = BN * 4;          // 64 fp32 row statistics
 constexpr int STAT_PAD = 64;                // ld_stat's multiple
 constexpr int SMEM_LIMIT = 232448;          // what a block can use
+constexpr int TURN_BAR = 4;  // ping-pong's named barriers, 4 and 5 (0 is
+                             // __syncthreads', 1 to 3 the epilogues')
 
 // The shared-memory plan of a kernel at head width D whose two resident
 // tiles hold RES_ROWS rows: the resident tiles, the two streamed tiles per
@@ -144,14 +170,88 @@ template <int D>
 constexpr int kDkvRows = kSplit<D> ? 64 : 128;  // key rows per dK/dV block
 constexpr int BM_DQ = 128;                      // query rows per dQ block
 
+// The schedule of each kernel at head width D, each choice measured to win
+// where it is taken (flash_bwd_variants.py; PERF.md, section 6):
+//   * PINGPONG: the two consumers take turns to issue (see above), or both
+//     issue together. dQ at D <= 80 (12-16% faster at 40 and 64, 15% at
+//     80); at 160 the two are level and dQ keeps issuing together. dK/dV
+//     at D <= 64 (6-7% faster); its SPLIT consumers at 80 and 160 do
+//     different work per stage and never ping-pong.
+//   * AREG: S and dP take their A operand (this consumer's 64 rows of the
+//     two resident tiles) from registers loaded once, so that those
+//     products read only their B stage from shared memory: dQ at 64 and
+//     80 (2-4% faster; at 40 it is 1% slower, at 160 the registers are
+//     not there) and dK/dV at D <= 64 (4-9% faster).
+// FLASH_BWD_PINGPONG and FLASH_BWD_AREG (0 or 1, nvcc -D switches of
+// flash_bwd_variants.py; nothing else defines them) set the one or the
+// other for every kernel and width where it applies, to measure them.
+template <int D>
+struct Tune {
+#ifdef FLASH_BWD_PINGPONG
+  static constexpr bool DQ_PINGPONG = FLASH_BWD_PINGPONG != 0;
+  static constexpr bool DKV_PINGPONG = FLASH_BWD_PINGPONG != 0 && !kSplit<D>;
+#else
+  static constexpr bool DQ_PINGPONG = D <= 80;
+  static constexpr bool DKV_PINGPONG = !kSplit<D>;
+#endif
+#ifdef FLASH_BWD_AREG
+  static constexpr bool DQ_AREG = FLASH_BWD_AREG != 0 && D <= 80;
+  static constexpr bool DKV_AREG = FLASH_BWD_AREG != 0 && !kSplit<D>;
+#else
+  static constexpr bool DQ_AREG = D == 64 || D == 80;
+  static constexpr bool DKV_AREG = !kSplit<D>;
+#endif
+};
+
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
 constexpr float kLsePad = 1e30f;   // the TPU wrapper's _LSE_PAD
 constexpr float kLog2e = 1.4426950408889634f;
 
+// FLASH_BWD_PROBE_NO_EXP, _NO_LOGIT_MMA, _NO_GRAD_MMA and _NO_LOAD (nvcc
+// -D switches of flash_bwd_variants.py's probes; nothing else defines
+// them) take the exponentials, the S and dP products, the gradient
+// products or the streamed stages' loads out of both kernels, to see what
+// their time goes to; the outputs are then wrong.
 __device__ __forceinline__ float ex2(float x) {
+#ifdef FLASH_BWD_PROBE_NO_EXP
+  return x;
+#else
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+#endif
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The fp32 sum of o[i] * g[i] over the 8-column chunks part, part + 4,
+// part + 8, ... of a D-wide bf16 row (16-byte aligned), one lane's share
+// of delta = rowsum(dO o O).
+template <int D>
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* o,
+                                         const __nv_bfloat16* g, int part) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < (D / 8 + 3) / 4; ++i) {
+    const int j = part + 4 * i;
+    if (j < D / 8) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(o + 8 * j));
+      const uint4 y = __ldg(reinterpret_cast<const uint4*>(g + 8 * j));
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(x2[e]);
+        const float2 b = __bfloat1622float2(y2[e]);
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+      }
+    }
+  }
+  return acc;
 }
 
 // Copies `bytes` (a multiple of 16, both ends 16-byte aligned) from global
@@ -207,6 +307,10 @@ __device__ __forceinline__ void produce(
     const uint32_t full = bar.full + 8 * st;
     if (it >= P::STAGES)
       mbar_wait(bar.empty + 8 * st, ((it / P::STAGES) - 1) & 1);
+#ifdef FLASH_BWD_PROBE_NO_LOAD
+    mbar_expect_tx(full, 0);
+    continue;
+#endif
     mbar_expect_tx(full, 2 * P::TILE_BYTES + (lse ? 2 * STAT_BYTES : 0));
 #pragma unroll
     for (int a = 0; a < P::ATOMS; ++a) {
@@ -229,12 +333,55 @@ template <class P>
 __device__ __forceinline__ void issue_nt(float (&x)[32], uint32_t a,
                                          uint32_t b) {
   wgmma_fence();
+#ifndef FLASH_BWD_PROBE_NO_LOGIT_MMA
 #pragma unroll
   for (int kk = 0; kk < P::KSTEPS; ++kk) {
     const uint32_t off = 32 * (kk % 4);
     wgmma_m64n64k16_ss(x, kmajor_desc(a + (kk / 4) * P::RES_ATOM + off),
                        kmajor_desc(b + (kk / 4) * TILE_ATOM + off), kk);
   }
+#endif
+  wgmma_commit();
+}
+
+// The bf16 A fragments of this warpgroup's 64 rows of a resident tile over
+// the head's KSTEPS k16 steps (step kk in a[4kk..4kk+3], the layout of
+// issue_nn's `a`), read from the tile's 128-byte swizzle; `tile` is atom
+// 0 of those rows, atoms RES_ATOM apart; lanes past D read TMA's zeros.
+template <class P>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4 * P::KSTEPS],
+                                       const unsigned char* tile,
+                                       int r0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < P::KSTEPS; ++kk) {
+    const unsigned char* atom = tile + (kk / 4) * P::RES_ATOM;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = 2 * (kk % 4) + hf;  // the 16-byte chunk of the row
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = r0 + 8 * rr;
+        a[4 * kk + 2 * hf + rr] = *reinterpret_cast<const uint32_t*>(
+            atom + row * ROW_BYTES + ((j ^ (row & 7)) << 4) + 4 * (lane % 4));
+      }
+    }
+  }
+}
+
+// x = A B^T as issue_nt, A from load_a's fragments. One commit group.
+template <class P>
+__device__ __forceinline__ void issue_nt_rs(float (&x)[32],
+                                            const uint32_t (&a)[4 * P::KSTEPS],
+                                            uint32_t b) {
+  wgmma_fence();
+#ifndef FLASH_BWD_PROBE_NO_LOGIT_MMA
+#pragma unroll
+  for (int kk = 0; kk < P::KSTEPS; ++kk)
+    wgmma_m64n64k16_rs_nt(x, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                          a[4 * kk + 3],
+                          kmajor_desc(b + (kk / 4) * TILE_ATOM + 32 * (kk % 4)),
+                          kk);
+#endif
   wgmma_commit();
 }
 
@@ -245,6 +392,7 @@ template <int ATOMS>
 __device__ __forceinline__ void issue_nn(float (&acc)[ATOMS][32],
                                          const uint32_t (&a)[16],
                                          uint32_t tile) {
+#ifndef FLASH_BWD_PROBE_NO_GRAD_MMA
 #pragma unroll
   for (int at = 0; at < ATOMS; ++at) {
 #pragma unroll
@@ -253,6 +401,7 @@ __device__ __forceinline__ void issue_nn(float (&acc)[ATOMS][32],
                          a[4 * kk + 3],
                          mnmajor_desc(tile + at * TILE_ATOM + 2048 * kk));
   }
+#endif
 }
 
 template <int ATOMS>
@@ -335,9 +484,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_dq,
+                    const __nv_bfloat16* __restrict__ o,
+                    const __nv_bfloat16* __restrict__ g,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, int H, int ld_stat,
-                    int nq, int nk, float scale, float scale_log2) {
+                    float* __restrict__ lse_pad,
+                    float* __restrict__ delta_pad, int H, int ld,
+                    int ld_stat, int nq, int nk, float scale,
+                    float scale_log2) {
   using P = Plan<D, BM_DQ>;
   constexpr int ATOMS = P::ATOMS;
   constexpr int STAGES = P::STAGES;
@@ -370,14 +523,34 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_tile = base + P::SM_R0 + c * 64 * ROW_BYTES;
   const uint32_t g_tile = base + P::SM_R1 + c * 64 * ROW_BYTES;
 
-  // The rows' statistics; rows past nq take lse = +1e30, delta = 0.
-  const int qr = q0 + 64 * c + r0;
-  const float* lse_r = lse + (size_t)bh * ld_stat;
-  const float* dl_r = delta + (size_t)bh * ld_stat;
-  const float nl0 = qr < nq ? -lse_r[qr] * kLog2e : -kLsePad * kLog2e;
-  const float nl1 = qr + 8 < nq ? -lse_r[qr + 8] * kLog2e : -kLsePad * kLog2e;
-  const float dl0 = qr < nq ? dl_r[qr] : 0.f;
-  const float dl1 = qr + 8 < nq ? dl_r[qr + 8] : 0.f;
+  // The rows' statistics (lse 1e30 and delta 0 past nq), and the padded
+  // rows of both for the dK/dV kernel.
+  const int qr = q0 + 64 * c + r0;  // this thread's query rows: qr, qr + 8
+  const size_t head = (size_t)b * nq * ld + (size_t)h * D;
+  float lse0 = kLsePad, lse1 = kLsePad, dl0 = 0.f, dl1 = 0.f;
+  if (qr < nq) {
+    lse0 = lse[(size_t)bh * nq + qr];
+    dl0 = row_dot<D>(o + head + (size_t)qr * ld, g + head + (size_t)qr * ld,
+                     lane % 4);
+  }
+  if (qr + 8 < nq) {
+    lse1 = lse[(size_t)bh * nq + qr + 8];
+    dl1 = row_dot<D>(o + head + (size_t)(qr + 8) * ld,
+                     g + head + (size_t)(qr + 8) * ld, lane % 4);
+  }
+  dl0 = quad_sum(dl0);
+  dl1 = quad_sum(dl1);
+  if (col == 0) {
+    if (qr < ld_stat) {
+      lse_pad[(size_t)bh * ld_stat + qr] = lse0;
+      delta_pad[(size_t)bh * ld_stat + qr] = dl0;
+    }
+    if (qr + 8 < ld_stat) {
+      lse_pad[(size_t)bh * ld_stat + qr + 8] = lse1;
+      delta_pad[(size_t)bh * ld_stat + qr + 8] = dl1;
+    }
+  }
+  const float nl0 = -lse0 * kLog2e, nl1 = -lse1 * kLog2e;
 
   float s[32], dp[32], dq[ATOMS][32];
 #pragma unroll
@@ -435,11 +608,29 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
   };
 
+  constexpr bool PINGPONG = Tune<D>::DQ_PINGPONG;
+  constexpr bool AREG = Tune<D>::DQ_AREG;
+  uint32_t qa[AREG ? 4 * P::KSTEPS : 1], ga[AREG ? 4 * P::KSTEPS : 1];
+  // S = Q K^T and dP = dO V^T of stage st, each one commit group
+  auto issue_s = [&](int st) {
+    const uint32_t k_st = base + P::SM_S0 + st * P::TILE_BYTES;
+    if constexpr (AREG) issue_nt_rs<P>(s, qa, k_st);
+    else issue_nt<P>(s, q_tile, k_st);
+  };
+  auto issue_dp = [&](int st) {
+    const uint32_t v_st = base + P::SM_S1 + st * P::TILE_BYTES;
+    if constexpr (AREG) issue_nt_rs<P>(dp, ga, v_st);
+    else issue_nt<P>(dp, g_tile, v_st);
+  };
   // Stage 0: S and dP as two commit groups, P while dP runs.
   mbar_wait(bar.res, 0);
+  if constexpr (AREG) {
+    load_a<P>(qa, smem_raw + (q_tile - smem_u32(smem_raw)), r0, lane);
+    load_a<P>(ga, smem_raw + (g_tile - smem_u32(smem_raw)), r0, lane);
+  }
   mbar_wait(bar.full, 0);
-  issue_nt<P>(s, q_tile, base + P::SM_S0);
-  issue_nt<P>(dp, g_tile, base + P::SM_S1);
+  issue_s(0);
+  issue_dp(0);
   wgmma_wait<1>();
   fence_regs(s);
   probabilities(0);
@@ -447,18 +638,23 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   fence_regs(dp);
   grad_logits();
   pack();
+  if (PINGPONG && c == 1)  // consumer 0 takes the first turn
+    named_barrier_arrive(TURN_BAR, 256);
 
   // Stage it: S, dP and the previous stage's dQ += dS K (its K read
-  // MN-major) in flight as three groups; P as soon as S is done, dS once dP
-  // is, and the previous stage released once its dQ product is. No group
-  // stays in flight across iterations.
+  // MN-major) in flight as three groups, issued in this consumer's turn;
+  // P as soon as S is done, dS once dP is, and the previous stage released
+  // once its dQ product is. No group stays in flight across iterations.
   for (int it = 1; it < n_tiles; ++it) {
     const int st = it % STAGES;
     const int pst = (it - 1) % STAGES;
     mbar_wait(bar.full + 8 * st, (it / STAGES) & 1);
-    issue_nt<P>(s, q_tile, base + P::SM_S0 + st * P::TILE_BYTES);
-    issue_nt<P>(dp, g_tile, base + P::SM_S1 + st * P::TILE_BYTES);
+    if (PINGPONG) named_barrier(TURN_BAR + c, 256);  // this one's turn
+    issue_s(st);
+    issue_dp(st);
     issue_dq(pst);
+    if (PINGPONG)  // the other one's turn
+      named_barrier_arrive(TURN_BAR + 1 - c, 256);
     wgmma_wait<2>();
     fence_regs(s);
     probabilities(it);
@@ -471,7 +667,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (t == 0) mbar_arrive(bar.empty + 8 * pst);
     pack();
   }
+  // the last stage's dQ product; consumer 1 takes the last turn
+  if (PINGPONG) named_barrier(TURN_BAR + c, 256);
   issue_dq((n_tiles - 1) % STAGES);
+  if (PINGPONG && c == 0) named_barrier_arrive(TURN_BAR + 1, 256);
   wgmma_wait<0>();
   fence_atoms(dq);
 
@@ -573,11 +772,27 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
       wgmma_commit();
     };
 
+    constexpr bool PINGPONG = Tune<D>::DKV_PINGPONG;
+    constexpr bool AREG = Tune<D>::DKV_AREG;
+    uint32_t ka[AREG ? 4 * P::KSTEPS : 1], va[AREG ? 4 * P::KSTEPS : 1];
+    // S^T = K Q^T and dP^T = V dO^T of stage st, each one commit group
+    auto issue_s = [&](int st) {
+      if constexpr (AREG) issue_nt_rs<P>(s, ka, q_stage(st));
+      else issue_nt<P>(s, k_tile, q_stage(st));
+    };
+    auto issue_dp = [&](int st) {
+      if constexpr (AREG) issue_nt_rs<P>(dp, va, g_stage(st));
+      else issue_nt<P>(dp, v_tile, g_stage(st));
+    };
     // Stage 0: S^T and dP^T as two commit groups, P^T while dP^T runs.
     mbar_wait(bar.res, 0);
+    if constexpr (AREG) {
+      load_a<P>(ka, k_gen, r0, lane);
+      load_a<P>(va, v_gen, r0, lane);
+    }
     mbar_wait(bar.full, 0);
-    issue_nt<P>(s, k_tile, q_stage(0));
-    issue_nt<P>(dp, v_tile, g_stage(0));
+    issue_s(0);
+    issue_dp(0);
     wgmma_wait<1>();
     fence_regs(s);
     probabilities_t(s, stat(0), col, scale_log2);
@@ -585,18 +800,22 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
     fence_regs(dp);
     grad_logits_t(s, dp, stat(0), col);
     pack();
+    if (PINGPONG && c == 1)  // consumer 0 takes the first turn
+      named_barrier_arrive(TURN_BAR, 256);
 
     // Stage it: S^T, dP^T and the previous stage's dV and dK products in
-    // flight as three groups; the previous stage released once its
-    // gradient products are done. No group stays in flight across
-    // iterations.
+    // flight as three groups, issued in this consumer's turn; the previous
+    // stage released once its gradient products are done. No group stays
+    // in flight across iterations.
     for (int it = 1; it < n_tiles; ++it) {
       const int st = it % STAGES;
       const int pst = (it - 1) % STAGES;
       mbar_wait(bar.full + 8 * st, (it / STAGES) & 1);
-      issue_nt<P>(s, k_tile, q_stage(st));
-      issue_nt<P>(dp, v_tile, g_stage(st));
+      if (PINGPONG) named_barrier(TURN_BAR + c, 256);
+      issue_s(st);
+      issue_dp(st);
       issue_grads(pst);
+      if (PINGPONG) named_barrier_arrive(TURN_BAR + 1 - c, 256);
       wgmma_wait<2>();
       fence_regs(s);
       probabilities_t(s, stat(st), col, scale_log2);
@@ -611,7 +830,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
       if (t == 0) mbar_arrive(bar.empty + 8 * pst);
       pack();
     }
+    if (PINGPONG) named_barrier(TURN_BAR + c, 256);
     issue_grads((n_tiles - 1) % STAGES);
+    if (PINGPONG && c == 0) named_barrier_arrive(TURN_BAR + 1, 256);
     wgmma_wait<0>();
     fence_atoms(dk);
     fence_atoms(dv);
@@ -765,13 +986,13 @@ bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int H,
 }
 
 // What both entry points check: a head width with an instantiation, TMA's
-// 16-byte row strides, rows holding every head, statistics rows covering
-// every 64-row stage, 16-byte aligned statistics.
+// 16-byte row strides, rows holding every head, the padded statistics'
+// rows nq rounded up to a 64-row stage, 16-byte aligned padded statistics.
 int check_args(int B, int H, int nq, int nk, int D, int ldq, int ldkv,
                int ld_stat, const void* lse, const void* delta) {
   if ((D != 40 && D != 64 && D != 80 && D != 160) || B < 1 || H < 1 ||
       nq < 1 || nk < 1 || ldq % 8 || ldkv % 8 || ldq < D * H ||
-      ldkv < D * H || ld_stat % STAT_PAD || ld_stat < nq ||
+      ldkv < D * H || ld_stat != cdiv(nq, STAT_PAD) * STAT_PAD ||
       reinterpret_cast<uintptr_t>(lse) % 16 ||
       reinterpret_cast<uintptr_t>(delta) % 16)
     return (int)cudaErrorInvalidValue;
@@ -785,16 +1006,18 @@ cudaError_t prepare(Kernel kernel, int smem) {
 }
 
 template <int D>
-cudaError_t launch_dq(const CUtensorMap (&maps)[5], const float* lse,
-                      const float* delta, int B, int H, int nq, int nk,
-                      int ld_stat, float scale, cudaStream_t stream) {
+cudaError_t launch_dq(const CUtensorMap (&maps)[5], const __nv_bfloat16* o,
+                      const __nv_bfloat16* g, const float* lse,
+                      float* lse_pad, float* delta_pad, int B, int H, int nq,
+                      int nk, int ldq, int ld_stat, float scale,
+                      cudaStream_t stream) {
   constexpr int smem = Plan<D, BM_DQ>::SMEM_REQUEST;
   cudaError_t e = prepare(flash_bwd_dq_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(cdiv(nq, BM_DQ), B * H);
   flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], lse, delta, H, ld_stat, nq,
-      nk, scale, scale * kLog2e);
+      maps[0], maps[1], maps[2], maps[3], maps[4], o, g, lse, lse_pad,
+      delta_pad, H, ldq, ld_stat, nq, nk, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -827,19 +1050,26 @@ cudaError_t launch_dkv(const void* const (&ptrs)[6], const float* lse,
 
 extern "C" {
 
-// dQ of the attention backward at head width D (40, 64, 80 or 160). q/g/dq:
-// [B, nq, ldq] bf16; k/v: [B, nk, ldkv] bf16; all 16-byte aligned with row
-// strides a multiple of 8 elements and at least H D. lse/delta: [B*H,
-// ld_stat] fp32, ld_stat a multiple of 64 and at least nq, rows past nq
-// padded with lse = +1e30 and delta = 0. Returns cudaSuccess (0) or the
-// error of the checks, the map encoding, the attribute call or the launch.
+// dQ of the attention backward at head width D (40, 64, 80 or 160), with
+// delta = rowsum(dO o O) and the padded statistics the dK/dV kernel reads.
+// q/g/o/dq: [B, nq, ldq] bf16 (o the training forward's output, g = dO);
+// k/v: [B, nk, ldkv] bf16; all 16-byte aligned with row strides a multiple
+// of 8 elements and at least H D. lse: the forward's [B*H, nq] fp32.
+// lse_pad/delta_pad: [B*H, ld_stat] fp32, ld_stat = nq rounded up to 64,
+// 16-byte aligned, written: lse and delta, rows past nq +1e30 and 0.
+// Returns cudaSuccess (0) or the error of the checks, the map encoding,
+// the attribute call or the launch.
 int mt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                              const void* g, const void* lse,
-                              const void* delta, void* dq, int B, int H,
-                              int nq, int nk, int D, int ldq, int ldkv,
+                              const void* g, const void* o, const void* lse,
+                              void* dq, void* lse_pad, void* delta_pad, int B,
+                              int H, int nq, int nk, int D, int ldq, int ldkv,
                               int ld_stat, float scale, void* stream) {
-  int err = check_args(B, H, nq, nk, D, ldq, ldkv, ld_stat, lse, delta);
+  int err = check_args(B, H, nq, nk, D, ldq, ldkv, ld_stat, lse_pad,
+                       delta_pad);
   if (err) return err;
+  if (reinterpret_cast<uintptr_t>(o) % 16 ||
+      reinterpret_cast<uintptr_t>(g) % 16)
+    return (int)cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_tiled();
   CUtensorMap maps[5];
   if (!encode(fn, &maps[0], q, B, H, nq, D, ldq, BM_DQ) ||
@@ -848,24 +1078,31 @@ int mt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
       !encode(fn, &maps[3], v, B, H, nk, D, ldkv, BN) ||
       !encode(fn, &maps[4], dq, B, H, nq, D, ldq, 64))
     return (int)cudaErrorInvalidValue;
+  const auto* ob = static_cast<const __nv_bfloat16*>(o);
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
   const float* ls = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* lp = static_cast<float*>(lse_pad);
+  float* dp = static_cast<float*>(delta_pad);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40:
-      return (int)launch_dq<40>(maps, ls, dl, B, H, nq, nk, ld_stat, scale, st);
+      return (int)launch_dq<40>(maps, ob, gb, ls, lp, dp, B, H, nq, nk, ldq,
+                                ld_stat, scale, st);
     case 64:
-      return (int)launch_dq<64>(maps, ls, dl, B, H, nq, nk, ld_stat, scale, st);
+      return (int)launch_dq<64>(maps, ob, gb, ls, lp, dp, B, H, nq, nk, ldq,
+                                ld_stat, scale, st);
     case 80:
-      return (int)launch_dq<80>(maps, ls, dl, B, H, nq, nk, ld_stat, scale, st);
+      return (int)launch_dq<80>(maps, ob, gb, ls, lp, dp, B, H, nq, nk, ldq,
+                                ld_stat, scale, st);
     default:
-      return (int)launch_dq<160>(maps, ls, dl, B, H, nq, nk, ld_stat, scale,
-                                 st);
+      return (int)launch_dq<160>(maps, ob, gb, ls, lp, dp, B, H, nq, nk, ldq,
+                                 ld_stat, scale, st);
   }
 }
 
-// dK and dV of the attention backward; dk/dv: [B, nk, ldkv] bf16, the
-// other arguments as for mt_flash_attention_bwd_dq.
+// dK and dV of the attention backward; dk/dv: [B, nk, ldkv] bf16, lse and
+// delta the padded rows mt_flash_attention_bwd_dq writes, the other
+// arguments as for it.
 int mt_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* g, const void* lse,
                                const void* delta, void* dk, void* dv, int B,

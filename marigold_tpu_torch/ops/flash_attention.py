@@ -2,7 +2,8 @@
 (`csrc/flash_fwd_sm90.cu` for every bf16 forward at head widths 40, 64, 80
 and 160, `csrc/flash_fwd_d512_sm90.cu` for the 512-wide one,
 `csrc/flash_attention.cu` for their C entry points, `csrc/flash_bwd_sm90.cu`
-for the dQ and dK/dV backward at 40, 64, 80 and 160; in fp32
+for the dQ and dK/dV backward at 40, 64, 80 and 160 (its dQ kernel also
+computes delta and writes the padded statistics dK/dV reads); in fp32
 `csrc/flash_fwd_d64_f32_sm90.cu` for the forwards at 40, 64, 80 and 160,
 `csrc/flash_fwd_d512_f32_sm90.cu` for the 512-wide one,
 `csrc/flash_bwd_dq_f32_sm90.cu` for dQ, `csrc/flash_bwd_dkv_f32_sm90.cu` for
@@ -426,11 +427,16 @@ def _launch_forward(q, k, v, shift, out, b: int, heads: int, d: int,
     counter.add(variant)
 
 
-def _bwd_library() -> ctypes.CDLL:
-    lib = cuda_build.load_library("flash_attention_bwd", BWD_SOURCES)
-    _bind(lib, "mt_flash_attention_bwd_dq", 7, 8)
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The bf16 backward library's argtypes (`csrc/flash_bwd_sm90.cu`, or
+    a build of it with other flags, flash_bwd_variants.py's)."""
+    _bind(lib, "mt_flash_attention_bwd_dq", 9, 8)
     _bind(lib, "mt_flash_attention_bwd_dkv", 8, 8)
     return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    return bind_bwd(cuda_build.load_library("flash_attention_bwd", BWD_SOURCES))
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what) -> None:
@@ -705,11 +711,13 @@ def row_delta(out: torch.Tensor, dout: torch.Tensor, num_heads: int,
 
 def bwd_stats(out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
               num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernels' row statistics: lse and `row_delta`, each
+    """The dK/dV kernels' row statistics: lse and `row_delta`, each
     [B*H, round_up(Nq, STAT_PAD)] fp32, padded with LSE_PAD and 0 as the TPU
     wrapper pads them (one small copy of lse): each 64-row stage of the dK/dV
     kernel then reads its rows, padded ones included, as one 16-byte-aligned
-    bulk copy."""
+    bulk copy. The plain version of what the dQ kernels of both dtypes
+    write; the CPU tests and chip_smoke.py hold the kernels' rows to it,
+    and no kernel path calls it."""
     bh, nq = lse.shape
     pad = -nq % STAT_PAD
     lse_p = lse.new_full((bh, nq + pad), LSE_PAD)
@@ -722,13 +730,15 @@ def flash_attention_bwd(
     lse: torch.Tensor, dout: torch.Tensor, num_heads: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients (dq, dk, dv) from the training forward's out and
-    lse. On a CUDA tensor this launches the dQ kernel and the dK/dV kernel
-    (bf16 after `bwd_stats`; fp32 after one split, `split_bwd_f32`: dQ on
-    `csrc/flash_bwd_dq_f32_sm90.cu`, which also writes the padded
-    statistics, dK/dV on `csrc/flash_bwd_dkv_f32_sm90.cu`; a head dim in
-    TRAIN_HEAD_DIMS; q, k, v and dout as TMA takes them, `check_kernel_args`) or
-    raises; on a CPU tensor it runs `flash_attention_bwd_plain` (which
-    recomputes the softmax itself)."""
+    lse. On a CUDA tensor this launches the dQ kernel, which also computes
+    delta = rowsum(dO * O) and writes the padded statistics, and then the
+    dK/dV kernel that reads them (bf16: the two kernels of
+    `csrc/flash_bwd_sm90.cu` and nothing else; fp32 after one split,
+    `split_bwd_f32`: dQ on `csrc/flash_bwd_dq_f32_sm90.cu`, dK/dV on
+    `csrc/flash_bwd_dkv_f32_sm90.cu`; a head dim in TRAIN_HEAD_DIMS; q, k,
+    v, dout and out as TMA takes them, `check_kernel_args`) or raises; on a
+    CPU tensor it runs `flash_attention_bwd_plain` (which recomputes the
+    softmax itself)."""
     if q.is_cpu:
         _check_inputs({"q": q, "k": k, "v": v}, num_heads)
         return flash_attention_bwd_plain(q, k, v, dout, num_heads)
@@ -747,8 +757,8 @@ def flash_attention_bwd(
             q, k, v, out, lse, dout, num_heads, parts)
     else:
         parts = None
-        lse_p, delta_p = bwd_stats(out, lse, dout, num_heads)
-        dq = flash_attention_bwd_dq(q, k, v, dout, lse_p, delta_p, num_heads)
+        dq, lse_p, delta_p = flash_attention_bwd_dq(q, k, v, out, lse, dout,
+                                                    num_heads)
     return (dq, *flash_attention_bwd_dkv(q, k, v, dout, lse_p, delta_p,
                                          num_heads, parts))
 
@@ -760,26 +770,65 @@ def split_bwd_f32(q, k, v, dout) -> list:
     return split_tf32([q, dout, k, v], [q, dout, k])
 
 
-def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int
-                           ) -> torch.Tensor:
-    """bf16 dQ [B, Nq, C] by `csrc/flash_bwd_sm90.cu`: lse and delta are the
-    padded [B*H, round_up(Nq, STAT_PAD)] fp32 rows of `bwd_stats`.
-    Unchecked but for the dtype: `flash_attention_bwd` checks the arguments
-    before it calls this (fp32 takes `flash_attention_bwd_dq_f32`)."""
+def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, num_heads: int
+                                 ) -> tuple[torch.Tensor, ...]:
+    """The dQ kernels' function in plain PyTorch (the TPU package's
+    `_flash_bwd_dq_kernel` and the statistics its wrapper
+    `_flash_dt_bwd_pallas` computes first): (dq [B, Nq, C] in q's dtype,
+    lse_p, delta_p), the last two `bwd_stats`' padded rows. P = exp(S -
+    lse) from the forward's lse [B*H, Nq], dP = dO V^T, dS = P (dP -
+    delta) rounded to the storage dtype, dQ = dS K * scale; fp32 sums, in
+    BWD_CHUNK query rows. The CPU tests hold it to the Pallas kernel (fp32,
+    atol 2e-4 and rtol 1e-3, the backward tests' tolerance) and its
+    statistics to the TPU wrapper's (atol and rtol 1e-5)."""
+    b, nq, c = q.shape
+    scale = 1.0 / math.sqrt(c // num_heads)
+    acc = _accum_dtype(q)
+    lse_p, delta_p = bwd_stats(out, lse, dout, num_heads)
+    qh, gh = _heads(q, num_heads), _heads(dout, num_heads)
+    kh, vh = _heads(k, num_heads).to(acc), _heads(v, num_heads).to(acc)
+    stats = [x[:, :nq].reshape(b, num_heads, nq, 1).to(acc)
+             for x in (lse_p, delta_p)]
+    dq = []
+    for r0 in range(0, nq, BWD_CHUNK):
+        rows = slice(r0, r0 + BWD_CHUNK)
+        q_c, g_c = qh[:, :, rows].to(acc), gh[:, :, rows].to(acc)
+        p = torch.exp(torch.matmul(q_c, kh.transpose(-1, -2)) * scale
+                      - stats[0][:, :, rows])
+        dp = torch.matmul(g_c, vh.transpose(-1, -2))
+        ds = (p * (dp - stats[1][:, :, rows])).to(k.dtype).to(acc)
+        dq.append(torch.matmul(ds, kh) * scale)
+    return _unheads(torch.cat(dq, dim=2)).to(q.dtype), lse_p, delta_p
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, num_heads: int
+                           ) -> tuple[torch.Tensor, ...]:
+    """bf16 (dQ [B, Nq, C], lse_p, delta_p) by `csrc/flash_bwd_sm90.cu`:
+    the kernel computes delta = rowsum(dO * O) itself and writes
+    `bwd_stats`' padded lse and delta rows ([B*H, round_up(Nq, STAT_PAD)]
+    fp32), which the dK/dV kernel reads. `lse` is the training forward's
+    [B*H, Nq]. On a CPU tensor `flash_attention_bwd_dq_plain`. Unchecked
+    but for the dtype: `flash_attention_bwd` checks the arguments before it
+    calls this (fp32 takes `flash_attention_bwd_dq_f32`)."""
+    if q.is_cpu:
+        return flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, num_heads)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd_dq takes bf16, got {q.dtype}")
     b, nq, c = q.shape
     d = c // num_heads
+    ld_stat = -(-nq // STAT_PAD) * STAT_PAD
     dq = torch.empty_like(q)
+    lse_p, delta_p = (lse.new_empty((b * num_heads, ld_stat)) for _ in range(2))
     lib = _bwd_library()
     err = cuda_build.on_device(
         q, lib.mt_flash_attention_bwd_dq, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), b, num_heads, nq, k.shape[1], d, c, c, lse.shape[1],
-        1.0 / math.sqrt(d), cuda_build.stream_of(q))
+        v.data_ptr(), dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), lse_p.data_ptr(), delta_p.data_ptr(), b, num_heads,
+        nq, k.shape[1], d, c, c, ld_stat, 1.0 / math.sqrt(d),
+        cuda_build.stream_of(q))
     _raise_on(lib, err, f"flash attention dQ ({q.dtype})")
     launches.add(f"bwd_dq_d{d}")
-    return dq
+    return dq, lse_p, delta_p
 
 
 def flash_attention_bwd_dq_f32(q, k, v, out, lse, dout, num_heads: int,
@@ -815,7 +864,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int,
                             parts: Optional[list] = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [B, Nk, C] by the dK/dV kernel of q's dtype: lse and delta
-    the padded rows (`bwd_stats`, or in fp32 the dQ kernel's). In fp32 it
+    the padded rows the dQ kernel of that dtype wrote (`bwd_stats`' layout
+    and values). In fp32 it
     reads `split_bwd_f32`'s pairs (`parts`, or one split launch here when
     None). Unchecked: `flash_attention_bwd` checks the arguments before it
     calls this."""

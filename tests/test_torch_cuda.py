@@ -33,6 +33,8 @@ only the port is installed:
 """
 
 import dataclasses
+import re
+import time
 
 import pytest
 import torch
@@ -969,6 +971,79 @@ def test_backward_gives_the_same_bits_twice(cuda):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", fa.TRAIN_HEAD_DIMS)
+def test_bf16_backward_is_two_launches(cuda, monkeypatch, d):
+    """The bf16 backward launches the dQ kernel, which computes delta and
+    the padded statistics itself, and the dK/dV kernel, and nothing else:
+    bwd_stats and row_delta (the plain statistics) raise if called, and
+    torch.profiler sees the two kernels once each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the bf16 backward ran the plain statistics")
+
+    monkeypatch.setattr(fa, "bwd_stats", refuse)
+    monkeypatch.setattr(fa, "row_delta", refuse)
+    heads = 8 if d != 64 else 5
+    q, g = _qkv(cuda, 2, 1100, d * heads)[:2]
+    k, v = _qkv(cuda, 2, 900, d * heads)[:2]
+    out, lse = fa.flash_attention_lse(q, k, v, heads)
+    torch.cuda.synchronize()
+    before = dict(fa.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)  # CUPTI has lost a profile's first kernel without
+        fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    assert {key: n - before.get(key, 0) for key, n in fa.launches.items()
+            if n != before.get(key, 0)} == {f"bwd_dq_d{d}": 1,
+                                            f"bwd_dkv_d{d}": 1}
+    kernels = sorted(
+        (getattr(re.search(r"flash_bwd_\w+_kernel<\d+>", e.key), "group",
+                 lambda: e.key)(), e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert kernels == [(f"flash_bwd_dkv_kernel<{d}>", 1),
+                       (f"flash_bwd_dq_kernel<{d}>", 1)]
+
+
+@pytest.mark.parametrize("b,nq,nk,c,heads", [
+    (1, 64, 100, 320, 5),     # d=64, a whole 64-row stage: no padding
+    (2, 129, 128, 640, 10),   # d=64, 63 padded rows, past a 128-row block
+    (2, 1300, 1100, 320, 8),  # d=40, the last block past the padding
+    (1, 130, 100, 640, 8),    # d=80
+    (2, 70, 200, 1280, 8),    # d=160, fewer rows than one stage
+    (2, 4800, 4800, 320, 8),  # d=40 at the SD1.x fine-tuning shape
+])
+def test_bf16_dq_writes_the_padded_statistics(cuda, b, nq, nk, c, heads):
+    """The bf16 dQ kernel's padded lse and delta rows, which the dK/dV
+    kernel reads, against bwd_stats: lse bit for bit (LSE_PAD past nq),
+    delta within 1e-5 of the largest (summed in another order; 0 past nq);
+    two backward calls bit-identical; dq, dk and dv within chip_smoke.py's
+    phase 3 gate of the plain backward."""
+    q, g = _qkv(cuda, b, nq, c)[:2]
+    k, v = _qkv(cuda, b, nk, c)[:2]
+    out, lse = fa.flash_attention_lse(q, k, v, heads)
+    dq, lse_p, delta_p = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                                   heads)
+    lse_ref, delta_ref = fa.bwd_stats(out, lse, g, heads)
+    torch.cuda.synchronize()
+    assert lse_p.shape == lse_ref.shape == (b * heads, -(-nq // 64) * 64)
+    assert torch.equal(lse_p, lse_ref)
+    assert (delta_p - delta_ref).abs().max().item() <= \
+        1e-5 * delta_ref.abs().max().item()
+    assert bool((delta_p[:, nq:] == 0).all())
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, heads)
+    refs = fa.flash_attention_bwd_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], dq)
+    for got, twice, ref in zip(grads, again, refs):
+        assert torch.equal(got, twice)
+        tol = 1e-2 * ref.float().abs().max().item() + 1e-5
+        assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
 def test_backward_raises_on_what_tma_does_not_take(cuda):

@@ -237,3 +237,98 @@ def test_watchdog_names_the_phase_and_exits():
             assert f.read().split()[2] == "Z"
     except FileNotFoundError:
         pass
+
+
+# chip_smoke.py --bits-against's decision rule (flash_bits) on runs made
+# up here: what each BITS_SNIPPET run returns, with every device time 1 ms
+# unless a case says otherwise.
+
+def _ulp_up(x):
+    """x with every element one unit in the last place further from 0 (on
+    the bits of its integer view)."""
+    ints = {BF16: torch.int16, torch.float32: torch.int32}[x.dtype]
+    return (x.view(ints) + 1).view(x.dtype)
+
+
+def _bits_run(ms=1.0, outs=None, slow=()):
+    import chip_smoke as C
+
+    gen = torch.Generator().manual_seed(0)
+    base = torch.randn((4, 8), generator=gen)
+    outs = outs or {
+        "l0_bfloat16_online": base.to(BF16),
+        "l0_bfloat16_lse": base.clone(),
+        "l0_bfloat16_dq": (2 * base).to(BF16),
+        "l0_float32_dq": 2 * base,
+    }
+    dev = {}
+    for name, spec in C.BITS_TIMED.items():
+        t = ms * (1.5 if name in slow else 1.0)
+        kernels = ({"flash_bwd_dq_kernel<64>": 0.4 * t,
+                    "flash_bwd_dkv_kernel<64>": 0.6 * t}
+                   if spec[-1] == "bwd" else {"flash_fwd_sm90_kernel": t})
+        dev[name] = (float(len(kernels)), kernels)
+    return {"outs": outs, "twice": {"l0_bfloat16": True},
+            "ms": {name: ms for name in C.BITS_TIMED}, "dev": dev,
+            "host": {name: (20.0, 25.0) for name in C.BITS_TIMED}}
+
+
+def test_bits_one_slow_run_among_four_passes():
+    """Each build's fastest of its four runs is compared: one run of this
+    build 1.5x slower on every kernel does not fail the gate."""
+    import chip_smoke as C
+
+    this = [_bits_run(), _bits_run(slow=C.BITS_TIMED), _bits_run(),
+            _bits_run()]
+    other = [_bits_run() for _ in range(4)]
+    assert C.flash_bits(this, other) == []
+
+
+def test_bits_a_slower_fastest_run_fails():
+    """All four runs of this build's whole backward at d=40 over the slack:
+    that row fails, and only it."""
+    import chip_smoke as C
+
+    this = [_bits_run(slow=("bf16_d40_bwd",)) for _ in range(4)]
+    other = [_bits_run() for _ in range(4)]
+    assert C.flash_bits(this, other) == [
+        "bf16_d40_bwd: slower on the device than the other build"]
+    # within the slack passes
+    this = [_bits_run(ms=C.BITS_TIME_SLACK * 0.999) for _ in range(4)]
+    assert C.flash_bits(this, other) == []
+
+
+def test_bits_a_bf16_gradient_within_the_gate_passes():
+    """A bf16 dq one bf16 ulp off the other build's (delta summed in
+    another order) passes; past phase 3's gradient gate it fails."""
+    import chip_smoke as C
+
+    other = [_bits_run() for _ in range(4)]
+    outs = dict(other[0]["outs"])
+    ref = outs["l0_bfloat16_dq"]
+    outs["l0_bfloat16_dq"] = _ulp_up(ref)
+    assert not torch.equal(outs["l0_bfloat16_dq"], ref)
+    this = [_bits_run(outs=outs) for _ in range(4)]
+    assert C.flash_bits(this, other) == []
+    far = dict(outs, l0_bfloat16_dq=(ref.float() + 1.0).to(BF16))
+    this = [_bits_run(outs=far) for _ in range(4)]
+    failures = C.flash_bits(this, other)
+    assert len(failures) == 1 and failures[0].startswith("l0_bfloat16_dq: ")
+
+
+def test_bits_an_unequal_forward_or_fp32_gradient_fails():
+    """The online forward and the fp32 dq stay exact: a one-ulp change of
+    either fails, as does a second call that differs."""
+    import chip_smoke as C
+
+    other = [_bits_run() for _ in range(4)]
+    for key in ("l0_bfloat16_online", "l0_float32_dq"):
+        outs = dict(other[0]["outs"])
+        outs[key] = _ulp_up(outs[key])
+        this = [_bits_run(outs=outs) for _ in range(4)]
+        assert C.flash_bits(this, other) == [
+            f"outputs differ from the other build's: ['{key}']"]
+    this = [_bits_run() for _ in range(4)]
+    this[2]["twice"] = {"l0_bfloat16": False}
+    assert C.flash_bits(this, other) == [
+        "this build's second calls or runs differ"]
