@@ -219,19 +219,19 @@ bits_against): the forwards and backward at head widths 64, 40, 80 and
 160 in bf16 and fp32, the forward rows 1, 3, 4 and 7 and the whole bf16
 backward (rows 5-6) timed at BITS_TIMED, then the bf16 Winograd conv on
 its rearranged weight at the nine CONV_CASES. flash_bits fails unless
-every output is the other build's bits (the online, folded and lse
-forwards, the lse, every fp32 gradient) or, where bits_gate says, within
-phase 3's gate of it (the shifted forwards, whose row shift one build may
-compute outside the kernel; the bf16 dq, dk and dv, whose delta the dQ
-kernel sums in another order), this build's runs, second shifted calls
-and second backward calls are equal bit for bit, and each BITS_TIMED
-shape's device ms (each build's fastest run) is within BITS_TIME_SLACK
-of the other build's; it prints every run's device ms, the CUDA-event ms
-of a call and host µs per call. conv_bits fails unless this build's conv
-runs are equal, its output is the other build's bits where it runs the
-split design and within phase 3's gate where it runs the fused one
-(whose sums go chunk by chunk), and its device ms (the fastest of its
-four runs) is within BITS_TIME_SLACK of the other build's; both conv
+every output is the other build's bits (the shifted forwards, every fp32
+output) or, where bits_gate says, within phase 3's gates of it (the bf16
+online, folded and lse forwards and the lse, whose exponentials are taken
+against a stale max; the bf16 dq, dk and dv, whose delta the dQ kernel
+sums in another order), this build's runs, second shifted calls and
+second backward calls are equal bit for bit, and each BITS_TIMED shape's
+device ms is no slower than the other build's (bits_slower: slower past
+BITS_TIME_SLACK in both rounds of runs); it prints every run's
+device ms, the CUDA-event ms of a call and host µs per call. conv_bits
+fails unless this build's conv runs are equal, its output is the other
+build's bits where it runs the split design and within phase 3's gate
+where it runs the fused one (whose sums go chunk by chunk), and its
+device ms is no slower by bits_slower; both conv
 wrappers' host µs at CONV_HOST_CASES printed. Without --sd1 it stops
 after the comparison.
 """
@@ -242,8 +242,10 @@ import collections
 import contextlib
 import faulthandler
 import json
+import math
 import os
 import signal
+import statistics
 import subprocess
 import sys
 import threading
@@ -655,10 +657,26 @@ def host_us(call) -> tuple:
             (t_first - t0) / HOST_FIRST_CALLS * 1e6)
 
 
+def sdpa_device_ms(q, k, v, heads) -> float:
+    """Device ms per call of F.scaled_dot_product_attention on the same
+    inputs, every kernel it launches (torch.profiler over 5 calls; the
+    layout copies to [B, H, N, D] made outside the profile)."""
+    import torch
+    import torch.nn.functional as F
+
+    q4, k4, v4 = (_bhnd(t, heads) for t in (q, k, v))
+    with torch.no_grad():
+        split = kernel_profile(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4), 5, "",
+            PROFILE_PADS[:1])[1]
+    return sum(split.values())
+
+
 def check_host_path() -> dict:
     """The bf16 forward's calls at HOST_CASES: the host µs of a call
     (host_us), the CUDA-event ms of a call beside SDPA's on the same inputs,
-    the forward's device ms (torch.profiler) and, at full depth, the host µs
+    the forward's device ms (torch.profiler) beside SDPA's and, at full
+    depth, the host µs
     of the call's five tensor-map encodes alone (mt_flash_fwd_maps_ns: what
     caching the maps could save). Measures only: the outputs are held to
     their plain versions in phases 3 and 3c. Returns {(row, d): {...}}."""
@@ -688,6 +706,7 @@ def check_host_path() -> dict:
         # and a retake costs seconds a case on a host that loses them
         split = kernel_profile(call, 5, "flash_fwd", PROFILE_PADS[:1])[1]
         dev_ms = sum(t for name, t in split.items() if "flash_fwd" in name)
+        lib_dev_ms = sdpa_device_ms(q, k, v, heads)
         maps = ""
         if FULL_DEPTH:
             out = torch.empty_like(q)
@@ -701,10 +720,11 @@ def check_host_path() -> dict:
         print(f"host path: row {row} {mode:7s} d={d:3d} [{b},{n},{c}] h={heads}: "
               f"host {host:.1f} us per call over {HOST_CALLS} calls, "
               f"{first:.1f} over the first {HOST_FIRST_CALLS}{maps}; call {ms:.4f} "
-              f"ms (CUDA events) against sdpa {lib_ms:.4f} ms; the forward's "
-              f"device ms {dev_ms:.4f}", flush=True)
+              f"ms (CUDA events) against sdpa {lib_ms:.4f} ms; device ms "
+              f"the forward {dev_ms:.4f}, sdpa {lib_dev_ms:.4f}", flush=True)
         results[(row, d)] = dict(host_us=host, first_us=first, ms=ms,
-                                 library_ms=lib_ms, device_ms=dev_ms)
+                                 library_ms=lib_ms, device_ms=dev_ms,
+                                 library_device_ms=lib_dev_ms)
         del q, k, v
     torch.cuda.empty_cache()
     return results
@@ -741,6 +761,37 @@ SHARD_CASES = [
     ("spatial_vae_mid", 1, 18432, 36864, 512, 1),
 ]
 PLAIN_Q_CHUNK = 4608
+
+# The rising-logit input: each row's scaled logits rise along the keys by
+# RISE_PER_KEY natural units a key (11 in base 2 over a 128-key tile, 5.5
+# over a 64-key one), so that its max grows past the online kernel's
+# rescale threshold (kRescale2, 8 in base 2) in every tile at d <= 80 and
+# every other tile at 160. The size sits in q (RISING_Q in every lane):
+# carried by k, the drift was a large part common to every key, which
+# dQ = dS K sums to a small result, and the bf16 rounding of dS alone then
+# put the plain bf16 backward's dq outside phase 3's gradient gate of the
+# fp32 one on the same values (tests/test_torch_flash_checks.py::
+# test_rising_input_carries_its_size_in_q: 0.0238 against 0.0219 at
+# [1,1200,128] h=2).
+RISE_PER_KEY = 0.06
+RISING_Q = 64.0
+
+
+def rising_logits(q, k, heads: int, rise: float = RISE_PER_KEY) -> tuple:
+    """(q + RISING_Q in every lane, k with each head's mean over its lanes
+    taken out and j * rise / (RISING_Q sqrt(d)) added to every lane of key
+    row j), on [B, N, C] fp32 inputs: each head's logit q_i . k_j / sqrt(d)
+    is j * rise plus terms of order 1."""
+    import torch
+
+    b, n, c = k.shape
+    d = c // heads
+    kh = k.reshape(b, n, heads, d)
+    j = torch.arange(n, device=k.device, dtype=k.dtype)
+    kh = (kh - kh.mean(-1, keepdim=True)
+          + (j * (rise / (RISING_Q * math.sqrt(d))))[None, :, None, None])
+    return q + RISING_Q, kh.reshape(b, n, c)
+
 
 # Kernel rows of the JSON line: TPU pallas_call sites replaced, the source,
 # and the case whose times stand for the kernel (its main-path shape).
@@ -1996,7 +2047,8 @@ def sd1_kernel_rows(results: dict, counts: dict, f32_counts: dict) -> list:
 # package in a process of its own (bf16 and fp32 at head widths 64, 40, 80
 # and 160: both softmax modes, a second shifted call, the training forward
 # with its logsumexp, dQ and dK/dV and a second backward call, the folded
-# entry), then the CUDA-event ms and device ms of the forwards and of the
+# entry; bf16: the backward from the build's own forward against the plain
+# backward), then the CUDA-event ms and device ms of the forwards and of the
 # bf16 backward at BITS_TIMED, then the bf16 Winograd conv's outputs and
 # times at CONV_CASES (conv_bits): run in this checkout and in a checkout
 # of the other build (`--bits-against DIR`). Uses only entry points both
@@ -2014,7 +2066,7 @@ cases = {"l0": (1, 9216, 9216, 320, 5), "l1": (1, 2304, 2304, 640, 10),
          "d40": (1, 4608, 4608, 320, 8), "d80": (2, 2304, 1700, 640, 8),
          "d160": (1, 1100, 1300, 1280, 8), "fold40": (3, 1030, 1030, 40, 1),
          "fold80": (2, 777, 777, 80, 1), "fold160": (2, 600, 600, 160, 1)}
-outs, twice = {}, {}
+outs, twice, chain = {}, {}, {}
 for name, (b, nq, nk, c, h) in cases.items():
     q, g = (torch.randn((b, nq, c), generator=gen, device="cuda")
             for _ in range(2))
@@ -2032,12 +2084,26 @@ for name, (b, nq, nk, c, h) in cases.items():
                                  fa.flash_attention(qq, kk, vv, h, "shifted"))
         out, lse = fa.flash_attention_lse(qq, kk, vv, h)
         outs[f"{tag}_lse_out"], outs[f"{tag}_lse"] = out, lse
+        # the backward on the plain forward's output and lse: both builds'
+        # backward kernels read the same inputs, whatever their forwards
+        # round
+        out, lse = fa.flash_attention_lse_plain(qq, kk, vv, h)
         grads = fa.flash_attention_bwd(qq, kk, vv, out, lse, gg, h)
         for what, x in zip(("dq", "dk", "dv"), grads):
             outs[f"{tag}_{what}"] = x
         twice[f"{tag}_bwd"] = all(
             torch.equal(x, y) for x, y in
             zip(grads, fa.flash_attention_bwd(qq, kk, vv, out, lse, gg, h)))
+        if dt == torch.bfloat16:
+            # this build's own forward into its backward, against the plain
+            # backward: (max abs err, max abs ref) of dq, dk and dv
+            grads = fa.flash_attention_bwd(qq, kk, vv, outs[f"{tag}_lse_out"],
+                                           outs[f"{tag}_lse"], gg, h)
+            refs = fa.flash_attention_bwd_plain(qq, kk, vv, gg, h)
+            chain[tag] = [((x.float() - r.float()).abs().max().item(),
+                           r.float().abs().max().item())
+                          for x, r in zip(grads, refs)]
+            del refs
 torch.cuda.synchronize()
 
 
@@ -2114,7 +2180,7 @@ for name, b, c, kc, hw in CONV:
             "conv3x3": host_us(lambda: conv_ops.conv3x3(x, w, bias, prepared=taps))}
     del x, w, bias, u
 torch.save({"outs": {k: v.cpu() for k, v in outs.items()}, "twice": twice,
-            "ms": ms, "dev": dev, "host": host, "conv_out": conv_out,
+            "chain": chain, "ms": ms, "dev": dev, "host": host, "conv_out": conv_out,
             "conv_ms": conv_ms, "conv_run": conv_run, "conv_dev": conv_dev,
             "conv_host": conv_host},
            sys.argv[1])
@@ -2151,30 +2217,50 @@ BITS_TIMED = {
     **{f"bf16_d{d}_bwd": (_BF16, b, n, n, c, h, "bwd")
        for d, b, n, c, h in TRAIN_SHAPES},
 }
-# the whole snippet's runs, in turns: four per build
+# the whole snippet's runs, in turns: four per build, in two rounds
+# (bits_slower)
 BITS_RUNS = ("the other build", "this build", "this build", "the other build",
              "this build", "the other build", "the other build", "this build")
 # this build's kernel may take at most this factor of the previous build's
-# device time (each build's fastest of its runs, the same card), each
-# run's device ms torch.profiler's mean over BITS_PROFILE_CALLS calls
+# device time (the same card; each run's device ms torch.profiler's mean
+# over BITS_PROFILE_CALLS calls), judged by bits_slower
 BITS_TIME_SLACK = 1.02
 BITS_PROFILE_CALLS = 20
+
+
+def bits_slower(new: list, old: list) -> bool:
+    """Whether this build's runs (device ms, in the order they ran) are
+    slower than the other build's: the mean of its runs past
+    BITS_TIME_SLACK times the other's in both rounds of BITS_RUNS (its
+    first half, other this this other, and its second, this other other
+    this: each round balanced against a drift of the card's speed along
+    the runs). A row must lose twice: on the card, the fastest of each
+    build's four runs and the median of four each failed three of four
+    comparisons of a tree against itself, this rule one (PERF.md, section
+    6)."""
+    h = len(new) // 2
+    return all(statistics.mean(a) > BITS_TIME_SLACK * statistics.mean(b)
+               for a, b in ((new[:h], old[:h]), (new[h:], old[h:])))
 
 
 def bits_gate(key: str) -> tuple:
     """(max|err| <= gate_rel * max|ref| + gate_abs) that output `key` of
     BITS_SNIPPET is held to against the other build's, or None where it
-    must be equal bit for bit: the shifted forwards (one build may compute
-    the row shift outside the kernel, the other inside: its rounding
-    differs by design) at phase 3's output gate, and the bf16 dQ, dK and dV
-    (the dQ kernel sums delta in another order than row_delta's torch.sum)
-    at phase 3's gradient gate. The other forwards, the lse and every fp32
-    gradient stay exact."""
-    if key.endswith("_shifted"):
-        if "float32" in key:
-            return F32_TOL_REL, F32_TOL_ABS
+    must be equal bit for bit. Gated: the bf16 online, lse and folded
+    forwards (they take their exponentials against a stale max: the same
+    softmax, rounded at other places) at phase 3's output
+    gate and their lse at its lse gate, and the bf16 dQ, dK and dV (the dQ
+    kernel sums delta in another order than row_delta's torch.sum; both
+    builds' backward runs on the plain forward's output and lse) at phase
+    3's gradient gate. Exact: the shifted forwards (both builds compute the
+    row shift in the kernel) and every fp32 output."""
+    if "_bfloat16" not in key:
+        return None
+    if key.endswith("_lse"):
+        return LSE_TOL_REL, LSE_TOL_ABS
+    if key.endswith(("_online", "_lse_out")) or key.startswith("fold"):
         return TOL_REL, TOL_ABS
-    if "_bfloat16_" in key and key.rsplit("_", 1)[1] in ("dq", "dk", "dv"):
+    if key.rsplit("_", 1)[1] in ("dq", "dk", "dv"):
         return TOL_REL, GRAD_TOL_ABS
     return None
 
@@ -2196,9 +2282,12 @@ def flash_bits(this: list, other: list) -> list:
     the order they ran, in turns with the other's): every output of this
     build's first run against the other build's first, equal bit for bit
     or within bits_gate's gate; this build's runs equal to one another and
-    its shifted and backward calls each equal to a second call; and at
-    each BITS_TIMED shape this build's fastest device ms (bits_device_ms)
-    within BITS_TIME_SLACK of the other build's fastest. Prints every
+    its shifted and backward calls each equal to a second call; its bf16
+    backward run from its own forward within phase 3's gradient gate of
+    the plain backward; and at
+    each BITS_TIMED shape this build's device ms (bits_device_ms)
+    no slower than the other build's (bits_slower: past BITS_TIME_SLACK
+    in both rounds of runs). Prints every
     run's device ms, the CUDA-event ms of a call and host µs per call.
     Returns the failures."""
     import torch
@@ -2226,7 +2315,8 @@ def flash_bits(this: list, other: list) -> list:
     n_exact = len(old["outs"]) - len(gated)
     print(f"bits: {n_exact - len(unequal)} of {n_exact} exact outputs equal "
           f"bit for bit to the other build's (unequal: {unequal}); the "
-          "gated ones (shifted forwards, bf16 dq/dk/dv) against the other "
+          "gated ones (bf16 online, lse and folded forwards, the lse, "
+          "dq/dk/dv) against the other "
           "build's, max abs err: " + ", ".join(
               f"{k} {e:.3e}" for k, e in gated.items())
           + f" ({sum(e == 0 for e in gated.values())} of {len(gated)} "
@@ -2241,6 +2331,19 @@ def flash_bits(this: list, other: list) -> list:
     if len(same) != len(new["outs"]) or not all(
             all(r["twice"].values()) for r in this):
         failures.append("this build's second calls or runs differ")
+    # the bf16 forward's output and lse into the backward, against the
+    # plain backward at phase 3's gradient gate
+    notes = []
+    for tag, errs in new["chain"].items():
+        for what, (err, ref) in zip(("dq", "dk", "dv"), errs):
+            tol = TOL_REL * ref + GRAD_TOL_ABS
+            notes.append(f"{tag}_{what} {err:.3e}/{tol:.3e}")
+            if not err <= tol:
+                failures.append(f"{tag}_{what}: this build's forward into "
+                                f"its backward {err} from the plain "
+                                f"backward > {tol}")
+    print("bits: this build's forward into its backward against the plain "
+          "backward, max abs err/gate: " + ", ".join(notes), flush=True)
     for name, spec in BITS_TIMED.items():
         d_new = [bits_device_ms(r, name) for r in this]
         d_old = [bits_device_ms(r, name) for r in other]
@@ -2249,9 +2352,11 @@ def flash_bits(this: list, other: list) -> list:
         h_new = min(r["host"][name][0] for r in this)
         h_old = min(r["host"][name][0] for r in other)
         lost = None in d_new or None in d_old
-        ratio = "" if lost else f" (x{min(d_old) / min(d_new):.3f})"
+        ratio = "" if lost else " (x{:.3f}, x{:.3f})".format(
+            *(statistics.mean(d_old[i:i + 2]) / statistics.mean(d_new[i:i + 2])
+              for i in (0, 2)))
         print(f"bits: {spec[-1]} {name}: device ms by run this build "
-              f"{d_new}, the other build {d_old}, fastest{ratio}; call "
+              f"{d_new}, the other build {d_old}, by round{ratio}; call "
               "(CUDA events, each run's median) this build "
               + " ".join(f"{t:.4f}" for t in t_new) + ", the other "
               + " ".join(f"{t:.4f}" for t in t_old)
@@ -2265,7 +2370,7 @@ def flash_bits(this: list, other: list) -> list:
                   flush=True)
         if lost:
             failures.append(f"{name}: a profile lost the kernel")
-        elif min(d_new) > BITS_TIME_SLACK * min(d_old):
+        elif bits_slower(d_new, d_old):
             failures.append(f"{name}: slower on the device than the other "
                             "build")
     return failures
@@ -2326,8 +2431,8 @@ def conv_bits(this: list, other: list) -> list:
     (the same sums in the same order), within phase 3's gate (TOL_REL /
     TOL_ABS of the other build's max) where it runs the fused one (its
     sums go chunk by chunk), and its device ms (CUDA events over 20 calls
-    back to back, the fastest of its runs) within BITS_TIME_SLACK of the
-    other build's; every run's device ms, torch.profiler's launches and
+    back to back) no slower than the other build's (bits_slower: past
+    BITS_TIME_SLACK in both rounds of runs); every run's device ms, torch.profiler's launches and
     device ms per call (a profile that lost launches reads short), the
     CUDA-event ms of a call and both conv wrappers' host us printed.
     Returns the failures."""
@@ -2343,7 +2448,7 @@ def conv_bits(this: list, other: list) -> list:
         twice = all(torch_equal(got, r["conv_out"][name]) for r in this[1:])
         run_new = [r["conv_run"][name] for r in this]
         run_old = [r["conv_run"][name] for r in other]
-        d_new, d_old = min(run_new), min(run_old)
+        d_new, d_old = statistics.mean(run_new), statistics.mean(run_old)
         p_new = min(sum(r["conv_dev"][name][1].values()) for r in this)
         p_old = min(sum(r["conv_dev"][name][1].values()) for r in other)
         n_new = this[0]["conv_dev"][name][0]
@@ -2361,7 +2466,7 @@ def conv_bits(this: list, other: list) -> list:
         print(f"bits: winograd {name} ({design}): output "
               f"{'equal to' if same else f'max abs err {err:.3e} (gate {tol:.3e}) from'}"
               f" the other build's; this build's {len(this)} runs equal: "
-              f"{twice}; device ms (20 calls back to back, fastest run) this "
+              f"{twice}; device ms (20 calls back to back, mean run) this "
               f"build {d_new:.4f}, the other {d_old:.4f}, x{d_old / d_new:.3f}"
               f"; by run this build "
               + " ".join(f"{t:.4f}" for t in run_new) + ", the other "
@@ -2374,7 +2479,7 @@ def conv_bits(this: list, other: list) -> list:
             failures.append(f"winograd {name}: this build's runs differ")
         if not same and (design != "fused" or not err <= tol):
             failures.append(f"winograd {name}: {err} from the other build's")
-        if d_new > BITS_TIME_SLACK * d_old:
+        if bits_slower(run_new, run_old):
             failures.append(f"winograd {name}: slower on the device than the "
                             "other build")
     return failures
@@ -2939,6 +3044,8 @@ def main(argv: list) -> None:
     results = check_kernels()
     phase("3: the folded entry")
     folded_results = check_folded()
+    phase("3: the online forwards on rising logits")
+    check_rising()
     phase("3: the convs")
     conv_results = check_conv_kernels()
     phase("3: the training kernels")
@@ -3403,6 +3510,91 @@ def check_folded() -> dict:
                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         del q, k, v, out, ref
         torch.cuda.empty_cache()
+    return results
+
+
+# (what, B, N, C, heads) of the rising-logit checks: the online forward and
+# the folded entry ([B*H, N, D], one head) at each head width, then the lse
+# forward and the backward from its lse at the fine-tuning shapes
+RISING_ONLINE = [("online", 1, 9216, 320, 5), ("online", 1, 9216, 320, 8),
+                 ("online", 1, 2304, 640, 8), ("online", 1, 1024, 1280, 8),
+                 ("folded", 2, 9216, 64, 1), ("folded", 2, 9216, 40, 1),
+                 ("folded", 2, 2304, 80, 1), ("folded", 2, 1024, 160, 1)]
+
+
+def check_rising() -> dict:
+    """The online-softmax forwards on rising_logits' input, where each
+    row's max grows past the kernel's rescale threshold in nearly every
+    tile (so that the kernel moves it, rescales O and l and takes the
+    tile's exponentials again): the online forward and the folded entry
+    against the plain online forward at phase 3's output gate, the lse
+    forward's output and lse against flash_attention_lse_plain (output and
+    lse gates), the bf16 backward run from that lse against
+    flash_attention_bwd_plain at the gradient gate, at d = 40, 64, 80 and
+    160; each call's ms (CUDA events) beside the same call's on random
+    inputs. Fails on any miss; returns {(what, d): ms}."""
+    import torch
+
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    failures, results = [], {}
+
+    def held(what, got, ref, tol_rel, tol_abs):
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = tol_rel * ref.float().abs().max().item() + tol_abs
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        if not ok:
+            failures.append(f"{what}: {err} > {tol}")
+        return f"max_abs_err {err:.3e} tol {tol:.3e}{'' if ok else ' FAILED'}"
+
+    def entry(what, q, k, v, heads):
+        return {"online": lambda: fa.flash_attention(q, k, v, heads, "online"),
+                "folded": lambda: fa.flash_attention_folded(q, k, v),
+                "lse": lambda: fa.flash_attention_lse(q, k, v, heads)}[what]
+
+    cases = RISING_ONLINE + [("lse", b, n, c, h)
+                             for _, b, n, c, h in TRAIN_SHAPES]
+    for what, b, n, c, heads in cases:
+        q, k, v, g = (torch.randn((b, n, c), generator=gen, device="cuda")
+                      for _ in range(4))
+        q_r, k_r = rising_logits(q, k, heads)
+        q, k, v, g, q_r, k_r = (t.to(torch.bfloat16)
+                                for t in (q, k, v, g, q_r, k_r))
+        d = c // heads
+        call = entry(what, q_r, k_r, v, heads)
+        got = call()
+        notes = []
+        if what == "lse":
+            out_p, lse_p = fa.flash_attention_lse_plain(q_r, k_r, v, heads)
+            notes.append("out " + held(f"rising {what} d={d} out", got[0],
+                                       out_p, TOL_REL, TOL_ABS))
+            notes.append("lse " + held(f"rising {what} d={d} lse", got[1],
+                                       lse_p, LSE_TOL_REL, LSE_TOL_ABS))
+            grads = fa.flash_attention_bwd(q_r, k_r, v, *got, g, heads)
+            refs = fa.flash_attention_bwd_plain(q_r, k_r, v, g, heads)
+            for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
+                notes.append(f"{name} " + held(f"rising bwd d={d} {name}", x,
+                                               r, TOL_REL, GRAD_TOL_ABS))
+            del grads, refs
+        else:
+            heads_p = heads if what == "online" else 1
+            ref = torch.cat([fa.flash_attention_plain(
+                q_r[i:i + 1], k_r[i:i + 1], v[i:i + 1], heads_p, "online")
+                for i in range(b)])
+            notes.append(held(f"rising {what} d={d}", got, ref, TOL_REL,
+                              TOL_ABS))
+        ms = {"rising": _time_ms(call, 10),
+              "random": _time_ms(entry(what, q, k, v, heads), 10)}
+        print(f"rising {what:6s} d={d:3d} [{b},{n},{c}] h={heads}: "
+              + "; ".join(notes) + f" | ms rising {ms['rising']:.4f}, random "
+              f"{ms['random']:.4f}", flush=True)
+        results[(what, d)] = ms
+        del q, k, v, g, q_r, k_r, got
+        torch.cuda.empty_cache()
+    if failures:
+        _fail(f"the online forwards on rising logits: {failures}")
     return results
 
 

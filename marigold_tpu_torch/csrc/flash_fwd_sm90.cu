@@ -25,7 +25,11 @@
 //            max(1, nk // 128), n_sub <= 255 of them) + 40, computed by the
 //            kernel itself (below);
 //   online:  running max m, p_j = exp(s_j - m), O and l rescaled by
-//            exp(m_old - m_new) when the max grows;
+//            exp(m_old - m_new) when the max moves; it moves only where a
+//            tile's row max passes m by more than kRescale2 (8 in base 2),
+//            so that m may lag the true max by up to that and p_j <= 2^8
+//            (FlashAttention-4's conditional rescale): numerator and
+//            denominator share m, the softmax is the same;
 //   out_r = (sum_j bf16(p_j) v_j) / max(sum_j p_j, 1e-30), stored bf16;
 //   lse_r = m + log(max(l, 1e-30)) in natural-log units (LSE variant).
 // Every exponential is exp2: the logits are multiplied by scale * log2(e),
@@ -69,6 +73,16 @@
 //   * S, P and O never touch shared memory: the row max is a reduction over
 //     the 4 threads that share a row of the accumulator (two shuffles), the
 //     rescale of O runs on its registers;
+//   * online: each tile's exponentials are taken against the running max as
+//     it stands, P packed as they come, so that no exponential waits on a
+//     max; only where a thread's exponentials of a row sum past half of
+//     2^kRescale2 (a cue no grown max can hide under) is the tile's row
+//     max taken, and a warp in which some row's max passed the running one
+//     by kRescale2 (a vote: the branch is the warp's) moves its rows' max,
+//     rescales l and takes the tile's exponentials again; O is rescaled
+//     once the P V in flight has retired. On the UNet's rows the max
+//     settles in the first tiles and the common tile takes no max at all;
+//     on logits that rise along the keys every tile pays the second pass;
 //   * one producer thread keeps STAGES K/V tiles in flight with TMA; the
 //     consumers wait on "full" barriers and release "empty" ones, with no
 //     block-wide barrier in the K loop;
@@ -81,17 +95,17 @@
 //     rescale waits for P V(j). The last P V follows the loop, so that no
 //     wgmma is issued on one path only (ptxas then cannot tell which wait
 //     retires which product and serialises them, C7514);
-//   * one of two schedules per head width and mode (Tune, below): ping-pong
-//     between the warpgroups, whose two named barriers make them take turns
-//     to issue their wgmmas, so that one's softmax runs under the other's
-//     products (both take the same number of turns: every block walks
-//     every tile in each consumer, past-nq rows included, and the shifted
-//     mode's sample pass takes no turn), P packed once P V(j) is done; or,
-//     for the online mode at d <= 64, no turns and P(j+1) packed into a
-//     second buffer under P V(j). Neither changes the arithmetic: exp2 of
-//     the same fp32 values, P rounded to bf16 at the same place.
-// Registers per consumer thread: S (BK/2), P (BK/4 per buffer) and O (32
-// per atom). At D = 160 O takes 96, so that width runs 64-key tiles (BK =
+//   * ping-pong between the warpgroups (Tune, below), whose two named
+//     barriers make them take turns to start their wgmmas, so that one's
+//     softmax runs under the other's products (both take the same number of
+//     turns: every block walks every tile in each consumer, past-nq rows
+//     included, and the shifted mode's sample pass takes no turn); the
+//     shifted mode packs P once P V(j) is done, the online mode packs
+//     P(j+1) into a second buffer under P V(j). The schedule does not
+//     change the arithmetic: exp2 of the same fp32 values, P rounded to
+//     bf16 at the same place.
+// Registers per consumer thread: S (BK/2), P (BK/4 per buffer; online
+// two) and O (32 per atom). At D = 160 O takes 96, so that width runs 64-key tiles (BK =
 // 64: S 32, P 16); the others 128-key tiles. Shared memory: Q (BQ x 128 B
 // per atom) and STAGES K/V stages (2 x BK x 128 B per atom each).
 //
@@ -132,7 +146,7 @@ constexpr int CONSUMERS = 2;      // consumer warpgroups
 constexpr int THREADS = 128 * (1 + CONSUMERS);
 constexpr int ROW_BYTES = 128;    // one 64-lane bf16 swizzle atom row
 constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block can use
-constexpr int TURN_BAR = 3;  // PINGPONG's named barriers, 3 and 4 (0 is
+constexpr int TURN_BAR = 3;  // the ping-pong's named barriers, 3 and 4 (0 is
                              // __syncthreads', 1 and 2 the epilogue's)
 
 // The shapes of the instantiation at head width D with a ring of STAGES.
@@ -158,19 +172,20 @@ struct Shape {
   static_assert(SMEM_REQUEST <= SMEM_LIMIT, "fits the 227 KB a block can use");
 };
 
-// The schedule of each instantiation: ping-pong with one P buffer and 3
-// K/V stages (3 fit at every width: at D = 80 two 64-lane atoms of
-// 128-key tiles, 3 x 64 KB), but for the online mode (the lse forward and
-// the folded entry too) at d = 40 and 64, whose row max must precede the
-// tile's exponentials, so that a turn would wait on it: there two P
-// buffers and no turns, over 4 stages. Each wins where it is chosen
-// (PERF.md, section 6, PR 22: ping-pong 3-26% faster in the shifted mode
-// and online at d >= 80; the second P buffer 0-7% faster online at d <=
-// 64, a fourth stage 0-9% there and nothing elsewhere).
+// The K/V stages of each instantiation: 3 (they fit at every width: at
+// D = 80 two 64-lane atoms of 128-key tiles, 3 x 64 KB; a fourth does not
+// at 80 or 160), and 4 for the online mode (the lse forward and the folded
+// entry too) at d = 40 and 64. In both modes the two consumers ping-pong:
+// they take turns to start their products through named barriers, so that
+// one's softmax runs under the other's products. Measured (PERF.md,
+// section 6; flash_fwd_variants.py): ping-pong 3-26% faster in the
+// shifted mode, and in the online mode once its exponentials no longer
+// waited on the row max (device ms at d = 64 [1,9216,320] h=5: ping-pong
+// 0.224, with a fourth stage 0.222, without turns 0.238-0.250; at d = 40
+// 0.417, 0.412, 0.420-0.427).
 template <int D, bool ONLINE>
 struct Tune {
-  static constexpr bool PINGPONG = !(ONLINE && D <= 64);
-  static constexpr int STAGES = PINGPONG ? 3 : 4;
+  static constexpr int STAGES = ONLINE && D <= 64 ? 4 : 3;
 };
 
 constexpr float kNegInf = -1e30f;                 // the TPU kernels' NEG_INF
@@ -178,6 +193,16 @@ constexpr int kMaxSample = 255;  // sampled keys: max(1, nk // 128) strides
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kClamp2 = 75.0f * 1.4426950408889634f;  // exp clamp, base 2
+// online: the growth of a row's max (base 2) past which the running max
+// moves and O and l are rescaled; below it the max stays stale, and each
+// exponential is at most 2^kRescale2
+constexpr float kRescale2 = 8.0f;
+// online: a thread's exponentials of a row in a tile summing past this,
+// half of 2^kRescale2, are the cue to look for a max grown past
+// kRescale2. One of them past 2^kRescale2 puts the sum past it while the
+// thread's share of the row's l stays under 2^24 (the rounding of its 32
+// adds then under 2^6; at 9216 keys the share is under 2^20).
+constexpr float kRescaleCue = 0.5f * (1 << (int)kRescale2);
 constexpr float kMargin2 = 40.0f * 1.4426950408889634f;  // shift margin, base 2
 
 __device__ __forceinline__ float ex2(float x) {
@@ -295,10 +320,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   float s[BK / 2];
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-  // P of a tile as the bf16 A fragment; without ping-pong the next tile's
-  // is packed into the second buffer while the P V of this one reads the
-  // first
-  uint32_t p[T_::PINGPONG ? 1 : 2][BK / 4];
+  // P of a tile as the bf16 A fragment. The shifted mode packs it once the
+  // P V before it is done, into its one buffer; the online mode packs each
+  // pair of exponentials as it comes, into the buffer that the P V in
+  // flight does not read.
+  uint32_t p[ONLINE ? 2 : 1][BK / 4];
   float o[ATOMS][32];                // output columns [64a, 64a + 64)
 #pragma unroll
   for (int a = 0; a < ATOMS; ++a)
@@ -389,12 +415,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   float l0 = 0.f, l1 = 0.f;          // this thread's part of the row sums
   float a0 = 1.f, a1 = 1.f;          // online: O's pending rescale
 
-  // The exponentials of tile `it` in place in s, their sums into l; online,
-  // the new running max and O's rescale factor (l rescaled here, O by
-  // rescale_o once the tile before's P V is done).
-  auto softmax = [&](int it) {
+  // The ragged last tile: key columns >= nk masked in s.
+  auto mask_tail = [&](int it) {
     const int k0 = it * BK;
-    if (k0 + BK > nk) {  // the ragged last tile: mask key columns >= nk
+    if (k0 + BK > nk) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -406,36 +430,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     }
-    float ref0, ref1;
-    if (ONLINE) {
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-      ref0 = fmaxf(m0, quad_max(mx0) * scale_log2);
-      ref1 = fmaxf(m1, quad_max(mx1) * scale_log2);
-      a0 = ex2(m0 - ref0);
-      a1 = ex2(m1 - ref1);
-      m0 = ref0;
-      m1 = ref1;
-      l0 *= a0;
-      l1 *= a1;
-    } else {
-      ref0 = sh0;
-      ref1 = sh1;
-    }
+  };
+
+  // Shifted: the exponentials of tile `it` in place in s, their sums into l.
+  auto softmax = [&](int it) {
+    mask_tail(it);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float x0 = fmaf(s[4 * j + e], scale_log2, -ref0);
-        float x1 = fmaf(s[4 * j + 2 + e], scale_log2, -ref1);
-        if (!ONLINE) {
-          x0 = fminf(x0, kClamp2);
-          x1 = fminf(x1, kClamp2);
-        }
+        const float x0 = fminf(fmaf(s[4 * j + e], scale_log2, -sh0), kClamp2);
+        const float x1 =
+            fminf(fmaf(s[4 * j + 2 + e], scale_log2, -sh1), kClamp2);
         s[4 * j + e] = ex2(x0);
         s[4 * j + 2 + e] = ex2(x1);
         l0 += s[4 * j + e];
@@ -444,8 +450,82 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   };
 
-  auto rescale_o = [&] {
-    if (ONLINE) {
+  // Online: the exponentials of s against the running max, summed into l
+  // and packed into pn as they come (s keeps the logits).
+  auto exps = [&](uint32_t(&pn)[BK / 4]) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float e00 = ex2(fmaf(s[4 * j], scale_log2, -m0));
+      const float e01 = ex2(fmaf(s[4 * j + 1], scale_log2, -m0));
+      const float e10 = ex2(fmaf(s[4 * j + 2], scale_log2, -m1));
+      const float e11 = ex2(fmaf(s[4 * j + 3], scale_log2, -m1));
+      l0 += e00;
+      l1 += e10;
+      l0 += e01;
+      l1 += e11;
+      pn[2 * j] = pack_bf16(e00, e01);
+      pn[2 * j + 1] = pack_bf16(e10, e11);
+    }
+  };
+
+  // The row maxima of the tile in s, base 2 (a row's 4 threads share it).
+  auto tile_max = [&](float& t0, float& t1) {
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    t0 = quad_max(mx0) * scale_log2;
+    t1 = quad_max(mx1) * scale_log2;
+  };
+
+  // Online, tile 0: the row max first, then the exponentials.
+  auto softmax_first = [&](uint32_t(&pn)[BK / 4]) {
+    mask_tail(0);
+    float t0, t1;
+    tile_max(t0, t1);
+    m0 = fmaxf(m0, t0);
+    m1 = fmaxf(m1, t1);
+    exps(pn);
+  };
+
+  // Online, every later tile: the exponentials against the running max at
+  // once. The max moves only where the tile's grows past it by kRescale2
+  // (base 2) in a row of the warp (a vote, so that the branch is the
+  // warp's): then every row of the warp takes its new max, l is rescaled
+  // by a = exp2(m_old - m_new) and the tile's exponentials are taken
+  // again; O is rescaled by a once the P V in flight has retired
+  // (rescale_o). The tile's row max is taken only where some thread's
+  // exponentials of a row sum past kRescaleCue: a max grown past kRescale2
+  // cannot hide under it. Returns whether the max moved. With the max
+  // stale by at most kRescale2, each exponential is at most 2^kRescale2;
+  // numerator and denominator share the max, so the result is the same
+  // softmax.
+  auto softmax_online = [&](int it, uint32_t(&pn)[BK / 4]) -> bool {
+    mask_tail(it);
+    const float l0_old = l0, l1_old = l1;
+    exps(pn);
+    if (!__any_sync(0xffffffffu, l0 - l0_old > kRescaleCue ||
+                                     l1 - l1_old > kRescaleCue))
+      return false;
+    float t0, t1;
+    tile_max(t0, t1);
+    if (!__any_sync(0xffffffffu, t0 > m0 + kRescale2 || t1 > m1 + kRescale2))
+      return false;
+    const float ref0 = fmaxf(m0, t0), ref1 = fmaxf(m1, t1);
+    a0 = ex2(m0 - ref0);
+    a1 = ex2(m1 - ref1);
+    m0 = ref0;
+    m1 = ref1;
+    l0 = l0_old * a0;
+    l1 = l1_old * a1;
+    exps(pn);
+    return true;
+  };
+
+  auto rescale_o = [&](bool moved) {
+    if (moved) {
 #pragma unroll
       for (int a = 0; a < ATOMS; ++a) {
 #pragma unroll
@@ -469,47 +549,54 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   issue_qk(slot);
   wgmma_wait<0>();
   fence_regs(s);
-  softmax(0);
-  rescale_o();
-  pack_p(p[0]);
-  if (T_::PINGPONG && c == 1)  // consumer 0 takes the first turn
+  if constexpr (ONLINE) {
+    softmax_first(p[0]);
+  } else {
+    softmax(0);
+    pack_p(p[0]);
+  }
+  if (c == 1)  // consumer 0 takes the first turn
     named_barrier_arrive(TURN_BAR, 256);
 
   // Every tile but the last: QK^T of the next tile and P V of this one (P
   // in pc) issued together, the next softmax under the P V, its P packed
-  // into pn (without ping-pong the other buffer, under the P V; else pc,
-  // once the P V is done), O rescaled once the P V is done.
+  // into pn (online: the other buffer, under the P V; shifted: pc, once
+  // the P V is done), O rescaled once the P V is done.
   auto overlap_step = [&](int it, uint32_t(&pc)[BK / 4],
                           uint32_t(&pn)[BK / 4]) {
     const int cur = slot;  // tile it's stage
-    if (T_::PINGPONG) named_barrier(TURN_BAR + c, 256);  // this one's turn
+    named_barrier(TURN_BAR + c, 256);  // this one's turn
     next_slot();  // tile it + 1's stage
     mbar_wait(bar_full + 8 * slot, phase);
     issue_qk(slot);
     issue_pv(cur, pc);
-    if (T_::PINGPONG)  // the other one's turn
-      named_barrier_arrive(TURN_BAR + 1 - c, 256);
+    named_barrier_arrive(TURN_BAR + 1 - c, 256);  // the other one's turn
     wgmma_wait<1>();  // QK^T of tile it + 1 is done; P V may run on
     fence_regs(s);
-    softmax(it + 1);
-    if (!T_::PINGPONG) pack_p(pn);
+    bool moved = false;
+    if constexpr (ONLINE)
+      moved = softmax_online(it + 1, pn);
+    else
+      softmax(it + 1);
     wgmma_wait<0>();
     fence_pv(pc);
     if (t == 0) mbar_arrive(bar_empty + 8 * cur);  // release K/V stage
-    rescale_o();
-    if (T_::PINGPONG) pack_p(pn);
+    if constexpr (ONLINE)
+      rescale_o(moved);
+    else
+      pack_p(pn);
   };
   // The last tile's P V (P in pc); consumer 1 takes the last turn.
   auto overlap_last = [&](uint32_t(&pc)[BK / 4]) {
-    if (T_::PINGPONG) named_barrier(TURN_BAR + c, 256);
+    named_barrier(TURN_BAR + c, 256);
     issue_pv(slot, pc);
-    if (T_::PINGPONG && c == 0) named_barrier_arrive(TURN_BAR + 1, 256);
+    if (c == 0) named_barrier_arrive(TURN_BAR + 1, 256);
     wgmma_wait<0>();
     fence_pv(pc);
     if (t == 0) mbar_arrive(bar_empty + 8 * slot);
   };
 
-  if constexpr (!T_::PINGPONG) {  // the P buffers alternate by tile
+  if constexpr (ONLINE) {  // the P buffers alternate by tile
     int it = 0;
     for (; it + 2 < n_tiles; it += 2) {
       overlap_step(it, p[0], p[1]);

@@ -250,32 +250,35 @@ def _ulp_up(x):
     return (x.view(ints) + 1).view(x.dtype)
 
 
-def _bits_run(ms=1.0, outs=None, slow=()):
+def _bits_run(ms=1.0, outs=None, slow=(), factor=1.5):
     import chip_smoke as C
 
     gen = torch.Generator().manual_seed(0)
     base = torch.randn((4, 8), generator=gen)
     outs = outs or {
+        "l0_bfloat16_shifted": base.to(BF16),
         "l0_bfloat16_online": base.to(BF16),
         "l0_bfloat16_lse": base.clone(),
         "l0_bfloat16_dq": (2 * base).to(BF16),
+        "l0_float32_online": base.clone(),
         "l0_float32_dq": 2 * base,
     }
     dev = {}
     for name, spec in C.BITS_TIMED.items():
-        t = ms * (1.5 if name in slow else 1.0)
+        t = ms * (factor if name in slow else 1.0)
         kernels = ({"flash_bwd_dq_kernel<64>": 0.4 * t,
                     "flash_bwd_dkv_kernel<64>": 0.6 * t}
                    if spec[-1] == "bwd" else {"flash_fwd_sm90_kernel": t})
         dev[name] = (float(len(kernels)), kernels)
     return {"outs": outs, "twice": {"l0_bfloat16": True},
+            "chain": {"l0_bfloat16": [(1e-3, 1.0)] * 3},
             "ms": {name: ms for name in C.BITS_TIMED}, "dev": dev,
             "host": {name: (20.0, 25.0) for name in C.BITS_TIMED}}
 
 
 def test_bits_one_slow_run_among_four_passes():
-    """Each build's fastest of its four runs is compared: one run of this
-    build 1.5x slower on every kernel does not fail the gate."""
+    """A row must lose in both rounds of runs: one run of this build 1.5x
+    slower on every kernel does not fail the gate."""
     import chip_smoke as C
 
     this = [_bits_run(), _bits_run(slow=C.BITS_TIMED), _bits_run(),
@@ -285,8 +288,8 @@ def test_bits_one_slow_run_among_four_passes():
 
 
 def test_bits_a_slower_fastest_run_fails():
-    """All four runs of this build's whole backward at d=40 over the slack:
-    that row fails, and only it."""
+    """All four runs of this build's whole backward at d=40 over the slack
+    (in both rounds): that row fails, and only it."""
     import chip_smoke as C
 
     this = [_bits_run(slow=("bf16_d40_bwd",)) for _ in range(4)]
@@ -317,12 +320,13 @@ def test_bits_a_bf16_gradient_within_the_gate_passes():
 
 
 def test_bits_an_unequal_forward_or_fp32_gradient_fails():
-    """The online forward and the fp32 dq stay exact: a one-ulp change of
-    either fails, as does a second call that differs."""
+    """The shifted forward and every fp32 output stay exact: a one-ulp
+    change of the bf16 shifted forward, the fp32 online forward or the fp32
+    dq fails, as does a second call that differs."""
     import chip_smoke as C
 
     other = [_bits_run() for _ in range(4)]
-    for key in ("l0_bfloat16_online", "l0_float32_dq"):
+    for key in ("l0_bfloat16_shifted", "l0_float32_online", "l0_float32_dq"):
         outs = dict(other[0]["outs"])
         outs[key] = _ulp_up(outs[key])
         this = [_bits_run(outs=outs) for _ in range(4)]
@@ -332,3 +336,121 @@ def test_bits_an_unequal_forward_or_fp32_gradient_fails():
     this[2]["twice"] = {"l0_bfloat16": False}
     assert C.flash_bits(this, other) == [
         "this build's second calls or runs differ"]
+
+
+def test_bits_own_forward_into_the_backward_past_the_gate_fails():
+    """This build's bf16 backward run from its own forward is held to the
+    plain backward at phase 3's gradient gate: a dk past it fails."""
+    import chip_smoke as C
+
+    other = [_bits_run() for _ in range(4)]
+    this = [_bits_run() for _ in range(4)]
+    this[0]["chain"] = {"l0_bfloat16": [(1e-3, 1.0), (0.5, 1.0),
+                                        (1e-3, 1.0)]}
+    failures = C.flash_bits(this, other)
+    assert len(failures) == 1 and failures[0].startswith("l0_bfloat16_dk: ")
+
+
+def test_bits_an_online_forward_within_the_gate_passes():
+    """The bf16 online forward one ulp off the other build's and its lse
+    1e-6 off (exponentials against a stale max round at other places)
+    pass; either past phase 3's gate fails."""
+    import chip_smoke as C
+
+    other = [_bits_run() for _ in range(4)]
+    ref = other[0]["outs"]
+    near = dict(ref, l0_bfloat16_online=_ulp_up(ref["l0_bfloat16_online"]),
+                l0_bfloat16_lse=ref["l0_bfloat16_lse"] + 1e-6)
+    assert C.flash_bits([_bits_run(outs=near) for _ in range(4)], other) == []
+    for key, far in (("l0_bfloat16_online",
+                      (ref["l0_bfloat16_online"].float() + 1.0).to(BF16)),
+                     ("l0_bfloat16_lse", ref["l0_bfloat16_lse"] + 1e-2)):
+        failures = C.flash_bits(
+            [_bits_run(outs=dict(ref, **{key: far})) for _ in range(4)], other)
+        assert len(failures) == 1 and failures[0].startswith(f"{key}: ")
+
+
+def test_bits_one_fast_run_of_the_other_build_passes():
+    """The failure of the fastest-of-four rule on unchanged code: one run
+    of the other build 8% under its others. It moves one round only, and
+    the row passes."""
+    import chip_smoke as C
+
+    other = [_bits_run(), _bits_run(ms=0.92), _bits_run(), _bits_run()]
+    this = [_bits_run() for _ in range(4)]
+    # what the fastest of four compared: 1.0 against 0.92, past the slack
+    assert min(C.bits_device_ms(r, "bf16_d64") for r in this) \
+        > C.BITS_TIME_SLACK * min(C.bits_device_ms(r, "bf16_d64")
+                                  for r in other)
+    assert C.flash_bits(this, other) == []
+
+
+def test_bits_a_planted_slowdown_of_a_few_percent_fails():
+    """This build 4% slower on one row in every run, the runs of both
+    builds spread by 1%: that row fails, and only it."""
+    import chip_smoke as C
+
+    this = [_bits_run(ms=m, slow=("bf16_d80_lse",), factor=1.04)
+            for m in (1.0, 1.01, 0.99, 1.0)]
+    other = [_bits_run(ms=m) for m in (1.01, 1.0, 0.99, 1.0)]
+    assert C.flash_bits(this, other) == [
+        "bf16_d80_lse: slower on the device than the other build"]
+
+
+@pytest.mark.parametrize("new,old,slower", [
+    ([1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0], False),
+    ([1.0, 1.5, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0], False),  # one slow run
+    ([1.0, 1.0, 1.0, 1.0], [1.0, 0.92, 1.0, 1.0], False),  # one fast run
+    ([1.019, 1.019, 1.019, 1.019], [1.0, 1.0, 1.0, 1.0], False),
+    ([1.05, 1.05, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0], False),  # one round
+    # a tree against itself on the card, this build's first round slow:
+    # the median of four read 1.026
+    ([2.103, 2.066, 1.977, 1.985], [1.935, 2.008, 1.965, 1.983], False),
+    ([1.03, 1.03, 1.03, 1.03], [1.0, 1.0, 1.0, 1.0], True),
+    ([1.0, 1.05, 1.05, 1.0], [1.0, 1.0, 1.0, 1.0], True),  # both rounds
+    ([1.05, 1.04, 1.06, 1.05], [1.0, 0.99, 1.01, 1.0], True),
+])
+def test_bits_slower_needs_both_rounds(new, old, slower):
+    """bits_slower, the rule of both the flash and the conv rows: this
+    build's mean device ms past BITS_TIME_SLACK times the other's in both
+    rounds of BITS_RUNS (each build's first two runs, then its last two)."""
+    import chip_smoke as C
+
+    for r in (C.BITS_RUNS[:4], C.BITS_RUNS[4:]):  # two runs a build, A B B A
+        assert r == r[::-1] and r.count("this build") == 2
+    assert C.bits_slower(new, old) is slower
+
+
+@pytest.mark.parametrize("drift", ["k", "q"])
+def test_rising_input_carries_its_size_in_q(drift):
+    """Why chip_smoke.rising_logits puts its size in q: with the rise
+    carried by k (q + 1 and j * rise / sqrt(d) added to every lane of key
+    j), the plain bf16 backward's dq itself misses phase 3's gradient gate
+    against the plain fp32 backward on the same bf16 values, so that no
+    bf16 kernel could pass it there; with the size in q every gradient is
+    within it."""
+    import math
+
+    import numpy as np
+
+    import chip_smoke as C
+    from marigold_tpu_torch.ops import flash_attention as fa
+
+    b, n, c, h = 1, 1200, 128, 2
+    rng = np.random.default_rng(0)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, n, c))
+                                   .astype(np.float32)) for _ in range(4))
+    if drift == "k":
+        j = torch.arange(n, dtype=torch.float32)
+        q, k = q + 1.0, k + (j * (C.RISE_PER_KEY / math.sqrt(c // h)))[
+            None, :, None]
+    else:
+        q, k = C.rising_logits(q, k, h)
+    q, k, v, g = (t.to(BF16) for t in (q, k, v, g))
+    got = fa.flash_attention_bwd_plain(q, k, v, g, h)
+    refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        g.float(), h)
+    within = [(x.float() - r).abs().max().item()
+              <= C.TOL_REL * r.abs().max().item() + C.GRAD_TOL_ABS
+              for x, r in zip(got, refs)]
+    assert within == ([False, True, True] if drift == "k" else [True] * 3)
